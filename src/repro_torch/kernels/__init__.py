@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ under ``csrc/``, built
+and bound by ``_build``), each beside its plain PyTorch version and a
+launch counter.  Importing this package builds nothing and needs no CUDA:
+a kernel is built at its first launch."""
+from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.kernels.flash_attn import flash_attention_fwd_q8
+from repro_torch.kernels.int8_matmul import int8_matmul
+
+#: every kernel wrapper of the port, each with a ``launches`` counter
+KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+__all__ = ["KERNELS", "decode_attention", "flash_attention_fwd_q8",
+           "int8_matmul", "launch_counts", "reset_launch_counts"]

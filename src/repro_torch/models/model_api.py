@@ -1,0 +1,172 @@
+"""Model facade of the port (counterpart of ``repro/models/model_api.py``):
+``build_model(cfg)`` gives ``init_params``, ``prefill``, ``decode`` and
+``init_decode_state`` for the dense GPT-2 family, and
+:func:`params_from_jax` carries a JAX parameter tree across.
+
+Parameters are nested dicts of tensors in the JAX tree layout: ``embed``
+(V_padded, d), ``pos_embed`` (max_seq, d), ``blocks`` with every leaf
+stacked (L, ...) -- ``ln1``/``ln2`` {scale, bias}, ``attn`` {wq, wk, wv,
+wo, bq, bk, bv, bo}, ``mlp`` {w_fc1, w_fc2, b_fc1, b_fc2} -- and
+``final_norm`` {scale, bias}.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.qpolicy import as_policy
+from repro_torch.models import lm
+from repro_torch.models.attention import init_caches
+from repro_torch.models.common import Params
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    """This slice ports the dense GPT-2 family only."""
+    want = {"family": "dense", "pos": "learned", "norm": "layernorm",
+            "mlp_kind": "classic", "qk_norm": False, "embed_scale": False,
+            "n_experts": 0}
+    bad = {k: getattr(cfg, k) for k, v in want.items() if getattr(cfg, k) != v}
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {bad} -- the port serves the dense GPT-2 family "
+            f"({want}) so far")
+
+
+def _spec(cfg: ArchConfig) -> Dict[str, Any]:
+    """name -> (shape, init, std) in the JAX tree layout; the init kinds and
+    scales of ``repro.models`` (lm_spec, attn_spec, mlp_spec, norm_spec)."""
+    d, ff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def norm(n):
+        return {"scale": ((n,), "ones"), "bias": ((n,), "zeros")}
+
+    attn = {"wq": ((d, h * hd), "fan_in"), "wk": ((d, k * hd), "fan_in"),
+            "wv": ((d, k * hd), "fan_in"), "wo": ((h * hd, d), "fan_in")}
+    mlp = {"w_fc1": ((d, ff), "fan_in"), "w_fc2": ((ff, d), "fan_in")}
+    if cfg.use_bias:
+        attn.update({"bq": ((h * hd,), "zeros"), "bk": ((k * hd,), "zeros"),
+                     "bv": ((k * hd,), "zeros"), "bo": ((d,), "zeros")})
+        mlp.update({"b_fc1": ((ff,), "zeros"), "b_fc2": ((d,), "zeros")})
+    blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d), "mlp": mlp}
+    # block leaves carry the stacked layer dim, as in the reference
+    blocks = {mod: {n: ((L,) + shape, init) for n, (shape, init) in leaves.items()}
+              for mod, leaves in blocks.items()}
+    spec = {"embed": ((cfg.vocab_padded, d), "normal", 0.02),
+            "pos_embed": ((cfg.max_seq, d), "normal", 0.01),
+            "blocks": blocks, "final_norm": norm(d)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((d, cfg.vocab_padded), "fan_in")
+    return spec
+
+
+def _init_leaf(shape, init, std=0.02, *, generator, device):
+    if init == "zeros":
+        return torch.zeros(shape, device=device)
+    if init == "ones":
+        return torch.ones(shape, device=device)
+    if init == "fan_in":
+        # the reference's rule, kept as is: shape[0] for a matrix, which for
+        # a layer-stacked (L, d_in, d_out) block weight is L (see ROADMAP)
+        std = 1.0 / math.sqrt(shape[0] if len(shape) >= 2 else shape[-1])
+    gdev = generator.device if generator is not None else "cpu"
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=gdev) * std
+    return x.to(device)
+
+
+class Model:
+    """The dense decoder's entry points (see module docstring)."""
+
+    def __init__(self, cfg: ArchConfig):
+        _check_supported(cfg)
+        self.cfg = cfg
+
+    def init_params(self, generator: Optional[torch.Generator] = None,
+                    device: DeviceLike = "cuda") -> Params:
+        """Random float32 parameters drawn from ``generator`` (on its own
+        device) with the reference's init kinds and scales, placed on
+        ``device``.  Parity tests carry JAX parameters across with
+        :func:`params_from_jax` instead."""
+        device = resolve_device(device)
+
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            return _init_leaf(*node, generator=generator, device=device)
+        return walk(_spec(self.cfg))
+
+    def prefill(self, params: Params, tokens: torch.Tensor, *, policy=None,
+                max_seq: Optional[int] = None,
+                last_pos: Optional[torch.Tensor] = None):
+        """-> (logits (B, V_padded), state ``{"caches": ...}``)."""
+        logits, caches = lm.lm_prefill(params, tokens, self.cfg,
+                                       policy=policy, max_seq=max_seq,
+                                       last_pos=last_pos)
+        return logits, {"caches": caches}
+
+    def decode(self, params: Params, state, token: torch.Tensor,
+               pos: torch.Tensor, *, policy=None):
+        """-> (logits (B, V_padded), state); the state's caches are updated
+        in place."""
+        logits, caches = lm.lm_decode(params, state["caches"], token, pos,
+                                      self.cfg, policy=policy)
+        return logits, {"caches": caches}
+
+    def init_decode_state(self, batch: int, max_seq: int,
+                          dtype: Optional[torch.dtype] = None, policy=None,
+                          device: DeviceLike = "cuda"):
+        kv_spec = as_policy(policy).kv_spec()
+        dtype = dtype or lm.carrier_dtype(self.cfg)
+        return {"caches": init_caches(self.cfg, batch, max_seq, dtype,
+                                      kv_spec=kv_spec,
+                                      device=resolve_device(device))}
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    return Model(cfg)
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
+                    device: DeviceLike = "cuda") -> Params:
+    """A JAX parameter tree, with every leaf converted to a numpy array
+    (``jax.tree_util.tree_map(np.asarray, params)``), as torch tensors on
+    ``device``.  The layouts are the same, so this is a leaf-for-leaf copy;
+    leaves of dtypes numpy cannot hand to torch (bfloat16) go through
+    float32, which is exact."""
+    device = resolve_device(device)
+    expected = _spec(cfg)
+
+    def conv(x):
+        a = np.asarray(x)
+        if str(a.dtype) == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        return t.to(device)
+
+    def walk(node, spec, path):
+        if set(node) != set(spec):
+            raise ValueError(f"params_from_jax: keys at {path or '<root>'} "
+                             f"{sorted(node)} vs {sorted(spec)}")
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, spec[k], f"{path}.{k}")
+            else:
+                out[k] = conv(v)
+                if tuple(out[k].shape) != tuple(spec[k][0]):
+                    raise ValueError(f"params_from_jax: {path}.{k} shape "
+                                     f"{tuple(out[k].shape)} vs {spec[k][0]}")
+        return out
+    return walk(np_tree, expected, "")
+
+
+__all__ = ["Model", "build_model", "params_from_jax"]

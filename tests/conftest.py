@@ -65,3 +65,9 @@ except ImportError:                       # pragma: no cover - env-dependent
 
     def settings(*_args, **_kwargs):
         return lambda fn: fn
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips where there is "
+                   "none (the port's CUDA kernels have no CPU mode)")
