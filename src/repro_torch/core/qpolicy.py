@@ -1,5 +1,4 @@
-"""Layer-aware quantization policy, ported from ``repro.core.qpolicy`` for
-the serving path.
+"""Layer-aware quantization policy, ported from ``repro.core.qpolicy``.
 
 Ordered pattern **rules** map a layer role (``attn_qkv``, ``mlp_down``,
 ``block[0:2].*`` ...) to a :class:`QuantRecipe` (or fp) plus a kernel
@@ -7,31 +6,37 @@ Ordered pattern **rules** map a layer role (``attn_qkv``, ``mlp_down``,
 The string codec is the reference's, so one policy string means the same
 thing in both packages.
 
-Backends: ``fake_quant`` (the reference error-injection path) and
-``int8_cuda``, the hand-written Hopper kernels (``repro_torch.kernels``).
-``int8_pallas`` -- the JAX package's name for its TPU kernels -- parses as
-an alias of ``int8_cuda``.
+Backends, in a registry of :class:`KernelBackend` records: ``fake_quant``
+(the reference error-injection path, ``core.qlinear.quantized_linear``)
+and ``int8_cuda``, the hand-written Hopper kernels
+(``core.qlinear.int8_quantized_linear``).  ``int8_pallas`` -- the JAX
+package's name for its TPU kernels -- parses as an alias of ``int8_cuda``.
 
-Serving scope: a weight reaches :meth:`QuantPolicy.linear` either raw
-under an fp recipe (plain matmul) or prepared as a :class:`QState`
-(``repro_torch.infer.prepare``).  The prepared weight runs the int8 matmul
-kernel when the backend is ``int8_cuda`` and the recipe fits the W8A8
-contract, else the dequant-read matmul.  A raw weight under a quantizing
-recipe is the training path (fake quant with the straight-through
-estimator, the int8 backward kernels), which the port does not have yet.
+A weight reaches :meth:`QuantPolicy.linear` in one of two forms:
+
+* raw (training, or fp serving): the resolved backend's Fig-1 linear runs,
+  with the reference's automatic fallback to ``fake_quant`` for recipes
+  outside the backend's contract;
+* prepared as a :class:`QState` (serving, ``repro_torch.infer.prepare``):
+  the int8 matmul kernel when the backend is ``int8_cuda`` and the recipe
+  fits the W8A8 contract, else the dequant-read matmul.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.qadam import QState
 from repro_torch.core.qconfig import (Granularity, QuantRecipe, QuantSpec,
                                       RoundMode, get_recipe)
-from repro_torch.core.quantizer import fake_quant_nograd
+from repro_torch.core.qlinear import (int8_backend_supported,
+                                      int8_bwd_supported,
+                                      int8_decode_attn_supported,
+                                      int8_quantized_linear, quantized_linear)
+from repro_torch.core.quantizer import fake_quant, fake_quant_nograd
 
 ROLES = ("embed", "lm_head", "attn_qkv", "attn_out", "mlp_up", "mlp_down",
          "router", "ssm_in", "ssm_out", "shared_proj", "frame_proj",
@@ -43,46 +48,28 @@ BACKEND_ALIASES = {"int8_pallas": INT8_BACKEND}
 
 
 # ---------------------------------------------------------------------------
-# Capabilities (copied from repro.core.qlinear)
+# Kernel backend registry
 # ---------------------------------------------------------------------------
 
-_INT8_GRANS_W = (Granularity.PER_CHANNEL, Granularity.PER_TENSOR)
-_INT8_GRANS_A = (Granularity.PER_TOKEN, Granularity.PER_TENSOR)
+class KernelBackend(NamedTuple):
+    """A quantized-matmul implementation.  ``fn(x, w, recipe) -> y`` runs
+    the forward and owns its backward; ``supports(recipe)`` gates
+    eligibility (unsupported recipes fall back to ``fake_quant``);
+    ``bwd_supports(recipe)`` says whether the backward also runs quantized
+    kernels; ``decode_attn_supports(kv_spec)`` whether the backend's
+    attention kernels consume a KV cache stored under that spec."""
+    fn: Callable
+    supports: Callable
+    bwd_supports: Callable = lambda recipe: False
+    decode_attn_supports: Callable = lambda spec: False
 
 
-def int8_backend_supported(recipe: Optional[QuantRecipe]) -> bool:
-    """True when the recipe's forward is the int8 kernel's rank-1-rescale
-    W8A8 contract: symmetric 8-bit weights+acts, nearest rounding, no
-    block-wise codec (per-tensor/per-channel W x per-tensor/per-token A)."""
-    if recipe is None:
-        return False
-    w, a = recipe.weights, recipe.acts
-    return (w is not None and a is not None
-            and w.bits == 8 and a.bits == 8
-            and w.symmetric and a.symmetric
-            and w.block_size == 0 and a.block_size == 0
-            and not w.sqrt_domain and not a.sqrt_domain
-            and w.round_mode is RoundMode.NEAREST
-            and a.round_mode is RoundMode.NEAREST
-            and w.granularity in _INT8_GRANS_W
-            and a.granularity in _INT8_GRANS_A)
-
-
-def int8_decode_attn_supported(spec: Optional[QuantSpec]) -> bool:
-    """True when the int8-KV attention kernels (decode step and q8 prefill)
-    consume a cache stored under ``spec``: symmetric 8-bit nearest-rounded
-    PER_TOKEN -- one scale per (position, head) row."""
-    return (spec is not None and spec.bits == 8 and spec.symmetric
-            and spec.block_size == 0 and not spec.sqrt_domain
-            and spec.round_mode is RoundMode.NEAREST
-            and spec.granularity is Granularity.PER_TOKEN)
-
-
-#: backend name -> can its attention kernels consume an int8 KV cache
-#: stored under this spec?  ``fake_quant`` has no attention kernels.
-KERNEL_BACKENDS: Dict[str, Callable] = {
-    "fake_quant": lambda spec: False,
-    INT8_BACKEND: int8_decode_attn_supported,
+KERNEL_BACKENDS: Dict[str, KernelBackend] = {
+    "fake_quant": KernelBackend(quantized_linear, lambda recipe: True),
+    INT8_BACKEND: KernelBackend(int8_quantized_linear,
+                                supports=int8_backend_supported,
+                                bwd_supports=int8_bwd_supported,
+                                decode_attn_supports=int8_decode_attn_supported),
 }
 
 
@@ -129,10 +116,10 @@ def _dispatch(resolved: "Resolved", x: torch.Tensor, w) -> torch.Tensor:
     recipe = resolved.recipe
     if recipe is None or not recipe.any_linear_quant:
         return torch.matmul(x, w)
-    raise NotImplementedError(
-        f"raw weight under quantizing recipe [{recipe.describe_compact()}]: "
-        "the training-path quantized linear is not ported yet; serve "
-        "prepared weights (repro_torch.infer.prepare.prepare_params)")
+    be = KERNEL_BACKENDS[resolved.backend]
+    if not be.supports(recipe):
+        be = KERNEL_BACKENDS["fake_quant"]       # automatic fallback
+    return be.fn(x, w, recipe)
 
 
 # ---------------------------------------------------------------------------
@@ -217,12 +204,46 @@ class QuantPolicy:
                   PolicyRule(role="kv_cache"))
         return cls(rules=rules, default=recipe, backend=_backend_name(backend))
 
+    @property
+    def adam_m1(self) -> Optional[QuantSpec]:
+        """Optimizer-moment specs come from the default recipe (moments are
+        per parameter, not per role)."""
+        return self.default.adam_m1 if self.default is not None else None
+
+    @property
+    def adam_m2(self) -> Optional[QuantSpec]:
+        return self.default.adam_m2 if self.default is not None else None
+
     def resolve(self, role: str, layer: Optional[int] = None,
                 n_layers: int = 0) -> Resolved:
         for rule in self.rules:
             if rule.matches(role, layer, n_layers):
                 return Resolved(rule.recipe, rule.backend or self.backend)
         return Resolved(self.default, self.backend)
+
+    def depth_sensitive(self, role: str) -> bool:
+        """Could resolution of ``role`` depend on the layer index?"""
+        return any(r.depth_bounded for r in self.rules
+                   if r.role in ("*", role))
+
+    def effective_backend(self, role: str, layer: Optional[int] = None,
+                          n_layers: int = 0) -> Tuple[str, Tuple[str, ...]]:
+        """``(backend_name, caps)`` that :meth:`linear` runs for a raw
+        weight of this role, with the registry fallback applied: ``caps``
+        is ``('fwd', 'bwd')`` for the full int8 training path, ``('fwd',)``
+        for an int8 forward only, ``()`` for the fake-quant reference;
+        ``'fp'`` means a plain matmul."""
+        res = self.resolve(role, layer, n_layers)
+        recipe = res.recipe
+        if recipe is None or not recipe.any_linear_quant:
+            return "fp", ()
+        name, be = res.backend, KERNEL_BACKENDS[res.backend]
+        if not be.supports(recipe):
+            name, be = "fake_quant", KERNEL_BACKENDS["fake_quant"]
+        if name == "fake_quant":
+            return name, ()
+        return name, (("fwd", "bwd") if be.bwd_supports(recipe)
+                      else ("fwd",))
 
     def decode_attn_backend(self) -> Tuple[str, Tuple[str, ...]]:
         """``(backend_name, caps)`` for the KV-cache consumption path:
@@ -238,7 +259,7 @@ class QuantPolicy:
         preferred = self.resolve("kv_cache").backend
         names = [preferred] + [n for n in KERNEL_BACKENDS if n != preferred]
         for name in names:
-            if KERNEL_BACKENDS[name](spec):
+            if KERNEL_BACKENDS[name].decode_attn_supports(spec):
                 return name, ("decode", "prefill")
         return "dequant", ()
 
@@ -273,10 +294,11 @@ class QuantPolicy:
 
     def quantize_weight(self, role: str, w: torch.Tensor) -> torch.Tensor:
         """Weight-only qdq for non-matmul sites (embedding lookup, tied
-        head); a no-op when the role resolves to fp (the default)."""
+        head), straight-through for the gradient; a no-op when the role
+        resolves to fp (the default)."""
         res = self.resolve(role)
         spec = res.recipe.weights if res.recipe is not None else None
-        return w if spec is None else fake_quant_nograd(w, spec)
+        return w if spec is None else fake_quant(w, spec)
 
     def describe(self) -> str:
         parts = [r.describe() for r in self.rules]

@@ -1,6 +1,8 @@
 """Linear quantization primitives (paper Section 3.1, Eq. 1), ported from
-``repro.core.quantizer`` for the serving path: the scale formula, the
-integer-storage codec and nearest-rounding fake quantization.
+``repro.core.quantizer``: the scale formula, the integer-storage codec
+(per-tensor / per-channel / per-token and block-wise), the sqrt-domain
+codec for Adam's second moment, and fake quantization with the
+straight-through estimator.
 
 Scale granularity convention (as in the reference):
 
@@ -10,8 +12,8 @@ Scale granularity convention (as in the reference):
 
 Payloads and scales match the JAX package bit for bit: the same float32
 ops in the same order, and both frameworks round half to even.  Stochastic
-rounding, the block-wise / sqrt-domain codecs and the straight-through
-estimator belong to training and are not ported yet.
+rounding is not ported (ROADMAP section 1, item 3): a stochastic spec
+raises.
 """
 from __future__ import annotations
 
@@ -43,12 +45,11 @@ def _reduce_axes(ndim: int, granularity: Granularity) -> Tuple[int, ...]:
     raise ValueError(granularity)
 
 
-def _check_nearest_flat(spec: QuantSpec) -> None:
-    if (spec.round_mode is not RoundMode.NEAREST or spec.block_size
-            or spec.sqrt_domain):
+def _check_nearest(spec: QuantSpec) -> None:
+    if spec.round_mode is not RoundMode.NEAREST:
         raise NotImplementedError(
-            f"[{spec.describe()}]: stochastic, block-wise and sqrt-domain "
-            "codecs are training codecs, not ported yet")
+            f"[{spec.describe()}]: stochastic rounding is not ported yet "
+            "(ROADMAP section 1, item 3)")
 
 
 def compute_scale_zero(x: torch.Tensor, spec: QuantSpec,
@@ -74,15 +75,99 @@ def compute_scale_zero(x: torch.Tensor, spec: QuantSpec,
     return scale, zero
 
 
+def _blocked_view(x: torch.Tensor, block_size: int) -> Tuple[torch.Tensor, int]:
+    """Flatten to (n_blocks, block_size), zero-padding the tail."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    pad = (-n) % block_size
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, block_size), n
+
+
+def _row_spec(spec: QuantSpec) -> QuantSpec:
+    """The block-wise codec is the per-token codec over (n_blocks, bs)."""
+    return QuantSpec(bits=spec.bits, granularity=Granularity.PER_TOKEN,
+                     symmetric=spec.symmetric, round_mode=spec.round_mode)
+
+
+def _fake_quant_raw(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """quantize -> dequantize (paper Eq. 1), in the input's dtype; the
+    arithmetic of the reference's ``_fake_quant_raw``."""
+    xf = x.to(torch.float32)
+    scale, zero = compute_scale_zero(xf, spec)
+    x_int = torch.clamp(torch.round(xf / scale) - zero, spec.qmin, spec.qmax)
+    return (scale * (x_int + zero)).to(x.dtype)
+
+
+def _fake_quant_blockwise(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Dettmers-style block-wise fake quantization: contiguous blocks of
+    ``spec.block_size`` elements, one (scale, zero) each."""
+    blocks, n = _blocked_view(x.to(torch.float32), spec.block_size)
+    deq = _fake_quant_raw(blocks, _row_spec(spec))
+    return deq.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+
+
+def fake_quant_nograd(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Fake quantization with no gradient rule of its own (values that are
+    not differentiated through, e.g. optimizer states).  Sqrt-domain specs
+    quantize sqrt(max(x, 0)) and square the result (Adam m2)."""
+    _check_nearest(spec)
+    if spec.sqrt_domain:
+        root = torch.sqrt(torch.clamp_min(x, 0.0))
+        q = (_fake_quant_blockwise(root, spec) if spec.block_size
+             else _fake_quant_raw(root, spec))
+        return torch.square(q).to(x.dtype)
+    if spec.block_size:
+        return _fake_quant_blockwise(x, spec)
+    return _fake_quant_raw(x, spec)
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """Forward error injection, identity backward (straight-through
+    estimator, Bengio et al. 2013): the reference's ``fake_quant``
+    custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        return fake_quant_nograd(x, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """STE-wrapped fake quantization: d qdq(x) / dx == 1."""
+    return _FakeQuantSTE.apply(x, spec)
+
+
+def maybe_fake_quant(x: torch.Tensor, spec: Optional[QuantSpec]
+                     ) -> torch.Tensor:
+    """fp passthrough when the component is not quantized."""
+    return x if spec is None else fake_quant(x, spec)
+
+
+# ---------------------------------------------------------------------------
+# Integer-storage codec (optimizer states, kernels, residuals)
+# ---------------------------------------------------------------------------
+
 def storage_dtype(bits: int) -> torch.dtype:
     return torch.int8 if bits <= 8 else torch.int16
 
 
 def quantize_int(x: torch.Tensor, spec: QuantSpec
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quantize to real integers (nearest rounding).  Returns (q, scale,
-    zero): q holds X_int of paper Eq. 1 in int8/int16 storage."""
-    _check_nearest_flat(spec)
+    """Quantize to real integers.  Returns (q, scale, zero): q holds X_int of
+    paper Eq. 1 in int8/int16 storage.  Block-wise specs return the
+    (n_blocks, block_size) payload and (n_blocks, 1) sidecars."""
+    _check_nearest(spec)
+    if spec.block_size:
+        blocks, _ = _blocked_view(x.to(torch.float32), spec.block_size)
+        scale, zero = compute_scale_zero(blocks, _row_spec(spec))
+        q = torch.clamp(torch.round(blocks / scale) - zero, spec.qmin,
+                        spec.qmax)
+        return q.to(storage_dtype(spec.bits)), scale, zero
     scale, zero = compute_scale_zero(x, spec)
     xf = x.to(torch.float32)
     q = torch.clamp(torch.round(xf / scale) - zero, spec.qmin, spec.qmax)
@@ -90,16 +175,16 @@ def quantize_int(x: torch.Tensor, spec: QuantSpec
 
 
 def dequantize_int(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                   spec: Optional[QuantSpec] = None, shape=None,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Inverse of :func:`quantize_int`."""
-    return (scale * (q.to(torch.float32) + zero)).to(dtype)
-
-
-def fake_quant_nograd(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """quantize -> dequantize (paper Eq. 1) with nearest rounding, in the
-    input's dtype; the arithmetic of the reference's ``_fake_quant_raw``."""
-    _check_nearest_flat(spec)
-    xf = x.to(torch.float32)
-    scale, zero = compute_scale_zero(xf, spec)
-    x_int = torch.clamp(torch.round(xf / scale) - zero, spec.qmin, spec.qmax)
-    return (scale * (x_int + zero)).to(x.dtype)
+    """Inverse of :func:`quantize_int`.  ``shape`` is required for block-wise
+    codecs (to strip the tail padding)."""
+    deq = scale * (q.to(torch.float32) + zero)
+    if spec is not None and spec.block_size:
+        if shape is None:
+            raise ValueError("blockwise dequantize needs the original shape")
+        n = 1
+        for d in shape:
+            n *= d
+        deq = deq.reshape(-1)[:n].reshape(shape)
+    return deq.to(dtype)

@@ -4,10 +4,13 @@ launch counter.  Importing this package builds nothing and needs no CUDA:
 a kernel is built at its first launch."""
 from repro_torch.kernels.decode_attn import decode_attention
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8
-from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
+                                             int8_matmul_tn)
+from repro_torch.kernels.opt_update import fused_adamw_blocks
 
 #: every kernel wrapper of the port, each with a ``launches`` counter
-KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention)
+KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention,
+           int8_matmul_nt, int8_matmul_tn, fused_adamw_blocks)
 
 
 def reset_launch_counts() -> None:
@@ -20,4 +23,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention_fwd_q8",
-           "int8_matmul", "launch_counts", "reset_launch_counts"]
+           "fused_adamw_blocks", "int8_matmul", "int8_matmul_nt",
+           "int8_matmul_tn", "launch_counts", "reset_launch_counts"]

@@ -29,13 +29,17 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: source name -> (C entry point, argtypes); every entry returns int
+#: source name -> {C entry point: argtypes}; every entry returns int
 SIGNATURES = {
-    "int8_matmul": ("repro_int8_matmul", [_P] * 5 + [_I] * 4 + [_P]),
-    "flash_attn_q8": ("repro_flash_attn_q8",
-                      [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
-    "decode_attn": ("repro_decode_attn",
-                    [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P]),
+    "int8_matmul": {"repro_int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
+    "int8_matmul_bwd": {
+        "repro_int8_matmul_nt": [_P] * 5 + [_I] * 5 + [_P],
+        "repro_int8_matmul_tn": [_P] * 5 + [_I] * 5 + [_P]},
+    "flash_attn_q8": {"repro_flash_attn_q8":
+                      [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
+    "decode_attn": {"repro_decode_attn":
+                    [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P]},
+    "opt_update": {"repro_fused_adamw": [_P] * 10 + [_I] * 11 + [_P]},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -112,10 +116,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
-        entry, argtypes = SIGNATURES[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -1,13 +1,22 @@
-"""W8A8 int8 matmul with the fused per-row / per-column dequant epilogue.
+"""Int8 x int8 -> int32 matmuls with fused dequant epilogues: the three
+layouts of a W8A8 linear's training step (paper Fig. 1).
 
-:func:`int8_matmul` launches ``csrc/int8_matmul.cu`` on CUDA tensors (the
-port of ``repro/kernels/int8_matmul.py:int8_matmul``) and runs
-:func:`int8_matmul_plain` on CPU tensors.  Both compute
+* :func:`int8_matmul`    -- y  = Xq @ Wq   (forward), ``csrc/int8_matmul.cu``
+* :func:`int8_matmul_nt` -- dx = Gq @ Wq^T (input gradient)
+* :func:`int8_matmul_tn` -- dW = Xq^T @ Gq (weight gradient), both
+  ``csrc/int8_matmul_bwd.cu``
+
+(ports of ``repro/kernels/int8_matmul.py``).  Each wrapper launches its
+kernel on CUDA tensors and runs its plain version on CPU tensors.  The
+forward computes
 
     y[m, n] = ((float) sum_k x[m, k] * w[k, n]) * g(rs[m]) * g(cs[n])
 
-with an exact integer sum and ``g`` mapping a 0 scale to 1, then cast to
-the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.
+with an exact integer sum and ``g`` mapping a 0 scale to 1, then casts to
+the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.  The
+transposed layouts take the fp gradient and quantize it inside the kernel
+(see their docstrings); the wrappers in ``kernels/ops.py`` reduce its
+scales.
 """
 from __future__ import annotations
 
@@ -23,6 +32,15 @@ def scale_guard(scale: torch.Tensor) -> torch.Tensor:
     0); the counterpart of ``repro.kernels.int8_matmul.scale_guard``."""
     scale = scale.to(torch.float32)
     return torch.where(scale == 0.0, torch.ones_like(scale), scale)
+
+
+def _check_cuda(what: str, device, tensors) -> None:
+    for name, t, dts in tensors:
+        if (t.dtype not in dts or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{' or '.join(map(str, dts))} tensor on "
+                             f"{device}, got {t.dtype} on {t.device}")
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -60,13 +78,10 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
         return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
-    for name, t, dt in (("x", x, torch.int8), ("w", w, torch.int8),
-                        ("row_scale", row_scale, torch.float32),
-                        ("col_scale", col_scale, torch.float32)):
-        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"int8_matmul: {name} must be a contiguous {dt} "
-                             f"tensor on {x.device}, got {t.dtype} on "
-                             f"{t.device}")
+    _check_cuda("int8_matmul", x.device, (
+        ("x", x, (torch.int8,)), ("w", w, (torch.int8,)),
+        ("row_scale", row_scale, (torch.float32,)),
+        ("col_scale", col_scale, (torch.float32,))))
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"int8_matmul: unsupported out_dtype {out_dtype}")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -80,3 +95,134 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 of the exact integer product of two integer-valued tensors:
+    int32 on the CPU, float64 on the card (no CUDA integer matmul; float64
+    is exact below 2**53, float32 only below 2**24)."""
+    if a.is_cuda:
+        return torch.matmul(a.to(torch.float64), b.to(torch.float64)
+                            ).to(torch.float32)
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32)).to(torch.float32)
+
+
+def _quant_grad(g: torch.Tensor, fold: torch.Tensor,
+                q_scale: torch.Tensor) -> torch.Tensor:
+    """The kernels' gradient-quant prologue: clip(round(g * fold / qs)),
+    half to even, with IEEE divisions by a tensor (qs already guarded)."""
+    h = g.to(torch.float32) * fold
+    return torch.clamp(torch.round(h / q_scale), -128, 127)
+
+
+def int8_matmul_nt_plain(g: torch.Tensor, w: torch.Tensor,
+                         fold_scale: torch.Tensor, q_scale: torch.Tensor,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of :func:`int8_matmul_nt`."""
+    qs = scale_guard(q_scale).reshape(-1, 1)
+    hq = _quant_grad(g, fold_scale.to(torch.float32).reshape(1, -1), qs)
+    return (_exact_matmul(hq, w.t()) * qs).to(out_dtype)
+
+
+def int8_matmul_tn_plain(x: torch.Tensor, g: torch.Tensor,
+                         fold_scale: torch.Tensor, q_scale: torch.Tensor,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of :func:`int8_matmul_tn`."""
+    qs = scale_guard(q_scale).reshape(1, -1)
+    hq = _quant_grad(g, fold_scale.to(torch.float32).reshape(-1, 1), qs)
+    return (_exact_matmul(x.t(), hq) * qs).to(out_dtype)
+
+
+def _launch_bwd(entry: str, a: torch.Tensor, b: torch.Tensor,
+                fold: torch.Tensor, qs: torch.Tensor, out: torch.Tensor,
+                m: int, n: int, k: int, g: torch.Tensor) -> None:
+    lib = _build.load("int8_matmul_bwd")
+    rc = getattr(lib, entry)(
+        _build.ptr(a), _build.ptr(b), _build.ptr(fold), _build.ptr(qs),
+        _build.ptr(out), m, n, k, _DTYPE_CODES[g.dtype],
+        _DTYPE_CODES[out.dtype], _build.stream_of(g))
+    _build.check(lib, rc, entry)
+
+
+_CARRIERS = tuple(_DTYPE_CODES)
+
+
+def int8_matmul_nt(g: torch.Tensor, w: torch.Tensor, fold_scale: torch.Tensor,
+                   q_scale: torch.Tensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """dx = qdq_token(g * fold_scale) @ w^T with real int8 compute.
+
+    g: fp32/bf16 (M, N) output gradient; w: int8 (K, N) stored forward
+    payload; fold_scale fp32 (N,) or (1, N) -- the weight's dequant scales;
+    q_scale fp32 (M,) or (M, 1) -- the per-token quant scale of g * fold
+    (absmax / 127, from ``kernels/ops.int8_bwd_dx``) -> (M, K) ``out_dtype``:
+
+        dx[m, k] = g(qs[m]) * sum_n clip(round(g[m, n] * fold[n] / g(qs[m])))
+                   * w[k, n]
+
+    CPU tensors take :func:`int8_matmul_nt_plain`; CUDA tensors launch the
+    kernel (any M, N, K) or raise."""
+    m, n = g.shape
+    k, n2 = w.shape
+    if n != n2 or fold_scale.numel() != n or q_scale.numel() != m:
+        raise ValueError(f"int8_matmul_nt: g {tuple(g.shape)}, w "
+                         f"{tuple(w.shape)}, fold {tuple(fold_scale.shape)}, "
+                         f"q_scale {tuple(q_scale.shape)}")
+    if g.device.type == "cpu":
+        return int8_matmul_nt_plain(g, w, fold_scale, q_scale, out_dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"int8_matmul_nt: unsupported device {g.device}")
+    _check_cuda("int8_matmul_nt", g.device, (
+        ("g", g, _CARRIERS), ("w", w, (torch.int8,)),
+        ("fold_scale", fold_scale, (torch.float32,)),
+        ("q_scale", q_scale, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_nt: unsupported out_dtype {out_dtype}")
+    out = torch.empty((m, k), dtype=out_dtype, device=g.device)
+    _launch_bwd("repro_int8_matmul_nt", g, w, fold_scale, q_scale, out,
+                m, n, k, g)
+    int8_matmul_nt.launches += 1
+    return out
+
+
+def int8_matmul_tn(x: torch.Tensor, g: torch.Tensor, fold_scale: torch.Tensor,
+                   q_scale: torch.Tensor,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """dW = x^T @ qdq_channel(g * fold_scale) with real int8 compute.
+
+    x: int8 (M, K) stored forward payload; g: fp32/bf16 (M, N) output
+    gradient; fold_scale fp32 (M,) or (M, 1) -- the activation's per-token
+    dequant scales; q_scale fp32 (N,) or (1, N) -- the per-channel quant
+    scale of g * fold (from ``kernels/ops.int8_bwd_dw``) -> (K, N)
+    ``out_dtype``:
+
+        dW[k, n] = g(qs[n]) * sum_m x[m, k]
+                   * clip(round(g[m, n] * fold[m] / g(qs[n])))
+
+    CPU tensors take :func:`int8_matmul_tn_plain`; CUDA tensors launch the
+    kernel (any M, N, K) or raise."""
+    m, k = x.shape
+    m2, n = g.shape
+    if m != m2 or fold_scale.numel() != m or q_scale.numel() != n:
+        raise ValueError(f"int8_matmul_tn: x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}, fold {tuple(fold_scale.shape)}, "
+                         f"q_scale {tuple(q_scale.shape)}")
+    if g.device.type == "cpu":
+        return int8_matmul_tn_plain(x, g, fold_scale, q_scale, out_dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"int8_matmul_tn: unsupported device {g.device}")
+    _check_cuda("int8_matmul_tn", g.device, (
+        ("x", x, (torch.int8,)), ("g", g, _CARRIERS),
+        ("fold_scale", fold_scale, (torch.float32,)),
+        ("q_scale", q_scale, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_tn: unsupported out_dtype {out_dtype}")
+    out = torch.empty((k, n), dtype=out_dtype, device=g.device)
+    _launch_bwd("repro_int8_matmul_tn", x, g, fold_scale, q_scale, out,
+                m, n, k, g)
+    int8_matmul_tn.launches += 1
+    return out
+
+
+int8_matmul_nt.launches = 0
+int8_matmul_tn.launches = 0

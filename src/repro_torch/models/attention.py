@@ -1,10 +1,15 @@
-"""Dense self-attention with a KV cache (port of the serving branches of
-``repro/models/attention.py``).
+"""Dense self-attention, for training and with a KV cache for serving
+(port of ``repro/models/attention.py``).
 
-Three branches, chosen by how the cache is stored and whether the call is
-a prefill (``cache_offset`` an int: the prompt's rows are written at that
-offset) or a decode step (``cache_offset`` a (B,) tensor of per-slot
-positions):
+Training (``cache=None``): causal self-attention over the sequence, plain
+torch matmuls with an fp32 softmax (``_attend``), the reference's
+``attention_impl="xla"`` path; ``"flash_pallas"`` needs the flash training
+kernels (#8-#10), which are not ported.
+
+With a cache, three branches, chosen by how the cache is stored and
+whether the call is a prefill (``cache_offset`` an int: the prompt's rows
+are written at that offset) or a decode step (``cache_offset`` a (B,)
+tensor of per-slot positions):
 
 * int8 cache, prefill -- quantize the new K/V rows (per position x head),
   write them, then the int8-KV flash kernel attends over the whole stored
@@ -62,7 +67,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(b, sq, kh, h // kh, hd)
     s = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                      k.to(torch.float32))
-    s = s / torch.full_like(s, math.sqrt(hd))   # IEEE division, as in JAX
+    # a 0-d tensor divisor: an IEEE division on every device, as in JAX
+    s = s / torch.full((), math.sqrt(hd), dtype=s.dtype, device=s.device)
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     ctx = torch.einsum("bkgst,btkh->bskgh", p, v)
@@ -70,22 +76,33 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
-               cache: Cache, cache_offset: Union[int, torch.Tensor],
+               cache: Optional[Cache] = None,
+               cache_offset: Union[int, torch.Tensor, None] = None,
                layer: Optional[int] = None, n_layers: int = 0
                ) -> torch.Tensor:
-    """One self-attention call against one layer's cache (written in
-    place).  ``cache_offset``: int for a prefill, (B,) int32 tensor of
+    """One self-attention call.  ``cache=None``: causal attention over the
+    sequence (training).  Otherwise against one layer's cache (written in
+    place); ``cache_offset``: int for a prefill, (B,) int32 tensor of
     per-slot positions for a decode step (s == 1)."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx_qkv = LinearCtx("attn_qkv", layer, n_layers)
     ctx_out = LinearCtx("attn_out", layer, n_layers)
+    if cache is None and cfg.attention_impl == "flash_pallas":
+        raise NotImplementedError(
+            "attention_impl='flash_pallas' trains through the flash kernels "
+            "#8-#10 (_fwd_with_lse, _fa_bwd), not ported yet (ROADMAP "
+            "section 2, item 3)")
     q = policy.linear(ctx_qkv, x, params["wq"], params.get("bq")
                       ).reshape(b, s, h, hd)
     k = policy.linear(ctx_qkv, x, params["wk"], params.get("bk")
                       ).reshape(b, s, kh, hd)
     v = policy.linear(ctx_qkv, x, params["wv"], params.get("bv")
                       ).reshape(b, s, kh, hd)
+    if cache is None:
+        pos = torch.arange(s, device=x.device)
+        ctx = _attend(q, k, v, pos[None, :] <= pos[:, None])
+        return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))
     decode = isinstance(cache_offset, torch.Tensor)
     smax = cache["k"].shape[1]
 

@@ -2,7 +2,7 @@
 branch of ``repro/models/blocks.py``)."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -13,9 +13,12 @@ from repro_torch.models.mlp import mlp_apply
 
 
 def block_apply(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
-                cache: Cache, cache_offset: Union[int, torch.Tensor],
-                layer: int) -> torch.Tensor:
-    """h + attn(ln1(h)), then + mlp(ln2(h)); writes this layer's cache."""
+                layer: int, cache: Optional[Cache] = None,
+                cache_offset: Union[int, torch.Tensor, None] = None
+                ) -> torch.Tensor:
+    """h + attn(ln1(h)), then + mlp(ln2(h)); writes this layer's cache when
+    one is given (serving), attends causally over h without one
+    (training)."""
     nl = cfg.n_layers
     x = layernorm(h, params["ln1"]["scale"], params["ln1"]["bias"])
     h = h + attn_apply(params["attn"], x, cfg, policy=policy, cache=cache,

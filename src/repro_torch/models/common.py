@@ -24,6 +24,31 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_flatten(tree):
+    """(leaves, structure) of a nested dict, leaves in sorted-key order --
+    ``jax.tree_util``'s order for dicts, so leaf lists line up with the JAX
+    package's; QState is one leaf."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        leaves.append(node)
+        return None
+    return leaves, walk(tree)
+
+
+def tree_unflatten(structure, leaves):
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return next(it)
+    return walk(structure)
+
+
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Carrier-precision cast: float tensors only.  Prepared quantized
     weights (QState payload + fp32 scale sidecars) are opaque -- casting

@@ -1,14 +1,19 @@
 """Decoder-only language model, dense family: embed with learned positions,
 a Python loop over the layers in place of the reference's scan, final norm
-and tied head (port of the serving half of ``repro/models/lm.py``).
+and tied head (port of ``repro/models/lm.py``): the training loss with a
+chunked cross entropy, prefill and decode.
 
 The caches are stacked (L, B, S, ...) buffers, as in the JAX package; each
 layer works on its view and writes its rows in place, so ``lm_decode``
 mutates the caches it is given (the JAX step returns new ones).
+
+The loss keeps every activation for the backward: the reference's
+recomputation (``cfg.remat``, and the checkpointed CE chunks) changes no
+number and is not needed at GPT-2 small's size on an 80 GB card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,12 +30,6 @@ def carrier_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def layer_params(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked block parameters."""
-    return tree_map(lambda x: (QState(x.q[i], x.scale[i], x.zero[i])
-                               if isinstance(x, QState) else x[i]), blocks)
-
-
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
                  positions: torch.Tensor, dtype: torch.dtype,
                  policy: QuantPolicy) -> torch.Tensor:
@@ -44,8 +43,20 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
     return e + pe
 
 
-def logits_head(params: Params, h: torch.Tensor, cfg,
-                policy: QuantPolicy) -> torch.Tensor:
+def unstack_layers(blocks: Params, n_layers: int):
+    """Per-layer views of the stacked block parameters (prepared QState
+    leaves field by field), one ``unbind`` per tensor, so a backward
+    stacks each leaf's gradient once."""
+    def split(x):
+        if isinstance(x, QState):
+            return [QState(*f) for f in zip(*(t.unbind(0) for t in x))]
+        return x.unbind(0)
+    per_leaf = tree_map(split, blocks)
+    return [tree_map(lambda t: t[i], per_leaf) for i in range(n_layers)]
+
+
+def logits_chunk(params: Params, h: torch.Tensor, cfg,
+                 policy: QuantPolicy) -> torch.Tensor:
     """(B, C, d) -> (B, C, V_padded) fp32 logits, padded vocab masked to
     -1e30.  Carrier-precision operands, fp32 accumulation (the reference's
     ``preferred_element_type=f32`` einsum)."""
@@ -56,17 +67,70 @@ def logits_head(params: Params, h: torch.Tensor, cfg,
     logits = torch.matmul(h.to(torch.float32),
                           head.to(h.dtype).to(torch.float32))
     if cfg.vocab_padded > cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = _NEG
+        valid = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, _NEG)
     return logits
+
+
+def _chunk_len(s: int, target: int) -> int:
+    if s <= target:
+        return s
+    for c in range(target, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def chunked_ce(params: Params, h: torch.Tensor, labels: torch.Tensor,
+               mask: Optional[torch.Tensor], cfg,
+               policy: QuantPolicy) -> torch.Tensor:
+    """Mean cross entropy over the sequence in chunks of ``cfg.logit_chunk``
+    positions, so the fp32 logits of only one chunk exist at a time in the
+    forward."""
+    b, s, _ = h.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    chunk = _chunk_len(s, cfg.logit_chunk or s)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        logits = logits_chunk(params, h[:, i:i + chunk], cfg, policy)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, i:i + chunk, None].long())[..., 0]
+        mc = mask[:, i:i + chunk].to(torch.float32)
+        tot = tot + torch.sum((logz - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
+            policy=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: {"tokens": (B, S + 1) int[, "loss_mask": (B, S)]} -> (loss,
+    metrics).  ``policy`` is anything ``as_policy`` accepts."""
+    policy = as_policy(policy)
+    dtype = carrier_dtype(cfg)
+    params = cast_params(params, dtype)
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    # one (S,) row of positions, broadcast over the batch: the position
+    # table's gradient is then a batch sum, not an accumulating scatter
+    # whose order (and last bits) vary from run to run
+    positions = torch.arange(inp.shape[1], device=inp.device)
+    h = embed_tokens(params, inp, cfg, positions, dtype, policy)
+    for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
+        h = block_apply(lp, h, cfg, policy=policy, layer=i)
+    fn = params["final_norm"]
+    h = layernorm(h, fn["scale"], fn["bias"])
+    ce = chunked_ce(params, h, labels, batch.get("loss_mask"), cfg, policy)
+    return ce, {"ce": ce, "loss": ce}
 
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
                caches: Cache, cache_offset) -> torch.Tensor:
-    for i in range(cfg.n_layers):
-        h = block_apply(layer_params(params["blocks"], i), h, cfg,
-                        policy=policy,
+    for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
+        h = block_apply(lp, h, cfg, policy=policy, layer=i,
                         cache={k: c[i] for k, c in caches.items()},
-                        cache_offset=cache_offset, layer=i)
+                        cache_offset=cache_offset)
     fn = params["final_norm"]
     return layernorm(h, fn["scale"], fn["bias"])
 
@@ -92,7 +156,7 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
     else:
         rows = torch.arange(b, device=device)
         hc = h[rows, last_pos.to(device).long()][:, None, :]
-    return logits_head(params, hc, cfg, policy)[:, 0, :], caches
+    return logits_chunk(params, hc, cfg, policy)[:, 0, :], caches
 
 
 def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
@@ -107,4 +171,4 @@ def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
     pos = pos.to(device=token.device, dtype=torch.int32)
     h = embed_tokens(params, token, cfg, pos[:, None].long(), dtype, policy)
     h = _run_stack(params, h, cfg, policy, caches, pos)
-    return logits_head(params, h, cfg, policy)[:, 0, :], caches
+    return logits_chunk(params, h, cfg, policy)[:, 0, :], caches

@@ -1,7 +1,9 @@
 """Model facade of the port (counterpart of ``repro/models/model_api.py``):
-``build_model(cfg)`` gives ``init_params``, ``prefill``, ``decode`` and
-``init_decode_state`` for the dense GPT-2 family, and
-:func:`params_from_jax` carries a JAX parameter tree across.
+``build_model(cfg)`` gives ``init_params``, ``train_loss``, ``prefill``,
+``decode`` and ``init_decode_state`` for the dense GPT-2 family;
+:func:`params_from_jax` carries a JAX parameter tree across, and
+:func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
+state (params, step, Adam moments) both ways.
 
 Parameters are nested dicts of tensors in the JAX tree layout: ``embed``
 (V_padded, d), ``pos_embed`` (max_seq, d), ``blocks`` with every leaf
@@ -35,8 +37,8 @@ def _check_supported(cfg: ArchConfig) -> None:
     bad = {k: getattr(cfg, k) for k, v in want.items() if getattr(cfg, k) != v}
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port serves the dense GPT-2 family "
-            f"({want}) so far")
+            f"{cfg.name}: {bad} -- the port trains and serves the dense "
+            f"GPT-2 family ({want}) so far (ROADMAP section 1, item 6)")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -103,6 +105,10 @@ class Model:
             return _init_leaf(*node, generator=generator, device=device)
         return walk(_spec(self.cfg))
 
+    def train_loss(self, params: Params, batch, *, policy=None):
+        """-> (loss, metrics) of ``lm.lm_loss``; differentiable in params."""
+        return lm.lm_loss(params, batch, self.cfg, policy=policy)
+
     def prefill(self, params: Params, tokens: torch.Tensor, *, policy=None,
                 max_seq: Optional[int] = None,
                 last_pos: Optional[torch.Tensor] = None):
@@ -145,12 +151,7 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
     expected = _spec(cfg)
 
     def conv(x):
-        a = np.asarray(x)
-        if str(a.dtype) == "bfloat16":
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        return t.to(device)
+        return _to_torch(x, device)
 
     def walk(node, spec, path):
         if set(node) != set(spec):
@@ -169,4 +170,66 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
     return walk(np_tree, expected, "")
 
 
-__all__ = ["Model", "build_model", "params_from_jax"]
+def _to_torch(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16
+                                                        ).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map_moments(tree, fn):
+    """Map ``fn`` over a moment tree whose leaves are arrays or 3-tuples
+    (q, scale, zero) -- QState in either package."""
+    if isinstance(tree, dict):
+        return {k: _map_moments(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        from repro_torch.core.qadam import QState
+        return QState(*(fn(t) for t in tree))
+    return fn(tree)
+
+
+def train_state_from_jax(np_state, cfg: ArchConfig,
+                         device: DeviceLike = "cuda"):
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree_util.tree_map(
+    np.asarray, state)``: ``.params`` and ``.opt`` with ``.step``, ``.m1``
+    and ``.m2``; QState moments as (q, scale, zero)) as the port's
+    ``train.step.TrainState`` on ``device``."""
+    from repro_torch.train.step import TrainState
+    return TrainState(
+        params=params_from_jax(np_state.params, cfg, device=device),
+        opt=opt_state_from_jax(np_state.opt, device=device))
+
+
+def opt_state_from_jax(np_opt, device: DeviceLike = "cuda"):
+    """A JAX ``AdamState`` with numpy leaves (``.step``, ``.m1``, ``.m2``;
+    QState moments as (q, scale, zero)) as the port's, on ``device``."""
+    from repro_torch.optim.adamw import AdamState
+    device = resolve_device(device)
+
+    def conv(x):
+        return _to_torch(x, device)
+    return AdamState(step=conv(np_opt.step).to(torch.int32),
+                     m1=_map_moments(np_opt.m1, conv),
+                     m2=_map_moments(np_opt.m2, conv))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` with numpy leaves (QState moments as
+    (q, scale, zero)): the inverse of :func:`train_state_from_jax`, and
+    the layout of the JAX state converted the same way."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.adamw import AdamState
+    from repro_torch.train.step import TrainState
+
+    def conv(t):
+        return t.detach().cpu().numpy()
+    opt = state.opt
+    return TrainState(
+        params=tree_map(conv, state.params),
+        opt=AdamState(step=conv(opt.step), m1=_map_moments(opt.m1, conv),
+                      m2=_map_moments(opt.m2, conv)))
+
+
+__all__ = ["Model", "build_model", "opt_state_from_jax", "params_from_jax",
+           "train_state_from_jax", "train_state_to_numpy"]

@@ -6,11 +6,14 @@ visible (the kernels have no CPU mode); on a machine with a card, run
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: ``int8_matmul`` bit for bit; the attention kernels within 1e-5
-of the plain version at the float32 carrier (fp32 sums in another order),
-within one bfloat16 rounding step at the bfloat16 carrier (two fp32 values
-a few ulp apart can round to neighbouring bf16 values), and the decode
-step's written cache rows bit for bit.
+Tolerances: the three int8 matmuls (forward, nt, tn) bit for bit; the
+attention kernels within 1e-5 of the plain version at the float32 carrier
+(fp32 sums in another order), within one bfloat16 rounding step at the
+bfloat16 carrier (two fp32 values a few ulp apart can round to
+neighbouring bf16 values), and the decode step's written cache rows bit
+for bit; the fused AdamW step bit for bit in params, payloads, scales and
+zero points (both versions round every op on its own), its update-norm sum
+within 1e-5 relative (partial sums in another order).
 """
 import numpy as np
 import pytest
@@ -19,10 +22,16 @@ import torch
 from repro_torch.core.qconfig import Granularity, QuantSpec
 from repro_torch.core.quantizer import quantize_int
 from repro_torch.kernels import (decode_attention, flash_attention_fwd_q8,
-                                 int8_matmul)
+                                 fused_adamw_blocks, int8_matmul,
+                                 int8_matmul_nt, int8_matmul_tn)
 from repro_torch.kernels.decode_attn import decode_attention_plain
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
-from repro_torch.kernels.int8_matmul import int8_matmul_plain
+from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
+                                             int8_matmul_plain,
+                                             int8_matmul_tn_plain)
+from repro_torch.kernels.opt_update import (codec_of,
+                                            fused_adamw_blocks_plain)
+from repro_torch.core.qconfig import parse_recipe
 
 SPEC = QuantSpec(8, Granularity.PER_TOKEN)
 
@@ -110,3 +119,106 @@ def test_flash_q8_kernel(cuda, dtype, h, kh, hd, q_offset):
     want = flash_attention_fwd_q8_plain(q, kq, ks, vq, vs, causal=True,
                                         q_offset=q_offset)
     assert_attention_close(got, want)
+
+
+def _bwd_inputs(m, n, other, dtype, seed):
+    """A gradient g (m, n) with an all-zero row and column and exact
+    rounding ties (row 0 and column 6 reach a scale of exactly 1 when their
+    fold scales are 1, as the tests set them), and an int8 payload
+    (other, n) or (m, other)."""
+    rng = np.random.RandomState(seed)
+    g = (rng.randn(m, n) * 0.02).astype(np.float32)
+    g[0, :8] = [127.0, 0.5, 1.5, 2.5, -2.5, 0.0, 127.0, -3.5]
+    g[1:8, 6] = [0.5, 1.5, 2.5, -2.5, -0.5, -1.5, 4.5]
+    g[3] = 0.0
+    g[:, 5] = 0.0
+    return (torch.from_numpy(g).to(dtype),
+            torch.from_numpy(rng.randint(-128, 128, (other, n)
+                                         ).astype(np.int8)),
+            torch.from_numpy(rng.randint(-128, 128, (m, other)
+                                         ).astype(np.int8)),
+            rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(256, 768, 3072), (130, 257, 90),
+                                   (64, 3072, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_nt_kernel(cuda, m, n, k, dtype):
+    g, w, _, rng = _bwd_inputs(m, n, k, dtype, seed=m + n + k)
+    fold = torch.from_numpy(rng.uniform(1e-3, 0.1, (1, n)).astype(np.float32))
+    fold[0, :8] = 1.0
+    absmax = (g.float().abs() * fold).amax(dim=1, keepdim=True)
+    qs = absmax.clamp_min(1e-12) / torch.full_like(absmax, 127.0)
+    qs[7::7] = 0.0                  # zero scales: the guard maps them to 1
+    g, w, fold, qs = (t.to(cuda) for t in (g, w, fold, qs))
+    before = int8_matmul_nt.launches
+    got = int8_matmul_nt(g, w, fold, qs, out_dtype=dtype)
+    assert int8_matmul_nt.launches == before + 1
+    assert torch.equal(got, int8_matmul_nt_plain(g, w, fold, qs,
+                                                 out_dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(512, 768, 3072), (130, 257, 90),
+                                   (1024, 3072, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_tn_kernel(cuda, m, n, k, dtype):
+    g, _, x, rng = _bwd_inputs(m, n, k, dtype, seed=m * n + k)
+    fold = torch.from_numpy(rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32))
+    fold[:8] = 1.0
+    absmax = (g.float().abs() * fold).amax(dim=0, keepdim=True)
+    qs = absmax.clamp_min(1e-12) / torch.full_like(absmax, 127.0)
+    qs[:, 7::7] = 0.0
+    x, g, fold, qs = (t.to(cuda) for t in (x, g, fold, qs))
+    before = int8_matmul_tn.launches
+    got = int8_matmul_tn(x, g, fold, qs, out_dtype=dtype)
+    assert int8_matmul_tn.launches == before + 1
+    assert torch.equal(got, int8_matmul_tn_plain(x, g, fold, qs,
+                                                 out_dtype=dtype))
+
+
+def adamw_bucket(rows, bs, recipe, seed, pad_rows=0):
+    """A (rows, bs) AdamW bucket in the blockwise codec layout: moments
+    encoded from random fp values (m2 non-negative), the last ``pad_rows``
+    rows zero as the bucket's padding is, and the eight scalars."""
+    from repro_torch.core.quantizer import quantize_int
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy((rng.randn(rows, bs) * 1e-2).astype(np.float32))
+    p = torch.from_numpy(rng.randn(rows, bs).astype(np.float32))
+    m1 = torch.from_numpy((rng.randn(rows, bs) * 1e-3).astype(np.float32))
+    m2 = torch.from_numpy((rng.rand(rows, bs) * 1e-5).astype(np.float32))
+    r2 = recipe.adam_m2
+    m2 = m2.sqrt() if r2.sqrt_domain else m2
+    state = [*quantize_int(m1, recipe.adam_m1), *quantize_int(m2, r2)]
+    out = [g, p] + state
+    if pad_rows:
+        for t in out:
+            t[rows - pad_rows:] = 0
+    step = 3
+    sc = torch.tensor([0.7, 1e-3, 0.9, 0.95, 1e-8, 0.1, 1 - 0.9 ** step,
+                       1 - 0.95 ** step], dtype=torch.float32)
+    return out + [sc]
+
+
+ADAM_RECIPES = ["m1:8c-b128,m2:8c-asym-b128-sqrt", "m1:8c-b128,m2:8c-b128",
+                "m1:8c-b64,m2:8c-asym-b64"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ADAM_RECIPES)
+def test_fused_adamw_kernel(cuda, recipe):
+    rec = parse_recipe(recipe)
+    bs = rec.adam_m1.block_size
+    bucket = [t.to(cuda) for t in adamw_bucket(1000, bs, rec, seed=bs,
+                                                pad_rows=37)]
+    kw = dict(m1_codec=codec_of(rec.adam_m1), m2_codec=codec_of(rec.adam_m2),
+              weight_decay=True)
+    ref = [t.clone() for t in bucket]
+    before = fused_adamw_blocks.launches
+    got = fused_adamw_blocks(*bucket, **kw)
+    assert fused_adamw_blocks.launches == before + 1
+    want = fused_adamw_blocks_plain(*ref, **kw)
+    for a, b in zip(bucket[1:8], ref[1:8]):     # p and the six moment parts
+        assert torch.equal(a, b)
+    assert torch.isclose(got[3], want[3], rtol=1e-5, atol=0.0)

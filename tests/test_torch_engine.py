@@ -89,7 +89,9 @@ def test_engine_freed_slot_at_max_seq_is_inert():
 
 def test_import_leaves_jax_out():
     code = ("import sys; import repro_torch, repro_torch.infer, "
-            "repro_torch.kernels, repro_torch.models; "
+            "repro_torch.kernels, repro_torch.models, repro_torch.optim, "
+            "repro_torch.train, repro_torch.data, "
+            "repro_torch.launch.train, repro_torch.core.qlinear; "
             "print('jax' in sys.modules, "
             "any(m == 'repro' or m.startswith('repro.') for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,0 +1,216 @@
+"""Port parity of the whole train step: gpt2-mini, 2 steps of 2 x 64
+tokens from the synthetic corpus, the JAX package's jitted
+``make_train_step`` against the port's, from the same JAX-initialized
+state carried across (``train_state_from_jax``).
+
+Each step compares ce, the gradient norm, the params and the decoded Adam
+moments.  Two facts set the limits, both measured on this tree:
+
+* At the reference init (block weights drawn with the stacked layer dim as
+  fan-in, std 1/sqrt(L); ROADMAP section 3) the random model is chaotic:
+  even the fp policy's gradient norms differ by 1.3e-4 relative between
+  the packages after their float32 ops round differently.  So the block
+  weights are rescaled to the true fan-in, as ``chip_smoke.true_fan_in``
+  does; the fp policy then agrees to 1.3e-6.
+* Activation and gradient quantization turn last-bit differences (XLA's
+  fused LayerNorm, GELU and softmax against PyTorch's) into whole int8
+  steps wherever a value sits on a rounding boundary, and XLA's compiled
+  quantizer itself flips about 1 payload in 10^4 against its own eager
+  result (neither an exact division nor a reciprocal multiply); Adam's
+  first update is nearly sign(g), so a flipped tiny gradient moves a
+  parameter by 2 lr.  The quantized policies are therefore held to limits
+  about 5x above the readings recorded below each, not to float rounding.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jsmoke
+from repro.core.qconfig import get_recipe as jget_recipe
+from repro.core.qpolicy import parse_policy as jparse_policy
+from repro.data import SyntheticCorpus
+from repro.models import build_model as jbuild
+from repro.optim import OptConfig as JOpt
+from repro.train import init_train_state as j_init, make_train_step as j_make
+
+from repro_torch.configs import get_smoke_config as tsmoke
+from repro_torch.core import qadam
+from repro_torch.core.qconfig import get_recipe
+from repro_torch.core.qpolicy import parse_policy
+from repro_torch.models import (build_model, train_state_from_jax,
+                                train_state_to_numpy)
+from repro_torch.optim import OptConfig
+from repro_torch.train import make_train_step
+
+MAIN = "*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_pallas"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: the suite runs several pytest workers at once,
+    and torch's default of one thread per core oversubscribes the CPU."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _recipes(text):
+    if "=" in text:
+        return jparse_policy(text), parse_policy(text)
+    return jget_recipe(text), get_recipe(text)
+
+
+def true_fan_in(params, n_layers):
+    blocks = {mod: {n: (w * math.sqrt(n_layers / w.shape[-2])
+                        if n.startswith("w") else w)
+                    for n, w in leaves.items()}
+              for mod, leaves in params["blocks"].items()}
+    return dict(params, blocks=blocks)
+
+
+def rel_l2(a, b) -> float:
+    num = sum(float(((np.asarray(x, np.float64) - y) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((np.asarray(y, np.float64) ** 2).sum()) for y in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def decoded(np_moments, recipe_spec, params):
+    """Decoded fp32 moments of a numpy moment tree, leaf by leaf."""
+    out = []
+    for m, p in zip(jax.tree_util.tree_leaves(
+            np_moments, is_leaf=lambda x: isinstance(x, tuple)),
+            jax.tree_util.tree_leaves(params)):
+        if isinstance(m, tuple):
+            m = qadam.decode(qadam.QState(*(torch.from_numpy(np.array(t))
+                                            for t in m)),
+                             recipe_spec, p.shape).numpy()
+        out.append(np.asarray(m))
+    return out
+
+
+def run_pair(policy, dtype, storage="int", steps=2):
+    """Per step: (jax metrics, port metrics, jax state, port state), both
+    states as numpy trees."""
+    jrec, trec = _recipes(policy)
+    jcfg = dataclasses.replace(jsmoke("gpt2-small"), dtype=dtype)
+    tcfg = dataclasses.replace(tsmoke("gpt2-small"), dtype=dtype)
+    kw = dict(lr=1e-3, warmup_steps=0, total_steps=100, state_storage=storage)
+    jmodel = jbuild(jcfg)
+    jst = j_init(jmodel, jax.random.PRNGKey(0), jrec, JOpt(**kw))
+    jst = jst._replace(params=true_fan_in(jst.params, jcfg.n_layers))
+    tst = train_state_from_jax(jax.tree_util.tree_map(np.asarray, jst),
+                               tcfg, device="cpu")
+    jstep = jax.jit(j_make(jmodel, jrec, JOpt(**kw)))
+    tstep = make_train_step(build_model(tcfg), trec, OptConfig(**kw))
+    corpus = SyntheticCorpus(jcfg.vocab_size, seed=7)
+    out = []
+    for i in range(steps):
+        toks = corpus.batch(i, batch_size=2, seq_len=64)
+        jst, jm = jstep(jst, {"tokens": jnp.asarray(toks)}, None)
+        tst, tm = tstep(tst, {"tokens": torch.from_numpy(toks)})
+        out.append(({k: float(v) for k, v in jm.items()},
+                    {k: float(v) for k, v in tm.items()},
+                    jax.tree_util.tree_map(np.asarray, jst),
+                    train_state_to_numpy(tst)))
+    return out, trec
+
+
+def readings(policy, dtype):
+    out, trec = run_pair(policy, dtype)
+    rows = []
+    for jm, tm, jst, tst in out:
+        jp = jax.tree_util.tree_leaves(jst.params)
+        tp = jax.tree_util.tree_leaves(tst.params)
+        r = {"ce": abs(jm["ce"] - tm["ce"]),
+             "grad_norm": abs(jm["grad_norm"] - tm["grad_norm"])
+             / jm["grad_norm"],
+             "params": rel_l2(tp, jp)}
+        for name, spec in (("m1", trec.adam_m1), ("m2", trec.adam_m2)):
+            jd = decoded(getattr(jst.opt, name), spec, jst.params)
+            td = decoded(getattr(tst.opt, name), spec, jst.params)
+            r[name] = rel_l2(td, jd)
+        rows.append(r)
+    return rows
+
+
+INT_MOMENTS = "*=m1:8c-b128+m2:8c-asym-b128-sqrt"
+#: limits on the worst of the two steps: |d ce|, the gradient norm's
+#: relative difference, and the relative L2 distance of all params and of
+#: the decoded moments.  Readings on this tree in the comments.
+EXACT_LINEARS = {"ce": 5e-6, "grad_norm": 1e-5, "params": 3e-5,
+                 "m1": 5e-3, "m2": 5e-3}
+# int moments, fp linears: ce 4.8e-7, grad norm 1.8e-6, params 6.0e-6,
+# m1 7.4e-4, m2 4.5e-4 (int8 payloads flip where an ulp of g moves a
+# moment across a rounding boundary)
+QUANT_LINEARS = {"ce": 1e-3, "grad_norm": 1e-2, "params": 1e-2,
+                 "m1": 0.1, "m2": 0.1}
+# main: ce 1.5e-4, grad norm 1.4e-3, params 2.2e-3, m1 2.6e-2, m2 2.4e-2;
+# paper: 2.1e-4, 7.9e-4, 1.9e-3, 1.5e-2, 1.4e-2; int8 forward: 2.1e-4,
+# 1.2e-3, 1.9e-3, 1.5e-2, 1.4e-2
+BF16 = {"ce": 5e-3, "grad_norm": 1e-2, "params": 1e-2, "m1": 0.1, "m2": 0.1}
+# bfloat16 carrier: XLA rounds the tanh-GELU op by op in bf16 where F.gelu
+# rounds once (ROADMAP section 3), so even the fp policy reads ce 2.3e-4,
+# grad norm 1.0e-3, params 1.6e-3, moments 1.4e-2; main: 4.2e-4, 8.6e-4,
+# 2.6e-3, 2.9e-2; paper: 1.06e-3, 1.8e-3, 2.4e-3, 2.2e-2; int8 forward:
+# 8.8e-4, 6.9e-4, 2.4e-3, 2.0e-2
+
+
+def assert_within(rows, limits, what):
+    for i, r in enumerate(rows):
+        for k, lim in limits.items():
+            assert r[k] <= lim, (what, f"step {i + 1}", k, r[k], lim)
+
+
+@pytest.mark.parametrize("policy,limits", [
+    (INT_MOMENTS, EXACT_LINEARS), (MAIN, QUANT_LINEARS),
+    ("paper", QUANT_LINEARS), ("*=w8c+a8t@int8_pallas", QUANT_LINEARS)])
+def test_train_step_matches_jax_float32(policy, limits):
+    assert_within(readings(policy, "float32"), limits, policy)
+
+
+@pytest.mark.parametrize("policy", [MAIN, "paper", "*=w8c+a8t@int8_pallas"])
+def test_train_step_matches_jax_bfloat16(policy):
+    assert_within(readings(policy, "bfloat16"), BF16, policy)
+
+
+def test_accumulation_and_eval_match_jax():
+    """``accum_steps=2`` over a batch of 4 and ``make_eval_step``: the int
+    moments' policy (fp linears) against the JAX factories, to the
+    fp-linear limits above."""
+    from repro.train import make_eval_step as j_eval
+    from repro_torch.train import make_eval_step
+    jrec, trec = _recipes(INT_MOMENTS)
+    jcfg = dataclasses.replace(jsmoke("gpt2-small"), dtype="float32")
+    tcfg = dataclasses.replace(tsmoke("gpt2-small"), dtype="float32")
+    kw = dict(lr=1e-3, warmup_steps=0, total_steps=100, state_storage="int")
+    jmodel = jbuild(jcfg)
+    jst = j_init(jmodel, jax.random.PRNGKey(0), jrec, JOpt(**kw))
+    jst = jst._replace(params=true_fan_in(jst.params, jcfg.n_layers))
+    tst = train_state_from_jax(jax.tree_util.tree_map(np.asarray, jst),
+                               tcfg, device="cpu")
+    toks = SyntheticCorpus(jcfg.vocab_size, seed=7).batch(0, batch_size=4,
+                                                          seq_len=32)
+    jev = jax.jit(j_eval(jmodel, jrec))(jst.params,
+                                        {"tokens": jnp.asarray(toks)})
+    tev = make_eval_step(build_model(tcfg), trec)(
+        tst.params, {"tokens": torch.from_numpy(toks)})
+    assert abs(float(jev["ce"]) - float(tev["ce"])) <= EXACT_LINEARS["ce"]
+    jst, jm = jax.jit(j_make(jmodel, jrec, JOpt(**kw), accum_steps=2))(
+        jst, {"tokens": jnp.asarray(toks)}, None)
+    tst, tm = make_train_step(build_model(tcfg), trec, OptConfig(**kw),
+                              accum_steps=2)(tst, {"tokens":
+                                                   torch.from_numpy(toks)})
+    assert abs(float(jm["ce"]) - float(tm["ce"])) <= EXACT_LINEARS["ce"]
+    assert abs(float(jm["grad_norm"]) - float(tm["grad_norm"])) <= \
+        EXACT_LINEARS["grad_norm"] * float(jm["grad_norm"])
+    jp = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray,
+                                                          jst.params))
+    tp = jax.tree_util.tree_leaves(train_state_to_numpy(tst).params)
+    assert rel_l2(tp, jp) <= EXACT_LINEARS["params"]
