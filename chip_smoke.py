@@ -6,17 +6,26 @@
 Phases, in order; any failure exits non-zero:
 
 1. build the five CUDA kernel libraries from ``src/repro_torch/csrc`` (one
-   nvcc per source, all at once) and print the build time;
+   nvcc per source, all at once; ``decode_attn.cu`` holds the dense and the
+   paged decode kernels) and print the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's shapes, and time kernel, plain version and a
    library yardstick (``torch._int_mm``; SDPA on dequantized K/V) beside
-   the bound computed from the inputs' bytes and operations;
+   the bound computed from the inputs' bytes and operations; 3b. the paged
+   decode kernel the same way at pages of 16, 64 and 256 rows, and bit for
+   bit against the dense decode kernel on the same logical cache
+   (``check_decode_attention_paged``);
 4. serve GPT-2 small (random weights from ``--seed``, bf16 carrier, W8A8
    prepared weights, int8 KV cache) through the continuous-batching engine:
    32 requests, prompts of 32-512 tokens, 64 new tokens each, 16 slots of
    1024 rows; every kernel must have launched, as often as the engine's
-   prefill and decode counts say;
+   prefill and decode counts say; 4b. the same requests through the paged
+   engine (pages of 64 rows) under the async scheduler, arriving with
+   exponential gaps: phase 4's tokens, the paged kernel's launch counts,
+   peak live KV below the dense cache, every page back (``serve_paged``);
+   4c. preemption under a 24-page pool and prefix sharing
+   (``serve_paged_pressure``);
 5. teacher-forced logits of the card against the CPU (plain versions) at
    the float32 carrier on the same weights, and of the card with the
    plain ``int8_matmul`` in the kernel's place (see ``card_vs_cpu`` for
@@ -33,7 +42,8 @@ Phases, in order; any failure exits non-zero:
    blockwise 8-bit Adam moments) for 10 steps: ce, grad norm and ms per
    step, tokens/s, peak memory and, over one profiled step, the device's
    idle share; every ce and grad norm must be finite and each training
-   kernel must launch exactly 72 / 72 / 72 / 1 times a step;
+   kernel must launch exactly 72 / 72 / 72 / 1 times a step (and the
+   serving kernels never);
 8. one train step on gpt2-mini, card against CPU (see
    ``train_card_vs_cpu`` for the checks and their limits).
 
@@ -47,6 +57,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -63,7 +74,12 @@ INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
 SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention")
 TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_blocks")
-KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS
+KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS + ("decode_attention_paged",)
+#: phases 4 and 4b: 32 requests, prompts of 32-512 tokens, 64 new tokens
+#: each, 16 slots of 1024 rows; 4b's pages hold 64 rows, its requests
+#: arrive with exponential gaps of this mean
+SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_SEQ = 32, 64, 16, 1024
+PAGE, ARRIVAL_MEAN_S = 64, 0.02
 #: the training path's policy: paper Section 4.5's W8/A8/G8 on the int8
 #: kernels, Adam moments stored blockwise in 8 bits
 TRAIN_POLICY = "*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda"
@@ -247,6 +263,137 @@ def check_decode_attention(torch, dev, gen, results):
         plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
 
 
+def paged_from_dense(torch, dense, lengths, page, seed):
+    """Re-lay dense (B, S, K, x) caches as page pools and a (B, S / page)
+    table (a torch copy of repro/kernels/ref.py:paged_from_dense): slot
+    b's first min(maxp, ceil(len / page) + 1) logical pages go to pages in
+    an order shuffled by ``seed``, one spare page pads the pool, the rest
+    of the table points at the trash page 0."""
+    import numpy as np
+    b, s = dense[0].shape[:2]
+    maxp = s // page
+    need = [min(maxp, -(-int(n) // page) + 1) for n in lengths]
+    total = 1 + sum(need) + 1
+    order = list(np.random.RandomState(seed).permutation(np.arange(1, total)))
+    table = np.zeros((b, maxp), np.int32)
+    bi, ji, pid = [], [], []
+    for i in range(b):
+        for j in range(need[i]):
+            table[i, j] = order.pop()
+            bi.append(i), ji.append(j), pid.append(int(table[i, j]))
+    pools = []
+    for t in dense:
+        pool = torch.zeros((total, page) + tuple(t.shape[2:]), dtype=t.dtype,
+                           device=t.device)
+        pool[pid] = t.reshape(b, maxp, page, *t.shape[2:])[bi, ji]
+        pools.append(pool)
+    return pools, torch.from_numpy(table).to(dense[0].device)
+
+
+def check_decode_attention_paged(torch, dev, gen, results):
+    """Phase 3b: #13 at GPT-2 small's decode widths (16 slots, a logical
+    cache of 1024 rows, 12 kv heads of 64) over shuffled pools of pages of
+    16, 64 (the serving phases' page) and 256 rows, ragged positions with a
+    freed slot (pos 0, a table row of trash-page entries) and a full one
+    (pos == maxp * page, the clamped write).  (a) Against its plain version
+    at both carriers: ctx within 1e-3 at float32 (within one bf16 step at
+    bfloat16), the written pools bit for bit outside the trash page.
+    (b) Against #12 on the source dense cache: ctx and the written rows at
+    their logical positions bit for bit."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_paged,
+                                                 decode_attention_paged_plain,
+                                                 paged_logical_view)
+    b, s, kh, g, hd = 16, 1024, 12, 1, 64
+    pos = torch.randint(1, s, (b,), generator=gen, device=dev)
+    pos[0], pos[1] = 0, s
+    pos = pos.to(torch.int32)
+    dense = _int8_cache(torch, dev, gen, b, s, kh, hd, pos)
+    q = torch.randn((b, kh, g, hd), generator=gen, device=dev).bfloat16()
+    nk = torch.randn((b, kh, hd), generator=gen, device=dev).bfloat16()
+    nv = torch.randn((b, kh, hd), generator=gen, device=dev).bfloat16()
+    rows = pos.clamp(0, s).long()
+    live = torch.arange(1, b, device=dev)            # slot 0: the trash page
+    at = rows.clamp(max=s - 1)[1:]
+    rows_out = []
+    for page in (16, PAGE, 256):
+        pools, table = paged_from_dense(torch, dense, pos.tolist(), page,
+                                        seed=page)
+        table[0] = 0
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            args = [t.to(dt) for t in (q, nk, nv)]
+            kc = [t.clone() for t in pools]
+            pc = [t.clone() for t in pools]
+            got = decode_attention_paged(args[0], *kc, *args[1:], pos, table)
+            want = decode_attention_paged_plain(args[0], *pc, *args[1:], pos,
+                                                table)
+            errs[dt] = attention_err(torch, got, want)
+            for name, a, c in zip(("kq", "ks", "vq", "vs"), kc, pc):
+                if not torch.equal(a[1:], c[1:]):
+                    fail(f"decode_attention_paged page {page}: written pool "
+                         f"{name} not bit-exact against the plain version "
+                         f"({dt})")
+            dc = [t.clone() for t in dense]
+            kc = [t.clone() for t in pools]
+            dctx = decode_attention(args[0], *dc, *args[1:], pos)
+            pctx = decode_attention_paged(args[0], *kc, *args[1:], pos, table)
+            torch.cuda.synchronize()
+            if not torch.equal(dctx, pctx):
+                fail(f"decode_attention_paged page {page} ({dt}): ctx differs "
+                     f"from decode_attention on the same logical cache (max "
+                     f"{(dctx.float() - pctx.float()).abs().max().item()})")
+            pid = table[live, at // page].long()
+            for name, a, c in zip(("kq", "ks", "vq", "vs"), kc, dc):
+                if not torch.equal(a[pid, at % page], c[live, at]):
+                    fail(f"decode_attention_paged page {page} ({dt}): written "
+                         f"rows of {name} differ from decode_attention's")
+        err, tol = errs[torch.float32], 1e-3
+        if not err <= tol:
+            fail(f"decode_attention_paged page {page}: ctx max err {err} "
+                 f"> {tol}")
+        kc = [t.clone() for t in pools]
+        pc = [t.clone() for t in pools]
+        ms = time_ms(lambda: decode_attention_paged(q, *kc, nk, nv, pos,
+                                                    table))
+        plain = time_ms(lambda: decode_attention_paged_plain(
+            q, *pc, nk, nv, pos, table), iters=5)
+        # yardstick: SDPA over the gathered K/V, dequantized beforehand
+        # (neither the gather nor the dequantization is timed)
+        view = [paged_logical_view(t, table) for t in pools]
+        kd = _dequant(torch, view[0], view[1]).bfloat16().permute(0, 2, 1, 3)
+        vd = _dequant(torch, view[2], view[3]).bfloat16().permute(0, 2, 1, 3)
+        qs = q.reshape(b, kh * g, 1, hd)
+        mask = (torch.arange(s, device=dev)[None, :]
+                < pos[:, None].clamp(min=1))[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kd, vd, attn_mask=mask))
+        row_bytes = kh * (hd + 4)
+        nbytes = (2 * int(rows.sum()) * row_bytes + 2 * q.numel() * 2
+                  + 2 * nk.numel() * 2 + 2 * b * row_bytes + 4 * b
+                  + 4 * table.numel())
+        ops = 4.0 * hd * g * kh * float((rows + 1).sum())
+        bd, by = bound_ms(nbytes, ops, FP32_FLOPS)
+        print(f"decode_attention_paged B={b} S={s} page={page} K={kh} G={g} "
+              f"hd={hd} pos [0 (trash slot), {s}, ragged]: ctx max err "
+              f"{err:.2e} (tol {tol}, fp32 carrier), bf16 carrier within one "
+              f"bf16 step (max err {errs[torch.bfloat16]:.2e}), written pools "
+              f"bit-exact outside page 0; ctx and written rows bit-identical "
+              f"to decode_attention on the dense cache (both carriers); ms "
+              f"{ms:.4f}, plain_ms {plain:.4f}, bound_ms {bd:.5f} ({by}), "
+              f"library_ms(SDPA) {lib:.4f}")
+        rows_out.append(dict(shape=f"B={b},S={s},page={page},K={kh},G={g},"
+                             f"hd={hd}", max_abs_err=err, ms=ms,
+                             plain_ms=plain, bound_ms=bd, bound_by=by,
+                             library_ms=lib))
+    # the JSON entry reports the serving phases' page of 64 rows
+    results["decode_attention_paged"] = dict(
+        route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:374", tol=1e-3,
+        shapes=rows_out, **rows_out[1])
+
+
 def check_flash_q8(torch, dev, gen, results):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import (flash_attention_fwd_q8,
@@ -286,24 +433,42 @@ def check_flash_q8(torch, dev, gen, results):
         ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
 
 
-def serve(torch, dev, seed):
-    """Phase 4: the engine on GPT-2 small; returns the launch counts."""
-    import numpy as np
-    from repro_torch import kernels
+def serve_model(torch, dev, seed):
+    """GPT-2 small at full width and depth, random weights from ``seed``:
+    (cfg, model, params) of phases 4, 4b and 4c."""
     from repro_torch.configs import get_config
-    from repro_torch.infer import Engine, Request
     from repro_torch.models import build_model
     cfg = get_config("gpt2-small")
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
                                device=dev)
-    eng = Engine(model, params, POLICY, max_slots=16, max_seq=1024,
-                 device=dev, seed=seed)
+    return cfg, model, params
+
+
+def serve_prompts(cfg, seed):
+    """The 32 prompts of phases 4 and 4b (32-512 tokens), drawn from
+    ``seed``."""
+    import numpy as np
     rng = np.random.RandomState(seed)
-    lens = rng.randint(32, 513, size=32)
-    new = 64
-    ids = [eng.submit(Request(tokens=rng.randint(0, cfg.vocab_size, n)
-                              .tolist(), max_new_tokens=new)) for n in lens]
+    lens = rng.randint(32, 513, size=SERVE_REQUESTS)
+    return [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def serve(torch, dev, seed):
+    """Phase 4: the dense engine on GPT-2 small; returns the launch counts,
+    each request's tokens and the engine's KV bytes."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.infer import Engine, Request
+    cfg, model, params = serve_model(torch, dev, seed)
+    eng = Engine(model, params, POLICY, max_slots=SERVE_SLOTS,
+                 max_seq=SERVE_SEQ, device=dev, seed=seed)
+    prompts = serve_prompts(cfg, seed)
+    lens = np.asarray([len(p) for p in prompts])
+    new = SERVE_NEW
+    ids = [eng.submit(Request(tokens=p, max_new_tokens=new))
+           for p in prompts]
+    rng = np.random.RandomState(seed + 3)
     print(f"engine: {eng.path_summary()}, {cfg.name} {cfg.n_layers}L "
           f"d={cfg.d_model} carrier {cfg.dtype}, 16 slots x 1024 rows, "
           f"{len(ids)} requests, prompts {lens.min()}-{lens.max()} tokens, "
@@ -342,15 +507,21 @@ def serve(torch, dev, seed):
         if counts[name] <= 0 or counts[name] != n:
             fail(f"{name} launched {counts[name]} times on the main path, "
                  f"expected {n}")
+    if counts["decode_attention_paged"]:
+        fail("the dense engine launched decode_attention_paged")
+    tokens = {r.request_id: r.tokens for r in out}
+    dense_bytes, stats = eng.kv_cache_nbytes(), dict(st)
     profile_decode(torch, eng, cfg, rng)
-    return counts
+    eng.scheduler.stop()          # ends the emit thread, which holds eng
+    return counts, [tokens[i] for i in ids], dense_bytes, stats
 
 
 def profile_decode(torch, eng, cfg, rng) -> None:
     """Where a decode step's time goes: torch.profiler over 4 steps with
     every slot live (16 fresh 64-token requests, admitted outside the
-    window); device time by kernel and the device's idle share of the
-    steps' wall time.  Runs after the main path's launch counts are read."""
+    window, stepped on this thread); device time by kernel and the device's
+    idle share of the steps' wall time.  Runs after the main path's launch
+    counts are read (phases 4 and 4b)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.infer import Request
@@ -375,13 +546,198 @@ def profile_decode(torch, eng, cfg, rng) -> None:
         print("profile: no device time recorded (not measured)")
         return
     kern.sort(key=lambda k: -k[1])
-    print(f"profile: 4 decode steps x 16 slots, wall {wall_us / 4e3:.2f} ms/step, "
+    print(f"profile: {'paged' if eng.paged else 'dense'} engine, 4 decode "
+          f"steps x 16 slots, wall {wall_us / 4e3:.2f} ms/step, "
           f"device busy {busy / 4e3:.2f} ms/step, idle share "
           f"{1 - busy / wall_us:.3f}, {sum(k[2] for k in kern) / 4:.0f} "
           f"kernel launches/step")
     for name, us, n in kern[:8]:
         print(f"profile:   {us / 4e3:8.3f} ms/step {n // 4:5d} launches/step "
               f"{name[:90]}")
+
+
+def serve_paged(torch, dev, seed, dense_tokens, dense_bytes, dense_stats):
+    """Phase 4b: the paged engine (pages of 64 rows, the default pool of
+    1 + 16 x 16 pages) under the async scheduler, on the weights and the
+    32 requests of phase 4, submitted from this thread with exponential
+    gaps (mean 20 ms) while the background loop serves.  Every request
+    must be answered to length with phase 4's tokens; the counts must show
+    the paged path (12 ``decode_attention_paged`` a decode step, no
+    ``decode_attention``); the peak live KV must stay below the dense
+    cache; every page must be back after ``stop()``.  Returns the counts."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.infer import Engine, Request
+    cfg, model, params = serve_model(torch, dev, seed)
+    eng = Engine(model, params, POLICY, max_slots=SERVE_SLOTS,
+                 max_seq=SERVE_SEQ, device=dev, seed=seed, paged=True,
+                 page_size=PAGE)
+    prompts = serve_prompts(cfg, seed)
+    gaps = np.random.RandomState(seed + 1).exponential(ARRIVAL_MEAN_S,
+                                                       size=len(prompts))
+    groups = []                  # request ids of each prefill launch
+    admit = eng._admit_paged
+
+    def logged(selected, shares):
+        groups.append([r.request_id for r in selected])
+        return admit(selected, shares)
+    eng._admit_paged = logged
+    sched = eng.scheduler
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.start()
+    try:
+        ids = []
+        for p, gap in zip(prompts, gaps):
+            ids.append(eng.submit(Request(tokens=p, max_new_tokens=SERVE_NEW)))
+            time.sleep(float(gap))
+        sched.wait(ids, timeout=600)
+    finally:
+        sched.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    out = [sched.result(i) for i in ids]
+    st = eng.stats
+    print(f"engine paged: {eng.path_summary()}, {cfg.name} {cfg.n_layers}L "
+          f"d={cfg.d_model}, {SERVE_SLOTS} slots x {SERVE_SEQ} rows, "
+          f"{eng.n_pages} pages of {PAGE} rows, {len(ids)} requests "
+          f"(phase 4's), exponential arrival gaps of mean "
+          f"{ARRIVAL_MEAN_S * 1e3:.0f} ms (submitting took "
+          f"{float(gaps.sum()):.3f} s), async scheduler")
+    for r in out:
+        if (len(r.tokens) != SERVE_NEW or r.finish_reason != "length"
+                or not all(0 <= t < cfg.vocab_size for t in r.tokens)):
+            fail(f"paged request {r.request_id}: {len(r.tokens)} tokens, "
+                 f"{r.finish_reason}")
+    for i, (r, want) in enumerate(zip(out, dense_tokens)):
+        if r.tokens != want:
+            at = next(j for j, (a, c) in enumerate(zip(r.tokens, want))
+                      if a != c)
+            fail(f"paged request {i} differs from the dense engine's at "
+                 f"token {at} ({r.tokens[at]} vs {want[at]}); prompt of "
+                 f"{len(prompts[i])} tokens; prefill groups {groups}")
+    lat = sched.latency_stats()
+    gen_tok = sum(len(r.tokens) for r in out)
+    dec_ms = st["decode_s"] * 1e3 / max(st["decode_steps"], 1)
+    dense_ms = dense_stats["decode_s"] * 1e3 / max(
+        dense_stats["decode_steps"], 1)
+    print(f"engine paged: {len(out)} requests served, tokens equal to phase "
+          f"4's for all {len(out)}; {gen_tok} tokens in {wall:.3f} s "
+          f"({gen_tok / wall:.1f} tok/s end to end, arrivals included); "
+          f"prefill {st['prefill_calls']} launches {st['prefill_s'] * 1e3:.1f}"
+          f" ms ({st['prefill_tokens']} prompt tokens, groups of "
+          f"{[len(g) for g in groups]}); decode {st['decode_steps']} steps "
+          f"{st['decode_s'] * 1e3:.1f} ms ({dec_ms:.2f} ms/step against the "
+          f"dense engine's {dense_ms:.2f} in phase 4, "
+          f"{st['decode_tokens'] / max(st['decode_s'], 1e-9):.1f} tok/s); "
+          f"latency p50 {lat['p50_s']:.3f} s p99 {lat['p99_s']:.3f} s mean "
+          f"{lat['mean_s']:.3f} s; peak live KV {sched.peak_live_bytes} B = "
+          f"{sched.peak_live_bytes / dense_bytes:.3f} of the dense cache's "
+          f"{dense_bytes} B; peak queue depth {lat['peak_queue_depth']}; "
+          f"preemptions {eng.preemptions}")
+    print(f"engine paged: launch counts {counts}")
+    linears = 6 * cfg.n_layers
+    want = {"int8_matmul": linears * (st["prefill_calls"] + st["decode_steps"]),
+            "flash_attention_fwd_q8": cfg.n_layers * st["prefill_calls"],
+            "decode_attention_paged": cfg.n_layers * st["decode_steps"],
+            "decode_attention": 0}
+    for name, n in want.items():
+        if counts[name] != n or (n == 0 and name != "decode_attention"):
+            fail(f"paged path: {name} launched {counts[name]} times, "
+                 f"expected {n} (> 0 for a kernel of the path)")
+    if not sched.peak_live_bytes < dense_bytes:
+        fail(f"paged peak live KV {sched.peak_live_bytes} B not below the "
+             f"dense cache's {dense_bytes} B")
+    if eng.pool.free_pages != eng.n_pages - 1 or eng.pool.live_pages:
+        fail(f"paged engine kept pages after stop(): {eng.pool.free_pages} "
+             f"free of {eng.n_pages - 1}")
+    profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
+    sched.stop()
+    return counts
+
+
+def serve_paged_pressure(torch, dev, seed):
+    """Phase 4c, at full width and depth on the card, after the main
+    path's counts are read.  (i) A pool of 1 + 24 pages of 64 rows and 16
+    requests of 300- and 500-token prompts: every request must finish with 64
+    tokens ("length") through at least one preemption, and every page must
+    come back.  (ii) ``cache_prefix`` of a 256-token prefix, then 8
+    requests of that prefix plus 16-64 random tokens: the tokens must equal
+    the same requests' on a fresh paged engine without the cached prefix,
+    the admitted requests must share the prefix pages, and afterwards the
+    prefix pages' refcounts must be back at their pin (alloc + pin)."""
+    import numpy as np
+    from repro_torch.infer import Engine, Request
+    cfg, model, params = serve_model(torch, dev, seed)
+    kw = dict(max_slots=SERVE_SLOTS, max_seq=SERVE_SEQ, device=dev, seed=seed,
+              paged=True, page_size=PAGE)
+    rng = np.random.RandomState(seed + 2)
+    eng = Engine(model, params, POLICY, n_pages=25, **kw)
+    # preemption follows from the lengths alone (no eos): alternating 300
+    # and 500 tokens preempts, where a random draw of 300-500 may fit the
+    # admission headroom (seed 0's does) and test nothing
+    lens = np.asarray([300, 500] * 8)
+    ids = [eng.submit(Request(tokens=rng.randint(0, cfg.vocab_size, n)
+                              .tolist(), max_new_tokens=SERVE_NEW))
+           for n in lens]
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.scheduler.stop()
+    bad = [(r.request_id, len(r.tokens), r.finish_reason) for r in out
+           if len(r.tokens) != SERVE_NEW or r.finish_reason != "length"]
+    st = eng.stats
+    print(f"engine paged pressure (i): 16 requests, prompts {lens.min()}-"
+          f"{lens.max()} tokens, {SERVE_NEW} new, a pool of 24 pages of "
+          f"{PAGE} rows: {len(out)} served in {wall:.3f} s, preemptions "
+          f"{eng.preemptions}, prefill {st['prefill_calls']} launches, "
+          f"decode {st['decode_steps']} steps, peak live KV "
+          f"{eng.scheduler.peak_live_bytes} B, pages free after "
+          f"{eng.pool.free_pages}/24")
+    if sorted(r.request_id for r in out) != sorted(ids) or bad:
+        fail(f"paged pressure: requests not served to length: {bad}")
+    if eng.preemptions < 1:
+        fail("paged pressure: no preemption under a 24-page pool")
+    if eng.pool.free_pages != 24:
+        fail(f"paged pressure: {24 - eng.pool.free_pages} pages not returned")
+
+    prefix = rng.randint(0, cfg.vocab_size, 256).tolist()
+    prompts = [prefix + rng.randint(0, cfg.vocab_size,
+                                    rng.randint(16, 65)).tolist()
+               for _ in range(8)]
+    runs, engines = [], []
+    for cached in (True, False):
+        eng = Engine(model, params, POLICY, **kw)
+        if cached:
+            n_pg = eng.cache_prefix(prefix)
+            pids = eng._prefixes[tuple(prefix)]
+        ids = [eng.submit(Request(tokens=p, max_new_tokens=SERVE_NEW))
+               for p in prompts]
+        if cached:
+            eng.scheduler.step()                 # admission + one step
+            shared = int(eng.pool.refcount[pids].min())
+        by_id = {r.request_id: r.tokens for r in eng.run()}
+        eng.scheduler.stop()
+        runs.append([by_id[i] for i in ids])
+        engines.append(eng)
+    torch.cuda.synchronize()
+    refs = [int(engines[0].pool.refcount[p]) for p in pids]
+    print(f"engine paged prefix (ii): a {len(prefix)}-token prefix cached "
+          f"as {n_pg} pages, 8 requests of prefix + 16-64 tokens: each "
+          f"prefix page held by at least {shared - 2} admitted requests "
+          f"after the first step, refcounts after the run {refs} (alloc + "
+          f"pin = 2); tokens {'equal' if runs[0] == runs[1] else 'DIFFER'} "
+          f"to a fresh engine's without the cached prefix")
+    if runs[0] != runs[1]:
+        fail("paged prefix sharing changed the tokens")
+    if shared < 3:
+        fail(f"paged prefix pages not shared (refcount {shared})")
+    if refs != [2] * n_pg or engines[0].pool.live_pages != n_pg:
+        fail(f"prefix pages' refcounts {refs} after the run, expected 2 "
+             f"each (live pages {engines[0].pool.live_pages})")
 
 
 def _teacher_forced(torch, model, cfg, params, toks, policy, device):
@@ -686,7 +1042,12 @@ def train(torch, dev, seed):
           f"{train_path_summary(TRAIN_POLICY, cfg.n_layers, opt, device=dev)}")
     want = {"int8_matmul": 6 * cfg.n_layers, "int8_matmul_nt": 6 * cfg.n_layers,
             "int8_matmul_tn": 6 * cfg.n_layers, "fused_adamw_blocks": 1,
-            "flash_attention_fwd_q8": 0, "decode_attention": 0}
+            "flash_attention_fwd_q8": 0, "decode_attention": 0,
+            "decode_attention_paged": 0}
+    # the serving phases stopped their schedulers (a running emit thread
+    # holds its engine), but an engine and its scheduler refer to each
+    # other: collect the cycles so the peak below is the train step's own
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -938,21 +1299,29 @@ def main() -> int:
     results = {}
     check_int8_matmul(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
+    check_decode_attention_paged(torch, dev, gen, results)
     check_flash_q8(torch, dev, gen, results)
-    serve_counts = serve(torch, dev, args.seed)
+    serve_counts, dense_tokens, dense_bytes, dense_stats = serve(
+        torch, dev, args.seed)
+    paged_counts = serve_paged(torch, dev, args.seed, dense_tokens,
+                               dense_bytes, dense_stats)
+    serve_paged_pressure(torch, dev, args.seed)
     card_vs_cpu(torch, dev, args.seed)
     check_int8_bwd(torch, dev, gen, results)
     check_fused_adamw(torch, dev, gen, results)
     train_counts = train(torch, dev, args.seed)
     train_card_vs_cpu(torch, dev, args.seed)
 
-    # launches: each kernel's count on the main paths, serving (phase 4)
-    # and training (phase 7), each path's counts read right after its run
+    # launches: each kernel's count on the main paths, dense serving (phase
+    # 4), paged serving (phase 4b) and training (phase 7), each path's
+    # counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
     for name in KERNEL_NAMES:
-        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
+        by_path = {"serve": serve_counts[name],
+                   "serve_paged": paged_counts[name],
+                   "train": train_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

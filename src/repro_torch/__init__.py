@@ -1,10 +1,10 @@
 """PyTorch/CUDA port of the quantized pre-training repro (``src/repro``).
 
 The JAX package stays the reference; this package runs the same models on
-an NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``).  The
-first slice serves the paper's W8A8 recipe with an int8 KV cache on the
-dense GPT-2 decoder: prepared int8 weights (``infer.prepare``), the int8
-matmul, the int8-KV flash prefill and the fused int8-KV decode step.
+an NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``), on the
+dense GPT-2 decoder: serving under the paper's W8A8 recipe with an int8 KV
+cache -- dense strips or page pools, under the async scheduler
+(``infer``) -- and the paper's quantized pre-training step (``train``).
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel

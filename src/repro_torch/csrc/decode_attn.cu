@@ -1,16 +1,28 @@
 // One fused decode-attention step over the int8 KV cache, for Hopper
-// (sm_90a).
+// (sm_90a): the dense cache strips and the paged pools share one body.
 //
 // Replaces: src/repro/kernels/decode_attn.py:decode_attention (its body is
-// _decode_attn_kernel).  Per (slot b, kv head): attend the G grouped query
-// rows over the cache rows t < pos[b] (the K scale folded into the scores,
-// the V scale into the probabilities, online softmax in fp32 from
-// m = -1e30), quantize the step's new K/V row (scale = max(absmax, 1e-12) /
-// qmax, payload = clip(rint(x / scale), qmin, qmax), an IEEE division),
-// fold that quantized row into the softmax, and write payload and scale IN
-// PLACE at row min(pos[b], S - 1) -- the pos == S clamp is the freed slot
-// that keeps riding the batched step.  The JAX kernel aliases its outputs
-// onto the cache buffers; this one mutates the cache tensors it is given.
+// _decode_attn_kernel) and decode_attention_paged (body
+// _paged_decode_attn_kernel, the same compute with page-routed DMA).  Per
+// (slot b, kv head): attend the G grouped query rows over the slot's
+// logical cache rows t < pos[b] (the K scale folded into the scores, the V
+// scale into the probabilities, online softmax in fp32 from m = -1e30),
+// quantize the step's new K/V row (scale = max(absmax, 1e-12) / qmax,
+// payload = clip(rint(x / scale), qmin, qmax), an IEEE division), fold that
+// quantized row into the softmax, and write payload and scale IN PLACE at
+// logical row min(pos[b], S - 1) -- the pos == S clamp is the freed slot
+// that keeps riding the batched step.  The JAX kernels alias their outputs
+// onto the cache buffers; this one mutates the buffers it is given.
+//
+// Where logical row t of slot b lives is the only difference between the
+// two entry points, so the body is templated on a row-address functor:
+// DenseRows maps it to b * S + t of a (B, S, K, hd) strip, PagedRows to
+// table[b, t / page] * page + t % page of a (P, page, K, hd) pool.  Both
+// walk the same 128-row logical tiles with the same arithmetic, so the
+// paged step equals the dense step bit for bit on the same logical cache
+// at any page size (pages smaller than a tile, or larger).  The JAX paged
+// kernel instead makes the page its kv tile; rows past pos[b] are never
+// read here either, so no page past a slot's live pages is touched.
 //
 // Bound: bytes.  A step reads each slot's live rows once (hd int8 + one
 // fp32 scale, for K and V) and writes one row; its arithmetic is 4*hd FLOPs
@@ -18,13 +30,15 @@
 // bytes.
 //
 // Design, simple first: one block of 128 threads per (kv head, slot); a
-// loop over 128-row tiles up to pos[b] replaces the TPU grid's sequential
-// kv axis, so tiles past the slot's length are never read.  Phase A: one
-// thread per cache row reads its K row with 16-byte loads and computes the
-// G scores.  Phase B: a warp per query row takes the tile max, rescales the
-// running (m, l) and turns scores into p * g(vs).  Phase C: one thread per
-// (query row, column) accumulates p . V, reading each V row coalesced.
-// Split-KV across blocks and wider loads are later work.
+// loop over 128-row logical tiles up to pos[b] replaces the TPU grid's
+// sequential kv axis.  Phase A: one thread per cache row resolves the row's
+// address (kept in shared memory for phase C), reads its K row with 16-byte
+// loads and computes the G scores.  Phase B: a warp per query row takes the
+// tile max, rescales the running (m, l) and turns scores into p * g(vs).
+// Phase C: one thread per (query row, column) accumulates p . V over the
+// tile's rows.  A pool row starts at ((pid * page + r) * K + kh) * hd bytes,
+// 16-byte aligned for hd in {32, 64, 128}.  Split-KV across blocks and
+// wider loads are later work.
 #include "common.cuh"
 
 namespace {
@@ -33,13 +47,32 @@ constexpr int BT = 128;       // cache rows per tile == threads per block
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 
-template <int HD, typename T>
+// logical row t of slot b -> row index r of the buffer: the K/V payload of
+// (r, kv head kh) starts at (r * KH + kh) * HD, its scale at r * KH + kh
+struct DenseRows {                 // (B, S, K, hd) strips
+  int S;
+  __device__ int len() const { return S; }
+  __device__ size_t operator()(int b, int t) const {
+    return static_cast<size_t>(b) * S + t;
+  }
+};
+
+struct PagedRows {                 // (P, page, K, hd) pools + (B, maxp) table
+  const int* table;
+  int maxp, page;
+  __device__ int len() const { return maxp * page; }
+  __device__ size_t operator()(int b, int t) const {
+    return static_cast<size_t>(table[b * maxp + t / page]) * page + t % page;
+  }
+};
+
+template <int HD, typename T, typename Rows>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
               float* __restrict__ ks, int8_t* __restrict__ vq,
               float* __restrict__ vs, const T* __restrict__ new_k,
               const T* __restrict__ new_v, const int* __restrict__ pos,
-              T* __restrict__ out, int S, int KH, int G, float scale,
+              T* __restrict__ out, Rows rows, int KH, int G, float scale,
               int qmin, int qmax) {
   extern __shared__ float smem[];
   float* qs = smem;              // [G][HD], q * scale
@@ -50,9 +83,13 @@ decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
   float* nk = ml + 4 * G;        // [HD], new K payload (integer values)
   float* nv = nk + HD;           // [HD], new V payload
   float* nsc = nv + HD;          // [2], new K and V scales
+  // [BT] row indices of the tile (after the floats: size_t alignment holds
+  // because the float count is even for every G and HD)
+  size_t* rid = reinterpret_cast<size_t*>(nsc + 2);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int kh = blockIdx.x, b = blockIdx.y;
+  const int S = rows.len();
   const int p = pos[b];
   const int n_valid = max(0, min(p, S));       // cache rows to attend
   const int row = max(0, min(p, S - 1));       // scatter target
@@ -85,19 +122,14 @@ decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
   }
   __syncthreads();
 
-  const size_t row_stride = static_cast<size_t>(KH) * HD;
-  const int8_t* kbase = kq + (static_cast<size_t>(b) * S * KH + kh) * HD;
-  const int8_t* vbase = vq + (static_cast<size_t>(b) * S * KH + kh) * HD;
-  const float* ksb = ks + static_cast<size_t>(b) * S * KH + kh;
-  const float* vsb = vs + static_cast<size_t>(b) * S * KH + kh;
-
   for (int t0 = 0; t0 < n_valid; t0 += BT) {
     const int n = min(BT, n_valid - t0);
     // Phase A: scores of this thread's cache row
     if (tid < n) {
-      const int t = t0 + tid;
-      const uint4* kr = reinterpret_cast<const uint4*>(kbase + t * row_stride);
-      const float ksg = scale_guard(ksb[static_cast<size_t>(t) * KH]);
+      const size_t r = rows(b, t0 + tid) * KH + kh;
+      rid[tid] = r;
+      const uint4* kr = reinterpret_cast<const uint4*>(kq + r * HD);
+      const float ksg = scale_guard(ks[r]);
       for (int g = 0; g < G; ++g) {
         const float* qg = qs + g * HD;
         float a = 0.0f;
@@ -111,7 +143,7 @@ decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
         }
         sc[g * BT + tid] = a * ksg;
       }
-      vsc[tid] = scale_guard(vsb[static_cast<size_t>(t) * KH]);
+      vsc[tid] = scale_guard(vs[r]);
     }
     __syncthreads();
     // Phase B: online-softmax rescale, one warp per query row
@@ -139,11 +171,10 @@ decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
     for (int e = tid; e < G * HD; e += THREADS) {
       const int g = e / HD, d = e % HD;
       const float* pg = sc + g * BT;
-      const int8_t* vcol = vbase + static_cast<size_t>(t0) * row_stride + d;
       float a = 0.0f;
 #pragma unroll 4
       for (int i = 0; i < n; ++i)
-        a = fmaf(pg[i], static_cast<float>(vcol[i * row_stride]), a);
+        a = fmaf(pg[i], static_cast<float>(vq[rid[i] * HD + d]), a);
       acc[e] = acc[e] * ml[2 * G + g] + a;
     }
     __syncthreads();
@@ -172,7 +203,7 @@ decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
         from_f32<T>(a / fmaxf(ml[G + g], 1e-30f));
   }
   // in-place scatter of the new row; every read of the cache is done
-  const size_t wrow = (static_cast<size_t>(b) * S + row) * KH + kh;
+  const size_t wrow = rows(b, row) * KH + kh;
   for (int d = tid; d < HD; d += THREADS) {
     kq[wrow * HD + d] = static_cast<int8_t>(nk[d]);
     vq[wrow * HD + d] = static_cast<int8_t>(nv[d]);
@@ -183,34 +214,47 @@ decode_kernel(const T* __restrict__ q, int8_t* __restrict__ kq,
   }
 }
 
-template <int HD, typename T>
-int launch(const void* q, void* kq, void* ks, void* vq, void* vs,
-           const void* new_k, const void* new_v, const void* pos, void* out,
-           int B, int S, int KH, int G, float scale, int qmin, int qmax,
-           cudaStream_t stream) {
+struct Args {
+  const void *q, *new_k, *new_v, *pos;
+  void *kq, *ks, *vq, *vs, *out;
+  int B, KH, G;
+  float scale;
+  int qmin, qmax;
+  cudaStream_t stream;
+};
+
+template <int HD, typename T, typename Rows>
+int launch(const Args& a, Rows rows) {
   const size_t smem =
-      (2 * G * HD + G * BT + BT + 4 * G + 2 * HD + 2) * sizeof(float);
-  dim3 grid(KH, B);
-  decode_kernel<HD, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<int8_t*>(kq),
-      static_cast<float*>(ks), static_cast<int8_t*>(vq),
-      static_cast<float*>(vs), static_cast<const T*>(new_k),
-      static_cast<const T*>(new_v), static_cast<const int*>(pos),
-      static_cast<T*>(out), S, KH, G, scale, qmin, qmax);
+      (2 * a.G * HD + a.G * BT + BT + 4 * a.G + 2 * HD + 2) * sizeof(float) +
+      BT * sizeof(size_t);
+  dim3 grid(a.KH, a.B);
+  decode_kernel<HD, T, Rows><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<int8_t*>(a.kq),
+      static_cast<float*>(a.ks), static_cast<int8_t*>(a.vq),
+      static_cast<float*>(a.vs), static_cast<const T*>(a.new_k),
+      static_cast<const T*>(a.new_v), static_cast<const int*>(a.pos),
+      static_cast<T*>(a.out), rows, a.KH, a.G, a.scale, a.qmin, a.qmax);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_hd(int HD, const void* q, void* kq, void* ks, void* vq, void* vs,
-          const void* new_k, const void* new_v, const void* pos, void* out,
-          int B, int S, int KH, int G, float scale, int qmin, int qmax,
-          cudaStream_t s) {
-  switch (HD) {
-    case 32: return launch<32, T>(q, kq, ks, vq, vs, new_k, new_v, pos, out, B, S, KH, G, scale, qmin, qmax, s);
-    case 64: return launch<64, T>(q, kq, ks, vq, vs, new_k, new_v, pos, out, B, S, KH, G, scale, qmin, qmax, s);
-    case 128: return launch<128, T>(q, kq, ks, vq, vs, new_k, new_v, pos, out, B, S, KH, G, scale, qmin, qmax, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+template <typename Rows>
+int dispatch(int HD, int dtype, const Args& a, Rows rows) {
+  if (a.G < 1 || a.G > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kFloat32) {
+    switch (HD) {
+      case 32: return launch<32, float>(a, rows);
+      case 64: return launch<64, float>(a, rows);
+      case 128: return launch<128, float>(a, rows);
+    }
+  } else if (dtype == kBFloat16) {
+    switch (HD) {
+      case 32: return launch<32, __nv_bfloat16>(a, rows);
+      case 64: return launch<64, __nv_bfloat16>(a, rows);
+      case 128: return launch<128, __nv_bfloat16>(a, rows);
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -225,11 +269,24 @@ extern "C" int repro_decode_attn(const void* q, void* kq, void* ks, void* vq,
                                  int B, int S, int KH, int G, int HD,
                                  float scale, int qmin, int qmax, int dtype,
                                  void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == kFloat32)
-    return by_hd<float>(HD, q, kq, ks, vq, vs, new_k, new_v, pos, out, B, S, KH, G, scale, qmin, qmax, s);
-  if (dtype == kBFloat16)
-    return by_hd<__nv_bfloat16>(HD, q, kq, ks, vq, vs, new_k, new_v, pos, out, B, S, KH, G, scale, qmin, qmax, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, new_k, new_v, pos, kq, ks, vq, vs, out, B, KH, G,
+               scale, qmin, qmax, static_cast<cudaStream_t>(stream)};
+  return dispatch(HD, dtype, a, DenseRows{S});
+}
+
+// As repro_decode_attn over page pools: kq/vq (P, page, KH, HD) int8 and
+// ks/vs (P, page, KH, 1) float32, updated in place; table (B, maxp) int32
+// page ids (each < P; unmapped entries point at the trash page 0), so a
+// slot's logical cache is maxp * page rows long.
+extern "C" int repro_decode_attn_paged(const void* q, void* kq, void* ks,
+                                       void* vq, void* vs, const void* new_k,
+                                       const void* new_v, const void* pos,
+                                       const void* table, void* out, int B,
+                                       int maxp, int page, int KH, int G,
+                                       int HD, float scale, int qmin,
+                                       int qmax, int dtype, void* stream) {
+  const Args a{q, new_k, new_v, pos, kq, ks, vq, vs, out, B, KH, G,
+               scale, qmin, qmax, static_cast<cudaStream_t>(stream)};
+  return dispatch(HD, dtype, a,
+                  PagedRows{static_cast<const int*>(table), maxp, page});
 }

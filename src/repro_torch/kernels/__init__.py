@@ -2,7 +2,8 @@
 and bound by ``_build``), each beside its plain PyTorch version and a
 launch counter.  Importing this package builds nothing and needs no CUDA:
 a kernel is built at its first launch."""
-from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.kernels.decode_attn import (decode_attention,
+                                             decode_attention_paged)
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8
 from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
                                              int8_matmul_tn)
@@ -10,7 +11,8 @@ from repro_torch.kernels.opt_update import fused_adamw_blocks
 
 #: every kernel wrapper of the port, each with a ``launches`` counter
 KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention,
-           int8_matmul_nt, int8_matmul_tn, fused_adamw_blocks)
+           int8_matmul_nt, int8_matmul_tn, fused_adamw_blocks,
+           decode_attention_paged)
 
 
 def reset_launch_counts() -> None:
@@ -22,6 +24,7 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["KERNELS", "decode_attention", "flash_attention_fwd_q8",
+__all__ = ["KERNELS", "decode_attention", "decode_attention_paged",
+           "flash_attention_fwd_q8",
            "fused_adamw_blocks", "int8_matmul", "int8_matmul_nt",
            "int8_matmul_tn", "launch_counts", "reset_launch_counts"]

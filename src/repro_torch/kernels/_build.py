@@ -37,8 +37,10 @@ SIGNATURES = {
         "repro_int8_matmul_tn": [_P] * 5 + [_I] * 5 + [_P]},
     "flash_attn_q8": {"repro_flash_attn_q8":
                       [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
-    "decode_attn": {"repro_decode_attn":
-                    [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P]},
+    "decode_attn": {
+        "repro_decode_attn": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+        "repro_decode_attn_paged":
+            [_P] * 10 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "opt_update": {"repro_fused_adamw": [_P] * 10 + [_I] * 11 + [_P]},
 }
 SOURCES = tuple(SIGNATURES)

@@ -126,49 +126,89 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
-               caches: Cache, cache_offset) -> torch.Tensor:
+               caches: Cache, cache_offset, page_table=None,
+               mask=None) -> torch.Tensor:
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h = block_apply(lp, h, cfg, policy=policy, layer=i,
                         cache={k: c[i] for k, c in caches.items()},
-                        cache_offset=cache_offset)
+                        cache_offset=cache_offset, page_table=page_table,
+                        mask=mask)
     fn = params["final_norm"]
     return layernorm(h, fn["scale"], fn["bias"])
 
 
+def segment_positions_and_mask(segments: torch.Tensor, max_seq: int):
+    """Packed prompts: ``segments`` (B, S) int, equal ids one prompt's span,
+    -1 padding -> (positions (B, S) restarting at each span's start, mask
+    (B, S, max_seq): same segment, causal, real query row)."""
+    b, s = segments.shape
+    seg = segments.long()
+    t = torch.arange(s, device=seg.device)
+    is_start = torch.cat([torch.ones((b, 1), dtype=torch.bool,
+                                     device=seg.device),
+                          seg[:, 1:] != seg[:, :-1]], dim=1)
+    starts = torch.cummax(torch.where(is_start, t[None, :], 0), dim=1).values
+    segk = torch.full((b, max_seq), -1, dtype=seg.dtype, device=seg.device)
+    segk[:, :s] = seg
+    causal = t[:, None] >= torch.arange(max_seq, device=seg.device)[None, :]
+    mask = ((seg[:, :, None] == segk[:, None, :]) & causal[None]
+            & (seg >= 0)[:, :, None])
+    return t[None, :] - starts, mask
+
+
 def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
                max_seq: Optional[int] = None,
-               last_pos: Optional[torch.Tensor] = None):
-    """Process right-padded prompts (B, S); returns (logits (B, V_padded)
-    at ``last_pos`` -- (B,) per-row indices, default the last column -- and
-    the caches sized to ``max_seq`` (default S)."""
+               last_pos: Optional[torch.Tensor] = None,
+               segments: Optional[torch.Tensor] = None):
+    """Process right-padded prompts (B, S); returns (logits, caches sized
+    to ``max_seq`` (default S)).  ``last_pos`` picks the logits' rows: None
+    the last column, (B,) per-row indices (B logits), or (M, 2) ``(row,
+    col)`` pairs (M logits, one per packed prompt).  ``segments`` (B, S)
+    packs several prompts into a row: equal ids one prompt, -1 padding;
+    positions restart per prompt and each attends only to itself (fp KV
+    caches only: the int8-KV flash kernel is causal-only)."""
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
     b, s = tokens.shape
     device = tokens.device
-    positions = torch.arange(s, device=device).expand(b, s)
+    max_seq = max_seq or s
+    mask = None
+    if segments is None:
+        positions = torch.arange(s, device=device).expand(b, s)
+    else:
+        positions, mask = segment_positions_and_mask(segments.to(device),
+                                                     max_seq)
     h = embed_tokens(params, tokens, cfg, positions, dtype, policy)
-    caches = init_caches(cfg, b, max_seq or s, dtype,
+    caches = init_caches(cfg, b, max_seq, dtype,
                          kv_spec=policy.kv_spec(), device=device)
-    h = _run_stack(params, h, cfg, policy, caches, 0)
+    h = _run_stack(params, h, cfg, policy, caches, 0, mask=mask)
     if last_pos is None:
         hc = h[:, -1:, :]
     else:
-        rows = torch.arange(b, device=device)
-        hc = h[rows, last_pos.to(device).long()][:, None, :]
+        lp = last_pos.to(device).long()
+        if lp.dim() == 2:                        # (M, 2) packed (row, col)
+            hc = h[lp[:, 0], lp[:, 1]][:, None, :]
+        else:
+            hc = h[torch.arange(b, device=device), lp][:, None, :]
     return logits_chunk(params, hc, cfg, policy)[:, 0, :], caches
 
 
 def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
-              pos: torch.Tensor, cfg, *, policy=None):
+              pos: torch.Tensor, cfg, *, policy=None,
+              page_table: Optional[torch.Tensor] = None):
     """One-token decode.  token: (B, 1); pos: (B,) int32 per-slot count of
     tokens already in the cache (each slot writes its own row and masks its
-    own history).  Returns (logits (B, V_padded), caches) -- the caches are
-    updated in place."""
+    own history); ``page_table`` (B, maxp) int32 makes the caches page
+    pools (L, P, page, K, hd), a slot's logical cache ``maxp * page`` rows.
+    Returns (logits (B, V_padded), caches) -- the caches are updated in
+    place."""
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
     pos = pos.to(device=token.device, dtype=torch.int32)
+    if page_table is not None:
+        page_table = page_table.to(device=token.device, dtype=torch.int32)
     h = embed_tokens(params, token, cfg, pos[:, None].long(), dtype, policy)
-    h = _run_stack(params, h, cfg, policy, caches, pos)
+    h = _run_stack(params, h, cfg, policy, caches, pos, page_table)
     return logits_chunk(params, h, cfg, policy)[:, 0, :], caches

@@ -11,7 +11,9 @@ attention kernels within 1e-5 of the plain version at the float32 carrier
 (fp32 sums in another order), within one bfloat16 rounding step at the
 bfloat16 carrier (two fp32 values a few ulp apart can round to
 neighbouring bf16 values), and the decode step's written cache rows bit
-for bit; the fused AdamW step bit for bit in params, payloads, scales and
+for bit; the paged decode step equal to the dense one bit for bit on the
+same logical cache (context and written rows), its written pools equal
+to its plain version's outside the trash page 0; the fused AdamW step bit for bit in params, payloads, scales and
 zero points (both versions round every op on its own), its update-norm sum
 within 1e-5 relative (partial sums in another order).
 """
@@ -21,10 +23,11 @@ import torch
 
 from repro_torch.core.qconfig import Granularity, QuantSpec
 from repro_torch.core.quantizer import quantize_int
-from repro_torch.kernels import (decode_attention, flash_attention_fwd_q8,
-                                 fused_adamw_blocks, int8_matmul,
-                                 int8_matmul_nt, int8_matmul_tn)
-from repro_torch.kernels.decode_attn import decode_attention_plain
+from repro_torch.kernels import (decode_attention, decode_attention_paged,
+                                 flash_attention_fwd_q8, fused_adamw_blocks,
+                                 int8_matmul, int8_matmul_nt, int8_matmul_tn)
+from repro_torch.kernels.decode_attn import (decode_attention_paged_plain,
+                                             decode_attention_plain)
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
 from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
                                              int8_matmul_plain,
@@ -104,6 +107,79 @@ def test_decode_attention_kernel(cuda, dtype, kh, g, hd):
     for a, c in zip(kc, pc):
         assert torch.equal(a, c)
 
+
+def _paged(cache, lengths, page, seed):
+    """Dense (B, S, K, x) caches -> shuffled page pools + (B, S / page)
+    table; slot 0 becomes a freed slot (its table row all trash page 0)."""
+    b, s = cache[0].shape[:2]
+    maxp = s // page
+    need = [min(maxp, -(-int(n) // page) + 1) for n in lengths]
+    total = 2 + sum(need)
+    order = list(np.random.RandomState(seed).permutation(np.arange(1, total)))
+    table = torch.zeros((b, maxp), dtype=torch.int32)
+    pools = [torch.zeros((total, page) + tuple(t.shape[2:]), dtype=t.dtype,
+                         device=t.device) for t in cache]
+    for i in range(b):
+        for j in range(need[i]):
+            table[i, j] = int(order.pop())
+            for pool, t in zip(pools, cache):
+                pool[int(table[i, j])] = t[i, j * page:(j + 1) * page]
+    table[0] = 0
+    return pools, table.to(cache[0].device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [8, 256])
+@pytest.mark.parametrize("kh,g,hd", [(2, 3, 64), (1, 8, 128), (4, 1, 32)])
+def test_decode_attention_paged_kernel(cuda, dtype, page, kh, g, hd):
+    """Pos 0 on the freed slot, pos == maxp * page on a full one; pages
+    smaller than the kernel's 128-row tile and larger."""
+    b, s = 4, 512
+    pos = torch.tensor([0, 1, 300, s], dtype=torch.int32, device=cuda)
+    cache = _cache(cuda, b, s, kh, hd, pos.cpu(), seed=page + kh)
+    pools, table = _paged(cache, pos.tolist(), page, seed=page)
+    gen = torch.Generator().manual_seed(3)
+    q, nk, nv = (torch.randn(shape, generator=gen).to(cuda, dtype)
+                 for shape in ((b, kh, g, hd), (b, kh, hd), (b, kh, hd)))
+    kc = [t.clone() for t in pools]
+    pc = [t.clone() for t in pools]
+    before = decode_attention_paged.launches
+    got = decode_attention_paged(q, *kc, nk, nv, pos, table)
+    assert decode_attention_paged.launches == before + 1
+    want = decode_attention_paged_plain(q, *pc, nk, nv, pos, table)
+    assert_attention_close(got, want)
+    for a, c in zip(kc, pc):
+        assert torch.equal(a[1:], c[1:])
+    # the dense kernel on the source cache: bit for bit
+    dc = [t.clone() for t in cache]
+    kc = [t.clone() for t in pools]
+    dense = decode_attention(q, *dc, nk, nv, pos)
+    assert torch.equal(decode_attention_paged(q, *kc, nk, nv, pos, table),
+                       dense)
+    live = torch.arange(1, b, device=cuda)
+    at = pos.long().clamp(max=s - 1)[1:]
+    pid = table[live, at // page].long()
+    for a, c in zip(kc, dc):
+        assert torch.equal(a[pid, at % page], c[live, at])
+
+
+@pytest.mark.cuda
+def test_decode_attention_paged_rejects_what_it_cannot_take(cuda):
+    b, kh, hd, page = 2, 2, 64, 16
+    q = torch.zeros((b, kh, 1, hd), device=cuda)
+    pool = torch.zeros((4, page, kh, hd), dtype=torch.int8, device=cuda)
+    sc = torch.zeros((4, page, kh, 1), device=cuda)
+    rows = torch.zeros((b, kh, hd), device=cuda)
+    pos = torch.zeros((b,), dtype=torch.int32, device=cuda)
+    table = torch.zeros((b, 2), dtype=torch.int32, device=cuda)
+    for bad in (dict(table=table.long()), dict(pos=pos.long()),
+                dict(pool=pool[:, :, :, 1:]),
+                dict(q=torch.zeros((b, kh, 1, 48), device=cuda))):
+        args = {**dict(q=q, pool=pool, table=table, pos=pos), **bad}
+        with pytest.raises(ValueError, match="decode_attention_paged"):
+            decode_attention_paged(args["q"], args["pool"], sc, args["pool"],
+                                   sc, rows, rows, args["pos"], args["table"])
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -89,6 +89,8 @@ def test_engine_freed_slot_at_max_seq_is_inert():
 
 def test_import_leaves_jax_out():
     code = ("import sys; import repro_torch, repro_torch.infer, "
+            "repro_torch.infer.pages, repro_torch.infer.scheduler, "
+            "repro_torch.infer.resilience, "
             "repro_torch.kernels, repro_torch.models, repro_torch.optim, "
             "repro_torch.train, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.core.qlinear; "
