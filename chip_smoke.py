@@ -45,7 +45,23 @@ Phases, in order; any failure exits non-zero:
    kernel must launch exactly 72 / 72 / 72 / 1 times a step (and the
    serving kernels never);
 8. one train step on gpt2-mini, card against CPU (see
-   ``train_card_vs_cpu`` for the checks and their limits).
+   ``train_card_vs_cpu`` for the checks and their limits);
+9. the fake-quant gradient kernels ``qdq_row`` and ``qdq_scaled`` bit for
+   bit against their plain versions at the gradients' shapes, timed beside
+   their bound, plain version and a fake-quantize yardstick
+   (``check_qdq``);
+10. GPT-2 small at full width through the port's ``Trainer`` under the
+    fake-quant recipes ``paper_wag8`` (10 steps: ms/step, tokens/s, peak
+    memory, idle share), ``w8c,a8t,g8n`` and ``w8c,a8t,g8c``: 72 qdq
+    launches a step and no other kernel (``train_fake``);
+11. the guarded path at full width: the sentinel, async checkpoints under
+    ``build/`` (removed after), ``nan_grad@5`` over 12 steps; the ladder
+    equals ``LADDER_EXPECT`` and each primary and fallback step launches
+    exactly its kernels (``train_guarded``); 11b. SIGTERM after a step,
+    then resume: bit-identical to the uninterrupted run (``train_resume``);
+12. one ``paper_wag8`` step on gpt2-mini, card against CPU, and with the
+    plain qdq in the kernels' place; a bf16-carrier step, the control,
+    must exceed every limit (``train_fake_card_vs_cpu``).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -74,7 +90,9 @@ INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
 SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention")
 TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_blocks")
-KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS + ("decode_attention_paged",)
+QDQ_KERNELS = ("qdq_row", "qdq_scaled")
+KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS + ("decode_attention_paged",) \
+    + QDQ_KERNELS
 #: phases 4 and 4b: 32 requests, prompts of 32-512 tokens, 64 new tokens
 #: each, 16 slots of 1024 rows; 4b's pages hold 64 rows, its requests
 #: arrive with exponential gaps of this mean
@@ -85,6 +103,32 @@ PAGE, ARRIVAL_MEAN_S = 64, 0.02
 TRAIN_POLICY = "*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda"
 TRAIN_STEPS = 10
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+#: phase 10: the fake-quant recipes whose G spec runs the qdq kernels
+FAKE_RECIPES = ("paper_wag8", "w8c,a8t,g8n", "w8c,a8t,g8c")
+#: phase 11: the guarded path -- the sentinel's settings, the checkpoint
+#: period, the fault plan and the number of loop steps
+LADDER_SENTINEL = dict(window=8, min_history=2, skip_limit=1,
+                       fallback_steps=4, max_rollbacks=3)
+LADDER_STEPS, LADDER_CKPT_EVERY, LADDER_FAULT = 12, 3, "nan_grad@5"
+#: the ladder that plan walks: the verdict at each loop step in order (the
+#: NaN step skips, the fault fires again at the next loop step because a
+#: skipped step does not advance the optimizer's counter, and the second
+#: spike rolls back to the checkpoint of step 3), the loop's and the
+#: sentinel's counts, the history rows run in the fallback window and the
+#: spike reasons.  tests/test_torch_train_system.py holds it equal to the
+#: JAX Trainer's on the same plan and settings.
+LADDER_EXPECT = {
+    "verdicts": [[0, "ok"], [1, "ok"], [2, "ok"], [3, "ok"], [4, "ok"],
+                 [5, "skip"], [6, "rollback"], [3, "ok"], [4, "ok"],
+                 [5, "ok"], [6, "ok"], [7, "ok"], [8, "ok"], [9, "ok"],
+                 [10, "ok"], [11, "ok"]],
+    "counts": {"saves": 4, "restores": 1, "skipped_batches": 1,
+               "rollback_failures": 0, "observed": 16, "spikes": 2,
+               "skips": 1, "rollbacks": 1, "fallback_windows": 1,
+               "fallback_steps_run": 7},
+    "fallback_rows": [4, 5, 6, 7, 8, 9, 10],
+    "spike_reasons": {"nonfinite-grad": 2},
+}
 # phase 5, policy B: limit on max |d logit| of the card against the CPU, set
 # from the readings recorded in PERF.md (not sized at run time)
 B_LIMIT = 0.1
@@ -99,6 +143,24 @@ B_LIMIT = 0.1
 # 2 sqrt(1e-2), the sign-flip limit's worth.
 TRAIN_LIMITS = {"ce": 1e-3, "grads": 5e-2, "sign_flips": 1e-2,
                 "updates_sign": 2e-2, "updates": 0.2}
+
+
+def ladder_record(summary, history, verdicts):
+    """The parts of a guarded run that ``LADDER_EXPECT`` pins, from a
+    Trainer's ``resilience_summary()``, its history and the sentinel's
+    verdicts as (loop step, verdict value) pairs; the same for the port's
+    Trainer and the JAX package's."""
+    s = summary["sentinel"]
+    counts = {k: summary[k] for k in ("saves", "restores", "skipped_batches",
+                                      "rollback_failures")}
+    counts.update({k: s[k] for k in ("observed", "spikes", "skips",
+                                     "rollbacks", "fallback_windows",
+                                     "fallback_steps_run")})
+    return {"verdicts": [[int(st), str(v)] for st, v in verdicts],
+            "counts": counts,
+            "fallback_rows": [int(r["step"]) for r in history
+                              if r.get("fallback")],
+            "spike_reasons": dict(s["spike_reasons"])}
 
 
 def bound_ms(nbytes: float, ops: float, rate: float):
@@ -762,7 +824,7 @@ def _teacher_forced(torch, model, cfg, params, toks, policy, device):
 def plain_versions(names):
     """Inside, the model calls the named kernels' plain versions in their
     place, on whatever device its tensors are: the card-against-card
-    comparisons of phases 5 and 8.  Nothing in the port does this."""
+    comparisons of phases 5, 8 and 12.  Nothing in the port does this."""
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.opt_update as opt_update
     import repro_torch.models.attention as attention
@@ -771,7 +833,10 @@ def plain_versions(names):
     from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
                                                  int8_matmul_plain,
                                                  int8_matmul_tn_plain)
+    from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
     sites = {"int8_matmul": (ops, int8_matmul_plain),
+             "qdq_row": (ops, qdq_row_plain),
+             "qdq_scaled": (ops, qdq_scaled_plain),
              "flash_attention_fwd_q8": (attention,
                                         flash_attention_fwd_q8_plain),
              "decode_attention": (attention, decode_attention_plain),
@@ -1043,7 +1108,7 @@ def train(torch, dev, seed):
     want = {"int8_matmul": 6 * cfg.n_layers, "int8_matmul_nt": 6 * cfg.n_layers,
             "int8_matmul_tn": 6 * cfg.n_layers, "fused_adamw_blocks": 1,
             "flash_attention_fwd_q8": 0, "decode_attention": 0,
-            "decode_attention_paged": 0}
+            "decode_attention_paged": 0, "qdq_row": 0, "qdq_scaled": 0}
     # the serving phases stopped their schedulers (a running emit thread
     # holds its engine), but an engine and its scheduler refer to each
     # other: collect the cycles so the peak below is the train step's own
@@ -1146,6 +1211,28 @@ def _update_split(torch, card, cpu):
             math.sqrt(num_s / max(den_s, 1e-300)))
 
 
+def one_train_step(torch, model, policy, params, toks, opt, device,
+                   fused=None, swap=()):
+    """One train step's forward, backward and AdamW update from ``params``
+    (CPU tensors, copied to ``device``) and fresh moments, with the named
+    kernels' plain versions in their place (``plain_versions``): loss,
+    flat gradients, params before and after, new moments, grad norm."""
+    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.optim.adamw import adamw_update, init_adam_state
+    from repro_torch.train.step import value_and_grad
+    p = tree_map(lambda t: t.to(device), params)
+    st = init_adam_state(p, policy, opt)
+    with plain_versions(swap):
+        loss, _, grads = value_and_grad(model, policy, p,
+                                        {"tokens": toks.to(device)})
+        new_p, new_st, stats = adamw_update(p, grads, st, opt, policy,
+                                            fused=fused)
+    return dict(loss=float(loss), grads=tree_flatten(grads)[0],
+                p0=tree_flatten(p)[0], p=tree_flatten(new_p)[0],
+                m1=tree_flatten(new_st.m1)[0], m2=tree_flatten(new_st.m2)[0],
+                gn=float(stats["grad_norm"]), p_tree=p, g_tree=grads, st=st)
+
+
 def train_card_vs_cpu(torch, dev, seed):
     """Phase 8: one train step of gpt2-mini (float32 carrier, batch 4 x 128
     from the synthetic corpus, the slice's policy, int moments), weights of
@@ -1172,10 +1259,9 @@ def train_card_vs_cpu(torch, dev, seed):
     from repro_torch.core.qpolicy import as_policy
     from repro_torch.data import SyntheticCorpus
     from repro_torch.models import build_model
-    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.models.common import tree_flatten
     from repro_torch.optim import OptConfig
-    from repro_torch.optim.adamw import adamw_update, init_adam_state
-    from repro_torch.train.step import value_and_grad
+    from repro_torch.optim.adamw import adamw_update
     cfg = dataclasses.replace(get_smoke_config("gpt2-small"), dtype="float32")
     model = build_model(cfg)
     params = true_fan_in(model.init_params(
@@ -1187,19 +1273,8 @@ def train_card_vs_cpu(torch, dev, seed):
     policy = as_policy(TRAIN_POLICY)
 
     def run(device, fused=True, swap=()):
-        p = tree_map(lambda t: t.to(device), params)
-        st = init_adam_state(p, policy, opt)
-        with plain_versions(swap):
-            loss, _, grads = value_and_grad(model, policy, p,
-                                            {"tokens": toks.to(device)})
-            new_p, new_st, stats = adamw_update(p, grads, st, opt, policy,
-                                                fused=fused)
-        return dict(loss=float(loss), grads=tree_flatten(grads)[0],
-                    p0=tree_flatten(p)[0], p=tree_flatten(new_p)[0],
-                    m1=tree_flatten(new_st.m1)[0],
-                    m2=tree_flatten(new_st.m2)[0],
-                    gn=float(stats["grad_norm"]), p_tree=p, g_tree=grads,
-                    st=st)
+        return one_train_step(torch, model, policy, params, toks, opt,
+                              device, fused=fused, swap=swap)
 
     cpu, card = run("cpu"), run(dev)
     d_ce = abs(card["loss"] - cpu["loss"])
@@ -1257,6 +1332,516 @@ def train_card_vs_cpu(torch, dev, seed):
         fail("phase 8: train step card vs CPU / card vs card out of limits")
 
 
+# ---------------------------------------------------------------------------
+# phases 9-12: the fake-quant gradient kernels and the guarded training path
+# ---------------------------------------------------------------------------
+
+def time_cold_ms(fn, args_list, iters: int = 20, warmup: int = 3) -> float:
+    """``time_ms`` cycling through argument tuples whose tensors together
+    exceed the 50 MB L2, so each launch reads its input from device memory
+    as the train step's gradient does (the matmul that made it has moved
+    on to other tensors)."""
+    import torch
+    n = len(args_list)
+    for i in range(warmup):
+        fn(*args_list[i % n])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*args_list[i % n])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _qdq_input(torch, dev, gen, rows, f, bits, dtype):
+    """A (rows, f) gradient-like tensor with the rounding cases planted: row
+    0 reaches absmax qmax (a per-row scale of exactly 1) and holds exact x.5
+    ties of both signs, row 1 is all zero, and rows 2-5 of column 2 hold
+    x.5 values (ties under the per-channel scale of 1 phase 9 gives it)."""
+    qmax = 2 ** (bits - 1) - 1
+    x = torch.randn((rows, f), generator=gen, device=dev) * 0.02
+    x[0, :8] = torch.tensor([qmax, 0.5, 1.5, 2.5, -2.5, -0.5, -3.5, 4.5],
+                            device=dev)
+    x[1] = 0.0
+    x[2:6, 2] = torch.tensor([0.5, -1.5, 2.5, -4.5], device=dev)
+    return x.to(dtype).contiguous()
+
+
+def _yardstick_ms(torch, fn, x):
+    """Time of a PyTorch fake-quantize call on ``x``, or on its float32
+    copy where the call refuses bfloat16; (ms, dtype it ran at)."""
+    try:
+        fn(x)
+        torch.cuda.synchronize()
+        return time_ms(lambda: fn(x)), str(x.dtype).replace("torch.", "")
+    except RuntimeError:
+        xf = x.float()
+        return time_ms(lambda: fn(xf)), "float32"
+
+
+def check_qdq(torch, dev, gen, results):
+    """Phase 9: ``qdq_row`` and ``qdq_scaled`` (per channel, (1, F), and per
+    tensor, (1, 1)) bit for bit against their plain versions at the
+    gradients' shapes, (8192, 768) and (8192, 3072), bfloat16 and float32,
+    8 and 4 bits, with planted ties and an all-zero row; each timed beside
+    its byte bound, its plain version and a PyTorch yardstick:
+    ``torch.amax`` + ``fake_quantize_per_channel_affine`` (axis 0 for #1,
+    axis 1 for the per-channel #2) and ``fake_quantize_per_tensor_affine``
+    (per-tensor #2), which multiply by a reciprocal -- a time, not an
+    oracle."""
+    from repro_torch.core.quantizer import _div
+    from repro_torch.kernels.qdq import (qdq_row, qdq_row_plain, qdq_scaled,
+                                         qdq_scaled_plain)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    rows = {"qdq_row": [], "qdq_scaled": []}
+    for f in (768, 3072):
+        for dtype in (torch.bfloat16, torch.float32):
+            for bits in (8, 4):
+                qmax = 2 ** (bits - 1) - 1
+                x = _qdq_input(torch, dev, gen, m, f, bits, dtype)
+                nbytes = 2 * x.numel() * x.element_size()
+                copies = [(x,)] + [(x.clone(),) for _ in
+                                   range(int(100e6 // nbytes) + 1)]
+                dname = str(dtype).replace("torch.", "")
+                zp_c = torch.zeros(f, dtype=torch.int32, device=dev)
+                zp_r = torch.zeros(m, dtype=torch.int32, device=dev)
+                xa = x.float().abs()
+                s_chan = _div(xa.amax(dim=0, keepdim=True).clamp_min(1e-12),
+                              float(qmax))
+                s_chan[0, 2] = 1.0                # the planted ties
+                s_tens = _div(xa.amax().clamp_min(1e-12),
+                              float(qmax)).reshape(1, 1)
+                cases = [
+                    ("qdq_row", "per row", lambda a: qdq_row(a, bits),
+                     lambda: qdq_row_plain(x, bits),
+                     lambda t: torch.fake_quantize_per_channel_affine(
+                         t, _div(t.float().abs().amax(dim=1).clamp_min(
+                             1e-12), float(qmax)), zp_r, 0, -qmax - 1, qmax),
+                     0),
+                    ("qdq_scaled", "per channel",
+                     lambda a: qdq_scaled(a, s_chan, bits),
+                     lambda: qdq_scaled_plain(x, s_chan, bits),
+                     lambda t: torch.fake_quantize_per_channel_affine(
+                         t, s_chan.reshape(-1), zp_c, 1, -qmax - 1, qmax),
+                     4 * f),
+                    ("qdq_scaled", "per tensor",
+                     lambda a: qdq_scaled(a, s_tens, bits),
+                     lambda: qdq_scaled_plain(x, s_tens, bits),
+                     lambda t: torch.fake_quantize_per_tensor_affine(
+                         t, s_tens.reshape(()), zp_c[:1].reshape(()),
+                         -qmax - 1, qmax),
+                     4),
+                ]
+                for name, kind, kern, plain, lib_fn, extra in cases:
+                    got, want = kern(x), plain()
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not torch.equal(got, want):
+                        fail(f"{name} {kind} ({m}, {f}) {dname} bits {bits} "
+                             f"not bit-exact (max err {err})")
+                    ms = time_cold_ms(kern, copies)
+                    plain_ms = time_ms(plain, iters=5)
+                    lib, lib_dtype = _yardstick_ms(torch, lib_fn, x)
+                    b, by = bound_ms(nbytes + extra, 7.0 * x.numel(),
+                                     FP32_FLOPS)
+                    rows[name].append(dict(
+                        shape=f"({m},{f}) {dname} bits={bits} {kind}",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b, bound_by=by, library_ms=lib,
+                        library_dtype=lib_dtype))
+                    print(f"{name} {kind:11s} ({m}, {f:4d}) {dname:8s} bits "
+                          f"{bits}: bit-exact (tol 0), ms {ms:.4f}, plain_ms "
+                          f"{plain_ms:.4f}, bound_ms {b:.5f} ({by}), "
+                          f"library_ms(fake_quantize, {lib_dtype}) "
+                          f"{lib:.4f}")
+    # the JSON entry reports the shape with the most launches on the main
+    # path: the bf16 gradients of q, k, v, o and down, F = 768 (60 of the
+    # 72 a step), 8 bits; #2 per channel (g8c; g8n times alike)
+    for name, line in (("qdq_row", 59), ("qdq_scaled", 79)):
+        results[name] = dict(
+            route="cuda", source="src/repro_torch/csrc/qdq.cu",
+            replaces=f"src/repro/kernels/qdq.py:{line}", tol=0.0,
+            shapes=rows[name], **rows[name][0])
+
+
+def _step_recorder(torch, fn, log, kind):
+    """``fn`` (a train step) wrapped to log, per call, its kind, host
+    milliseconds to a device sync, ce, grad norm and the launches of every
+    kernel."""
+    from repro_torch import kernels
+
+    def step(state, batch):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        new, met = fn(state, batch)
+        ce = float(met["ce"])
+        torch.cuda.synchronize()
+        log.append(dict(kind=kind, ms=(time.perf_counter() - t0) * 1e3,
+                        ce=ce, gn=float(met["grad_norm"]),
+                        launches={k: v - before[k] for k, v in
+                                  kernels.launch_counts().items()}))
+        return new, met
+    return step
+
+
+def _expect(**nonzero):
+    return {k: nonzero.get(k, 0) for k in KERNEL_NAMES}
+
+
+def train_fake(torch, dev, seed):
+    """Phase 10: GPT-2 small at full width and depth, 8 x 1024 tokens a
+    step, trained through the port's ``Trainer`` under the fake-quant
+    recipes (the default ``fake_quant`` backend): ``paper_wag8`` (W8/A8/G8,
+    the gradient per token through ``qdq_row``) for 10 steps -- ms per
+    step, tokens/s, peak memory, and the idle share of one profiled step
+    -- then one step each of ``w8c,a8t,g8n`` and ``w8c,a8t,g8c``
+    (``qdq_scaled`` per tensor and per channel).  Every step must launch
+    its qdq kernel exactly 72 times and no other kernel, with finite ce
+    and grad norm.  Returns the launch counts of the three runs."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.qconfig import Granularity, get_recipe
+    from repro_torch.data import Loader, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (LoopConfig, Trainer, init_train_state,
+                                   make_train_step, train_path_summary)
+    cfg = get_config("gpt2-small")
+    model = build_model(cfg)
+    linears = 6 * cfg.n_layers
+    kept = None
+    gc.collect()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for i, name in enumerate(FAKE_RECIPES):
+        recipe = get_recipe(name)
+        steps = TRAIN_STEPS if i == 0 else 1
+        opt = OptConfig(lr=6e-4, warmup_steps=5, total_steps=steps)
+        state = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(seed), recipe,
+            opt, device=dev)
+        step_fn = make_train_step(model, recipe, opt)
+        log = []
+        trainer = Trainer(_step_recorder(torch, step_fn, log, "primary"),
+                          None, state,
+                          Loader(SyntheticCorpus(cfg.vocab_size, seed=7),
+                                 cfg, batch_size=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ),
+                          loop_cfg=LoopConfig(total_steps=steps,
+                                              ckpt_every=10 ** 9,
+                                              log_every=1))
+        torch.cuda.reset_peak_memory_stats()
+        trainer.run()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kern = ("qdq_row" if recipe.grads.granularity is Granularity.PER_TOKEN
+                else "qdq_scaled")
+        want = _expect(**{kern: linears})
+        print(f"train_fake: {name} ({recipe.describe()}), {cfg.n_layers}L "
+              f"d={cfg.d_model}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; "
+              f"train-path: {train_path_summary(recipe, cfg.n_layers, opt, device=dev)}")
+        for j, r in enumerate(log):
+            print(f"train_fake: {name} step {j + 1:2d} ce {r['ce']:.4f} "
+                  f"grad_norm {r['gn']:.4f} {r['ms']:.1f} ms")
+            if not (math.isfinite(r["ce"]) and math.isfinite(r["gn"])):
+                fail(f"train_fake {name} step {j + 1}: ce {r['ce']}, grad "
+                     f"norm {r['gn']}")
+            if r["launches"] != want:
+                fail(f"train_fake {name} step {j + 1}: launches "
+                     f"{r['launches']}, expected {want}")
+        if i == 0:
+            steady = [r["ms"] for r in log[1:]]
+            mean = sum(steady) / len(steady)
+            tok = TRAIN_BATCH * TRAIN_SEQ
+            print(f"train_fake: {name} {steps} steps, step 1 "
+                  f"{log[0]['ms']:.1f} ms, steps 2-{steps} mean {mean:.1f} "
+                  f"ms (min {min(steady):.1f}, max {max(steady):.1f}), "
+                  f"{tok / mean * 1e3:.0f} tokens/s, peak memory "
+                  f"{peak:.2f} GiB")
+            kept = (step_fn, trainer.state)
+    counts = kernels.launch_counts()
+    print(f"train_fake: launch counts {counts}")
+    batch = torch.from_numpy(Loader(SyntheticCorpus(cfg.vocab_size, seed=7),
+                                    cfg, batch_size=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ).peek(TRAIN_STEPS)
+                             ["tokens"]).to(dev)
+    profile_train_step(torch, kept[0], kept[1], batch)
+    return counts
+
+
+def recording(sentinel, log):
+    """``sentinel`` with its verdicts appended to ``log`` as (loop step,
+    verdict value) pairs."""
+    observe = sentinel.observe
+
+    def wrapped(step, metrics):
+        v = observe(step, metrics)
+        log.append((step, v.value))
+        return v
+    sentinel.observe = wrapped
+    return sentinel
+
+
+def train_guarded(torch, dev, seed):
+    """Phase 11: the guarded path at full width -- GPT-2 small, 8 x 1024
+    tokens a step, ``TRAIN_POLICY`` on the int8 kernels under the stability
+    sentinel (``LADDER_SENTINEL``), async checkpoints every 3 steps into
+    ``build/chip_smoke_ckpt`` (keep 2; the directory is removed at the
+    end), the fault plan ``nan_grad@5``, 12 steps.  The ladder must equal
+    ``LADDER_EXPECT`` (pinned on the CPU against the JAX Trainer); primary
+    steps launch int8_matmul / nt / tn / AdamW 72 / 72 / 72 / 1 times and
+    no qdq kernel, fallback steps (``fallback_policy``: fake quant, G8 per
+    token) ``qdq_row`` 72 times, AdamW once and no int8 kernel; the run
+    ends at ``opt.step == 12`` with finite params.  Returns the launch
+    counts of the run."""
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.qpolicy import fallback_policy
+    from repro_torch.data import Loader, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (FaultPlan, LoopConfig, SentinelConfig,
+                                   StabilitySentinel, Trainer,
+                                   init_train_state, make_train_step)
+    ckdir = REPO / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        cfg = get_config("gpt2-small")
+        model = build_model(cfg)
+        linears = 6 * cfg.n_layers
+        opt = OptConfig(lr=6e-4, warmup_steps=5, total_steps=LADDER_STEPS,
+                        state_storage="int")
+        state = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(seed),
+            TRAIN_POLICY, opt, device=dev)
+        faults = FaultPlan.parse(LADDER_FAULT)
+        log, verdicts = [], []
+        primary = _step_recorder(torch, make_train_step(
+            model, TRAIN_POLICY, opt, faults=faults, health=True), log,
+            "primary")
+        fallback = _step_recorder(torch, make_train_step(
+            model, fallback_policy(TRAIN_POLICY), opt, health=True), log,
+            "fallback")
+        mgr = CheckpointManager(str(ckdir), keep_n=2, async_write=True)
+        trainer = Trainer(
+            primary, None, state,
+            Loader(SyntheticCorpus(cfg.vocab_size, seed=7), cfg,
+                   batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+            ckpt=mgr,
+            loop_cfg=LoopConfig(total_steps=LADDER_STEPS,
+                                ckpt_every=LADDER_CKPT_EVERY, log_every=1),
+            sentinel=recording(StabilitySentinel(SentinelConfig(
+                **LADDER_SENTINEL)), verdicts),
+            fallback_step=fallback, faults=faults)
+        gc.collect()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.run()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        ck_bytes = sum(p.stat().st_size for p in ckdir.rglob("*")
+                       if p.is_file())
+        kept = mgr.all_steps()
+        summary = trainer.resilience_summary()
+        rec = ladder_record(summary, trainer.history, verdicts)
+        for (st, v), r in zip(verdicts, log):
+            print(f"train_guarded: loop step {st:2d} {r['kind']:8s} ce "
+                  f"{r['ce']:.4f} grad_norm {r['gn']:.4f} {r['ms']:.1f} ms "
+                  f"-> {v}")
+        print(f"train_guarded: {len(log)} steps run in {wall:.1f} s "
+              f"(checkpoints and rollback included); checkpoints kept "
+              f"{kept}, {ck_bytes / 2 ** 30:.2f} GiB on disk; resilience "
+              f"{summary}")
+        print(f"train_guarded: ladder {json.dumps(rec)}")
+        print(f"train_guarded: launch counts {counts}")
+        if rec != LADDER_EXPECT:
+            fail(f"phase 11 ladder {rec} != LADDER_EXPECT {LADDER_EXPECT}")
+        want = {"primary": _expect(int8_matmul=linears, int8_matmul_nt=linears,
+                                   int8_matmul_tn=linears,
+                                   fused_adamw_blocks=1),
+                "fallback": _expect(qdq_row=linears, fused_adamw_blocks=1)}
+        for i, r in enumerate(log):
+            if r["launches"] != want[r["kind"]]:
+                fail(f"phase 11 call {i} ({r['kind']}): launches "
+                     f"{r['launches']}, expected {want[r['kind']]}")
+        if int(trainer.state.opt.step) != LADDER_STEPS:
+            fail(f"phase 11 ended at opt.step {int(trainer.state.opt.step)}")
+        if not all(bool(torch.isfinite(p).all())
+                   for p in tree_flatten(trainer.state.params)[0]):
+            fail("phase 11 ended with non-finite params")
+        return counts
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        print(f"train_guarded: checkpoint directory removed: "
+              f"{not ckdir.exists()}")
+
+
+def train_resume(torch, dev, seed):
+    """Phase 11b: preemption and resume at full width.  ``TRAIN_POLICY``,
+    6 steps uninterrupted; then the same run with ``sigterm_run@2`` (the
+    SIGTERM handler saves the checkpoint of step 3 and stops), and a third
+    run from other weights that resumes from it.  The resumed ce of steps
+    4-6, its params and its optimizer state (int8 moments, step) must be
+    bit-identical to the uninterrupted run's."""
+    import shutil
+    import signal
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import Loader, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (FaultPlan, LoopConfig, Trainer,
+                                   init_train_state, make_train_step)
+    cfg = get_config("gpt2-small")
+    model = build_model(cfg)
+    total = 6
+    opt = OptConfig(lr=6e-4, warmup_steps=5, total_steps=total,
+                    state_storage="int")
+    step_fn = make_train_step(model, TRAIN_POLICY, opt)
+    lcfg = LoopConfig(total_steps=total, ckpt_every=10 ** 9, log_every=1)
+
+    def trainer(s, **kw):
+        return Trainer(step_fn, None, init_train_state(
+            model, torch.Generator(device=dev).manual_seed(s), TRAIN_POLICY,
+            opt, device=dev), Loader(SyntheticCorpus(cfg.vocab_size, seed=7),
+                                     cfg, batch_size=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ), loop_cfg=lcfg, **kw)
+
+    def leaves(st):
+        return (tree_flatten(st.params)[0] + [st.opt.step]
+                + [t for m in (st.opt.m1, st.opt.m2)
+                   for leaf in tree_flatten(m)[0]
+                   for t in (leaf if isinstance(leaf, tuple) else (leaf,))])
+
+    ckdir = REPO / "build" / "chip_smoke_resume"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        ref = trainer(seed)
+        ref.run()
+        mgr = CheckpointManager(str(ckdir), async_write=True)
+        faults = FaultPlan.parse("sigterm_run@2")
+        t1 = trainer(seed, ckpt=mgr, faults=faults)
+        t1.install_preemption_handler()
+        t1.run()
+        saved = mgr.all_steps()
+        t2 = trainer(seed + 1, ckpt=CheckpointManager(str(ckdir)))
+        at = t2.maybe_resume()
+        t2.run()
+    finally:
+        signal.signal(signal.SIGTERM, old)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    ref_tail = [r["ce"] for r in ref.history if r["step"] > at]
+    got_tail = [r["ce"] for r in t2.history if r["step"] > at]
+    same = all(torch.equal(a, b) for a, b in zip(leaves(ref.state),
+                                                 leaves(t2.state)))
+    print(f"train_resume: preempted {t1._preempted} after loop step 2, "
+          f"checkpoints {saved}, resumed at {at}; ce tail {got_tail} vs "
+          f"uninterrupted {ref_tail}; params and optimizer state "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not (t1._preempted and saved == [3] and at == 3
+            and got_tail == ref_tail and len(got_tail) == total - 3 and same):
+        fail("phase 11b: the resumed run is not bit-identical to the "
+             "uninterrupted one")
+
+
+# phase 12: limits of the card against the CPU for one paper_wag8 step on
+# gpt2-mini, named like TRAIN_LIMITS.  Each is the geometric mean, to two
+# digits, of the sound runs' largest reading (A) and the smallest reading
+# of a control that the comparison must tell apart (C: the card at the
+# bf16 carrier), over seeds 0-2 as recorded in PERF.md: |d ce| 7.5e-5 /
+# 2.0e-4, grads rel L2 3.8e-3 / 1.95e-2, gradient sign differs on 2.4e-3
+# / 8.7e-3 of the elements, updates rel L2 9.1e-2 / 0.187 and 6.5e-3 /
+# 1.59e-2 where the sign agrees.
+FAKE_LIMITS = {"ce": 1.2e-4, "grads": 8.6e-3, "sign_flips": 4.5e-3,
+               "updates_sign": 1.0e-2, "updates": 0.13}
+
+
+def _step_distance(torch, got, ref):
+    """How far one train step's result ``got`` lies from ``ref``, keyed
+    like ``FAKE_LIMITS``: |d ce|, the gradients' relative L2 distance, the
+    share of elements whose gradient sign differs, the updates' relative
+    L2 distance over all elements and over those whose sign agrees."""
+    upd = lambda r: [a - b for a, b in zip(r["p"], r["p0"])]
+    flips, _, u_sign = _update_split(torch, got, ref)
+    return {"ce": abs(got["loss"] - ref["loss"]),
+            "grads": _rel_l2(torch, got["grads"], ref["grads"]),
+            "sign_flips": flips, "updates_sign": u_sign,
+            "updates": _rel_l2(torch, upd(got), upd(ref))}
+
+
+def train_fake_card_vs_cpu(torch, dev, seed):
+    """Phase 12: one ``paper_wag8`` train step of gpt2-mini (float32
+    carrier, 4 x 128 tokens, fp moments) from ``true_fan_in`` weights
+    (seed + 2), as phase 8 does for the int8 recipe.  A: the card (the qdq
+    kernels) against the CPU (their plain versions), each distance of
+    ``_step_distance`` within ``FAKE_LIMITS``.  B: the card again with
+    ``qdq_row`` and ``qdq_scaled`` swapped for their plain versions: every
+    gradient bit-identical (control: the card twice).  C: the control of
+    A's limits, the same step on the card at the bf16 carrier against the
+    same CPU step: every distance above its limit, so A would see a step
+    that lost the float32 carrier's precision."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.qconfig import get_recipe
+    from repro_torch.core.qpolicy import as_policy
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    cfg = dataclasses.replace(get_smoke_config("gpt2-small"), dtype="float32")
+    model = build_model(cfg)
+    params = true_fan_in(model.init_params(
+        torch.Generator().manual_seed(seed + 2), device="cpu"), cfg)
+    toks = torch.from_numpy(SyntheticCorpus(cfg.vocab_size, seed=7).batch(
+        0, batch_size=4, seq_len=128))
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    policy = as_policy(get_recipe("paper_wag8"))
+
+    def run(device, swap=(), m=model):
+        return one_train_step(torch, m, policy, params, toks, opt,
+                              device, swap=swap)
+
+    lim = FAKE_LIMITS
+    names = {"ce": "|d ce|", "grads": "grads rel L2",
+             "sign_flips": "gradient sign differs on",
+             "updates": "updates rel L2",
+             "updates_sign": "updates rel L2 where the sign agrees"}
+    show = lambda d: ", ".join(f"{names[k]} {d[k]:.3e} (limit {lim[k]:.1e})"
+                               for k in names)
+    cpu, card = run("cpu"), run(dev)
+    dist = _step_distance(torch, card, cpu)
+    print(f"train_fake card vs cpu A (gpt2-mini, float32 carrier, 4 x 128 "
+          f"tokens, paper_wag8): ce {card['loss']:.6f} vs {cpu['loss']:.6f}, "
+          f"{show(dist)}")
+    ok = all(dist[k] <= lim[k] for k in lim)
+    control = run(dev)
+    swapped = run(dev, swap=QDQ_KERNELS)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in
+                            zip(a["grads"], b["grads"]))
+    ctrl_same, swap_same = same(card, control), same(card, swapped)
+    print(f"train_fake card vs card B: grads with the plain qdq in the "
+          f"kernels' place {'bit-identical' if swap_same else 'DIFFER'} "
+          f"(control, the card twice: "
+          f"{'bit-identical' if ctrl_same else 'DIFFER'}; tol 0)")
+    low = run(dev, m=build_model(dataclasses.replace(cfg, dtype="bfloat16")))
+    low_dist = _step_distance(torch, low, cpu)
+    low_ok = all(low_dist[k] > lim[k] for k in lim)
+    print(f"train_fake control C, the card at the bf16 carrier vs cpu: "
+          f"ce {low['loss']:.6f}, {show(low_dist)}: every distance above its "
+          f"limit {'yes' if low_ok else 'NO'}")
+    if not (ok and ctrl_same and swap_same):
+        fail("phase 12: paper_wag8 step card vs CPU / card vs card out of "
+             "limits")
+    if not low_ok:
+        fail("phase 12: the bf16-carrier control lies within FAKE_LIMITS, "
+             "so the limits cannot tell it from a sound step")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1311,17 +1896,25 @@ def main() -> int:
     check_fused_adamw(torch, dev, gen, results)
     train_counts = train(torch, dev, args.seed)
     train_card_vs_cpu(torch, dev, args.seed)
+    check_qdq(torch, dev, gen, results)
+    fake_counts = train_fake(torch, dev, args.seed)
+    guarded_counts = train_guarded(torch, dev, args.seed)
+    train_resume(torch, dev, args.seed)
+    train_fake_card_vs_cpu(torch, dev, args.seed)
 
     # launches: each kernel's count on the main paths, dense serving (phase
-    # 4), paged serving (phase 4b) and training (phase 7), each path's
-    # counts read right after its run
+    # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
+    # fake-quant training (phase 10) and the guarded path (phase 11), each
+    # path's counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
     for name in KERNEL_NAMES:
         by_path = {"serve": serve_counts[name],
                    "serve_paged": paged_counts[name],
-                   "train": train_counts[name]}
+                   "train": train_counts[name],
+                   "train_fake": fake_counts[name],
+                   "train_guarded": guarded_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

@@ -32,8 +32,9 @@ from repro_torch.core.qadam import QState
 from repro_torch.core.qconfig import Granularity, QuantRecipe, RoundMode
 from repro_torch.core.quantizer import (dequantize_int, fake_quant_nograd,
                                         quantize_int)
-from repro_torch.kernels.ops import (int8_bwd_dw, int8_bwd_dx,
-                                     int8_payload_linear)
+from repro_torch.kernels.ops import (fused_fake_quant,
+                                     fused_fake_quant_eligible, int8_bwd_dw,
+                                     int8_bwd_dx, int8_payload_linear)
 
 
 def _flat2d(a: torch.Tensor) -> torch.Tensor:
@@ -41,18 +42,14 @@ def _flat2d(a: torch.Tensor) -> torch.Tensor:
 
 
 def _train_fake_quant(x: torch.Tensor, spec) -> torch.Tensor:
-    """``fake_quant_nograd`` where the reference routes the hot symmetric
-    2-D cases to its fused qdq kernels (``kernels/qdq.py``, #1/#2) on the
-    TPU.  Those kernels are not ported, so such a call on a CUDA tensor
-    raises instead of running a plain stand-in on the card; CPU tensors
-    and the cases the reference keeps in XLA take the plain version."""
-    hot = (x.ndim >= 2 and spec.symmetric and spec.block_size == 0
-           and not spec.sqrt_domain and spec.round_mode is RoundMode.NEAREST)
-    if hot and x.is_cuda:
-        raise NotImplementedError(
-            f"fake quantization of a CUDA tensor under [{spec.describe()}] "
-            "runs kernels #1/#2 qdq_row/qdq_scaled, not ported yet (ROADMAP "
-            "section 2, item 2)")
+    """``fake_quant_nograd`` with the hot symmetric 2-D+ cases routed
+    through the fused qdq kernels (``kernels/ops.fused_fake_quant``, #1/#2):
+    on a CUDA tensor they launch, on a CPU tensor their plain versions run
+    (the same values as ``fake_quant_nograd``).  The tensor's device
+    decides; there is no switch and no plain stand-in on the card.  Other
+    specs keep ``fake_quant_nograd``, as in the reference."""
+    if fused_fake_quant_eligible(spec, x):
+        return fused_fake_quant(x, spec)
     return fake_quant_nograd(x, spec)
 
 

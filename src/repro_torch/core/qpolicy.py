@@ -316,6 +316,43 @@ class QuantPolicy:
 FP_POLICY = QuantPolicy()
 
 
+def fallback_policy(policy: "QuantPolicy", mode: str = "fake_quant"
+                    ) -> "QuantPolicy":
+    """Stability-fallback variant of a policy: the train sentinel's recovery
+    action after a rollback (the trainer runs the step built from it for a
+    window of steps, then re-engages the primary policy; see
+    ``train/sentinel.py``).
+
+    ``mode='fake_quant'`` keeps every resolved recipe (the quantization
+    error stays) but moves every rule and the default off the int8 kernels
+    onto the ``fake_quant`` reference, whose G spec runs the qdq kernels.
+    ``mode='fp'`` also drops the linear quantization (weights, acts, grads)
+    from every rule and the default.
+
+    Both modes keep the default recipe's optimizer-moment specs, so the
+    fallback step consumes and produces the same ``AdamState`` structure
+    (int8 ``QState`` payloads and sidecars) as the primary step and the
+    two hand the state back and forth."""
+    if mode not in ("fake_quant", "fp"):
+        raise ValueError(f"unknown fallback mode {mode!r} "
+                         "(want 'fake_quant' or 'fp')")
+    policy = as_policy(policy)
+
+    def degrade(recipe: Optional[QuantRecipe]) -> Optional[QuantRecipe]:
+        if recipe is None:
+            return None
+        if mode == "fake_quant":
+            return recipe
+        return dataclasses.replace(recipe, weights=None, acts=None,
+                                   grads=None, grads_dx=None)
+
+    rules = tuple(dataclasses.replace(r, recipe=degrade(r.recipe),
+                                      backend="fake_quant")
+                  for r in policy.rules)
+    return QuantPolicy(rules=rules, default=degrade(policy.default),
+                       backend="fake_quant")
+
+
 def as_policy(obj: Union[None, QuantRecipe, QuantPolicy, str]) -> QuantPolicy:
     """None (fp), a QuantRecipe, a QuantPolicy, or a policy string."""
     if obj is None:

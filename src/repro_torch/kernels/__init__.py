@@ -8,11 +8,12 @@ from repro_torch.kernels.flash_attn import flash_attention_fwd_q8
 from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
                                              int8_matmul_tn)
 from repro_torch.kernels.opt_update import fused_adamw_blocks
+from repro_torch.kernels.qdq import qdq_row, qdq_scaled
 
 #: every kernel wrapper of the port, each with a ``launches`` counter
 KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention,
            int8_matmul_nt, int8_matmul_tn, fused_adamw_blocks,
-           decode_attention_paged)
+           decode_attention_paged, qdq_row, qdq_scaled)
 
 
 def reset_launch_counts() -> None:
@@ -27,4 +28,5 @@ def launch_counts() -> dict:
 __all__ = ["KERNELS", "decode_attention", "decode_attention_paged",
            "flash_attention_fwd_q8",
            "fused_adamw_blocks", "int8_matmul", "int8_matmul_nt",
-           "int8_matmul_tn", "launch_counts", "reset_launch_counts"]
+           "int8_matmul_tn", "launch_counts", "qdq_row", "qdq_scaled",
+           "reset_launch_counts"]

@@ -42,6 +42,8 @@ SIGNATURES = {
         "repro_decode_attn_paged":
             [_P] * 10 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "opt_update": {"repro_fused_adamw": [_P] * 10 + [_I] * 11 + [_P]},
+    "qdq": {"repro_qdq_row": [_P] * 2 + [_I] * 4 + [_P],
+            "repro_qdq_scaled": [_P] * 3 + [_I] * 5 + [_P]},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

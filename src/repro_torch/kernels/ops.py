@@ -1,20 +1,62 @@
-"""Composite linears around the int8 matmul kernels: the quantize ->
-int8-matmul -> dequant path that realizes the paper's W8A8 recipe with real
-integer compute, forward and backward (port of ``repro/kernels/ops.py``:
-``int8_payload_linear``, ``int8_linear``, ``int8_prepared_linear``,
+"""Public wrappers around the kernels (port of ``repro/kernels/ops.py``):
+the fused fake quantization of the training path (``fused_fake_quant``
+over the qdq kernels) and the composite linears around the int8 matmul
+kernels -- the quantize -> int8-matmul -> dequant path that realizes the
+paper's W8A8 recipe with real integer compute, forward and backward
+(``int8_payload_linear``, ``int8_linear``, ``int8_prepared_linear``,
 ``int8_bwd_dx``, ``int8_bwd_dw``).  The activation quantization and the
-gradient's absmax reduce stay plain torch, as they stay in XLA in the JAX
-package; the kernels take any M, N, K, so nothing is padded to 128."""
+column / tensor / gradient absmax reduces stay plain torch, as they stay
+in XLA in the JAX package; the kernels take any shape, so nothing is
+padded to the TPU's (8, 128) tiles."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.core.qconfig import QuantSpec
+from repro_torch.core.qconfig import Granularity, QuantSpec, RoundMode
 from repro_torch.core.quantizer import _EPS, _div, quantize_int
 from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
                                              int8_matmul_tn)
+from repro_torch.kernels.qdq import qdq_row, qdq_scaled
+
+
+def fused_fake_quant_eligible(spec: Optional[QuantSpec],
+                              x: torch.Tensor) -> bool:
+    """Can :func:`fused_fake_quant` stand in for
+    ``core.quantizer.fake_quant_nograd`` on this call?  The kernels cover
+    the hot training shapes: 2-D+ inputs, symmetric nearest-rounded specs
+    with no block-wise or sqrt-domain codec."""
+    return (spec is not None and x.ndim >= 2 and spec.symmetric
+            and spec.block_size == 0 and not spec.sqrt_domain
+            and spec.round_mode is RoundMode.NEAREST)
+
+
+def fused_fake_quant(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Fused equivalent of ``core.quantizer.fake_quant_nograd`` for 2-D+
+    inputs with symmetric specs (the hot training path): x reshaped to
+    (rows, F); per-token specs run :func:`qdq_row`, per-channel and
+    per-tensor specs reduce their absmax here and stream it into
+    :func:`qdq_scaled` as a (1, F) or (1, 1) scale."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    if spec.granularity is Granularity.PER_TOKEN:
+        out = qdq_row(x2, spec.bits)
+    else:
+        xf = x2.to(torch.float32)
+        if spec.granularity is Granularity.PER_CHANNEL:
+            absmax = torch.amax(xf.abs(), dim=0, keepdim=True)
+            scale = _div(absmax.clamp_min(_EPS), float(spec.qmax))
+            # the reference pads columns to 128 and guards their 0 scales;
+            # nothing is padded here, so this never fires -- kept so the
+            # two stay line for line comparable
+            scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        else:
+            absmax = torch.amax(xf.abs())
+            scale = _div(absmax.clamp_min(_EPS),
+                         float(spec.qmax)).reshape(1, 1)
+        out = qdq_scaled(x2, scale, spec.bits)
+    return out.reshape(shape)
 
 
 def int8_payload_linear(xq: torch.Tensor, x_scale: torch.Tensor,

@@ -1,43 +1,48 @@
 """Training launcher of the port (counterpart of ``repro.launch.train``):
-``--arch`` on one card, or on the CPU with ``--device cpu``.
+``--arch`` on one card, or on the CPU with ``--device cpu``, through the
+reference's production loop -- the ``Trainer`` with validation, periodic
+and SIGTERM checkpoints, resume from the newest intact checkpoint, the
+stability sentinel's recovery ladder and deterministic fault plans.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
         --smoke --steps 2 --device cpu                  # the paper recipe
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
-        --steps 10 --batch 8 --seq 1024 --state-storage int \\
-        --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda'
+        --steps 10 --batch 8 --seq 1024 --recipe paper_wag8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \\
+        --steps 60 --batch 8 --seq 1024 --state-storage int \\
+        --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda' \\
+        --sentinel --ckpt build/ckpt --fault nan_grad@52
 
-Prints the reference's ``arch=... policy=[...]`` and ``train-path:`` lines,
-then ``step N ce=... ms/step`` for every step (the step time ends in a
-device sync: reading ce).  Without ``--smoke`` the batch defaults to 8
-sequences of the config's context length.  The reference's checkpoints,
-sentinel, fault injection and model parallelism are not ported: their
-flags raise.
+Prints the reference's ``arch=... policy=[...]``, ``train-path:`` and
+``fault-plan:`` lines, then ``step N ce=... ms/step`` rows (``valid=`` on
+validation steps, ``[fallback]`` on steps of the fallback window) and, with
+``--sentinel`` or a fault plan, ``resilience: {...}``.  The rows print when
+the run ends, as the reference prints them; ``ms/step`` is the mean over
+the steps run so far (replays included), each ending in a device sync.
+As in the reference, a row is logged on the first step and every 10th,
+checkpoints are written every ``max(steps // 3, 50)`` steps and
+validation runs every ``max(steps // 5, 20)``.  Without ``--smoke`` the
+batch defaults to 8 sequences of the config's context length.  Model
+parallelism is not ported: its flag raises.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.qconfig import get_recipe
-from repro_torch.core.qpolicy import parse_policy
+from repro_torch.core.qpolicy import fallback_policy, parse_policy
 from repro_torch.data import Loader, SyntheticCorpus
 from repro_torch.models import build_model
 from repro_torch.optim import OptConfig
-from repro_torch.train import (init_train_state, make_train_step,
+from repro_torch.train import (FaultPlan, LoopConfig, SentinelConfig,
+                               StabilitySentinel, Trainer, init_train_state,
+                               make_eval_step, make_train_step,
                                train_path_summary)
-
-#: flags of the reference launcher that this port does not have yet
-_NOT_PORTED = {
-    "ckpt": "checkpoints (ROADMAP section 1, item 5)",
-    "sentinel": "the stability sentinel (ROADMAP section 1, item 5)",
-    "fault": "fault injection (ROADMAP section 1, item 7)",
-    "model_parallel": "model parallelism (ROADMAP section 1, item 8)",
-}
 
 
 def main(argv=None) -> None:
@@ -58,16 +63,27 @@ def main(argv=None) -> None:
                     choices=("fake", "int"))
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ckpt", default="")
-    ap.add_argument("--sentinel", action="store_true")
-    ap.add_argument("--fault", default="")
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--sentinel", action="store_true",
+                    help="guard every step with the stability sentinel "
+                         "(skip-batch / rollback / fallback-window ladder)")
+    ap.add_argument("--sentinel-window", type=int, default=32)
+    ap.add_argument("--sentinel-sigma", type=float, default=6.0)
+    ap.add_argument("--fallback-steps", type=int, default=16,
+                    help="length of the fp/fake-quant window after a rollback")
+    ap.add_argument("--fallback-mode", choices=("fake", "fp"), default="fake",
+                    help="degraded policy during the fallback window: "
+                         "'fake' keeps fake-quant (continual-QAT posture), "
+                         "'fp' drops quantization entirely")
+    ap.add_argument("--fault", default="",
+                    help="deterministic fault-injection spec (overrides the "
+                         "REPRO_FAULT env var), e.g. 'nan_grad@50'")
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        value = getattr(args, flag)
-        if value and not (flag == "model_parallel" and value == 1):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: {what} is not ported yet")
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            "--model-parallel: model parallelism (ROADMAP section 1, item 8) "
+            "is not ported yet")
 
     dev = resolve_device(args.device)
     if args.smoke:
@@ -86,18 +102,52 @@ def main(argv=None) -> None:
     summary = train_path_summary(recipe, cfg.n_layers, opt_cfg=opt,
                                  device=dev)
     print(f"train-path: {summary}")
+    faults = FaultPlan.from_env(args.fault or None)
+    if faults:
+        print(f"fault-plan: {faults.describe()}")
+    sentinel = fallback_step = None
+    if args.sentinel:
+        sentinel = StabilitySentinel(SentinelConfig(
+            window=args.sentinel_window, spike_sigma=args.sentinel_sigma,
+            fallback_steps=args.fallback_steps))
     state = init_train_state(model, torch.Generator().manual_seed(0), recipe,
                              opt, device=dev)
-    step_fn = make_train_step(model, recipe, opt, accum_steps=args.accum)
-    loader = Loader(SyntheticCorpus(cfg.vocab_size, seed=7), cfg,
-                    batch_size=batch, seq_len=seq)
-    for i in range(1, args.steps + 1):
-        tokens = torch.from_numpy(next(loader)["tokens"]).to(dev)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, {"tokens": tokens})
-        ce = float(metrics["ce"])
-        ms = (time.perf_counter() - t0) * 1e3
-        print(f"step {i:5d}  ce={ce:.4f}  {ms:.0f}ms/step", flush=True)
+    step = make_train_step(model, recipe, opt, accum_steps=args.accum,
+                           faults=faults if faults else None,
+                           health=args.sentinel)
+    if args.sentinel:
+        # the degraded policy keeps the AdamState structure (m1/m2 specs
+        # are kept), so the two steps hand the state back and forth
+        fb_policy = fallback_policy(
+            recipe, mode="fake_quant" if args.fallback_mode == "fake"
+            else "fp")
+        fallback_step = make_train_step(model, fb_policy, opt,
+                                        accum_steps=args.accum, health=True)
+    eval_step = make_eval_step(model, recipe)
+
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=7)
+    loader = Loader(corpus, cfg, batch_size=batch, seq_len=seq)
+    valid = Loader(corpus, cfg, batch_size=batch, seq_len=seq, split="valid")
+    mgr = CheckpointManager(args.ckpt, async_write=True) if args.ckpt else None
+    trainer = Trainer(step, eval_step, state, loader, ckpt=mgr,
+                      valid_loader=valid,
+                      loop_cfg=LoopConfig(
+                          total_steps=args.steps,
+                          ckpt_every=max(args.steps // 3, 50),
+                          eval_every=max(args.steps // 5, 20),
+                          log_every=10),
+                      sentinel=sentinel, fallback_step=fallback_step,
+                      faults=faults if faults else None)
+    trainer.install_preemption_handler()
+    trainer.maybe_resume()
+    for rowd in trainer.run():
+        extra = f"  valid={rowd['valid_ce']:.4f}" if "valid_ce" in rowd else ""
+        if rowd.get("fallback"):
+            extra += "  [fallback]"
+        print(f"step {rowd['step']:5d}  ce={rowd['ce']:.4f}"
+              f"  {rowd['sec_per_step']*1e3:.0f}ms/step{extra}", flush=True)
+    if args.sentinel or faults:
+        print(f"resilience: {trainer.resilience_summary()}")
 
 
 if __name__ == "__main__":

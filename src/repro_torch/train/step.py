@@ -21,8 +21,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.diagnostics import grad_quant_health
 from repro_torch.core.qlinear import residual_compressible
-from repro_torch.core.qpolicy import as_policy
+from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.core.quantizer import _div
 from repro_torch.models.common import (cast_params, tree_flatten,
                                        tree_unflatten)
@@ -110,20 +111,30 @@ def value_and_grad(model: Model, recipe, params, batch):
     return loss.detach(), metrics, tree_unflatten(struct, list(grads))
 
 
+def _health_err_spec(policy: QuantPolicy):
+    """Spec the ``grad_qerr`` drift counter measures against: the policy
+    default's gradient spec when one exists (the codec the backward
+    injects), else its activation spec, else nothing."""
+    r = policy.default
+    if r is None:
+        return None
+    return r.grads if r.grads is not None else r.acts
+
+
 def make_train_step(model: Model, recipe, opt_cfg: OptConfig,
                     accum_steps: int = 1, faults=None, health: bool = False):
     """Gradient step with optional micro-batch accumulation (``accum_steps``
     > 1 splits the leading batch dim and averages the gradients).  The
     optimizer takes ``adamw_update``'s default path: the fused kernel on
-    CUDA params where the moment codecs allow it."""
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection (faults=) is not ported yet (ROADMAP section 1, "
-            "item 7)")
-    if health:
-        raise NotImplementedError(
-            "the sentinel's health counters (health=True) are not ported yet "
-            "(ROADMAP section 1, item 5)")
+    CUDA params where the moment codecs allow it.
+
+    ``faults`` (a ``train.faults.FaultPlan``) poisons the gradients on its
+    planned steps, keyed on ``state.opt.step`` on the device (no host
+    sync; a multiply by 1.0, bit for bit a no-op, on every other step).
+    ``health=True`` adds the sentinel's quantization-health counters to
+    the metrics (``grad_sat``, ``grad_qerr``: see
+    ``core.diagnostics.grad_quant_health``) -- one more pass over the
+    gradient leaves."""
     policy = as_policy(recipe)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -146,9 +157,15 @@ def make_train_step(model: Model, recipe, opt_cfg: OptConfig,
                                             for g in acc])
             loss = _div(loss, float(accum_steps))
             metrics = {"ce": loss, "loss": loss}
+        if faults is not None and faults.has_grad_faults():
+            grads = faults.apply_grads(state.opt.step, grads)
+        metrics = dict(metrics)
+        if health:
+            metrics.update(grad_quant_health(
+                grads, state.opt.m1, policy.adam_m1,
+                _health_err_spec(policy), beta1=opt_cfg.b1))
         new_params, new_opt, stats = adamw_update(
             state.params, grads, state.opt, opt_cfg, policy)
-        metrics = dict(metrics)
         metrics.update(stats)
         return TrainState(new_params, new_opt), metrics
 

@@ -15,7 +15,9 @@ for bit; the paged decode step equal to the dense one bit for bit on the
 same logical cache (context and written rows), its written pools equal
 to its plain version's outside the trash page 0; the fused AdamW step bit for bit in params, payloads, scales and
 zero points (both versions round every op on its own), its update-norm sum
-within 1e-5 relative (partial sums in another order).
+within 1e-5 relative (partial sums in another order); the fused fake
+quantization kernels ``qdq_row`` / ``qdq_scaled`` bit for bit, exact x.5
+ties, all-zero rows and NaN rows included.
 """
 import numpy as np
 import pytest
@@ -25,7 +27,8 @@ from repro_torch.core.qconfig import Granularity, QuantSpec
 from repro_torch.core.quantizer import quantize_int
 from repro_torch.kernels import (decode_attention, decode_attention_paged,
                                  flash_attention_fwd_q8, fused_adamw_blocks,
-                                 int8_matmul, int8_matmul_nt, int8_matmul_tn)
+                                 int8_matmul, int8_matmul_nt, int8_matmul_tn,
+                                 qdq_row, qdq_scaled)
 from repro_torch.kernels.decode_attn import (decode_attention_paged_plain,
                                              decode_attention_plain)
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
@@ -34,6 +37,7 @@ from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
                                              int8_matmul_tn_plain)
 from repro_torch.kernels.opt_update import (codec_of,
                                             fused_adamw_blocks_plain)
+from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
 from repro_torch.core.qconfig import parse_recipe
 
 SPEC = QuantSpec(8, Granularity.PER_TOKEN)
@@ -298,3 +302,97 @@ def test_fused_adamw_kernel(cuda, recipe):
     for a, b in zip(bucket[1:8], ref[1:8]):     # p and the six moment parts
         assert torch.equal(a, b)
     assert torch.isclose(got[3], want[3], rtol=1e-5, atol=0.0)
+
+
+def qdq_inputs(rows, f, bits, seed):
+    """(rows, f) float32 values with the rounding cases planted: row 0
+    reaches absmax qmax (a per-row scale of exactly 1) and holds exact x.5
+    ties of both signs, row 1 is all zero, and column 2 holds x.5 values
+    (ties under a scale of 1, which the per-channel test gives it)."""
+    qmax = 2 ** (bits - 1) - 1
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(rows, f) * 0.02).astype(np.float32)
+    ties = [qmax, 0.5, 1.5, 2.5, -2.5, -0.5, -3.5, 4.5]
+    x[0, :min(f, 8)] = ties[:min(f, 8)]
+    if rows > 1:
+        x[1] = 0.0
+    if f > 2 and rows > 3:
+        col = np.array([0.5, -1.5, 2.5, -4.5] + [0.25] * (rows - 4))
+        x[2:, 2] = col[:rows - 2]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f", [(8192, 768), (300, 3072), (7, 257),
+                                    (1, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qdq_row_kernel(cuda, rows, f, dtype, bits):
+    x = qdq_inputs(rows, f, bits, seed=rows + f + bits).to(dtype).to(cuda)
+    before = qdq_row.launches
+    got = qdq_row(x, bits)
+    assert qdq_row.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, qdq_row_plain(x, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f", [(8192, 3072), (300, 768), (7, 257),
+                                    (1, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_qdq_scaled_kernel(cuda, rows, f, dtype, bits, per_channel):
+    qmax = 2 ** (bits - 1) - 1
+    x = qdq_inputs(rows, f, bits, seed=rows * f + bits).to(dtype).to(cuda)
+    xf = x.float().abs()
+    absmax = (xf.amax(dim=0, keepdim=True) if per_channel
+              else xf.amax().reshape(1, 1))
+    scale = absmax.clamp_min(1e-12) / torch.full_like(absmax, float(qmax))
+    if per_channel and f > 2:
+        scale[0, 2] = 1.0           # the planted ties of column 2
+    before = qdq_scaled.launches
+    got = qdq_scaled(x, scale, bits)
+    assert qdq_scaled.launches == before + 1
+    assert torch.equal(got, qdq_scaled_plain(x, scale, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdq_kernels_unaligned_and_nonfinite(cuda, dtype):
+    """An input 4 bytes past a 16-byte boundary takes the scalar path; NaN
+    rows come out all NaN and inf rows as the plain version gives them."""
+    buf = qdq_inputs(65, 768, 8, seed=3).to(dtype).reshape(-1).to(cuda)
+    x = buf[2:2 + 64 * 768].view(64, 768)
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(qdq_row(x), qdq_row_plain(x))
+    scale = torch.full((1, 768), 0.01, device=cuda)
+    assert torch.equal(qdq_scaled(x, scale), qdq_scaled_plain(x, scale))
+    y = x.clone()
+    y[5, 7] = float("nan")
+    y[9, 3] = float("inf")
+    for got, want in ((qdq_row(y), qdq_row_plain(y)),
+                      (qdq_scaled(y, scale), qdq_scaled_plain(y, scale))):
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+    assert bool(qdq_row(y)[5].isnan().all())
+
+
+@pytest.mark.cuda
+def test_qdq_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.randn(16, 32, device=cuda)
+    scale = torch.ones(1, 32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qdq_row(x.t())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qdq_row(x.half())
+    with pytest.raises(ValueError, match="bits"):
+        qdq_row(x, bits=1)
+    with pytest.raises(ValueError, match="rows, F"):
+        qdq_row(x[None])
+    with pytest.raises(ValueError, match=r"\(1, 32\) or \(1, 1\)"):
+        qdq_scaled(x, torch.ones(32, device=cuda))
+    with pytest.raises(ValueError, match="float32 tensor on"):
+        qdq_scaled(x, scale.cpu())
+    with pytest.raises(ValueError, match="float32 tensor on"):
+        qdq_scaled(x, scale.bfloat16())

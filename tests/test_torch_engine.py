@@ -93,7 +93,10 @@ def test_import_leaves_jax_out():
             "repro_torch.infer.resilience, "
             "repro_torch.kernels, repro_torch.models, repro_torch.optim, "
             "repro_torch.train, repro_torch.data, "
-            "repro_torch.launch.train, repro_torch.core.qlinear; "
+            "repro_torch.launch.train, repro_torch.core.qlinear, "
+            "repro_torch.checkpoint, repro_torch.train.loop, "
+            "repro_torch.train.sentinel, repro_torch.train.faults, "
+            "repro_torch.core.diagnostics, repro_torch.kernels.qdq; "
             "print('jax' in sys.modules, "
             "any(m == 'repro' or m.startswith('repro.') for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

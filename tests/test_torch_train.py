@@ -28,10 +28,10 @@ The whole train step is held against JAX in test_torch_train_step.py; the
 CUDA kernels against these plain versions in test_torch_cuda.py.
 """
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -401,8 +401,26 @@ def test_loader_tokens_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# the launcher and the paths that are not ported
+# the launcher, its guarded path, and the paths that are not ported
 # ---------------------------------------------------------------------------
+
+def _launch(args, timeout=300):
+    """The port's launcher in a fresh interpreter: its stdout lines, after
+    checking that it exited 0 and imported neither JAX nor ``repro``."""
+    code = ("import runpy, sys; sys.argv = ['train'] + sys.argv[1:]; "
+            "runpy.run_module('repro_torch.launch.train', run_name='__main__'); "
+            "print('imports', 'jax' in sys.modules, any(m == 'repro' or "
+            "m.startswith('repro.') for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code, *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "imports False False"
+    return lines[:-1]
+
 
 LAUNCH = [
     ["--state-storage", "int", "--policy",
@@ -414,24 +432,14 @@ LAUNCH = [
 
 @pytest.mark.parametrize("args", LAUNCH)
 def test_launcher_trains_on_cpu(args, monkeypatch):
-    """``--device cpu --smoke --steps 2`` in a fresh interpreter: two finite
-    steps, no JAX or ``repro`` module loaded, and the ``train-path:`` line
-    the JAX launcher prints for the same policy."""
-    code = ("import runpy, sys; sys.argv = ['train'] + sys.argv[1:]; "
-            "runpy.run_module('repro_torch.launch.train', run_name='__main__'); "
-            "print('imports', 'jax' in sys.modules, any(m == 'repro' or "
-            "m.startswith('repro.') for m in sys.modules))")
-    cmd = [sys.executable, "-c", code, "--arch", "gpt2-small", "--device",
-           "cpu", "--smoke", "--steps", "2", *args]
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                         env={"PYTHONPATH": str(REPO / "src"),
-                              "PATH": "/usr/bin:/bin",
-                              "OMP_NUM_THREADS": "2"})
-    assert out.returncode == 0, out.stderr[-3000:]
-    lines = out.stdout.splitlines()
-    assert lines[-1] == "imports False False"
+    """``--device cpu --smoke --steps 10`` in a fresh interpreter: the
+    reference's rows (the first step and every 10th) with finite ce, no JAX
+    or ``repro`` module loaded, and the ``train-path:`` line the JAX
+    launcher prints for the same policy."""
+    lines = _launch(["--arch", "gpt2-small", "--device", "cpu", "--smoke",
+                     "--steps", "10", *args])
     steps = [l for l in lines if l.startswith("step ")]
-    assert len(steps) == 2
+    assert [l.split()[1] for l in steps] == ["1", "10"]
     assert all(np.isfinite(float(l.split("ce=")[1].split()[0])) for l in steps)
     monkeypatch.delenv("REPRO_FUSED_ADAM", raising=False)
     text = args[args.index("--policy") + 1] if "--policy" in args else None
@@ -443,9 +451,58 @@ def test_launcher_trains_on_cpu(args, monkeypatch):
     assert path == ["train-path: " + want.replace("int8_pallas", "int8_cuda")]
 
 
-@pytest.mark.parametrize("flag", [["--ckpt", "/tmp/x"], ["--sentinel"],
-                                  ["--fault", "nan_grad@2"],
-                                  ["--model-parallel", "2"]])
+def _resilience(lines):
+    import ast
+    row = [l for l in lines if l.startswith("resilience: ")]
+    assert len(row) == 1, lines
+    return ast.literal_eval(row[0][len("resilience: "):])
+
+
+SMOKE = ["--arch", "gpt2-small", "--device", "cpu", "--smoke",
+         "--state-storage", "int", "--policy",
+         MAIN.replace("int8_pallas", "int8_cuda")]
+
+
+@pytest.mark.parametrize("flag", ["--ckpt", "--sentinel", "--fault"])
+def test_launcher_guarded_flags_on_cpu(flag, tmp_path):
+    """The reference's guarded-path flags on the smoke config:
+    ``--ckpt`` with a SIGTERM after step 1 writes the preemption checkpoint
+    and a second run resumes from it (each logs its first step);
+    ``--sentinel`` walks the ladder on ``nan_grad@1`` (skips, a rollback
+    with nothing to restore, a fallback window that the 10th step's row
+    marks ``[fallback]``); ``--fault`` alone poisons step 1 and reports
+    it."""
+    if flag == "--ckpt":
+        ckpt = str(tmp_path / "ckpt")
+        first = _launch(SMOKE + ["--steps", "4", "--ckpt", ckpt, "--fault",
+                                 "sigterm_run@1"])
+        assert "fault-plan: sigterm_run@1" in first
+        assert [l.split()[1] for l in first if l.startswith("step ")] == \
+            ["1"]
+        assert _resilience(first)["preempted"] is True
+        assert os.listdir(ckpt) == ["step_0000000002"]
+        second = _launch(SMOKE + ["--steps", "4", "--ckpt", ckpt])
+        assert [l.split()[1] for l in second if l.startswith("step ")] == \
+            ["3"]
+    elif flag == "--sentinel":
+        lines = _launch(SMOKE + ["--steps", "10", "--sentinel",
+                                 "--fallback-steps", "10", "--fault",
+                                 "nan_grad@1"])
+        rows = [l for l in lines if l.startswith("step ")]
+        assert [(l.split()[1], l.endswith("[fallback]")) for l in rows] == \
+            [("1", False), ("10", True)]
+        res = _resilience(lines)
+        assert res["sentinel"]["rollbacks"] == 1
+        assert res["sentinel"]["fallback_steps_run"] == 6
+        assert res["skipped_batches"] == 3 and res["rollback_failures"] == 1
+        assert res["sentinel"]["spike_reasons"] == {"nonfinite-grad": 3}
+    else:
+        lines = _launch(SMOKE + ["--steps", "2", "--fault", "nan_grad@1"])
+        assert "fault-plan: nan_grad@1" in lines
+        assert _resilience(lines)["faults_fired"] == ["nan_grad@1"]
+
+
+@pytest.mark.parametrize("flag", [["--model-parallel", "2"]])
 def test_launcher_refuses_flags_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launcher.main(["--arch", "gpt2-small", "--smoke", "--device", "cpu",
@@ -459,15 +516,13 @@ def test_launcher_defaults_to_the_card(monkeypatch):
 
 
 def test_paths_not_ported_raise():
-    """Stochastic rounding, the fake-quant qdq kernels on a CUDA tensor,
-    flash training attention and the train step's fault / health hooks
-    raise, naming their ROADMAP items."""
+    """Stochastic rounding and flash training attention raise, naming
+    their ROADMAP items."""
     spec = QuantSpec(8, round_mode=RoundMode.STOCHASTIC)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quantize_int(torch.ones(4, 4), spec)
-    on_card = mock.Mock(ndim=2, is_cuda=True)
-    with pytest.raises(NotImplementedError, match="#1/#2"):
-        _train_fake_quant(on_card, QuantSpec(8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _train_fake_quant(torch.ones(4, 4), spec)
     cfg = dataclasses.replace(tsmoke("gpt2-small"), dtype="float32",
                               attention_impl="flash_pallas")
     blocks = build_model(cfg).init_params(torch.Generator().manual_seed(0),
@@ -476,7 +531,51 @@ def test_paths_not_ported_raise():
         attn_apply({k: v[0] for k, v in blocks.items()},
                    torch.zeros(1, 4, cfg.d_model), cfg,
                    policy=parse_policy("*=fp"))
-    model = build_model(tsmoke("gpt2-small"))
-    for kw in ({"faults": object()}, {"health": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(model, "paper", OptConfig(), **kw)
+
+
+def test_fake_quant_gradients_run_the_qdq_kernels(monkeypatch):
+    """A fake-quant linear's G spec goes through kernels #1/#2 (here their
+    plain versions, the tensors lying on the CPU), once per backward; a
+    tensor on any other device than the CPU or a card is refused, never
+    quietly run plain."""
+    import repro_torch.kernels.ops as ops
+    seen = []
+    for name in ("qdq_row", "qdq_scaled"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda x, *a, _r=real, _n=name:
+                            seen.append((_n, tuple(x.shape))) or _r(x, *a))
+    x = torch.randn(2, 5, 16, requires_grad=True)
+    w = torch.randn(16, 8, requires_grad=True)
+    for recipe, kernel in (("w8c,a8t,g8t", "qdq_row"),
+                           ("w8c,a8t,g8n", "qdq_scaled"),
+                           ("w8c,a8t,g8c", "qdq_scaled")):
+        seen.clear()
+        from repro_torch.core.qlinear import quantized_linear
+        quantized_linear(x, w, parse_recipe(recipe)).sum().backward()
+        assert seen == [(kernel, (10, 8))], recipe
+    from repro_torch.kernels import qdq_row
+    with pytest.raises(ValueError, match="unsupported device"):
+        qdq_row(torch.ones(4, 4, device="meta"))
+
+
+def test_train_step_faults_and_health():
+    """``faults=`` poisons the planned step and ``health=`` adds the
+    sentinel's counters (their values against JAX in
+    test_torch_train_system.py)."""
+    from repro_torch.train.faults import FaultPlan
+    cfg = tsmoke("gpt2-small")
+    model = build_model(cfg)
+    opt = OptConfig(state_storage="int")
+    pol = parse_policy(MAIN.replace("int8_pallas", "int8_cuda"))
+    state = train_state_from_jax(
+        jax.tree_util.tree_map(np.asarray, j_init_train(
+            jbuild(jsmoke("gpt2-small")), jax.random.PRNGKey(0),
+            jparse_policy(MAIN), JOpt(state_storage="int"))), cfg,
+        device="cpu")
+    toks = torch.from_numpy(SyntheticCorpus(cfg.vocab_size, seed=7).batch(
+        0, batch_size=2, seq_len=32))
+    step = make_train_step(model, pol, opt,
+                           faults=FaultPlan.parse("nan_grad@0"), health=True)
+    _, m = step(state, {"tokens": toks})
+    assert {"grad_sat", "grad_qerr", "grad_norm", "ce"} <= set(m)
+    assert np.isnan(float(m["grad_norm"])) and np.isfinite(float(m["ce"]))
