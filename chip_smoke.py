@@ -5,9 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build the five CUDA kernel libraries from ``src/repro_torch/csrc`` (one
-   nvcc per source, all at once; ``decode_attn.cu`` holds the dense and the
-   paged decode kernels) and print the build time;
+1. build the CUDA kernel libraries of ``_build.SOURCES`` (seven sources
+   under ``src/repro_torch/csrc``, one nvcc each, all at once;
+   ``decode_attn.cu`` holds the dense and the paged decode kernels,
+   ``flash_attn.cu`` the fp flash forward and both backward kernels) and
+   print the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's shapes, and time kernel, plain version and a
@@ -61,7 +63,24 @@ Phases, in order; any failure exits non-zero:
     then resume: bit-identical to the uninterrupted run (``train_resume``);
 12. one ``paper_wag8`` step on gpt2-mini, card against CPU, and with the
     plain qdq in the kernels' place; a bf16-carrier step, the control,
-    must exceed every limit (``train_fake_card_vs_cpu``).
+    must exceed every limit (``train_fake_card_vs_cpu``);
+13. the fp flash kernels #7-#10 against their plain versions at the
+    training shape (BH = 96, S = 1024, hd = 64) and ``FLASH_SWEEP`` (head
+    dims 16-256, Sq != Skv, an odd length, non-causal, the prefill
+    shape), float32 and bfloat16, on the same inputs, within ``FLASH_TOL``
+    and, at bfloat16, ``FLASH_BF16`` with three controls outside it; #7
+    equal to #8, repeats bit-identical, a planted NaN propagated; each
+    timed beside its bound (each product at its operands' peak rate),
+    plain version and SDPA (``check_flash``);
+14. phase 7 with ``attention_impl="flash_pallas"``: 10 finite steps, each
+    launching exactly 72 / 72 / 72 / 1 int8 and AdamW kernels and #8, #9,
+    #10 12 times (``train(impl="flash_pallas")``); 14b. the dense engine
+    with an fp KV cache and the flash setting: 8 of phase 4's prompts
+    answered to length, #8 12 times per prefill launch, #9/#10 never
+    (``serve_flash``);
+15. the flash path at float32 under ``*=fp`` against the CPU, against
+    ``_attend`` and against its plain versions on the card, within
+    ``FLASH_LIMITS`` (``flash_card_vs_cpu``).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -84,15 +103,19 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 POLICY = "kv_cache=a8t,*=w8c+a8t@int8_cuda"
 # H100 SXM published peaks (NVIDIA data sheet), dense: HBM3 bytes/s, int8
-# tensor-core ops/s, fp32 FLOP/s outside the tensor cores
+# tensor-core ops/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the
+# tensor cores
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention")
 TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_blocks")
 QDQ_KERNELS = ("qdq_row", "qdq_scaled")
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
+                 "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS + ("decode_attention_paged",) \
-    + QDQ_KERNELS
+    + QDQ_KERNELS + FLASH_KERNELS
 #: phases 4 and 4b: 32 requests, prompts of 32-512 tokens, 64 new tokens
 #: each, 16 slots of 1024 rows; 4b's pages hold 64 rows, its requests
 #: arrive with exponential gaps of this mean
@@ -129,6 +152,49 @@ LADDER_EXPECT = {
     "fallback_rows": [4, 5, 6, 7, 8, 9, 10],
     "spike_reasons": {"nonfinite-grad": 2},
 }
+#: phase 13: the flash kernels at the training shape (BH = 8 x 12 heads,
+#: S = 1024, hd = 64, causal), then this sweep: (label, BH, Sq, Skv, hd,
+#: causal, q_offset) -- every other head dim of the repo's configs, Sq !=
+#: Skv at q_offset = Skv - Sq, an odd length, the non-causal case and the
+#: fp-KV prefill's 300-token prompt against a 1024-row cache
+FLASH_SWEEP = (("hd16", 16, 512, 512, 16, True, 0),
+               ("hd32", 16, 512, 512, 32, True, 0),
+               ("hd128", 16, 512, 512, 128, True, 0),
+               ("hd160", 8, 512, 512, 160, True, 0),
+               ("hd256", 8, 512, 512, 256, True, 0),
+               ("offset", 16, 384, 1024, 64, True, 640),
+               ("odd", 16, 1000, 1000, 64, True, 0),
+               ("noncausal", 16, 512, 700, 64, False, 0),
+               ("prefill", 12, 300, 1024, 64, True, 0))
+#: phase 13's tolerances of the kernels against their plain versions on
+#: the same unit-normal inputs (the backward's plain versions read the
+#: kernels' lse and delta): o's max |error| by carrier and the LSE rows'
+#: (the reference's own, tests/test_flash_attn.py), and at float32 the
+#: gradients' relative L2 distance.  At bfloat16 the kernels and the plain
+#: versions compute one fp32 function in another order and round it once,
+#: so o, dq, dk and dv are held to FLASH_BF16: their relative L2 distance
+#: and the share of elements more than one bf16 step from the plain
+#: version.  The plain forward rounds p against the running max of the
+#: kernel's key tiles, as the kernel does.  Three controls that move one
+#: rounding of p must exceed both limits: the plain forward with p left
+#: unrounded, the plain forward rounding p against the row's final max
+#: (the reference's _ref_attend), and #9's dv with p rounded to bf16.
+#: Readings on the H100 at every phase-13 shape (PERF.md): sound at most
+#: 4.8e-5 and 1.3e-5 (the gradients bit for bit), controls at least
+#: 9.3e-4 and 3.6e-2; each limit sits 4x or more from both sides.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_LSE_TOL = 2e-5
+FLASH_GRAD_TOL = 1e-4
+FLASH_BF16 = {"rel_l2": 2e-4, "over_ulp": 1e-3}
+#: phase 14b: the flash prefill serves 8 of phase 4's prompts, 16 new
+#: tokens each, from an fp KV cache (no kv_cache role)
+FLASH_SERVE_POLICY = "*=w8c+a8t@int8_cuda"
+FLASH_SERVE_REQUESTS, FLASH_SERVE_NEW = 8, 16
+#: phase 15: limits of flash against flash (card vs CPU) and of flash
+#: against _attend (the same function in another fp32 order), stated
+#: before any reading: |d ce|, the gradients' relative L2 distance, max
+#: |d logit|
+FLASH_LIMITS = {"ce": 1e-5, "grads": 1e-4, "logits": 1e-4}
 # phase 5, policy B: limit on max |d logit| of the card against the CPU, set
 # from the readings recorded in PERF.md (not sized at run time)
 B_LIMIT = 0.1
@@ -163,10 +229,13 @@ def ladder_record(summary, history, verdicts):
             "spike_reasons": dict(s["spike_reasons"])}
 
 
-def bound_ms(nbytes: float, ops: float, rate: float):
+def bound_ms(nbytes: float, ops: float, rate: float, more=()):
     """Least time for the work: the larger of bytes over memory rate and
-    operations over peak rate; returns (ms, 'bytes' | 'operations')."""
-    t_mem, t_ops = nbytes / HBM_BPS, ops / rate
+    operations over peak rate, plus each further (operations, rate) pair
+    of ``more`` for work that mixes types; returns (ms, 'bytes' |
+    'operations')."""
+    t_mem = nbytes / HBM_BPS
+    t_ops = ops / rate + sum(n / r for n, r in more)
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations")
 
@@ -824,7 +893,9 @@ def _teacher_forced(torch, model, cfg, params, toks, policy, device):
 def plain_versions(names):
     """Inside, the model calls the named kernels' plain versions in their
     place, on whatever device its tensors are: the card-against-card
-    comparisons of phases 5, 8 and 12.  Nothing in the port does this."""
+    comparisons of phases 5, 8, 12 and 15.  Nothing in the port does
+    this."""
+    import repro_torch.kernels.flash_attn as flash_attn
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.opt_update as opt_update
     import repro_torch.models.attention as attention
@@ -843,7 +914,9 @@ def plain_versions(names):
              "int8_matmul_nt": (ops, int8_matmul_nt_plain),
              "int8_matmul_tn": (ops, int8_matmul_tn_plain),
              "fused_adamw_blocks": (opt_update,
-                                    opt_update.fused_adamw_blocks_plain)}
+                                    opt_update.fused_adamw_blocks_plain),
+             **{n: (flash_attn, getattr(flash_attn, n + "_plain"))
+                for n in FLASH_KERNELS}}
     saved = [(sites[n][0], n, getattr(sites[n][0], n)) for n in names]
     try:
         for n in names:
@@ -1079,9 +1152,10 @@ def check_fused_adamw(torch, dev, gen, results):
         bound_ms=b, bound_by=by, library_ms=None)
 
 
-def train(torch, dev, seed):
-    """Phase 7: GPT-2 small's train step on the card; returns the launch
-    counts of the main run."""
+def train(torch, dev, seed, impl="xla"):
+    """Phase 7 (``impl="xla"``, attention through ``_attend``) and phase 14
+    (``"flash_pallas"``, through #8-#10): GPT-2 small's train step on the
+    card; returns the launch counts of the main run."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data import Loader, SyntheticCorpus
@@ -1089,8 +1163,9 @@ def train(torch, dev, seed):
     from repro_torch.optim import OptConfig
     from repro_torch.train import (init_train_state, make_train_step,
                                    train_path_summary)
-    cfg = get_config("gpt2-small")
+    cfg = dataclasses.replace(get_config("gpt2-small"), attention_impl=impl)
     model = build_model(cfg)
+    tag = "train" if impl == "xla" else "train_flash"
     opt = OptConfig(lr=6e-4, warmup_steps=5, total_steps=TRAIN_STEPS,
                     state_storage="int")
     state = init_train_state(model,
@@ -1101,14 +1176,15 @@ def train(torch, dev, seed):
                     batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
     batches = [torch.from_numpy(next(loader)["tokens"]).to(dev)
                for _ in range(TRAIN_STEPS + 1)]
-    print(f"train: {cfg.name} {cfg.n_layers}L d={cfg.d_model} carrier "
-          f"{cfg.dtype}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, policy "
-          f"{TRAIN_POLICY}, int moments; train-path: "
+    print(f"{tag}: {cfg.name} {cfg.n_layers}L d={cfg.d_model} carrier "
+          f"{cfg.dtype}, attention {impl}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"a step, policy {TRAIN_POLICY}, int moments; train-path: "
           f"{train_path_summary(TRAIN_POLICY, cfg.n_layers, opt, device=dev)}")
-    want = {"int8_matmul": 6 * cfg.n_layers, "int8_matmul_nt": 6 * cfg.n_layers,
-            "int8_matmul_tn": 6 * cfg.n_layers, "fused_adamw_blocks": 1,
-            "flash_attention_fwd_q8": 0, "decode_attention": 0,
-            "decode_attention_paged": 0, "qdq_row": 0, "qdq_scaled": 0}
+    linears = 6 * cfg.n_layers
+    flash = {} if impl == "xla" else {k: cfg.n_layers for k in FLASH_KERNELS
+                                      if k != "flash_attention_fwd"}
+    want = _expect(int8_matmul=linears, int8_matmul_nt=linears,
+                   int8_matmul_tn=linears, fused_adamw_blocks=1, **flash)
     # the serving phases stopped their schedulers (a running emit thread
     # holds its engine), but an engine and its scheduler refer to each
     # other: collect the cycles so the peak below is the train step's own
@@ -1125,23 +1201,23 @@ def train(torch, dev, seed):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         per = {k: v - before[k] for k, v in kernels.launch_counts().items()}
-        print(f"train: step {i + 1:2d} ce {ce:.4f} grad_norm {gn:.4f} "
+        print(f"{tag}: step {i + 1:2d} ce {ce:.4f} grad_norm {gn:.4f} "
               f"update_norm {float(met['update_norm']):.4f} "
               f"{step_ms[-1]:.1f} ms")
         if not (math.isfinite(ce) and math.isfinite(gn)):
-            fail(f"train step {i + 1}: ce {ce}, grad norm {gn}")
+            fail(f"{tag} step {i + 1}: ce {ce}, grad norm {gn}")
         if per != want:
-            fail(f"train step {i + 1}: launches {per}, expected {want}")
+            fail(f"{tag} step {i + 1}: launches {per}, expected {want}")
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = step_ms[1:]
     mean = sum(steady) / len(steady)
     tok = TRAIN_BATCH * TRAIN_SEQ
-    print(f"train: {TRAIN_STEPS} steps, step 1 {step_ms[0]:.1f} ms (loads "
+    print(f"{tag}: {TRAIN_STEPS} steps, step 1 {step_ms[0]:.1f} ms (loads "
           f"the libraries), steps 2-{TRAIN_STEPS} mean {mean:.1f} ms "
           f"(min {min(steady):.1f}, max {max(steady):.1f}), "
           f"{tok / mean * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB")
-    print(f"train: launch counts {counts}")
+    print(f"{tag}: launch counts {counts}")
     profile_train_step(torch, step_fn, state, batches[-1])
     return counts
 
@@ -1842,6 +1918,344 @@ def train_fake_card_vs_cpu(torch, dev, seed):
              "so the limits cannot tell it from a sound step")
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the fp flash kernels (#7-#10) and the flash_pallas paths
+# ---------------------------------------------------------------------------
+
+def _flash_all(fa, q, k, v, do, causal, off):
+    """#8's (o, lse), then #9's (dk, dv) and #10's dq from them with delta =
+    sum(dO * o); returns (o, lse, dq, dk, dv, delta)."""
+    kw = dict(causal=causal, q_offset=off)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return o, lse, dq, dk, dv, delta
+
+
+def _flash_plain(fa, q, k, v, do, lse, delta, causal, off):
+    """The plain versions on the kernels' inputs: #8's on q, k, v, #9's and
+    #10's on the lse and delta the kernels read; returns (o, lse, dq, dk,
+    dv)."""
+    kw = dict(causal=causal, q_offset=off)
+    o, lse_p = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+    dk, dv = fa.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
+    dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    return o, lse_p, dq, dk, dv
+
+
+def _bf16_distance(torch, got, want):
+    """(relative L2 distance, share of elements more than one bf16 step of
+    ``want`` apart) of two bfloat16 tensors; a zero in ``want`` has the
+    step of 0.5-1."""
+    g, w = got.float(), want.float()
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    over = ((g - w).abs() > step).float().mean().item()
+    return _rel_l2(torch, [got], [want]), over
+
+
+def _visible_pairs(sq, skv, causal, off):
+    """(query, key) pairs the kernels compute: the causally visible ones."""
+    if not causal:
+        return sq * skv
+    return sum(min(skv, off + i + 1) for i in range(sq))
+
+
+def _flash_case(torch, fa, q, k, v, do, causal, off):
+    """One phase-13 case: the kernels against their plain versions on the
+    same inputs.  Returns the printed reading and whether it passed."""
+    dname = str(q.dtype).replace("torch.", "")
+    got = _flash_all(fa, q, k, v, do, causal, off)
+    want = _flash_plain(fa, q, k, v, do, got[1], got[5], causal, off)
+    again = _flash_all(fa, q, k, v, do, causal, off)
+    o7 = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    diff = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got[:5], want)]
+    same7 = torch.equal(o7, got[0])
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (diff[0] <= FLASH_TOL[dname] and diff[1] <= FLASH_LSE_TOL
+          and same7 and repeat)
+    if q.dtype == torch.float32:
+        rel = [_rel_l2(torch, [g], [w]) for g, w in zip(got[2:5], want[2:])]
+        ok &= max(rel) <= FLASH_GRAD_TOL
+        text = (f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
+                f"(tol {FLASH_GRAD_TOL:.0e})")
+    else:
+        # o, dq, dk, dv; then the controls, each one rounding of p moved:
+        # the plain forward with p left unrounded, with p rounded against
+        # the row's final max (the reference's _ref_attend, one tile), and
+        # dv from p rounded to the carrier
+        dist = [_bf16_distance(torch, g, w)
+                for g, w in zip(got[:1] + got[2:5], want[:1] + want[2:])]
+        kw = dict(causal=causal, q_offset=off)
+        ctrl_o = fa.flash_attention_fwd_lse_plain(
+            q.float(), k.float(), v.float(), **kw)[0].to(q.dtype)
+        row_o = fa.flash_attention_fwd_lse_plain(q, k, v, block_k=k.shape[1],
+                                                 **kw)[0]
+        p, _ = fa._bwd_plain(q, k, v, do, got[1], got[5], causal, off)
+        ctrl_dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(),
+                               do.float()).to(q.dtype)
+        del p
+        ctrl = [_bf16_distance(torch, c, w) for c, w in
+                ((ctrl_o, want[0]), (row_o, want[0]), (ctrl_dv, want[4]))]
+        lim = FLASH_BF16
+        within = lambda d: d[0] <= lim["rel_l2"] and d[1] <= lim["over_ulp"]
+        outside = lambda d: d[0] > lim["rel_l2"] and d[1] > lim["over_ulp"]
+        ok &= all(within(d) for d in dist) and all(outside(d) for d in ctrl)
+        text = ("o/dq/dk/dv rel L2 " + "/".join(f"{d[0]:.2e}" for d in dist)
+                + f" (limit {lim['rel_l2']:.0e}), over one bf16 step "
+                + "/".join(f"{d[1]:.2e}" for d in dist)
+                + f" (limit {lim['over_ulp']:.0e}); controls (rel L2, over "
+                "one step) p unrounded "
+                + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[:1])
+                + ", p against the final max "
+                + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[1:2])
+                + ", dv with p rounded "
+                + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[2:])
+                + ": all above both limits "
+                + ("yes" if all(outside(d) for d in ctrl) else "NO"))
+    reading = (f"o max err {diff[0]:.2e} (tol {FLASH_TOL[dname]:.0e}), lse "
+               f"{diff[1]:.2e} (tol {FLASH_LSE_TOL:.0e}), {text}; max abs "
+               f"dq/dk/dv {diff[2]:.2e}/{diff[3]:.2e}/{diff[4]:.2e}; #7 == #8 "
+               f"{'bit for bit' if same7 else 'DIFFERS'}, second launch "
+               f"{'bit-identical' if repeat else 'DIFFERS'}")
+    return reading, ok, diff
+
+
+def check_flash(torch, dev, gen, results):
+    """Phase 13: the fp flash kernels against their plain versions on the
+    card, on the same inputs (``_flash_case``), at the training shape and
+    at ``FLASH_SWEEP``, float32 and bfloat16, unit-normal inputs: #8's
+    output and LSE, #9's dK/dV and #10's dQ within ``FLASH_TOL`` /
+    ``FLASH_LSE_TOL`` / ``FLASH_GRAD_TOL`` (float32) / ``FLASH_BF16``
+    (bfloat16, with its two controls outside); #7's output equal to #8's
+    bit for bit; a second launch of each kernel equal to its first bit for
+    bit; a NaN planted in q reaching o, the LSE and the gradients.  Each
+    kernel timed at the training shape (bf16) beside its plain version,
+    its bound and SDPA: its forward for #7/#8, its backward for #9 and #10
+    together (a yardstick, unused by the port).  The bound counts each
+    product at the rate of its operands' type: at hd = 64 and the bf16
+    carrier q / 8, k, v, dO and the forward's rounded p are bf16 values,
+    so the score products of all four kernels, the forward's P.V and the
+    backward's dO.V are exact on the bf16 tensor cores; the backward's
+    p^T dO, ds^T q and ds k take fp32 p or ds, at the fp32 CUDA-core
+    rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    bh, s, hd = TRAIN_BATCH * 12, TRAIN_SEQ, 64
+    cases = (("train", bh, s, s, hd, True, 0),) + FLASH_SWEEP
+    errs = {}
+    ok = True
+    for label, b_, sq, skv, d, causal, off in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                           .to(dt) for shape in ((b_, sq, d), (b_, skv, d),
+                                                 (b_, skv, d), (b_, sq, d)))
+            reading, case_ok, diff = _flash_case(torch, fa, q, k, v, do,
+                                                 causal, off)
+            ok &= case_ok
+            print(f"flash {label:9s} BH={b_:3d} Sq={sq:4d} Skv={skv:4d} "
+                  f"hd={d:3d} {'causal' if causal else 'full':6s} "
+                  f"q_offset={off:3d} {str(dt)[6:]:8s}: {reading}"
+                  f"{'' if case_ok else '  <-- FAIL'}")
+            if label == "train" and dt == torch.float32:
+                errs = {"flash_attention_fwd": diff[0],
+                        "flash_attention_fwd_lse": max(diff[0], diff[1]),
+                        "flash_attention_bwd_dkdv": max(diff[3], diff[4]),
+                        "flash_attention_bwd_dq": diff[2]}
+            del q, k, v, do
+    # a NaN in q row 70 of head 1 reaches its o and LSE rows, its dq row and
+    # the dk / dv rows it attends to; head 0 stays finite
+    q, k, v, do = (torch.randn((2, 256, 64), generator=gen, device=dev)
+                   .bfloat16() for _ in range(4))
+    q[1, 70, 5] = float("nan")
+    o, lse, dq, dk, dv, _ = _flash_all(fa, q, k, v, do, True, 0)
+    nan_ok = (bool(o[1, 70].isnan().all()) and bool(lse[1, 70].isnan())
+              and bool(dq[1, 70].isnan().all())
+              and bool(dk[1, :71].isnan().all())
+              and bool(dv[1, :71].isnan().all())
+              and all(bool(t[0].isfinite().all()) for t in (o, dq, dk, dv)))
+    print(f"flash NaN planted in q[1, 70]: o, lse, dq row and dk/dv rows "
+          f"0-70 {'NaN, head 0 finite' if nan_ok else 'NOT as expected'}")
+    ok &= nan_ok
+    if not ok:
+        fail("phase 13: a flash kernel disagrees with its plain version")
+
+    # timing at the training shape, bf16
+    q, k, v, do = (torch.randn((bh, s, hd), generator=gen, device=dev)
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta)
+    q4, k4, v4, do4 = (t.view(TRAIN_BATCH, 12, s, hd) for t in (q, k, v, do))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+    o4 = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(o4, leaves, do4,
+                                                   retain_graph=True))
+    pairs = _visible_pairs(s, s, True, 0) * bh
+    tens, rows = bh * s * hd * 2, bh * s * 4     # bf16 tensor, fp32 rows
+    mm = 2 * hd * pairs                          # one product over the pairs
+    plan = (   # name, site line, kernel, plain, bytes, bf16 / fp32 FLOPs
+        ("flash_attention_fwd", 116, lambda: fa.flash_attention_fwd(q, k, v),
+         lambda: fa.flash_attention_fwd_plain(q, k, v), 4 * tens,
+         2 * mm, 0, sdpa_fwd, "SDPA forward"),
+        ("flash_attention_fwd_lse", 275,
+         lambda: fa.flash_attention_fwd_lse(q, k, v),
+         lambda: fa.flash_attention_fwd_lse_plain(q, k, v), 4 * tens + rows,
+         2 * mm, 0, sdpa_fwd, "SDPA forward"),
+        ("flash_attention_bwd_dkdv", 344,
+         lambda: fa.flash_attention_bwd_dkdv(*bwd),
+         lambda: fa.flash_attention_bwd_dkdv_plain(*bwd),
+         6 * tens + 2 * rows, 2 * mm, 2 * mm, sdpa_bwd,
+         "SDPA backward, dq+dk+dv together"),
+        ("flash_attention_bwd_dq", 369,
+         lambda: fa.flash_attention_bwd_dq(*bwd),
+         lambda: fa.flash_attention_bwd_dq_plain(*bwd),
+         5 * tens + 2 * rows, 2 * mm, mm, sdpa_bwd,
+         "SDPA backward, dq+dk+dv together"))
+    for name, line, kern, plain, nbytes, f16, f32, lib, lib_what in plan:
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        bd, by = bound_ms(nbytes, f16, BF16_FLOPS, ((f32, FP32_FLOPS),))
+        print(f"{name} BH={bh} S={s} hd={hd} causal bf16: ms {ms:.4f}, "
+              f"plain_ms {plain_ms:.4f}, bound_ms {bd:.5f} ({by}; "
+              f"{f16 / 1e9:.1f} GFLOP bf16-exact at 989 TFLOP/s + "
+              f"{f32 / 1e9:.1f} GFLOP fp32 at 67, {nbytes / 1e6:.1f} MB), "
+              f"{ms / bd:.1f}x the bound, library_ms({lib_what}) {lib:.4f}")
+        results[name] = dict(
+            route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
+            replaces=f"src/repro/kernels/flash_attn.py:{line}",
+            tol=FLASH_TOL["float32"], shape=f"BH={bh},S={s},hd={hd},causal",
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bd,
+            bound_by=by, library_ms=lib)
+
+
+def serve_flash(torch, dev, seed):
+    """Phase 14b: the dense engine on GPT-2 small with
+    ``attention_impl="flash_pallas"`` and an fp KV cache
+    (``FLASH_SERVE_POLICY``: W8A8 linears, no ``kv_cache`` role): the first
+    ``FLASH_SERVE_REQUESTS`` of phase 4's prompts, ``FLASH_SERVE_NEW`` new
+    tokens each.  Every request answered to length; each prefill launch
+    runs #8 once per layer, #9/#10 never; decode steps attend through
+    ``_attend``.  Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.infer import Engine, Request
+    from repro_torch.models import build_model
+    cfg, _, params = serve_model(torch, dev, seed)
+    cfg = dataclasses.replace(cfg, attention_impl="flash_pallas")
+    model = build_model(cfg)
+    eng = Engine(model, params, FLASH_SERVE_POLICY, max_slots=SERVE_SLOTS,
+                 max_seq=SERVE_SEQ, device=dev, seed=seed)
+    prompts = serve_prompts(cfg, seed)[:FLASH_SERVE_REQUESTS]
+    ids = [eng.submit(Request(tokens=p, max_new_tokens=FLASH_SERVE_NEW))
+           for p in prompts]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    st = eng.stats
+    eng.scheduler.stop()
+    if sorted(r.request_id for r in out) != sorted(ids):
+        fail("phase 14b: the flash engine did not answer every request")
+    for r in out:
+        if (len(r.tokens) != FLASH_SERVE_NEW or r.finish_reason != "length"
+                or not all(0 <= t < cfg.vocab_size for t in r.tokens)):
+            fail(f"phase 14b request {r.request_id}: {len(r.tokens)} tokens, "
+                 f"{r.finish_reason}")
+    want = _expect(int8_matmul=6 * cfg.n_layers * (st["prefill_calls"]
+                                                   + st["decode_steps"]),
+                   flash_attention_fwd_lse=cfg.n_layers * st["prefill_calls"])
+    print(f"serve_flash: {eng.path_summary()}, attention flash_pallas, "
+          f"{len(out)} requests (prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens), {FLASH_SERVE_NEW} new tokens "
+          f"each, in {wall:.3f} s; prefill {st['prefill_calls']} launches "
+          f"{st['prefill_s'] * 1e3:.1f} ms, decode {st['decode_steps']} steps "
+          f"{st['decode_s'] * 1e3:.1f} ms; launch counts {counts}")
+    if counts != want or not counts["flash_attention_fwd_lse"]:
+        fail(f"phase 14b: launches {counts}, expected {want}")
+    return counts
+
+
+def flash_card_vs_cpu(torch, dev, seed):
+    """Phase 15: the flash path on the card against the CPU and against
+    ``_attend``, float32 carrier, ``*=fp``, weights of ``init_params``
+    (seed + 4) at the true fan-in scale (``true_fan_in``).  On gpt2-mini
+    (4 x 128 tokens from the synthetic corpus): the train loss and its
+    gradients in float32 (``train_loss`` on the float32 params; the train
+    step's bfloat16 cast of the master params would round the gradients
+    to bf16) of the card's flash kernels against (A) the CPU's plain flash, (B) the card's
+    ``_attend`` path and (D) the card with the plain flash versions in the
+    kernels' place; (C) ``lm_prefill`` logits (2 x 64 prompt, 80 rows)
+    under flash against ``_attend`` on the card.  On GPT-2 small (E): one
+    loss and gradient, 2 x 512 tokens, flash against ``_attend`` on the
+    card.  Each within ``FLASH_LIMITS``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten, tree_map, tree_unflatten
+    lim = FLASH_LIMITS
+    ok = True
+
+    def grads(cfg, impl, params, toks, device, swap=()):
+        model = build_model(dataclasses.replace(cfg, attention_impl=impl))
+        leaves, struct = tree_flatten(params)
+        leaves = [t.to(device).requires_grad_(True) for t in leaves]
+        with plain_versions(swap):
+            loss, _ = model.train_loss(tree_unflatten(struct, leaves),
+                                       {"tokens": toks.to(device)},
+                                       policy="*=fp")
+            g = torch.autograd.grad(loss, leaves)
+        return loss.item(), list(g)
+
+    def report(label, a, b):
+        d_ce, rel = abs(a[0] - b[0]), _rel_l2(torch, a[1], b[1])
+        good = d_ce <= lim["ce"] and rel <= lim["grads"]
+        print(f"flash card vs {label}: ce {a[0]:.7f} vs {b[0]:.7f} (|d| "
+              f"{d_ce:.3e}, limit {lim['ce']:.0e}), grads rel L2 {rel:.3e} "
+              f"(limit {lim['grads']:.0e}){'' if good else '  <-- FAIL'}")
+        return good
+
+    for name, cfg, shape in (
+            ("gpt2-mini", get_smoke_config("gpt2-small"), (4, 128)),
+            ("gpt2-small", get_config("gpt2-small"), (2, 512))):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = true_fan_in(build_model(cfg).init_params(
+            torch.Generator().manual_seed(seed + 4), device="cpu"), cfg)
+        toks = torch.from_numpy(SyntheticCorpus(cfg.vocab_size, seed=7).batch(
+            0, batch_size=shape[0], seq_len=shape[1]))
+        card = grads(cfg, "flash_pallas", params, toks, dev)
+        ok &= report(f"card _attend ({name}, B)",
+                     card, grads(cfg, "xla", params, toks, dev))
+        if name != "gpt2-mini":
+            continue
+        ok &= report(f"cpu plain flash ({name}, A)",
+                     card, grads(cfg, "flash_pallas", params, toks, "cpu"))
+        ok &= report(f"card plain flash ({name}, D)", card,
+                     grads(cfg, "flash_pallas", params, toks, dev,
+                           swap=FLASH_KERNELS))
+        logits = []
+        for impl in ("flash_pallas", "xla"):
+            model = build_model(dataclasses.replace(cfg, attention_impl=impl))
+            p = tree_map(lambda t: t.to(dev), params)
+            lg, _ = model.prefill(p, toks[:2, :64].to(dev), policy="*=fp",
+                                  max_seq=80)
+            logits.append(lg[:, :cfg.vocab_size].float().cpu())
+        err = (logits[0] - logits[1]).abs().max().item()
+        good = err <= lim["logits"] and bool(torch.isfinite(logits[0]).all())
+        print(f"flash card vs card _attend ({name}, C): lm_prefill logits "
+              f"max |d| {err:.3e} (limit {lim['logits']:.0e})"
+              f"{'' if good else '  <-- FAIL'}")
+        ok &= good
+    if not ok:
+        fail("phase 15: the flash path out of FLASH_LIMITS")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1901,10 +2315,15 @@ def main() -> int:
     guarded_counts = train_guarded(torch, dev, args.seed)
     train_resume(torch, dev, args.seed)
     train_fake_card_vs_cpu(torch, dev, args.seed)
+    check_flash(torch, dev, gen, results)
+    flash_counts = train(torch, dev, args.seed, impl="flash_pallas")
+    serve_flash_counts = serve_flash(torch, dev, args.seed)
+    flash_card_vs_cpu(torch, dev, args.seed)
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
-    # fake-quant training (phase 10) and the guarded path (phase 11), each
+    # fake-quant training (phase 10), the guarded path (phase 11), flash
+    # training (phase 14) and flash-prefill serving (phase 14b), each
     # path's counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
@@ -1914,7 +2333,9 @@ def main() -> int:
                    "serve_paged": paged_counts[name],
                    "train": train_counts[name],
                    "train_fake": fake_counts[name],
-                   "train_guarded": guarded_counts[name]}
+                   "train_guarded": guarded_counts[name],
+                   "train_flash": flash_counts[name],
+                   "serve_flash": serve_flash_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

@@ -37,6 +37,12 @@ SIGNATURES = {
         "repro_int8_matmul_tn": [_P] * 5 + [_I] * 5 + [_P]},
     "flash_attn_q8": {"repro_flash_attn_q8":
                       [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
+    "flash_attn": {
+        "repro_flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+        "repro_flash_attn_bwd_dkdv":
+            [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+        "repro_flash_attn_bwd_dq":
+            [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P]},
     "decode_attn": {
         "repro_decode_attn": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
         "repro_decode_attn_paged":

@@ -1,10 +1,14 @@
 """Self-attention, for training and with a KV cache for serving (port of
 ``repro/models/attention.py``).
 
-Training (``cache=None``): causal self-attention over the sequence, plain
-torch matmuls with an fp32 softmax (``_attend``), the reference's
-``attention_impl="xla"`` path; ``"flash_pallas"`` needs the flash training
-kernels (#8-#10), which are not ported.
+Training (``cache=None``): causal self-attention over the sequence.  Under
+``attention_impl="xla"`` plain torch matmuls with an fp32 softmax
+(``_attend``); under ``"flash_pallas"`` the flash kernels (``_flash``:
+#8 forward, #9/#10 backward, through ``kernels.flash_attn.flash_attention``),
+which never materialize the (S, S) scores.  The flash branch is taken
+where the reference's ``_flash_path_ok`` takes it: more than one query
+row and a causal (or no) mask -- training, and the unpacked prefill of an
+fp cache -- and nowhere else (decode steps, int8 caches, packed prefills).
 
 With a cache, the branch follows how the cache is stored and whether the
 call is a prefill (``cache_offset`` an int: the prompt's rows are written
@@ -22,7 +26,10 @@ shared by every slot):
 * fp cache -- write the rows (paged: at ``(table[b, pc // page], pc %
   page)``, ``pc = min(pos, maxp * page - 1)``, then gather each slot's
   logical view), then plain torch matmul + fp32 softmax.  A packed prefill
-  passes its (B, S, max_seq) segment mask here.
+  passes its (B, S, max_seq) segment mask here.  Under ``"flash_pallas"``
+  an unpacked prefill attends through the flash forward (#8) over the
+  whole max_seq buffer instead; the causal mask hides its never-written
+  rows.
 
 The kernel wrappers pick kernel or plain version from the tensors' device.
 The reference's dequantize-on-read branch has no counterpart: an int8 cache
@@ -40,7 +47,8 @@ from repro_torch.core.qpolicy import INT8_BACKEND, LinearCtx, QuantPolicy
 from repro_torch.core.quantizer import quantize_int, storage_dtype
 from repro_torch.kernels.decode_attn import (paged_logical_view, decode_attention,
                                              decode_attention_paged)
-from repro_torch.kernels.flash_attn import flash_attention_fwd_q8
+from repro_torch.kernels.flash_attn import (flash_attention,
+                                            flash_attention_fwd_q8)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -82,6 +90,26 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.reshape(b, sq, h * hd)
 
 
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_offset: int = 0) -> torch.Tensor:
+    """Causal attention through the flash kernels, differentiable.  q: (B,
+    Sq, H, hd); k, v: (B, Skv, K, hd) -> (B, Sq, H * hd).  As the
+    reference's flash branch of ``_gqa_attend``: kv heads repeated to H
+    (GQA), each tensor transposed to the kernels' (B * H, S, hd) layout and
+    back (copies; the kernels take contiguous rows)."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    if h != kh:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+
+    def heads_first(t):
+        return t.transpose(1, 2).reshape(b * h, t.shape[1], hd).contiguous()
+    o = flash_attention(heads_first(q), heads_first(k), heads_first(v),
+                        True, q_offset)
+    return o.reshape(b, h, sq, hd).transpose(1, 2).reshape(b, sq, h * hd)
+
+
 def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                cache: Optional[Cache] = None,
                cache_offset: Union[int, torch.Tensor, None] = None,
@@ -99,11 +127,8 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx_qkv = LinearCtx("attn_qkv", layer, n_layers)
     ctx_out = LinearCtx("attn_out", layer, n_layers)
-    if cache is None and cfg.attention_impl == "flash_pallas":
-        raise NotImplementedError(
-            "attention_impl='flash_pallas' trains through the flash kernels "
-            "#8-#10 (_fwd_with_lse, _fa_bwd), not ported yet (ROADMAP "
-            "section 2, item 3)")
+    # the reference's _flash_path_ok: flash_pallas, more than one query row
+    flash = cfg.attention_impl == "flash_pallas" and s > 1
     q = policy.linear(ctx_qkv, x, params["wq"], params.get("bq")
                       ).reshape(b, s, h, hd)
     k = policy.linear(ctx_qkv, x, params["wk"], params.get("bk")
@@ -111,8 +136,11 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     v = policy.linear(ctx_qkv, x, params["wv"], params.get("bv")
                       ).reshape(b, s, kh, hd)
     if cache is None:
-        pos = torch.arange(s, device=x.device)
-        ctx = _attend(q, k, v, pos[None, :] <= pos[:, None])
+        if flash:
+            ctx = _flash(q, k, v)
+        else:
+            pos = torch.arange(s, device=x.device)
+            ctx = _attend(q, k, v, pos[None, :] <= pos[:, None])
         return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))
     decode = isinstance(cache_offset, torch.Tensor)
     if page_table is not None and not decode:
@@ -180,10 +208,15 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
         smax = cache["k"].shape[1]
         cache["k"][:, cache_offset:cache_offset + s] = k.to(cache["k"].dtype)
         cache["v"][:, cache_offset:cache_offset + s] = v.to(cache["v"].dtype)
-        if mask is None:
-            qpos = torch.arange(s, device=x.device) + cache_offset
-            mask = torch.arange(smax, device=x.device)[None, :] <= qpos[:, None]
+        kf, vf = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        if flash and mask is None:
+            ctx = _flash(q, kf, vf, cache_offset)
         else:
-            mask = mask[:, None, None]
-        ctx = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask)
+            if mask is None:
+                qpos = torch.arange(s, device=x.device) + cache_offset
+                mask = (torch.arange(smax, device=x.device)[None, :]
+                        <= qpos[:, None])
+            else:
+                mask = mask[:, None, None]
+            ctx = _attend(q, kf, vf, mask)
     return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))

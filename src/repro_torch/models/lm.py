@@ -7,6 +7,12 @@ The caches are stacked (L, B, S, ...) buffers, as in the JAX package; each
 layer works on its view and writes its rows in place, so ``lm_decode``
 mutates the caches it is given (the JAX step returns new ones).
 
+Attention follows ``cfg.attention_impl``: under ``"flash_pallas"`` the loss
+and the unpacked fp-KV prefill attend through the flash kernels (#8
+forward, #9/#10 backward; ``models/attention.py``), as the reference's
+``_gqa_attend`` does; decode steps, int8 caches and packed prefills keep
+their own paths.
+
 The loss keeps every activation for the backward: the reference's
 recomputation (``cfg.remat``, and the checkpointed CE chunks) changes no
 number and is not needed at GPT-2 small's size on an 80 GB card.

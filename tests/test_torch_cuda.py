@@ -17,8 +17,19 @@ to its plain version's outside the trash page 0; the fused AdamW step bit for bi
 zero points (both versions round every op on its own), its update-norm sum
 within 1e-5 relative (partial sums in another order); the fused fake
 quantization kernels ``qdq_row`` / ``qdq_scaled`` bit for bit, exact x.5
-ties, all-zero rows and NaN rows included.
+ties, all-zero rows and NaN rows included; the fp flash kernels #7-#10
+against their plain versions on the same inputs (the plain backward reads
+the kernels' lse and delta): outputs within 2e-5 at float32 and 2e-2 at
+bfloat16, LSE rows within 2e-5, gradients within 1e-4 relative L2 at
+float32, and at bfloat16 o and the gradients within
+``chip_smoke.FLASH_BF16`` (relative L2, and the share of elements more
+than one bf16 step apart), #7 equal to #8's output, every launch
+repeating its bits, a NaN in q reaching o, the LSE and every gradient it
+touches.
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +42,7 @@ from repro_torch.kernels import (decode_attention, decode_attention_paged,
                                  qdq_row, qdq_scaled)
 from repro_torch.kernels.decode_attn import (decode_attention_paged_plain,
                                              decode_attention_plain)
+from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
 from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
                                              int8_matmul_plain,
@@ -39,6 +51,10 @@ from repro_torch.kernels.opt_update import (codec_of,
                                             fused_adamw_blocks_plain)
 from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
 from repro_torch.core.qconfig import parse_recipe
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (limits and helpers; imports no torch)
 
 SPEC = QuantSpec(8, Granularity.PER_TOKEN)
 
@@ -396,3 +412,84 @@ def test_qdq_kernels_reject_what_they_cannot_take(cuda):
         qdq_scaled(x, scale.cpu())
     with pytest.raises(ValueError, match="float32 tensor on"):
         qdq_scaled(x, scale.bfloat16())
+
+
+def _flash_inputs(cuda, bh, sq, skv, d, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda, dtype)
+                   for shape in ((bh, sq, d), (bh, skv, d), (bh, skv, d),
+                                 (bh, sq, d)))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,skv,d,causal,off", [
+    (8, 256, 256, 64, True, 0), (3, 200, 1000, 64, True, 800),
+    (2, 1000, 1000, 16, True, 0), (2, 129, 300, 32, False, 0),
+    (2, 300, 1024, 64, True, 0), (2, 96, 96, 48, True, 0),
+    (2, 256, 256, 128, True, 0), (2, 100, 256, 160, True, 156),
+    (2, 130, 130, 256, True, 0), (1, 70, 70, 256, False, 0)])
+def test_flash_kernels(cuda, dtype, bh, sq, skv, d, causal, off):
+    q, k, v, do = _flash_inputs(cuda, bh, sq, skv, d, dtype, seed=sq + d)
+    counts = [f.launches for f in (fa.flash_attention_fwd_lse,
+                                   fa.flash_attention_bwd_dkdv,
+                                   fa.flash_attention_bwd_dq)]
+    got = chip_smoke._flash_all(fa, q, k, v, do, causal, off)
+    assert [f.launches for f in (fa.flash_attention_fwd_lse,
+                                 fa.flash_attention_bwd_dkdv,
+                                 fa.flash_attention_bwd_dq)] == \
+        [n + 1 for n in counts]
+    want = chip_smoke._flash_plain(fa, q, k, v, do, got[1], got[5], causal,
+                                   off)
+    dname = str(dtype)[6:]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                               atol=chip_smoke.FLASH_TOL[dname])
+    torch.testing.assert_close(got[1], want[1], rtol=0,
+                               atol=chip_smoke.FLASH_LSE_TOL)
+    if dtype == torch.float32:
+        for name, g, w in zip(("dq", "dk", "dv"), got[2:5], want[2:]):
+            rel = chip_smoke._rel_l2(torch, [g], [w])
+            assert rel <= chip_smoke.FLASH_GRAD_TOL, (name, rel)
+    else:
+        lim = chip_smoke.FLASH_BF16
+        for name, g, w in zip(("o", "dq", "dk", "dv"), got[:1] + got[2:5],
+                              want[:1] + want[2:]):
+            rel, over = chip_smoke._bf16_distance(torch, g, w)
+            assert rel <= lim["rel_l2"] and over <= lim["over_ulp"], \
+                (name, rel, over)
+    # #7 is #8's body without the LSE store; a launch repeats its bits
+    assert torch.equal(fa.flash_attention_fwd(q, k, v, causal=causal,
+                                              q_offset=off), got[0])
+    again = chip_smoke._flash_all(fa, q, k, v, do, causal, off)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_propagate_nan(cuda, dtype):
+    """A NaN in q row 70 of head 1: that row's o and LSE, its dq row and
+    every dk / dv row it attends to come out NaN; head 0 stays finite."""
+    q, k, v, do = _flash_inputs(cuda, 2, 128, 128, 64, dtype, seed=9)
+    q[1, 70, 5] = float("nan")
+    o, lse, dq, dk, dv, _ = chip_smoke._flash_all(fa, q, k, v, do, True, 0)
+    assert bool(o[1, 70].isnan().all()) and bool(lse[1, 70].isnan())
+    assert bool(dq[1, 70].isnan().all())
+    assert bool(dk[1, :71].isnan().all()) and bool(dv[1, :71].isnan().all())
+    for t in (o, dq, dk, dv):
+        assert bool(t[0].isfinite().all())
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_cannot_take(cuda):
+    q = torch.randn(2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16 from 16 to 256"):
+        fa.flash_attention_fwd(q[..., :40].contiguous(), q[..., :40]
+                               .contiguous(), q[..., :40].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_fwd_lse(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q, q.transpose(1, 2), q)
+    with pytest.raises(ValueError, match="on cuda"):
+        fa.flash_attention_fwd(q, q.cpu(), q)

@@ -27,7 +27,6 @@ inputs through the JAX package and ``repro_torch`` on the CPU.
 The whole train step is held against JAX in test_torch_train_step.py; the
 CUDA kernels against these plain versions in test_torch_cuda.py.
 """
-import dataclasses
 import os
 import pathlib
 import subprocess
@@ -70,7 +69,6 @@ from repro_torch.kernels.ops import int8_bwd_dw, int8_bwd_dx
 from repro_torch.launch import train as launcher
 from repro_torch.models import (build_model, opt_state_from_jax,
                                 train_state_from_jax, train_state_to_numpy)
-from repro_torch.models.attention import attn_apply
 from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.train import make_train_step
 
@@ -516,21 +514,12 @@ def test_launcher_defaults_to_the_card(monkeypatch):
 
 
 def test_paths_not_ported_raise():
-    """Stochastic rounding and flash training attention raise, naming
-    their ROADMAP items."""
+    """Stochastic rounding raises, naming its ROADMAP item."""
     spec = QuantSpec(8, round_mode=RoundMode.STOCHASTIC)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quantize_int(torch.ones(4, 4), spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _train_fake_quant(torch.ones(4, 4), spec)
-    cfg = dataclasses.replace(tsmoke("gpt2-small"), dtype="float32",
-                              attention_impl="flash_pallas")
-    blocks = build_model(cfg).init_params(torch.Generator().manual_seed(0),
-                                          device="cpu")["blocks"]["attn"]
-    with pytest.raises(NotImplementedError, match="#8-#10"):
-        attn_apply({k: v[0] for k, v in blocks.items()},
-                   torch.zeros(1, 4, cfg.d_model), cfg,
-                   policy=parse_policy("*=fp"))
 
 
 def test_fake_quant_gradients_run_the_qdq_kernels(monkeypatch):

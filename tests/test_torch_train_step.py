@@ -95,12 +95,13 @@ def decoded(np_moments, recipe_spec, params):
     return out
 
 
-def run_pair(policy, dtype, storage="int", steps=2):
+def run_pair(policy, dtype, storage="int", steps=2, attention_impl="xla"):
     """Per step: (jax metrics, port metrics, jax state, port state), both
     states as numpy trees."""
     jrec, trec = _recipes(policy)
-    jcfg = dataclasses.replace(jsmoke("gpt2-small"), dtype=dtype)
-    tcfg = dataclasses.replace(tsmoke("gpt2-small"), dtype=dtype)
+    kw = dict(dtype=dtype, attention_impl=attention_impl)
+    jcfg = dataclasses.replace(jsmoke("gpt2-small"), **kw)
+    tcfg = dataclasses.replace(tsmoke("gpt2-small"), **kw)
     kw = dict(lr=1e-3, warmup_steps=0, total_steps=100, state_storage=storage)
     jmodel = jbuild(jcfg)
     jst = j_init(jmodel, jax.random.PRNGKey(0), jrec, JOpt(**kw))
@@ -122,8 +123,8 @@ def run_pair(policy, dtype, storage="int", steps=2):
     return out, trec
 
 
-def readings(policy, dtype):
-    out, trec = run_pair(policy, dtype)
+def readings(policy, dtype, attention_impl="xla"):
+    out, trec = run_pair(policy, dtype, attention_impl=attention_impl)
     rows = []
     for jm, tm, jst, tst in out:
         jp = jax.tree_util.tree_leaves(jst.params)
