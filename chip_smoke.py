@@ -5,10 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build the CUDA kernel libraries of ``_build.SOURCES`` (seven sources
+1. build the CUDA kernel libraries of ``_build.SOURCES`` (eight sources
    under ``src/repro_torch/csrc``, one nvcc each, all at once;
    ``decode_attn.cu`` holds the dense and the paged decode kernels,
-   ``flash_attn.cu`` the fp flash forward and both backward kernels) and
+   ``flash_attn.cu`` the float32 flash forward and both backward kernels,
+   ``flash_fwd_sm90.cu`` the bf16 flash forward on the tensor cores) and
    print the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
@@ -71,7 +72,9 @@ Phases, in order; any failure exits non-zero:
     and, at bfloat16, ``FLASH_BF16`` with three controls outside it; #7
     equal to #8, repeats bit-identical, a planted NaN propagated; each
     timed beside its bound (each product at its operands' peak rate),
-    plain version and SDPA (``check_flash``);
+    plain version and SDPA, and #8 also at hd 128 (BH 16, S 512); the
+    bf16 forward's kernels hold ``HGMMA`` instructions in their SASS
+    (``cuobjdump``), or the phase fails (``check_flash``);
 14. phase 7 with ``attention_impl="flash_pallas"``: 10 finite steps, each
     launching exactly 72 / 72 / 72 / 1 int8 and AdamW kernels and #8, #9,
     #10 12 times (``train(impl="flash_pallas")``); 14b. the dense engine
@@ -175,13 +178,19 @@ FLASH_SWEEP = (("hd16", 16, 512, 512, 16, True, 0),
 #: so o, dq, dk and dv are held to FLASH_BF16: their relative L2 distance
 #: and the share of elements more than one bf16 step from the plain
 #: version.  The plain forward rounds p against the running max of the
-#: kernel's key tiles, as the kernel does.  Three controls that move one
-#: rounding of p must exceed both limits: the plain forward with p left
-#: unrounded, the plain forward rounding p against the row's final max
-#: (the reference's _ref_attend), and #9's dv with p rounded to bf16.
-#: Readings on the H100 at every phase-13 shape (PERF.md): sound at most
-#: 4.8e-5 and 1.3e-5 (the gradients bit for bit), controls at least
-#: 9.3e-4 and 3.6e-2; each limit sits 4x or more from both sides.
+#: kernel's key tiles, as the kernel does, and sums each score in float64
+#: before rounding it to fp32, so that its scores carry no fp32 summation
+#: order of their own (cuBLAS's fp32 order alone lies up to 1.6e-4 rel L2
+#: and 4.8e-4 over one step from it at these shapes, PERF.md).  Three
+#: controls that move one rounding of p must exceed both limits: the plain
+#: forward with p left unrounded, the plain forward rounding p against the
+#: row's final max (the reference's _ref_attend), and #9's dv with p
+#: rounded to bf16.
+#: Readings on the H100 at every phase-13 shape (PERF.md): o from the
+#: tensor-core forward at most 1.21e-4 and 1.81e-4, the gradients bit for
+#: bit, controls at least 9.3e-4 and 3.6e-2; the rel L2 limit sits 1.65x
+#: above the largest sound reading and 4.6x below the smallest control,
+#: the step limit 5.5x and 36x.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_LSE_TOL = 2e-5
 FLASH_GRAD_TOL = 1e-4
@@ -1246,8 +1255,11 @@ def profile_train_step(torch, step_fn, state, batch) -> None:
     print(f"profile: 1 train step, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{sum(k[2] for k in kern)} kernel launches")
-    for name, us, n in kern[:12]:
-        print(f"profile:   {us / 1e3:8.3f} ms {n:5d} launches {name[:90]}")
+    # the twelve largest, and every flash kernel wherever it ranks
+    for rank, (name, us, n) in enumerate(kern):
+        if rank < 12 or "flash" in name:
+            print(f"profile:   {us / 1e3:8.3f} ms {n:5d} launches "
+                  f"{name[:90]}")
 
 
 def _rel_l2(torch, a, b) -> float:
@@ -1999,6 +2011,10 @@ def _flash_case(torch, fa, q, k, v, do, causal, off):
         del p
         ctrl = [_bf16_distance(torch, c, w) for c, w in
                 ((ctrl_o, want[0]), (row_o, want[0]), (ctrl_dv, want[4]))]
+        # a reading, not a gate: the plain forward with its scores summed
+        # in fp32 (PR 15's plain version) against the float64-summed one
+        f32 = _bf16_distance(torch, fa.flash_attention_fwd_lse_plain(
+            q, k, v, score_dtype=torch.float32, **kw)[0], want[0])
         lim = FLASH_BF16
         within = lambda d: d[0] <= lim["rel_l2"] and d[1] <= lim["over_ulp"]
         outside = lambda d: d[0] > lim["rel_l2"] and d[1] > lim["over_ulp"]
@@ -2014,7 +2030,8 @@ def _flash_case(torch, fa, q, k, v, do, causal, off):
                 + ", dv with p rounded "
                 + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[2:])
                 + ": all above both limits "
-                + ("yes" if all(outside(d) for d in ctrl) else "NO"))
+                + ("yes" if all(outside(d) for d in ctrl) else "NO")
+                + f"; fp32-summed plain scores {f32[0]:.2e}, {f32[1]:.2e}")
     reading = (f"o max err {diff[0]:.2e} (tol {FLASH_TOL[dname]:.0e}), lse "
                f"{diff[1]:.2e} (tol {FLASH_LSE_TOL:.0e}), {text}; max abs "
                f"dq/dk/dv {diff[2]:.2e}/{diff[3]:.2e}/{diff[4]:.2e}; #7 == #8 "
@@ -2125,12 +2142,74 @@ def check_flash(torch, dev, gen, results):
               f"{f16 / 1e9:.1f} GFLOP bf16-exact at 989 TFLOP/s + "
               f"{f32 / 1e9:.1f} GFLOP fp32 at 67, {nbytes / 1e6:.1f} MB), "
               f"{ms / bd:.1f}x the bound, library_ms({lib_what}) {lib:.4f}")
+        fwd = name in ("flash_attention_fwd", "flash_attention_fwd_lse")
         results[name] = dict(
-            route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
+            route="cuda", source="src/repro_torch/csrc/"
+            + ("flash_fwd_sm90.cu" if fwd else "flash_attn.cu"),
             replaces=f"src/repro/kernels/flash_attn.py:{line}",
             tol=FLASH_TOL["float32"], shape=f"BH={bh},S={s},hd={hd},causal",
             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bd,
             bound_by=by, library_ms=lib)
+    del q, k, v, do, o, lse, delta, bwd, q4, k4, v4, do4, leaves, o4
+
+    # #8 at hd 128 (the llama slice's head dim), BH 16, S 512, causal, bf16
+    b2, s2, d2 = 16, 512, 128
+    q, k, v = (torch.randn((b2, s2, d2), generator=gen, device=dev)
+               .bfloat16() for _ in range(3))
+    q4, k4, v4 = (t.view(1, b2, s2, d2) for t in (q, k, v))
+    ms = time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True))
+    pairs2 = _visible_pairs(s2, s2, True, 0) * b2
+    bd, by = bound_ms(4 * b2 * s2 * d2 * 2 + b2 * s2 * 4,
+                      4 * d2 * pairs2, BF16_FLOPS)
+    print(f"flash_attention_fwd_lse BH={b2} S={s2} hd={d2} causal bf16: ms "
+          f"{ms:.4f}, bound_ms {bd:.5f} ({by}), {ms / bd:.1f}x the bound, "
+          f"library_ms(SDPA forward) {sdpa:.4f}")
+    results["flash_attention_fwd_lse"]["hd128"] = dict(
+        shape=f"BH={b2},S={s2},hd={d2},causal", ms=ms, bound_ms=bd,
+        bound_by=by, library_ms=sdpa)
+    flash_sass_check()
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump beside nvcc, else the copy Triton ships."""
+    import importlib.util
+    from repro_torch.kernels import _build
+    cand = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cand = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                / "cuobjdump")
+        if cand.exists():
+            return str(cand)
+    fail("phase 13: no cuobjdump beside nvcc or in Triton's package")
+
+
+def flash_sass_check() -> None:
+    """Phase 13: the bf16 forward's kernels (``flash_fwd_sm90.cu``, every
+    head-dim template with and without the LSE store) run on the tensor
+    cores: count the ``HGMMA`` instructions of each in the built library's
+    SASS, and fail if any kernel has none."""
+    from repro_torch.kernels import _build
+    sass = subprocess.run([_cuobjdump(), "-sass",
+                           str(_build.lib_path("flash_fwd_sm90"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    print(f"flash_fwd_sm90 SASS: {sum(counts.values())} HGMMA instructions "
+          f"over {len(counts)} kernels (each "
+          f"{min(counts.values(), default=0)}-"
+          f"{max(counts.values(), default=0)})")
+    if not counts or min(counts.values()) == 0:
+        fail(f"phase 13: a bf16 flash forward kernel has no HGMMA: {counts}")
 
 
 def serve_flash(torch, dev, seed):

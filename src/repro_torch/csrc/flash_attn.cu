@@ -2,12 +2,14 @@
 //
 // Replaces: src/repro/kernels/flash_attn.py --
 //   flash_attention_fwd (#7, the forward without the LSE rows) and
-//   _fwd_with_lse (#8, the forward of the flash_attention custom VJP):
-//     flash_fwd_kernel<.., LSE = false / true>;
+//   _fwd_with_lse (#8, the forward of the flash_attention custom VJP) at
+//   the float32 carrier: flash_fwd_kernel<.., LSE = false / true>;
+//   (at bfloat16 both run flash_fwd_sm90.cu's tensor-core kernel);
 //   _fa_bwd, its dK/dV pallas_call (#9): flash_bwd_dkdv_kernel;
 //   _fa_bwd, its dQ pallas_call (#10): flash_bwd_dq_kernel.
 // Layout (BH, S, d), each tensor contiguous, q/k/v/dO/outputs in the
-// carrier (float32 or bfloat16), lse and delta (BH, Sq) float32.
+// carrier (float32 or bfloat16; the forward here float32 only), lse and
+// delta (BH, Sq) float32.
 //
 // What is computed, in the reference's rounding order:
 //   forward   s = (q_f32 * scale) . k_f32 (scale first), -1e30 where
@@ -24,8 +26,9 @@
 //
 // Bound: all four run fp32 arithmetic on the CUDA cores, as the Pallas
 // kernels do; per causally visible (query, key) pair the forward does 4*d
-// FLOPs, dK/dV 8*d and dQ 6*d.  At the training shape (BH = 96, S = 1024,
-// d = 64) the operations bound them (67 TFLOP/s fp32), not the bytes.
+// FLOPs, dK/dV 8*d and dQ 6*d.  The float32 forward stays here because
+// TF32 tensor cores drop 13 bits of every operand, far outside the
+// reference's float32 tolerances.
 //
 // Design, simple first: tiles of q and K/V staged in shared memory as fp32
 // (zero-padded to HDP, the head dim rounded up to 32, so one template
@@ -36,8 +39,9 @@
 // padded to HDP + 1 floats, conflict-free).  Products over a tile: a lane
 // owns HDP / 32 output columns and reuses each K/V (or q/dO) element it
 // loads across all the rows its warp owns.  Any Sq and Skv: the ragged
-// edges are guarded inside.  Tensor cores (wgmma), TMA and pipelining are
-// later work.
+// edges are guarded inside.  Tensor cores for the backward are later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -478,19 +482,24 @@ int launch(Which which, const Args& a) {
   const dim3 q_grid(a.BH, (a.Sq + L::BQ - 1) / L::BQ);
   int e = 0;
   if (which == kFwd) {
-    const size_t smem = fwd_smem_floats<HDP>() * sizeof(float);
-    if (a.lse_out != nullptr) {
-      auto kern = flash_fwd_kernel<HDP, T, true>;
-      if ((e = set_smem(kern, smem))) return e;
-      kern<<<q_grid, FWD_WARPS * 32, smem, a.stream>>>(
-          q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out),
-          a.Sq, a.Skv, a.HD, a.scale, a.causal, a.q_offset);
+    // the bf16 forward is flash_fwd_sm90.cu's
+    if constexpr (!std::is_same<T, float>::value) {
+      return static_cast<int>(cudaErrorInvalidValue);
     } else {
-      auto kern = flash_fwd_kernel<HDP, T, false>;
-      if ((e = set_smem(kern, smem))) return e;
-      kern<<<q_grid, FWD_WARPS * 32, smem, a.stream>>>(
-          q, k, v, static_cast<T*>(a.o), nullptr, a.Sq, a.Skv, a.HD,
-          a.scale, a.causal, a.q_offset);
+      const size_t smem = fwd_smem_floats<HDP>() * sizeof(float);
+      if (a.lse_out != nullptr) {
+        auto kern = flash_fwd_kernel<HDP, T, true>;
+        if ((e = set_smem(kern, smem))) return e;
+        kern<<<q_grid, FWD_WARPS * 32, smem, a.stream>>>(
+            q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out),
+            a.Sq, a.Skv, a.HD, a.scale, a.causal, a.q_offset);
+      } else {
+        auto kern = flash_fwd_kernel<HDP, T, false>;
+        if ((e = set_smem(kern, smem))) return e;
+        kern<<<q_grid, FWD_WARPS * 32, smem, a.stream>>>(
+            q, k, v, static_cast<T*>(a.o), nullptr, a.Sq, a.Skv, a.HD,
+            a.scale, a.causal, a.q_offset);
+      }
     }
   } else if (which == kBwdDq) {
     const size_t smem = dq_smem_floats<HDP>() * sizeof(float);
@@ -541,9 +550,10 @@ int dispatch(Which which, const Args& a, int dtype) {
 
 }  // namespace
 
-// q (BH, Sq, HD), k/v (BH, Skv, HD) -> o (BH, Sq, HD), all in the carrier
-// (dtype 0 float32, 1 bfloat16); lse (BH, Sq) float32, or null for the
-// forward without it (#7).  HD a multiple of 16 in [16, 256].
+// q (BH, Sq, HD), k/v (BH, Skv, HD) -> o (BH, Sq, HD), all float32 (dtype
+// 0; the bfloat16 forward is repro_flash_fwd_sm90); lse (BH, Sq) float32,
+// or null for the forward without it (#7).  HD a multiple of 16 in [16,
+// 256].
 extern "C" int repro_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int BH,
                                     int Sq, int Skv, int HD, float scale,

@@ -1,0 +1,749 @@
+// Flash attention forward over fp K/V at the bf16 carrier, on Hopper's
+// tensor cores (sm_90a: TMA, mbarriers, wgmma, setmaxnreg).
+//
+// Replaces: src/repro/kernels/flash_attn.py --
+//   flash_attention_fwd (#7, the forward without the LSE rows) and
+//   _fwd_with_lse (#8, the forward of the flash_attention custom VJP):
+//     flash_fwd_sm90<HDP, NQ, LSE = false / true>, one body.
+// The float32 carrier keeps flash_attn.cu's CUDA-core forward: TF32 drops
+// 13 bits of every operand and would leave the reference's tolerances.
+// Layout (BH, S, d), each tensor contiguous and 16-byte aligned, q/k/v/o
+// bfloat16, lse (BH, Sq) float32; d a multiple of 16 in [16, 256].
+//
+// What is computed, in the reference's rounding order (flash_attn.cu's
+// forward, summed in another order): s = (q_f32 * scale) . k_f32, -1e30
+// where kpos > q_offset + qpos or kpos >= Skv, the online-softmax
+// recurrence over key tiles of kv_tile(d) rows (m from -1e30, l from 0,
+// l summed over the unrounded fp32 p), p = expf(s - m) rounded to bf16
+// before the P.V product, o = acc / max(l, 1e-30) (IEEE division), lse =
+// m + logf(max(l, 1e-30)).  The key tile is part of the function: p is
+// rounded against the running max of each tile, so BK is kv_tile(d)
+// (repro_flash_kv_tile, held equal to kernels/flash_attn.py:kv_tile).
+// Every product is exact in fp32: q, k, v and the rounded p are bf16, and
+// x = fl(q * scale) is fed to the tensor cores either as one bf16 value
+// (scale a power of two: d = 16, 64, 256) or as three bf16 terms hi + mid +
+// lo == x (split_q), so the tensor cores change only how the fp32 sums are
+// taken.  Their fp32 accumulation does not round to nearest, and the
+// bf16 rounding of p magnifies an error of the scores, so S is taken one
+// k16 step at a time (two at HDP 64 with one Q term) into zeroed registers
+// and summed on the CUDA cores (see `scores` below).  NaN: fmaxf drops a
+// NaN score from m, but p = expf(NaN - m) carries it into l and acc, and
+// the floor on l is a comparison that keeps it.
+//
+// Bound at the training shape (BH = 96, S = 1024, d = 64, causal): 50.7 MB
+// of q, k, v, o and lse, 0.01514 ms at 3.35 TB/s, over 12.9 GFLOP of
+// bf16-exact products, 0.0130 ms at 989 TFLOP/s -- bytes by a little,
+// both within 20%, so the kernel has to keep the tensor cores fed from
+// tiles that arrive by themselves.  Design:
+//  - persistent blocks, one per SM: work item w is a q block of 64 * NWG
+//    rows (NWG consumer warpgroups of 64 rows each: three at HDP 64 with
+//    one Q term, else two, one at HDP 256 with three), the heaviest
+//    causal q blocks first; a producer warpgroup gives its registers to
+//    the consumers (setmaxnreg 24 / 160 or 240);
+//  - one producer thread streams each item's Q tile (two Q buffers where
+//    they fit, so the next item's Q lands during this one) and the K/V
+//    tiles into a ring of up to 8 stages by TMA (3-D maps over (BH, S, d),
+//    128-byte swizzle, rows past S and columns past d zero-filled by the
+//    hardware), under full and empty mbarriers;
+//  - S = Q K^T by wgmma m64n{BK}k16 from shared memory (both K-major), in
+//    zeroed register tiles of one or two k16 steps summed on the CUDA
+//    cores; a tile's P V and the next tile's S share one wait;
+//  - the softmax in registers on the accumulator fragment, compiled with
+//    and without the mask (diagonal and ragged tiles only), every expf
+//    outside any branch; p rounded to bf16 straight into the A fragment
+//    of O += P V (wgmma m64n64k16 per 64 columns, V read MN-major);
+//    nothing of S or P touches shared memory;
+//  - a warpgroup skips the key tiles past its own last query (the PR-15
+//    kernel's 64-row tiles, so the same tiles are summed); no atomics,
+//    each o row written once.
+// What holds it back (PERF.md): the softmax's instructions -- an accurate
+// expf per score, the k-step sums, the max and the sum -- bound the tile
+// loop, the tensor cores wait on them, and the epilogue's IEEE divisions
+// each branch to a slow path.  Running the next tile's S, or this tile's
+// P V, under the softmax cost registers or made ptxas serialize every
+// wgmma (C7514), so the softmax waits for them.
+#include <cuda.h>  // CUtensorMap and its enums (no -lcuda: entry point below)
+#include <float.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kSmemMax = 232448;  // a block's dynamic shared memory, sm_90
+constexpr int kProducerRegs = 24;
+
+// the key tile of the bf16 forward, kernels/flash_attn.py:kv_tile
+__host__ __device__ constexpr int kv_tile(int d) { return d <= 128 ? 64 : 32; }
+
+template <int HDP, int NQ>
+struct Cfg {
+  static constexpr int BK = kv_tile(HDP);          // key rows per tile
+  // consumer warpgroups: three Q terms at HDP 256 leave no room for 128
+  // rows and a K/V ring; at HDP 64 with one Q term the registers fit
+  // three, whose warps hide more of the softmax's latency
+  static constexpr int NWG = (HDP == 256 && NQ == 3) ? 1
+                             : (HDP == 64 && NQ == 1) ? 3 : 2;
+  // registers of a consumer thread after setmaxnreg (the producer keeps
+  // kProducerRegs): 65536 shared by the block's threads
+  static constexpr int CREGS = NWG == 3 ? 160 : 240;
+  static constexpr int BQ = 64 * NWG;              // query rows per block
+  static constexpr int NC = HDP / 64;              // 64-column chunks
+  static constexpr int Q_BYTES = NC * BQ * 128;    // one Q term
+  static constexpr int KV_BYTES = NC * BK * 128;   // one K or V tile
+  // Q buffers: two where they fit beside a 2-stage ring, so that a
+  // persistent block loads its next item's Q during this one
+  static constexpr int QBUF =
+      2 * NQ * Q_BYTES + 4 * KV_BYTES + 2048 <= kSmemMax ? 2 : 1;
+  static constexpr int NS_FIT =
+      (kSmemMax - 2048 - QBUF * NQ * Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int NS = NS_FIT < 8 ? NS_FIT : 8;  // ring stages
+  static constexpr int THREADS = 128 * (NWG + 1);
+  // hi's score products in flight per batch: RING register tiles (BK / 2
+  // registers each) of KSUB k16 steps; at HDP 64 with one Q term two
+  // tiles of two k-steps, so that three warpgroups fit their registers
+  static constexpr int KSUB = HDP == 64 && NQ == 1 ? 2 : 1;
+  static constexpr int RING =
+      KSUB == 2 || (HDP == 256 && NQ == 3) || (BK == 64 && NQ == 3) ? 2 : 4;
+  // the tiles, the 1024-byte alignment slack and the barriers; at least
+  // 120 KB so that one block holds an SM (setmaxnreg's budget is the SM's)
+  static constexpr int SMEM_NEED =
+      QBUF * NQ * Q_BYTES + 2 * NS * KV_BYTES + 1024 + 256;
+  static constexpr int SMEM = SMEM_NEED > 122880 ? SMEM_NEED : 122880;
+  static_assert(NS >= 2, "shared memory holds no 2-stage ring");
+  static_assert(SMEM <= kSmemMax, "shared memory over the block limit");
+};
+
+// max(l, 1e-30) that keeps a NaN l (jnp.maximum; fmaxf would drop it)
+__device__ __forceinline__ float floor_l(float l) {
+  return l < 1e-30f ? 1e-30f : l;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory, completing `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// ---------------------------------------------------------------- wgmma
+// a shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (each >> 4)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving register traffic across an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// sc = t (first) or sc + t, in fp32 round-to-nearest
+template <int N>
+__device__ __forceinline__ void add_tile(float (&sc)[N], float (&t)[N],
+                                         bool first) {
+  fence_regs(t);
+#pragma unroll
+  for (int i = 0; i < N; ++i) sc[i] = first ? t[i] : __fadd_rn(sc[i], t[i]);
+}
+
+#define R8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (m64 x n32, fp32) (+)= A (smem, K-major) . B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64 x n64, fp32) (+)= A (smem, K-major) . B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64 x n64, fp32) += A (registers, bf16 pairs) . B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef R8
+
+template <int BK>
+__device__ __forceinline__ void wgmma_scores(float (&d)[BK / 2], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  if constexpr (BK == 64) wgmma_ss_n64(d, a, b, accumulate);
+  else wgmma_ss_n32(d, a, b, accumulate);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = fl(q * scale) in place as hi (term 0), and for NQ = 3 its remainders
+// mid and lo (terms 1, 2): hi + mid + lo == x exactly while |x| >= 2^-110,
+// hi == x at a power-of-two scale while |x| >= 2^-126 (below, bf16's
+// subnormal step of 2^-133 drops at most 2^-134); a non-finite hi leaves
+// mid = lo = 0 so an inf in q stays an inf score.  The same formula:
+// kernels/flash_attn.py:bf16_q_terms.
+template <int NQ>
+__device__ __forceinline__ void split_q(uint8_t* t0, int q_bytes, int off,
+                                        float scale) {
+  uint4 in = *reinterpret_cast<uint4*>(t0 + off);
+  bf16* e = reinterpret_cast<bf16*>(&in);
+  uint4 hi4, mid4, lo4;
+  bf16* hi = reinterpret_cast<bf16*>(&hi4);
+  bf16* mid = reinterpret_cast<bf16*>(&mid4);
+  bf16* lo = reinterpret_cast<bf16*>(&lo4);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    // __fmul_rn: x is rounded once, never fused into the subtraction
+    const float x = __fmul_rn(__bfloat162float(e[i]), scale);
+    hi[i] = __float2bfloat16_rn(x);
+    if constexpr (NQ == 3) {
+      const float h = __bfloat162float(hi[i]);
+      const float r = fabsf(h) <= FLT_MAX ? x - h : 0.0f;
+      mid[i] = __float2bfloat16_rn(r);
+      lo[i] = __float2bfloat16_rn(r - __bfloat162float(mid[i]));
+    }
+  }
+  *reinterpret_cast<uint4*>(t0 + off) = hi4;
+  if constexpr (NQ == 3) {
+    *reinterpret_cast<uint4*>(t0 + q_bytes + off) = mid4;
+    *reinterpret_cast<uint4*>(t0 + 2 * q_bytes + off) = lo4;
+  }
+}
+
+// ---------------------------------------------------------------- kernel
+template <int HDP, int NQ, bool LSE>
+__global__ void __launch_bounds__(Cfg<HDP, NQ>::THREADS, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+               float* __restrict__ lse, int BH, int Sq, int Skv, int HD,
+               float scale, int causal, int q_offset) {
+  using C = Cfg<HDP, NQ>;
+  constexpr int BK = C::BK, BQ = C::BQ, NC = C::NC, NS = C::NS;
+  constexpr int NWG = C::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle atoms repeat every 1024 bytes: align the tiles to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;  // QBUF x NQ x [NC][BQ][64] bf16
+  uint8_t* ks = qs + C::QBUF * NQ * C::Q_BYTES;  // NS x [NC][BK][64]
+  uint8_t* vs = ks + NS * C::KV_BYTES;     // NS x [NC][BK][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + NS * C::KV_BYTES);
+  auto bar_q = [&](int b) { return smem_u32(bars + b); };
+  auto bar_qfree = [&](int b) { return smem_u32(bars + 2 + b); };
+  auto bar_full = [&](int s) { return smem_u32(bars + 4 + s); };
+  auto bar_empty = [&](int s) { return smem_u32(bars + 4 + NS + s); };
+
+  // persistent blocks: work item w is q block nqb - 1 - w / BH of head
+  // w % BH, so the heaviest causal q blocks go first; a block takes items
+  // blockIdx.x, + gridDim.x, ...  The block's last query position bounds
+  // an item's causally live kv tiles.
+  const int nqb = (Sq + BQ - 1) / BQ, n_items = BH * nqb;
+  auto item_q0 = [&](int w) { return (nqb - 1 - w / BH) * BQ; };
+  auto item_tiles = [&](int q0) {
+    const int n = (Skv + BK - 1) / BK;
+    return causal ? min(n, (q_offset + min(q0 + BQ, Sq) - 1) / BK + 1) : n;
+  };
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < C::QBUF; ++b) {
+      mbar_init(bar_q(b), 1);
+      mbar_init(bar_qfree(b), 4 * NWG);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == NWG * 128) {
+      int it = 0;  // kv tiles loaded by this block, over its items
+      for (int w = blockIdx.x, k = 0; w < n_items; w += gridDim.x, ++k) {
+        const int bh = w % BH, q0 = item_q0(w), n_tiles = item_tiles(q0);
+        const int b = k % C::QBUF;
+        // the consumers are done with the Q this buffer held before
+        if (k >= C::QBUF) mbar_wait(bar_qfree(b), ((k / C::QBUF) - 1) & 1);
+        mbar_expect_tx(bar_q(b), C::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(smem_u32(qs + b * NQ * C::Q_BYTES + c * BQ * 128), &tq,
+                      bar_q(b), 64 * c, q0, bh);
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % NS;
+          if (it >= NS) mbar_wait(bar_empty(s), ((it / NS) & 1) ^ 1);
+          mbar_expect_tx(bar_full(s), 2 * C::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            tma_load_3d(smem_u32(ks + s * C::KV_BYTES + c * BK * 128), &tk,
+                        bar_full(s), 64 * c, t * BK, bh);
+            tma_load_3d(smem_u32(vs + s * C::KV_BYTES + c * BK * 128), &tv,
+                        bar_full(s), 64 * c, t * BK, bh);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::CREGS));
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c4 = lane % 4;
+    const int row0 = 64 * wg + 16 * warp + g;  // and row0 + 8, in the block
+    int it0 = 0;  // kv tiles consumed by this block before this item
+    for (int w = blockIdx.x, k = 0; w < n_items; w += gridDim.x, ++k) {
+      const int bh = w % BH, q0 = item_q0(w), n_tiles = item_tiles(q0);
+      const int qb = k % C::QBUF;
+      const int qpos[2] = {q_offset + q0 + row0, q_offset + q0 + row0 + 8};
+      // this warpgroup's live tiles: none when its rows lie past Sq; under
+      // the causal mask, those up to its own last query
+      int my_tiles = n_tiles;
+      if (q0 + 64 * wg >= Sq) {
+        my_tiles = 0;
+      } else if (causal) {
+        const int wg_last = q_offset + min(q0 + 64 * (wg + 1), Sq) - 1;
+        my_tiles = min(n_tiles, wg_last / BK + 1);
+      }
+      // a tile's ring stage and the parity of its full barrier
+      auto stage = [&](int t) { return (it0 + t) % NS; };
+      auto phase = [&](int t) { return ((it0 + t) / NS) & 1; };
+
+      // q scaled (and split) in place, this warpgroup's 64 rows
+      uint8_t* qk = qs + qb * NQ * C::Q_BYTES;
+      mbar_wait(bar_q(qb), (k / C::QBUF) & 1);
+      for (int i = tid; i < NC * 64 * 8; i += 128) {
+        const int c = i / 512, r = i % 512;
+        split_q<NQ>(qk, C::Q_BYTES, c * BQ * 128 + wg * 64 * 128 + r * 16,
+                    scale);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+
+      float acc[NC][32];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+      float m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f};
+      const uint32_t q_base = smem_u32(qk) + wg * 64 * 128;
+
+      // S = Q K^T of the tile in stage `st` over HDP / 16 k-steps (columns
+      // past HD are zeros and add exact zeros).  The tensor cores' fp32 sums
+      // do not round to nearest, so hi's products (which carry the score's
+      // magnitude) land KSUB k-steps at a time in zeroed register tiles of
+      // `ring`, RING tiles a batch, and the tiles are added in fp32 on the
+      // CUDA cores in k-step order (sum_ring); mid's and lo's products (2^-8
+      // and 2^-16 of hi's) chain in one accumulator, added last.
+      float ring[C::RING][BK / 2], ml[BK / 2], sc[BK / 2];
+      auto issue_s = [&](int st, int k0) {
+        const uint32_t k_base = smem_u32(ks + st * C::KV_BYTES);
+#pragma unroll
+        for (int r = 0; r < C::RING; ++r) fence_regs(ring[r]);
+        if constexpr (NQ == 3) fence_regs(ml);
+        wgmma_fence();
+#pragma unroll
+        for (int r = 0; r < C::RING; ++r)
+#pragma unroll
+          for (int j = 0; j < C::KSUB; ++j) {
+            const int ks16 = k0 + r * C::KSUB + j;
+            const uint32_t col = ks16 / 4, within = (ks16 % 4) * 32;
+            const uint64_t b =
+                gmma_desc(k_base + col * BK * 128 + within, 16, 1024);
+            const uint32_t a = q_base + col * BQ * 128 + within;
+            wgmma_scores<BK>(ring[r], gmma_desc(a, 16, 1024), b, j > 0);
+#pragma unroll
+            for (int term = 1; term < NQ; ++term)
+              wgmma_scores<BK>(ml, gmma_desc(a + term * C::Q_BYTES, 16, 1024),
+                               b, ks16 + term > 1);
+          }
+      };
+      auto sum_ring = [&](int k0) {
+#pragma unroll
+        for (int r = 0; r < C::RING; ++r) add_tile(sc, ring[r], k0 + r == 0);
+        if constexpr (NQ == 3)
+          if (k0 + C::RING * C::KSUB == HDP / 16) add_tile(sc, ml, false);
+      };
+      // the batches of S from k-step k0 on, into sc
+      auto scores_from = [&](int st, int k0) {
+#pragma unroll
+        for (; k0 < HDP / 16; k0 += C::RING * C::KSUB) {
+          issue_s(st, k0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          sum_ring(k0);
+        }
+      };
+
+      // mask (only where a key of the tile lies past Skv or past this
+      // warpgroup's first query), running max, p = exp(s - m) (fp32 for l,
+      // bf16 into P's A fragment), acc *= alpha
+      uint32_t pa[BK / 16][4];
+      // (compiled twice, with and without the mask, so that the tiles that
+      // need none run no per-key test)
+      auto softmax_body = [&](auto masked_tag, int t) {
+        constexpr bool masked = decltype(masked_tag)::value;
+        const int t0 = t * BK;
+        float mx[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = t0 + 8 * j + 2 * c4 + e;
+              float& v = sc[4 * j + 2 * i + e];
+              if (masked && (key >= Skv || (causal && key > qpos[i])))
+                v = -1e30f;
+              mx[i] = fmaxf(mx[i], v);
+            }
+        float m_new[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          m_new[i] = fmaxf(m[i], mx[i]);
+        }
+        // expf on every key, outside any branch (a branch per key keeps the
+        // exponentials from overlapping); then p = 0 past Skv
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& v = sc[4 * j + 2 * i + e];
+              v = expf(v - m_new[i]);
+            }
+        if constexpr (masked) {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (t0 + 8 * j + 2 * c4 + e >= Skv)
+                sc[4 * j + e] = sc[4 * j + 2 + e] = 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) psum[i] += sc[4 * j + 2 * i + e];
+        // k16 slice kk of P's A fragment holds S columns 16kk..16kk+15
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+          const float alpha = expf(m[i] - m_new[i]);
+          l[i] = alpha * l[i] + psum[i];
+          m[i] = m_new[i];
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              acc[c][4 * j + 2 * i] *= alpha;
+              acc[c][4 * j + 2 * i + 1] *= alpha;
+            }
+        }
+      };
+      auto softmax = [&](int t) {
+        const int t0 = t * BK;
+        if (t0 + BK > Skv || (causal && t0 + BK - 1 > q_offset + q0 + 64 * wg))
+          softmax_body(std::true_type(), t);
+        else
+          softmax_body(std::false_type(), t);
+      };
+      // O += P V for the tile in stage st, per 64 output columns
+      auto issue_pv = [&](int st) {
+        const uint32_t v_base = smem_u32(vs + st * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs_n64(acc[c], pa[kk],
+                         gmma_desc(v_base + c * BK * 128 + kk * 2048, BK * 128,
+                                   1024));
+      };
+      auto pv_done = [&] {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      };
+      auto release = [&](int st) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty(st));
+      };
+
+      // this tile's P V and the first batch of the next tile's S go to the
+      // tensor cores together, so each tile waits for its wgmmas once
+      constexpr int B = C::RING * C::KSUB;
+      int t = 0;
+      if (my_tiles > 0) {
+        mbar_wait(bar_full(stage(0)), phase(0));
+        scores_from(stage(0), 0);
+        for (; t + 1 < my_tiles; ++t) {
+          softmax(t);
+          mbar_wait(bar_full(stage(t + 1)), phase(t + 1));
+          issue_pv(stage(t));
+          issue_s(stage(t + 1), 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          pv_done();
+          release(stage(t));
+          sum_ring(0);
+          scores_from(stage(t + 1), B);
+        }
+        softmax(t);
+        issue_pv(stage(t));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pv_done();
+        release(stage(t));
+        ++t;
+      }
+      // key tiles past this warpgroup's last query: nothing to add
+      for (; t < n_tiles; ++t) {
+        mbar_wait(bar_full(stage(t)), phase(t));
+        release(stage(t));
+      }
+      // every wgmma of this item has read its Q: the buffer may be refilled
+      if (lane == 0) mbar_arrive(bar_qfree(qb));
+      it0 += n_tiles;
+
+      // o = acc / max(l, 1e-30), each row written once
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = q0 + row0 + 8 * i;
+        if (my_tiles == 0 || qi >= Sq) continue;
+        const float lf = floor_l(l[i]);
+        bf16* orow = o + (static_cast<size_t>(bh) * Sq + qi) * HD;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 64 * c + 8 * j + 2 * c4;
+            if (col < HD)
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __halves2bfloat162(
+                      __float2bfloat16_rn(acc[c][4 * j + 2 * i] / lf),
+                      __float2bfloat16_rn(acc[c][4 * j + 2 * i + 1] / lf));
+          }
+        if (LSE && c4 == 0)
+          lse[static_cast<size_t>(bh) * Sq + qi] = m[i] + logf(lf);
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- host
+// cuTensorMapEncodeTiled, reached through the runtime so the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (BH, S, HD) bf16 tensor as a 3-D map, boxes of 64 columns x rows x 1
+bool make_map(CUtensorMap* map, const void* base, int BH, int S, int HD,
+              int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
+                                 static_cast<cuuint64_t>(S) * HD * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP, int NQ>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int BH, int Sq, int Skv, int HD, float scale, int causal,
+           int q_offset, cudaStream_t stream) {
+  using C = Cfg<HDP, NQ>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, BH, Sq, HD, C::BQ) ||
+      !make_map(&tk, k, BH, Skv, HD, C::BK) ||
+      !make_map(&tv, v, BH, Skv, HD, C::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  // one persistent block per SM, or per work item when there are fewer
+  const int n_items = BH * ((Sq + C::BQ - 1) / C::BQ);
+  const dim3 grid(n_items < n_sm ? n_items : n_sm);
+  auto kern = lse != nullptr ? flash_fwd_sm90<HDP, NQ, true>
+                             : flash_fwd_sm90<HDP, NQ, false>;
+  int e = static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM));
+  if (e) return e;
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), BH, Sq,
+      Skv, HD, scale, causal, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (BH, Sq, HD), k/v (BH, Skv, HD) bf16 -> o (BH, Sq, HD) bf16; lse (BH,
+// Sq) float32, or null for the forward without it (#7).  HD a multiple of
+// 16 in [16, 256]; every pointer 16-byte aligned.
+extern "C" int repro_flash_fwd_sm90(const void* q, const void* k,
+                                    const void* v, void* o, void* lse, int BH,
+                                    int Sq, int Skv, int HD, float scale,
+                                    int causal, int q_offset, void* stream) {
+  if (HD < 16 || HD > 256 || HD % 16 || BH < 1 || Sq < 1 || Skv < 1 ||
+      q_offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  // a power-of-two scale (d = 16, 64, 256) makes q * scale exact in bf16:
+  // one Q term; any other takes three (exact for every scale)
+  int ex;
+  const bool pow2 = frexpf(scale, &ex) == 0.5f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(HDP, NQ)                                              \
+  launch<HDP, NQ>(q, k, v, o, lse, BH, Sq, Skv, HD, scale, causal, q_offset, \
+                  st)
+  switch ((HD + 63) / 64) {
+    case 1: return pow2 ? REPRO_LAUNCH(64, 1) : REPRO_LAUNCH(64, 3);
+    case 2: return REPRO_LAUNCH(128, 3);
+    case 3: return REPRO_LAUNCH(192, 3);
+    default: return pow2 ? REPRO_LAUNCH(256, 1) : REPRO_LAUNCH(256, 3);
+  }
+#undef REPRO_LAUNCH
+}
+
+// key rows per tile of the bf16 forward at head dim hd (its rounding of p
+// depends on it); tests hold kernels/flash_attn.py:kv_tile equal to it
+extern "C" int repro_flash_kv_tile(int hd) {
+  switch ((hd + 63) / 64) {
+    case 1: return Cfg<64, 1>::BK;
+    case 2: return Cfg<128, 3>::BK;
+    case 3: return Cfg<192, 3>::BK;
+    default: return Cfg<256, 1>::BK;
+  }
+}

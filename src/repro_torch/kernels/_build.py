@@ -43,6 +43,9 @@ SIGNATURES = {
             [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
         "repro_flash_attn_bwd_dq":
             [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P]},
+    "flash_fwd_sm90": {
+        "repro_flash_fwd_sm90": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+        "repro_flash_kv_tile": [_I]},
     "decode_attn": {
         "repro_decode_attn": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
         "repro_decode_attn_paged":

@@ -2,8 +2,10 @@
 causal over the int8 KV cache for the int8-KV prefill of the serving path.
 
 Over fp K/V, in the reference's ``(BH, S, d)`` layout (the ports of
-``repro/kernels/flash_attn.py``; each launches ``csrc/flash_attn.cu`` on
-CUDA tensors and runs its ``*_plain`` version on CPU tensors):
+``repro/kernels/flash_attn.py``; each launches a kernel on CUDA tensors --
+the forward at bfloat16 ``csrc/flash_fwd_sm90.cu`` on the tensor cores,
+everything else ``csrc/flash_attn.cu`` -- and runs its ``*_plain`` version
+on CPU tensors):
 
 * :func:`flash_attention_fwd` -- ``flash_attention_fwd`` (#7);
 * :func:`flash_attention_fwd_lse` -- ``_fwd_with_lse`` (#8), the output and
@@ -146,6 +148,12 @@ def _check_flash(what: str, q, k, v, q_offset: int, extra=()):
                              f"{shape} tensor on {q.device}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.device.type == "cuda":
+        # the bf16 forward reads q, k, v by TMA, which takes 16-byte bases
+        for name, t, *_ in (("q", q), ("k", k), ("v", v), *extra):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must start on a 16-byte "
+                                 f"boundary (data_ptr {t.data_ptr():#x})")
     return bh, sq, skv, d
 
 
@@ -167,18 +175,43 @@ def _scale(d: int) -> float:
 
 
 def kv_tile(d: int) -> int:
-    """Key rows per tile of the forward kernel at head dim ``d``
-    (``Tiles<HDP>::BK`` in ``csrc/flash_attn.cu``): 64 up to d = 128, 32
-    above."""
+    """Key rows per tile of the forward kernels at head dim ``d`` (``BK`` of
+    ``Cfg`` in ``csrc/flash_fwd_sm90.cu``, which exports it as
+    ``repro_flash_kv_tile``, and of ``Tiles`` in ``csrc/flash_attn.cu``): 64
+    up to d = 128, 32 above.  At bfloat16 it is part of the function: p is
+    rounded against the running max of each tile."""
     return 64 if d <= 128 else 32
+
+
+def bf16_q_terms(q: torch.Tensor, d: int):
+    """The bfloat16 terms that the bf16 forward feeds the tensor cores in
+    place of x = fl(q_f32 * scale), scale = 1/sqrt(d) in float32
+    (``split_q`` in ``csrc/flash_fwd_sm90.cu``, the same formula), each as
+    float32.  Where the scale is a power of two (d = 16, 64, 256) one term,
+    hi = bf16(x), equal to x while |x| >= 2**-126; elsewhere three, hi, mid
+    = bf16(x - hi) and lo = bf16(x - hi - mid), summing to x exactly while
+    |x| >= 2**-110.  Below those, bf16's subnormal step (2**-133) drops
+    bits of x, at most 2**-134.  A non-finite hi leaves mid = lo = 0."""
+    scale = torch.tensor(_scale(d), dtype=torch.float32)
+    x = q.float() * scale
+    hi = x.bfloat16().float()
+    if math.frexp(scale.item())[0] == 0.5:
+        return (hi,)
+    r = torch.where(hi.abs() <= torch.finfo(torch.float32).max, x - hi,
+                    torch.zeros_like(x))
+    mid = r.bfloat16().float()
+    return hi, mid, (r - mid).bfloat16().float()
 
 
 def flash_attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, *, causal: bool = True,
                                   q_offset: int = 0,
-                                  block_k: int | None = None):
+                                  block_k: int | None = None,
+                                  score_dtype: torch.dtype = torch.float64):
     """Plain PyTorch version of #8: the scores materialized in fp32 in the
-    forward's order (q scaled first, then the product), masked with -1e30,
+    forward's order (q scaled first, then the product; the products summed
+    in ``score_dtype`` and rounded to fp32 -- float64 by default, so the
+    scores carry no fp32 summation order of their own), masked with -1e30,
     then the online-softmax recurrence over key tiles of ``block_k`` rows
     (default: the kernel's, :func:`kv_tile`): ``exp(s - m)`` against the
     running max m, rounded to v's type for the P.V product, divided by
@@ -188,7 +221,9 @@ def flash_attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
     which rounds p against the row's final max."""
     _, sq, skv, d = _check_flash("flash_attention_fwd_lse", q, k, v,
                                  q_offset)
-    s = torch.einsum("bqd,bkd->bqk", q.float() * _scale(d), k.float())
+    x = q.float() * _scale(d)
+    s = torch.einsum("bqd,bkd->bqk", x.to(score_dtype),
+                     k.to(score_dtype)).float()
     if causal:
         s = s.masked_fill(~_causal_keep(sq, skv, q_offset, q.device), -1e30)
     bk = block_k or kv_tile(d)
@@ -252,15 +287,22 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, *,
 
 
 def _launch_fwd(q, k, v, causal, q_offset, with_lse):
+    """bfloat16: the tensor-core kernel of ``csrc/flash_fwd_sm90.cu``;
+    float32: the CUDA-core kernel of ``csrc/flash_attn.cu``."""
     bh, sq, skv, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2]
     o = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _build.load("flash_attn")
-    rc = lib.repro_flash_attn_fwd(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-        _build.ptr(lse) if with_lse else None, bh, sq, skv, d, _scale(d),
-        int(causal), int(q_offset), _DTYPE_CODES[q.dtype], _build.stream_of(q))
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+            _build.ptr(lse) if with_lse else None, bh, sq, skv, d, _scale(d),
+            int(causal), int(q_offset))
+    if q.dtype == torch.bfloat16:
+        lib = _build.load("flash_fwd_sm90")
+        rc = lib.repro_flash_fwd_sm90(*args, _build.stream_of(q))
+    else:
+        lib = _build.load("flash_attn")
+        rc = lib.repro_flash_attn_fwd(*args, _DTYPE_CODES[q.dtype],
+                                      _build.stream_of(q))
     _build.check(lib, rc, "flash_attention_fwd" + ("_lse" if with_lse else ""))
     return o, lse
 
@@ -271,7 +313,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """#7: q (BH, Sq, d), k/v (BH, Skv, d) -> o (BH, Sq, d) in q's type;
     causal masking hides keys past ``q_offset`` + the query's position.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``#8``'s body without the LSE store) or raise."""
+    (``#8``'s body without the LSE store; at bfloat16 the tensor-core one)
+    or raise."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          q_offset=q_offset)

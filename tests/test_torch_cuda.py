@@ -25,7 +25,9 @@ float32, and at bfloat16 o and the gradients within
 ``chip_smoke.FLASH_BF16`` (relative L2, and the share of elements more
 than one bf16 step apart), #7 equal to #8's output, every launch
 repeating its bits, a NaN in q reaching o, the LSE and every gradient it
-touches.
+touches; the bf16 forward's key tile equal to ``kv_tile`` at every head
+dim, and every flash wrapper refusing a CUDA tensor that does not start
+on a 16-byte boundary (the bf16 forward reads by TMA).
 """
 import pathlib
 import sys
@@ -429,7 +431,9 @@ def _flash_inputs(cuda, bh, sq, skv, d, dtype, seed):
     (2, 1000, 1000, 16, True, 0), (2, 129, 300, 32, False, 0),
     (2, 300, 1024, 64, True, 0), (2, 96, 96, 48, True, 0),
     (2, 256, 256, 128, True, 0), (2, 100, 256, 160, True, 156),
-    (2, 130, 130, 256, True, 0), (1, 70, 70, 256, False, 0)])
+    (2, 130, 130, 256, True, 0), (1, 70, 70, 256, False, 0),
+    (2, 200, 260, 96, True, 60), (2, 150, 150, 192, True, 0),
+    (2, 140, 300, 224, False, 0)])
 def test_flash_kernels(cuda, dtype, bh, sq, skv, d, causal, off):
     q, k, v, do = _flash_inputs(cuda, bh, sq, skv, d, dtype, seed=sq + d)
     counts = [f.launches for f in (fa.flash_attention_fwd_lse,
@@ -479,6 +483,38 @@ def test_flash_kernels_propagate_nan(cuda, dtype):
     assert bool(dk[1, :71].isnan().all()) and bool(dv[1, :71].isnan().all())
     for t in (o, dq, dk, dv):
         assert bool(t[0].isfinite().all())
+
+
+@pytest.mark.cuda
+def test_flash_kv_tile_is_the_kernels(cuda):
+    """The plain forward rounds p against the running max of ``kv_tile(d)``
+    keys; the bf16 kernel's tile (``repro_flash_kv_tile``) is the same at
+    every head dim the wrappers take."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_fwd_sm90")
+    for d in range(16, 257, 16):
+        assert lib.repro_flash_kv_tile(d) == fa.kv_tile(d), d
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_misaligned_tensors(cuda):
+    """The bf16 forward reads q, k and v by TMA from 16-byte aligned bases:
+    a contiguous view at an odd element offset is refused by every
+    wrapper."""
+    q = torch.randn(2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    buf = torch.randn(2 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    odd = buf[1:].view(2, 64, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    for args in ((odd, q, q), (q, odd, q), (q, q, odd)):
+        for fn in (fa.flash_attention_fwd, fa.flash_attention_fwd_lse):
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(*args)
+    o, lse = fa.flash_attention_fwd_lse(q, q, q)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dq(odd, q, q, o, lse, delta)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_dkdv(q, q, q, odd, lse, delta)
 
 
 @pytest.mark.cuda

@@ -208,6 +208,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_attention_fwd(q, torch.zeros(1, 32, 8).transpose(1, 2), q)
 
 
+BF16_MAX = float(torch.finfo(torch.bfloat16).max)
+
+
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_bf16_q_terms_sum_to_the_scaled_q(d):
+    """The bf16 forward feeds the tensor cores x = fl(q * scale) as one
+    bf16 term (power-of-two scale) or three (``bf16_q_terms``, the kernel's
+    formula), so that every score product stays exact in fp32.  Each term
+    is a bf16 value, and they sum to x exactly in fp32 over numpy-seeded q
+    spread over bf16's exponents, +-max bf16 and the values next to the
+    subnormals included; below 2**-126 (one term) or 2**-110 (three) they
+    miss x by at most half of bf16's subnormal step, 2**-134.  An inf
+    stays an inf."""
+    rng = np.random.RandomState(d)
+    spread = (rng.standard_normal(4096)
+              * np.exp2(rng.randint(-133, 127, 4096))).astype(np.float32)
+    tiny = np.float32(2.0 ** -126)
+    special = np.array([BF16_MAX, -BF16_MAX, tiny, -tiny, tiny * 1.0078125,
+                        tiny * 0.9921875, -tiny * 0.5, 2.0 ** -133, 0.0,
+                        2.0 ** -105, -(2.0 ** -104) * 1.5, 1.0, -3.0],
+                       dtype=np.float32)
+    q = torch.from_numpy(np.concatenate([spread, special])).bfloat16()
+    terms = fa.bf16_q_terms(q, d)
+    x = q.float() * torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    assert len(terms) == (1 if d in (16, 64, 256) else 3)
+    for t in terms:
+        assert torch.equal(t, t.bfloat16().float())
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    exact = x.abs() >= (2.0 ** -126 if len(terms) == 1 else 2.0 ** -110)
+    assert int(exact.sum()) > 3000
+    assert torch.equal(total[exact], x[exact])
+    assert float((total - x)[~exact].abs().max()) <= 2.0 ** -134
+    inf = fa.bf16_q_terms(torch.tensor([float("inf")]).bfloat16(), d)
+    assert inf[0].item() == float("inf")
+    assert all(t.item() == 0.0 for t in inf[1:])
+
+
 # ---------------------------------------------------------------------------
 # GPT-2 mini under attention_impl="flash_pallas"
 # ---------------------------------------------------------------------------
