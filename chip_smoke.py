@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
    under ``src/repro_torch/csrc``, one nvcc each, all at once;
    ``decode_attn.cu`` holds the dense and the paged decode kernels,
    ``flash_attn.cu`` the float32 flash forward and both backward kernels,
-   ``flash_fwd_sm90.cu`` the bf16 flash forward on the tensor cores) and
-   print the build time;
+   ``flash_fwd_sm90.cu`` the bf16 flash forward on the tensor cores,
+   ``int8_matmul_bwd.cu`` the int8 backward's quantize passes and its int8
+   tensor-core GEMM) and print the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's shapes, and time kernel, plain version and a
@@ -35,10 +36,16 @@ Phases, in order; any failure exits non-zero:
    the policies, the weights and the limits);
 6. hold the training kernels against their plain versions at the training
    path's shapes -- ``int8_matmul_nt`` and ``int8_matmul_tn`` bit for bit
-   at M = 8192 tokens, ``fused_adamw_blocks`` on a bucket of GPT-2 small's
-   size (bit for bit in params, payloads and scales) -- and time each
-   beside its bound, its plain version and a yardstick (``torch._int_mm``
-   on int8 operands of the same contraction; none for AdamW);
+   at M = 8192 tokens (the three (K, N) at bf16, (768, 768) at fp32), a
+   second launch bit-identical to the first, ``fused_adamw_blocks`` on a
+   bucket of GPT-2 small's size (bit for bit in params, payloads and
+   scales) -- and time each beside its bound, its plain version and a
+   yardstick (``torch._int_mm`` on int8 operands of the same contraction;
+   none for AdamW); nt and tn with the card's queue full, and each of their
+   stages (quantize pass, int8 GEMM, split reduction) timed alone; every
+   GEMM kernel of ``int8_matmul_bwd.cu`` holds
+   integer wgmma (``IGMMA``) in its SASS (``cuobjdump``), or the phase
+   fails (``check_int8_bwd``);
 7. train GPT-2 small at full width and depth (random weights from
    ``--seed``, bf16 carrier, 8 x 1024 tokens a step from the port's
    synthetic corpus, the paper's W8/A8/G8 recipe on the int8 kernels with
@@ -1026,17 +1033,76 @@ def _grad_scale(torch, g, fold, dim):
     return absmax.clamp_min(1e-12) / torch.full_like(absmax, 127.0)
 
 
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call with the host out of the way: the
+    card sleeps while ``iters`` calls are queued behind it, then CUDA events
+    time them back to back (the training step keeps the card's queue full,
+    so this is what a call costs it; ``time_ms`` of a call shorter than its
+    host dispatch times the host)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+#: the kernels of one int8 backward call, by name, and the stage each is
+BWD_STAGES = (("quant_rows_kernel", "quantize"), ("pack_tn_kernel", "quantize"),
+              ("gemm_s8_kernel", "gemm"), ("split_reduce_kernel", "reduce"))
+
+
+def bwd_stage_ms(torch, kind, g, other, fold, qs, k, n, dt) -> dict:
+    """Each stage of one nt or tn call timed alone (``queued_ms``) through
+    its stage wrapper: the quantize pass, the int8 GEMM (the split partials
+    where the call splits) and the split reduction."""
+    import importlib
+    # the module (the package re-exports a function of its name)
+    im = importlib.import_module("repro_torch.kernels.int8_matmul")
+    m = g.shape[0]
+    if kind == "nt":
+        gq, wk = im.quant_rows_packed(g, fold, qs), im.kmajor_weight(other)
+        return {"quantize": queued_ms(lambda: im.quant_rows_packed(g, fold,
+                                                                    qs)),
+                "gemm": queued_ms(lambda: im.int8_gemm_kmajor(
+                    gq, wk, qs, n, True, dt, splits=1))}
+    xt, gt = im.pack_tn(other, g, fold, qs)
+    out = {"quantize": queued_ms(lambda: im.pack_tn(other, g, fold, qs))}
+    splits = im.gemm_splits(k, n, m)
+    if splits == 1:
+        out["gemm"] = queued_ms(lambda: im.int8_gemm_kmajor(
+            xt, gt, qs, m, False, dt, splits=1))
+        return out
+    ws = im.int8_gemm_partials(xt, gt, m, splits)
+    out["gemm"] = queued_ms(lambda: im.int8_gemm_partials(xt, gt, m, splits))
+    out["reduce"] = queued_ms(lambda: im.int8_split_reduce(ws, qs, False, dt))
+    return out
+
+
 def check_int8_bwd(torch, dev, gen, results):
     """Phase 6a: nt and tn at the training path's shapes (M = 8192 tokens,
-    the three (K, N) of GPT-2 small's linears, bf16 gradient and output),
-    bit for bit against their plain versions."""
+    the three (K, N) of GPT-2 small's linears, bf16 gradient and output) and
+    at fp32 (gradient and output, (768, 768)), bit for bit against their
+    plain versions, a second launch bit-identical to the first; each timed
+    with its stages (quantize pass, GEMM, split reduction) beside its bound,
+    its plain version and ``torch._int_mm``, all with the card's queue
+    full (``queued_ms``); every GEMM kernel of the library holds integer
+    wgmma (``IGMMA``) in its SASS."""
     from repro_torch.kernels.int8_matmul import (
-        _quant_grad, int8_matmul_nt, int8_matmul_nt_plain, int8_matmul_tn,
-        int8_matmul_tn_plain, scale_guard)
+        _quant_grad, gemm_splits, int8_matmul_nt, int8_matmul_nt_plain,
+        int8_matmul_tn, int8_matmul_tn_plain, scale_guard)
     m = TRAIN_BATCH * TRAIN_SEQ
     rows = {"int8_matmul_nt": [], "int8_matmul_tn": []}
-    for k, n in ((768, 768), (768, 3072), (3072, 768)):
-        g = (torch.randn((m, n), generator=gen, device=dev) * 0.02).bfloat16()
+    cases = [(768, 768, torch.bfloat16), (768, 3072, torch.bfloat16),
+             (3072, 768, torch.bfloat16), (768, 768, torch.float32)]
+    for k, n, dt in cases:
+        g = (torch.randn((m, n), generator=gen, device=dev) * 0.02).to(dt)
         w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
         x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
@@ -1045,38 +1111,52 @@ def check_int8_bwd(torch, dev, gen, results):
         fx = torch.rand((m, 1), generator=gen, device=dev) * 0.05 + 1e-4
         qn = _grad_scale(torch, g, fw, 1)
         qt = _grad_scale(torch, g, fx, 0)
-        cases = {
+        es = g.element_size()
+        kern_cases = {
             "int8_matmul_nt": (
-                lambda: int8_matmul_nt(g, w, fw, qn),
-                lambda: int8_matmul_nt_plain(g, w, fw, qn),
+                lambda: int8_matmul_nt(g, w, fw, qn, out_dtype=dt),
+                lambda: int8_matmul_nt_plain(g, w, fw, qn, out_dtype=dt),
                 # yardstick operands: the quantized gradient, w^T
                 (_quant_grad(g, fw, scale_guard(qn)).to(torch.int8),
                  w.t()),
-                m * n * 2 + k * n + 4 * (n + m) + m * k * 2),
+                m * n * es + k * n + 4 * (n + m) + m * k * es, 1,
+                lambda: bwd_stage_ms(torch, "nt", g, w, fw, qn, k, n, dt)),
             "int8_matmul_tn": (
-                lambda: int8_matmul_tn(x, g, fx, qt, out_dtype=torch.bfloat16),
-                lambda: int8_matmul_tn_plain(x, g, fx, qt,
-                                             out_dtype=torch.bfloat16),
+                lambda: int8_matmul_tn(x, g, fx, qt, out_dtype=dt),
+                lambda: int8_matmul_tn_plain(x, g, fx, qt, out_dtype=dt),
                 (x.t().contiguous(),
                  _quant_grad(g, fx, scale_guard(qt)).to(torch.int8)),
-                m * k + m * n * 2 + 4 * (m + n) + k * n * 2),
+                m * k + m * n * es + 4 * (m + n) + k * n * es,
+                gemm_splits(k, n, m),
+                lambda: bwd_stage_ms(torch, "tn", g, x, fx, qt, k, n, dt)),
         }
-        for name, (kern, plain, (la, lb), nbytes) in cases.items():
+        for name, (kern, plain, (la, lb), nbytes, splits,
+                   stages) in kern_cases.items():
             got, want = kern(), plain()
+            again = kern()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             if not torch.equal(got, want):
-                fail(f"{name} M={m} K={k} N={n} not bit-exact (max err {err})")
-            ms = time_ms(kern)
+                fail(f"{name} M={m} K={k} N={n} {dt} not bit-exact (max err "
+                     f"{err})")
+            if not torch.equal(again, got):
+                fail(f"{name} M={m} K={k} N={n} {dt}: a second launch gave "
+                     f"other bits")
+            ms = queued_ms(kern)
+            split = stages()
             plain_ms = time_ms(plain, iters=3)
-            lib = time_ms(lambda: torch._int_mm(la, lb))
+            lib = queued_ms(lambda: torch._int_mm(la, lb))
             b, by = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS)
-            rows[name].append(dict(shape=f"M={m},K={k},N={n}",
+            rows[name].append(dict(shape=f"M={m},K={k},N={n},{dt}",
                                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=b, bound_by=by, library_ms=lib))
-            print(f"{name} M={m} K={k:4d} N={n:4d} bf16: bit-exact (tol 0), "
-                  f"ms {ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b:.5f} "
-                  f"({by}), library_ms(_int_mm) {lib:.4f}")
+                                   bound_ms=b, bound_by=by, library_ms=lib,
+                                   stages_ms=split, splits=splits))
+            print(f"{name} M={m} K={k:4d} N={n:4d} {str(dt)[6:]}: bit-exact "
+                  f"(tol 0), repeat bit-identical, ms {ms:.4f} (stages alone: "
+                  + ", ".join(f"{st} {v:.4f}" for st, v in split.items())
+                  + f"; {splits} split{'s' if splits > 1 else ''}), plain_ms "
+                  f"{plain_ms:.4f}, bound_ms {b:.5f} ({by}), "
+                  f"library_ms(_int_mm) {lib:.4f}")
     # the JSON entry reports the shape with the most launches on the main
     # path: wq, wk, wv and wo at K = N = 768 (48 of the 72 a step)
     for name, line in (("int8_matmul_nt", 146), ("int8_matmul_tn", 205)):
@@ -1084,6 +1164,13 @@ def check_int8_bwd(torch, dev, gen, results):
             route="cuda", source="src/repro_torch/csrc/int8_matmul_bwd.cu",
             replaces=f"src/repro/kernels/int8_matmul.py:{line}", tol=0.0,
             shapes=rows[name], **rows[name][0])
+    counts = sass_counts("int8_matmul_bwd", "IGMMA")
+    gemm = {fn: c for fn, c in counts.items() if "gemm_s8_kernel" in fn}
+    print(f"int8_matmul_bwd SASS: {sum(gemm.values())} IGMMA instructions "
+          f"over {len(gemm)} GEMM kernels (each "
+          f"{min(gemm.values(), default=0)}-{max(gemm.values(), default=0)})")
+    if not gemm or min(gemm.values()) == 0:
+        fail(f"phase 6: an int8 backward GEMM kernel has no IGMMA: {gemm}")
 
 
 def gpt2_bucket_rows(torch, dev, cfg):
@@ -1255,11 +1342,15 @@ def profile_train_step(torch, step_fn, state, batch) -> None:
     print(f"profile: 1 train step, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{sum(k[2] for k in kern)} kernel launches")
-    # the twelve largest, and every flash kernel wherever it ranks
+    # the twelve largest, and every flash kernel and every kernel of the
+    # int8 backward wherever it ranks
+    bwd = [k for k in kern if any(key in k[0] for key, _ in BWD_STAGES)]
     for rank, (name, us, n) in enumerate(kern):
-        if rank < 12 or "flash" in name:
+        if rank < 12 or "flash" in name or any(name == b[0] for b in bwd):
             print(f"profile:   {us / 1e3:8.3f} ms {n:5d} launches "
                   f"{name[:90]}")
+    print(f"profile: the int8 backward (nt and tn) {sum(b[1] for b in bwd) / 1e3:.3f} "
+          f"ms in {sum(b[2] for b in bwd)} launches")
 
 
 def _rel_l2(torch, a, b) -> float:
@@ -2185,7 +2276,25 @@ def _cuobjdump() -> str:
                 / "cuobjdump")
         if cand.exists():
             return str(cand)
-    fail("phase 13: no cuobjdump beside nvcc or in Triton's package")
+    fail("no cuobjdump beside nvcc or in Triton's package (the SASS checks "
+         "of phases 6 and 13)")
+
+
+def sass_counts(lib: str, mnemonic: str) -> dict:
+    """Instructions whose opcode starts with ``mnemonic`` in each kernel of
+    the built library ``csrc/<lib>.cu`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build.lib_path(lib))],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and any(tok.startswith(mnemonic)
+                                    for tok in line.split()):
+            counts[fn] += 1
+    return counts
 
 
 def flash_sass_check() -> None:
@@ -2193,17 +2302,7 @@ def flash_sass_check() -> None:
     head-dim template with and without the LSE store) run on the tensor
     cores: count the ``HGMMA`` instructions of each in the built library's
     SASS, and fail if any kernel has none."""
-    from repro_torch.kernels import _build
-    sass = subprocess.run([_cuobjdump(), "-sass",
-                           str(_build.lib_path("flash_fwd_sm90"))],
-                          capture_output=True, text=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+    counts = sass_counts("flash_fwd_sm90", "HGMMA")
     print(f"flash_fwd_sm90 SASS: {sum(counts.values())} HGMMA instructions "
           f"over {len(counts)} kernels (each "
           f"{min(counts.values(), default=0)}-"

@@ -62,18 +62,17 @@
 // each branch to a slow path.  Running the next tile's S, or this tile's
 // P V, under the softmax cost registers or made ptxas serialize every
 // wgmma (C7514), so the softmax waits for them.
-#include <cuda.h>  // CUtensorMap and its enums (no -lcuda: entry point below)
 #include <float.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSmemMax = 232448;  // a block's dynamic shared memory, sm_90
 constexpr int kProducerRegs = 24;
 
 // the key tile of the bf16 forward, kernels/flash_attn.py:kv_tile
@@ -120,80 +119,6 @@ struct Cfg {
 // max(l, 1e-30) that keeps a NaN l (jnp.maximum; fmaxf would drop it)
 __device__ __forceinline__ float floor_l(float l) {
   return l < 1e-30f ? 1e-30f : l;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ------------------------------------------------------------ mbarriers
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 3-D tensor map (coordinates innermost first) into shared
-// memory, completing `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2) : "memory");
-}
-
-// ---------------------------------------------------------------- wgmma
-// a shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (each >> 4)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most N committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving register traffic across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // sc = t (first) or sc + t, in fp32 round-to-nearest
@@ -338,8 +263,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_full(s), 1);
       mbar_init(bar_empty(s), 4 * NWG);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -630,32 +554,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 }
 
 // ----------------------------------------------------------------- host
-// cuTensorMapEncodeTiled, reached through the runtime so the library
-// needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a (BH, S, HD) bf16 tensor as a 3-D map, boxes of 64 columns x rows x 1
 bool make_map(CUtensorMap* map, const void* base, int BH, int S, int HD,
               int rows) {
@@ -684,12 +582,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       !make_map(&tk, k, BH, Skv, HD, C::BK) ||
       !make_map(&tv, v, BH, Skv, HD, C::BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int n_sm = sm_count();
   // one persistent block per SM, or per work item when there are fewer
   const int n_items = BH * ((Sq + C::BQ - 1) / C::BQ);
   const dim3 grid(n_items < n_sm ? n_items : n_sm);

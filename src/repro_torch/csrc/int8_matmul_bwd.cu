@@ -1,6 +1,7 @@
 // The int8 training backward of a W8A8 linear, for Hopper (sm_90a): the
 // input gradient (nt) and the weight gradient (tn), each with the output
-// gradient quantized to int8 inside the tile load.
+// gradient quantized to int8 once and then multiplied on the int8 tensor
+// cores.
 //
 // Replaces: src/repro/kernels/int8_matmul.py:int8_matmul_nt (its body is
 // _int8_matmul_nt_kernel) and :int8_matmul_tn (_int8_matmul_tn_kernel):
@@ -14,270 +15,681 @@
 // per-token scale for dW) and qs the absmax / 127 of g*fold, reduced by the
 // wrapper (kernels/ops.py), as in the reference.
 //
-// Bound: at the training shapes (M = 8192 tokens, K, N in {768, 3072}) both
-// are bound by operations (2*M*N*K int8 ops at 1,979 TOP/s on the tensor
-// cores); the bytes (M*N gradient values, K*N or M*K int8 payload) are a
-// few MB.
-//
-// Design: the simple and exact version first, the same shape as the forward
-// kernel (int8_matmul.cu): 64 x 64 output tiles, shared-memory tiles packed
-// four int8 to a word along the contracted axis, __dp4a with int32 sums on
-// the CUDA cores.  The TPU grid's sequential reduction axis (a VMEM
-// accumulator across grid steps) becomes a loop inside the block; no
-// split-K and no atomics, so the result is deterministic.  nt contracts N,
-// the contiguous axis of both row-major operands, so its tiles load
-// straight; tn contracts the token axis M, the leading axis of both, so its
-// tile loads transpose into m-contiguous words.  The gradient is quantized
-// as it enters shared memory -- the reference's fused quant prologue: h =
-// g*fold, rint(h / qs) with an IEEE division (__fdiv_rn: nvcc never turns
-// it into a reciprocal multiply) and round-half-to-even, so the payloads
-// equal the plain version's and the JAX kernel's.  Each output block
-// re-quantizes its gradient rows, as each TPU grid step does.  Tensor-core
-// MMA (wgmma on K-major layouts), TMA and a one-pass gradient quantizer are
-// later work.
+// Bound: at the training shapes (M = 8192 tokens, K, N in {768, 3072}) the
+// products (2*M*N*K int8 ops at 1,979 TOP/s) and the bytes (the gradient
+// read once, an int8 payload, the output) are within 2x of each other:
+// bytes at (768, 768), operations at the two others.  So the gradient is
+// read once and the products run on the tensor cores.  Design:
+//  1. Quantize once.  One memory-bound pass reads the gradient and writes
+//     each payload once, K-major, rows padded to 16 bytes with zeros (TMA
+//     strides; the wrapper allocates the buffers):
+//       nt: gq (M, ldq), row-major -- its contraction axis N is contiguous;
+//       tn: gqT (N, ldm) through a shared-memory tiled transpose, and the
+//           activation payload x (M, K) into xT (K, ldm) the same way, both
+//           in one launch.
+//     wgmma takes 8-bit operands K-major only (the transpose bits exist for
+//     16-bit types alone), and tn contracts the token axis M, the leading
+//     axis of both row-major operands: hence its two transposes.  The
+//     quantizer is the reference's: h = g*fold (__fmul_rn, never fused),
+//     rint(h / qs) with an IEEE division (__fdiv_rn) and round-half-to-even.
+//  2. One s8 tensor-core GEMM for both layouts,
+//       C[i, j] = cast(float(sum_k A[i, k] B[j, k]) * g(s)),
+//     A (R, lda) and B (C, ldb) K-major int8, s per output row (nt: qs[m])
+//     or per column (tn: qs[n]).  128 x 128 output tiles in 128-byte
+//     contraction steps; a producer warp streams the A and B tiles by TMA
+//     (128-byte swizzle; the hardware fills zeros past every edge, so a
+//     ragged M, N or contraction needs no code) into a 3-stage mbarrier
+//     ring; two consumer warpgroups each run wgmma m64n128k32.s32.s8.s8 into
+//     int32 registers, one group in flight while the next is issued.  Two
+//     blocks share an SM, so one block's epilogue (int32 -> fp32 round to
+//     nearest, one multiply by the guarded scale, the cast, masked stores)
+//     runs under the other's products.
+//  3. Split the contraction where the output tiles cannot fill the card
+//     (tn at (768, 768): 36 tiles for 132 SMs).  Each split writes its
+//     exact int32 partial tile to a workspace, and a second kernel adds the
+//     splits in a fixed order and dequantizes once.  Integer addition is
+//     associative, so every split count gives the same bits, run after run;
+//     there are no atomics.  The split count comes from the shapes alone
+//     (repro_int8_gemm_splits).
+//  4. The two to three kernels of a call are programmatic dependent
+//     launches: the card starts each while the one before it drains, and
+//     each waits (griddepcontrol.wait) before it reads what that one wrote.
+// Tried and dropped, none faster at the training shapes on the H100:
+// persistent GEMM blocks, 128 x 256 tiles (one block an SM), and letting the
+// next kernel launch early (griddepcontrol.launch_dependents).
+// Exactness: |sum| <= 128 * 128 * contraction, so the int32 sum (and every
+// partial of it) is exact up to a contraction of 131,071 -- the limit of
+// the reference's int32 accumulator; the entry points refuse more.  At M =
+// 8192 the largest value is 1.3e8; (float)sum is exact below 2^24 and
+// rounded to nearest once above, as the plain version's cast is.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxContraction = 131071;
 
+// ------------------------------------------------------------ quantize
 __device__ __forceinline__ int8_t quant_g(float g, float fold, float qs) {
   float r = rintf(__fdiv_rn(__fmul_rn(g, fold), qs));
   r = fminf(fmaxf(r, -128.0f), 127.0f);
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
-// dx: output tile (16*TM rows of m) x (16*TK cols of k); contraction over n
-// in steps of BN bytes.  g (M, N) carrier, w (K, N) int8, fold (N), qs (M).
-template <int TM, int TK, int BN, typename GT, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-nt_kernel(const GT* __restrict__ g, const int8_t* __restrict__ w,
-          const float* __restrict__ fold, const float* __restrict__ qs,
-          OutT* __restrict__ out, int M, int N, int K) {
-  constexpr int BM = 16 * TM, BK = 16 * TK;
-  constexpr int NW = BN / 4, NWP = NW + 1;  // padded stride: no conflicts
-  __shared__ int32_t As[BM * NWP];          // [m][n] quantized gradient
-  __shared__ int32_t Bs[BK * NWP];          // [k][n] weight payload
-  __shared__ float rq[BM];                  // guarded qs of the tile's rows
-  int8_t* Ab = reinterpret_cast<int8_t*>(As);
-  int8_t* Bb = reinterpret_cast<int8_t*>(Bs);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, k0 = blockIdx.x * BK;
-  for (int r = tid; r < BM; r += kThreads)
-    rq[r] = (m0 + r < M) ? scale_guard(qs[m0 + r]) : 1.0f;
-  __syncthreads();
-
-  int acc[TM][TK];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TK; ++j) acc[i][j] = 0;
-
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    for (int e = tid; e < BM * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gm = m0 + r, gn = n0 + c;
-      Ab[r * NWP * 4 + c] =
-          (gm < M && gn < N)
-              ? quant_g(to_f32(g[static_cast<size_t>(gm) * N + gn]), fold[gn],
-                        rq[r])
-              : 0;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bb[r * NWP * 4 + c] =
-          (gk < K && gn < N) ? w[static_cast<size_t>(gk) * N + gn] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nw = 0; nw < NW; ++nw) {
-      int a[TM], b[TK];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[(ty + 16 * i) * NWP + nw];
-#pragma unroll
-      for (int j = 0; j < TK; ++j) b[j] = Bs[(tx + 16 * j) * NWP + nw];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TK; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + 16 * i, gm = m0 + r;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      const int gk = k0 + tx + 16 * j;
-      if (gk >= K) continue;
-      out[static_cast<size_t>(gm) * K + gk] =
-          from_f32<OutT>(static_cast<float>(acc[i][j]) * rq[r]);
-    }
-  }
-}
-
-// dW: output tile (16*TK rows of k) x (16*TN cols of n); contraction over
-// the tokens m in steps of BMS.  x (M, K) int8, g (M, N) carrier, fold (M),
-// qs (N).
-template <int TK, int TN, int BMS, typename GT, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-tn_kernel(const int8_t* __restrict__ x, const GT* __restrict__ g,
-          const float* __restrict__ fold, const float* __restrict__ qs,
-          OutT* __restrict__ out, int M, int N, int K) {
-  constexpr int BK = 16 * TK, BN = 16 * TN;
-  constexpr int MW = BMS / 4, MWP = MW + 1;
-  __shared__ int32_t As[BK * MWP];          // [k][m] activation payload
-  __shared__ int32_t Bs[BN * MWP];          // [n][m] quantized gradient
-  __shared__ float cq[BN];                  // guarded qs of the tile's cols
-  int8_t* Ab = reinterpret_cast<int8_t*>(As);
-  int8_t* Bb = reinterpret_cast<int8_t*>(Bs);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.y * BK, n0 = blockIdx.x * BN;
-  for (int c = tid; c < BN; c += kThreads)
-    cq[c] = (n0 + c < N) ? scale_guard(qs[n0 + c]) : 1.0f;
-  __syncthreads();
-
-  int acc[TK][TN];
-#pragma unroll
-  for (int i = 0; i < TK; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int m0 = 0; m0 < M; m0 += BMS) {
-    // neighbouring threads read neighbouring k (or n) of one token row and
-    // store them transposed, so four consecutive tokens form a word
-    for (int e = tid; e < BMS * BK; e += kThreads) {
-      const int r = e / BK, c = e % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      Ab[c * MWP * 4 + r] =
-          (gm < M && gk < K) ? x[static_cast<size_t>(gm) * K + gk] : 0;
-    }
-    for (int e = tid; e < BMS * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gm = m0 + r, gn = n0 + c;
-      Bb[c * MWP * 4 + r] =
-          (gm < M && gn < N)
-              ? quant_g(to_f32(g[static_cast<size_t>(gm) * N + gn]), fold[gm],
-                        cq[c])
-              : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mw = 0; mw < MW; ++mw) {
-      int a[TK], b[TN];
-#pragma unroll
-      for (int i = 0; i < TK; ++i) a[i] = As[(ty + 16 * i) * MWP + mw];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[(tx + 16 * j) * MWP + mw];
-#pragma unroll
-      for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TK; ++i) {
-    const int gk = k0 + ty + 16 * i;
-    if (gk >= K) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + 16 * j, gn = n0 + c;
-      if (gn >= N) continue;
-      out[static_cast<size_t>(gk) * N + gn] =
-          from_f32<OutT>(static_cast<float>(acc[i][j]) * cq[c]);
-    }
-  }
-}
-
-template <typename GT, typename OutT>
-void launch_nt(const void* g, const void* w, const float* fold,
-               const float* qs, void* out, int M, int N, int K,
-               cudaStream_t s) {
-  dim3 grid((K + 63) / 64, (M + 63) / 64);
-  nt_kernel<4, 4, 32, GT, OutT><<<grid, kThreads, 0, s>>>(
-      static_cast<const GT*>(g), static_cast<const int8_t*>(w), fold, qs,
-      static_cast<OutT*>(out), M, N, K);
-}
-
-template <typename GT, typename OutT>
-void launch_tn(const void* x, const void* g, const float* fold,
-               const float* qs, void* out, int M, int N, int K,
-               cudaStream_t s) {
-  dim3 grid((N + 63) / 64, (K + 63) / 64);
-  tn_kernel<4, 4, 32, GT, OutT><<<grid, kThreads, 0, s>>>(
-      static_cast<const int8_t*>(x), static_cast<const GT*>(g), fold, qs,
-      static_cast<OutT*>(out), M, N, K);
-}
-
-// (gradient dtype, output dtype) -> one instantiation; false if unknown
-template <template <typename, typename> class F, typename... Args>
-bool dispatch2(int g_dtype, int out_dtype, Args... args) {
-  if (g_dtype == kFloat32 && out_dtype == kFloat32)
-    F<float, float>::run(args...);
-  else if (g_dtype == kFloat32 && out_dtype == kBFloat16)
-    F<float, __nv_bfloat16>::run(args...);
-  else if (g_dtype == kBFloat16 && out_dtype == kFloat32)
-    F<__nv_bfloat16, float>::run(args...);
-  else if (g_dtype == kBFloat16 && out_dtype == kBFloat16)
-    F<__nv_bfloat16, __nv_bfloat16>::run(args...);
-  else
-    return false;
-  return true;
-}
-
-template <typename GT, typename OutT>
-struct NT {
-  static void run(const void* g, const void* w, const float* fold,
-                  const float* qs, void* out, int M, int N, int K,
-                  cudaStream_t s) {
-    launch_nt<GT, OutT>(g, w, fold, qs, out, M, N, K, s);
-  }
+// four consecutive elements from a 4-element-aligned address
+template <typename T>
+struct alignas(4 * sizeof(T)) Vec4 {
+  T v[4];
 };
 
-template <typename GT, typename OutT>
-struct TN {
-  static void run(const void* x, const void* g, const float* fold,
-                  const float* qs, void* out, int M, int N, int K,
-                  cudaStream_t s) {
-    launch_tn<GT, OutT>(x, g, fold, qs, out, M, N, K, s);
+template <typename T>
+__device__ __forceinline__ float as_f32(T x) { return to_f32(x); }
+template <>
+__device__ __forceinline__ float as_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+constexpr int kQuantThreads = 256;
+constexpr int kQuantRows = 4;  // rows per thread of nt's pass
+
+// eight consecutive values of a row as floats: one or two vector loads
+// (vec) or element by element, 0 past n_end
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, int n0, int n_end, bool vec,
+                                      float (&v)[8]) {
+  if (vec && n0 < n_end) {
+    const Vec4<T> lo = *reinterpret_cast<const Vec4<T>*>(p + n0);
+    const Vec4<T> hi = *reinterpret_cast<const Vec4<T>*>(p + n0 + 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = to_f32(lo.v[e]);
+      v[e + 4] = to_f32(hi.v[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = n0 + e < n_end ? to_f32(p[n0 + e]) : 0.0f;
   }
-};
+}
+
+// nt's pass: gq[m, n] = quant_g(g[m, n], fold[n], g(qs[m])) for n < N and
+// 0 for N <= n < ldq.  A thread writes 8 bytes of each of kQuantRows rows,
+// so its 8 fold values load once.  vec (vec_fold): N % 8 == 0 and g (fold)
+// 16-byte aligned, so each thread's 8 values load as whole vectors.
+template <typename GT>
+__global__ void __launch_bounds__(kQuantThreads)
+quant_rows_kernel(const GT* __restrict__ g, const float* __restrict__ fold,
+                  const float* __restrict__ qs, int8_t* __restrict__ gq,
+                  int M, int N, int ldq, bool vec, bool vec_fold) {
+  const int chunks = ldq / 8;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kQuantThreads +
+                     threadIdx.x;
+  const int groups = (M + kQuantRows - 1) / kQuantRows;
+  if (idx >= static_cast<size_t>(groups) * chunks) return;
+  const int m0 = static_cast<int>(idx / chunks) * kQuantRows;
+  const int n0 = static_cast<int>(idx % chunks) * 8;
+  grid_dependency_wait();
+  float f[8];
+  load8(fold, n0, N, vec_fold, f);
+#pragma unroll
+  for (int i = 0; i < kQuantRows; ++i) {
+    const int m = m0 + i;
+    if (m >= M) break;
+    float v[8];
+    load8(g + static_cast<size_t>(m) * N, n0, N, vec, v);
+    const float rq = scale_guard(qs[m]);
+    uint2 out;
+    int8_t* o = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = n0 + e < N ? quant_g(v[e], f[e], rq) : 0;
+    *reinterpret_cast<uint2*>(gq + static_cast<size_t>(m) * ldq + n0) = out;
+  }
+}
+
+// tn's passes, a (R, Cn) source into its K-major transpose dst (Cn, ldd):
+// dst[c, r] = quant_g(src[r, c], fold[r], g(qs[c])) (QUANT, the gradient)
+// or src[r, c] (the int8 activation payload) for r < R, and 0 for R <= r <
+// ldd.  A block turns the 64 x 64 tile (r0, c0): each thread loads 4 rows x
+// 4 columns, packs each column's 4 rows into one word of shared memory, and
+// the tile leaves as 16-byte row segments of dst.  vec: Cn % 4 == 0 and src
+// 16-byte aligned, so each thread's 4 columns load as one vector.
+template <typename T, bool QUANT>
+__device__ __forceinline__ void pack_t_tile(
+    const T* __restrict__ src, const float* __restrict__ fold,
+    const float* __restrict__ qs, int8_t* __restrict__ dst, int R, int Cn,
+    int ldd, bool vec, int r0, int c0, uint32_t (&tile)[64][17]) {
+  const int t = threadIdx.x, cq = t % 16, rq = t / 16;
+  const int cb = c0 + 4 * cq;  // this thread's first column
+  grid_dependency_wait();
+  float cs[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    cs[i] = QUANT && cb + i < Cn ? scale_guard(qs[cb + i]) : 1.0f;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = r0 + 4 * rq + j;
+    if (r >= R) continue;
+    const T* row = src + static_cast<size_t>(r) * Cn;
+    float v[4];
+    if (vec && cb < Cn) {
+      const Vec4<T> q = *reinterpret_cast<const Vec4<T>*>(row + cb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = as_f32(q.v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = cb + i < Cn ? as_f32(row[cb + i]) : 0.0f;
+    }
+    const float fr = QUANT ? fold[r] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int8_t b = 0;
+      if (cb + i < Cn)
+        b = QUANT ? quant_g(v[i], fr, cs[i]) : static_cast<int8_t>(v[i]);
+      w[i] |= static_cast<uint32_t>(static_cast<uint8_t>(b)) << (8 * j);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tile[4 * cq + i][rq] = w[i];
+  __syncthreads();
+  const int c = t / 4, q = t % 4;
+  if (c0 + c < Cn && r0 + 16 * q < ldd) {
+    const uint4 o = make_uint4(tile[c][4 * q], tile[c][4 * q + 1],
+                               tile[c][4 * q + 2], tile[c][4 * q + 3]);
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(c0 + c) * ldd + r0 +
+                              16 * q) = o;
+  }
+}
+
+// both of tn's passes in one launch: blocks z = 0 quantize and transpose
+// the gradient g (M, N) into gt, blocks z = 1 transpose x (M, K) into xt
+template <typename GT>
+__global__ void __launch_bounds__(256)
+pack_tn_kernel(const GT* __restrict__ g, const int8_t* __restrict__ x,
+               const float* __restrict__ fold, const float* __restrict__ qs,
+               int8_t* __restrict__ gt, int8_t* __restrict__ xt, int M, int N,
+               int K, int ldm, bool vec_g, bool vec_x) {
+  __shared__ uint32_t tile[64][17];
+  const int r0 = blockIdx.y * 64, c0 = blockIdx.x * 64;
+  if (blockIdx.z == 0) {
+    if (c0 < N)
+      pack_t_tile<GT, true>(g, fold, qs, gt, M, N, ldm, vec_g, r0, c0, tile);
+  } else if (c0 < K) {
+    pack_t_tile<int8_t, false>(x, nullptr, nullptr, xt, M, K, ldm, vec_x, r0,
+                               c0, tile);
+  }
+}
+
+// ----------------------------------------------------------------- GEMM
+constexpr int kBM = 128;  // output rows per block: two warpgroups of 64
+constexpr int kBN = 128;  // output columns per block
+constexpr int kBK = 128;  // contraction bytes per stage: one swizzle row
+constexpr int kStages = 3;
+constexpr int kTileA = kBM * kBK;
+constexpr int kTileB = kBN * kBK;
+// two consumer warpgroups and one producer warp; two blocks per SM, so
+// each thread may hold 65536 / 576 registers (no setmaxnreg: its budget
+// would be shared by both blocks of the SM)
+constexpr int kGemmThreads = 288;
+constexpr int kGemmSmem = kStages * (kTileA + kTileB) + 1024 + 64;
+static_assert(2 * (kGemmSmem + 1024) <= 233472, "two blocks must fit an SM");
+
+#define R8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+    "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (m64 x n128, int32) += A (smem, K-major) . B (smem, K-major), k = 32
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef R8
+
+// two adjacent outputs (c, c + 1) of one row; pair: the row length is
+// even, so the two share one aligned store
+template <typename T>
+__device__ __forceinline__ void store2(T* p, T v0, T v1, bool ok1, bool pair);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float v0, float v1,
+                                              bool ok1, bool pair) {
+  if (pair && ok1) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  else { p[0] = v0; if (ok1) p[1] = v1; }
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      __nv_bfloat16 v0,
+                                                      __nv_bfloat16 v1,
+                                                      bool ok1, bool pair) {
+  if (pair && ok1) *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(v0, v1);
+  else { p[0] = v0; if (ok1) p[1] = v1; }
+}
+template <>
+__device__ __forceinline__ void store2<int>(int* p, int v0, int v1, bool ok1,
+                                            bool pair) {
+  if (pair && ok1) *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+  else { p[0] = v0; if (ok1) p[1] = v1; }
+}
+
+// grid (C tiles, R tiles, splits): block z sums contraction steps [z * kps,
+// min((z + 1) * kps, n_kb)) of 128 bytes.  ws == nullptr: the dequantized
+// output; else split z's int32 partial sums into ws[z] (R, C).
+template <bool ROW_SCALE, typename OutT>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
+               const __grid_constant__ CUtensorMap tb,
+               const float* __restrict__ scale, OutT* __restrict__ out,
+               int* __restrict__ ws, int R, int C, int kps, int n_kb) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle atoms repeat every 1024 bytes: align the tiles to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* as = smem;                       // kStages x [128 rows][128 B]
+  uint8_t* bs = as + kStages * kTileA;      // kStages x [128 rows][128 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bs + kStages * kTileB);
+  auto bar_full = [&](int s) { return smem_u32(bars + s); };
+  auto bar_empty = [&](int s) { return smem_u32(bars + kStages + s); };
+
+  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
+  const int kb0 = blockIdx.z * kps;
+  const int nk = min(n_kb, kb0 + kps) - kb0;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // the operands (and the scales) come from the kernels before this one
+  grid_dependency_wait();
+
+  if (warp == 8) {
+    // ---------------------------------------------------------- producer
+    if (threadIdx.x == 256) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(bar_empty(s), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full(s), kTileA + kTileB);
+        const int k = (kb0 + t) * kBK;
+        tma_load_2d(smem_u32(as + s * kTileA), &ta, bar_full(s), k, i0);
+        tma_load_2d(smem_u32(bs + s * kTileB), &tb, bar_full(s), k, j0);
+      }
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  const int wg = warp / 4, lane = threadIdx.x % 32;
+  int acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+  fence_regs(acc);
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % kStages;
+    mbar_wait(bar_full(s), (t / kStages) & 1);
+    const uint32_t a = smem_u32(as + s * kTileA) + wg * 64 * kBK;
+    const uint32_t b = smem_u32(bs + s * kTileB);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk)
+      wgmma_s8_n128(acc, gmma_desc(a + 32 * kk, 16, 1024),
+                    gmma_desc(b + 32 * kk, 16, 1024));
+    wgmma_commit();
+    // the previous stage's products are done: hand its tiles back
+    wgmma_wait<1>();
+    if (t > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty((t - 1) % kStages));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // acc[4j + 2i + e] holds row 16 (warp % 4) + lane / 4 + 8i of this
+  // warpgroup's 64, column 8j + 2 (lane % 4) + e
+  const bool pair = C % 2 == 0;
+  int* part = ws != nullptr ? ws + static_cast<size_t>(blockIdx.z) * R * C
+                            : nullptr;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i0 + 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * i;
+    if (r >= R) continue;
+    const float rs =
+        ROW_SCALE && part == nullptr ? scale_guard(scale[r]) : 1.0f;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = j0 + 8 * j + 2 * (lane % 4);
+      if (c >= C) continue;
+      const bool ok1 = c + 1 < C;
+      const int v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+      const size_t at = static_cast<size_t>(r) * C + c;
+      if (part != nullptr) {
+        store2<int>(part + at, v0, v1, ok1, pair);
+      } else {
+        const float s0 = ROW_SCALE ? rs : scale_guard(scale[c]);
+        const float s1 =
+            ROW_SCALE ? rs : (ok1 ? scale_guard(scale[c + 1]) : 1.0f);
+        store2<OutT>(out + at, from_f32<OutT>(__int2float_rn(v0) * s0),
+                     from_f32<OutT>(__int2float_rn(v1) * s1), ok1, pair);
+      }
+    }
+  }
+}
+
+// out[r, c] = cast(float(sum_z ws[z, r, c]) * g(s)), the splits added in
+// order z = 0, 1, ... (exact int32); four outputs a thread, read as one
+// vector of each split where R * C % 4 == 0
+template <bool ROW_SCALE, typename OutT>
+__global__ void __launch_bounds__(256)
+split_reduce_kernel(const int* __restrict__ ws,
+                    const float* __restrict__ scale, OutT* __restrict__ out,
+                    int R, int C, int S) {
+  const size_t n = static_cast<size_t>(R) * C;
+  const size_t i0 = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i0 >= n) return;
+  grid_dependency_wait();
+  int sum[4] = {0, 0, 0, 0};
+  if (n % 4 == 0) {
+    for (int z = 0; z < S; ++z) {
+      const int4 v = *reinterpret_cast<const int4*>(ws + z * n + i0);
+      sum[0] += v.x; sum[1] += v.y; sum[2] += v.z; sum[3] += v.w;
+    }
+  } else {
+    for (int z = 0; z < S; ++z)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (i0 + e < n) sum[e] += ws[z * n + i0 + e];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const size_t idx = i0 + e;
+    if (idx >= n) break;
+    const int r = static_cast<int>(idx / C), c = static_cast<int>(idx % C);
+    out[idx] = from_f32<OutT>(__int2float_rn(sum[e]) *
+                              scale_guard(scale[ROW_SCALE ? r : c]));
+  }
+}
+
+// ----------------------------------------------------------------- host
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+int pad_to16(int n) { return ceil_div(n, 16) * 16; }
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// an int8 (rows, inner) operand with rows ld bytes apart as a 2-D map,
+// boxes of 128 bytes x box_rows; zero fill past inner and rows
+bool make_map(CUtensorMap* map, const void* base, int inner, int rows,
+              int ld, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || !aligned16(base) || ld % 16 || ld < inner) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// splits of the contraction for an (R, C) output over Kc: the count that
+// minimises a cost model -- the busiest SM's 128-byte steps (two blocks
+// share an SM) plus the workspace's bytes -- at least two steps a split
+int gemm_splits(int R, int C, int Kc) {
+  const int n_sm = sm_count() > 0 ? sm_count() : 132;
+  const long tiles = static_cast<long>(ceil_div(R, kBM)) * ceil_div(C, kBN);
+  const int n_kb = ceil_div(Kc, kBK);
+  // one step of one 128 x 128 tile on an SM, and the workspace's rate, in
+  // microseconds and bytes per microsecond (H100 readings, rounded)
+  const double t_step = 0.45, bw = 2.5e6;
+  int best = 1;
+  double best_cost = 1e300;
+  for (int s = 1; s <= 16 && s <= n_kb; ++s) {
+    const int kps = ceil_div(n_kb, s);
+    if (ceil_div(n_kb, kps) != s || (s > 1 && kps < 2)) continue;
+    const double waves = static_cast<double>((tiles * s + n_sm - 1) / n_sm);
+    double cost = waves * kps * t_step;
+    if (s > 1) cost += (2.0 * s + 1.0) * 4.0 * R * C / bw;
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// validates the split count: splits blocks of kps steps, none empty
+bool split_steps(int Kc, int splits, int* kps) {
+  const int n_kb = ceil_div(Kc, kBK);
+  if (splits < 1 || splits > n_kb) return false;
+  *kps = ceil_div(n_kb, splits);
+  return ceil_div(n_kb, *kps) == splits;
+}
+
+template <typename K>
+int prepare_gemm(K kern) {
+  int e = static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem));
+  if (e) return e;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+}
+
+// one GEMM launch: the dequantized output (splits == 1) or the int32
+// partials of each split into ws
+template <bool ROW_SCALE, typename OutT>
+int launch_gemm(const void* a, const void* b, const float* scale, void* out,
+                void* ws, int R, int C, int Kc, int lda, int ldb, int splits,
+                cudaStream_t st) {
+  int kps = 0;
+  if (R < 1 || C < 1 || Kc < 1 || Kc > kMaxContraction ||
+      !split_steps(Kc, splits, &kps) || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, a, Kc, R, lda, kBM) || !make_map(&tb, b, Kc, C, ldb, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = gemm_s8_kernel<ROW_SCALE, OutT>;
+  static const int prepared = prepare_gemm(kern);  // once per instance
+  if (prepared) return prepared;
+  return launch_pdl(kern, dim3(ceil_div(C, kBN), ceil_div(R, kBM), splits),
+                    dim3(kGemmThreads), kGemmSmem, st, ta, tb, scale,
+                    static_cast<OutT*>(out),
+                    splits > 1 ? static_cast<int*>(ws) : nullptr, R, C, kps,
+                    ceil_div(Kc, kBK));
+}
+
+template <bool ROW_SCALE, typename OutT>
+int launch_reduce(const void* ws, const float* scale, void* out, int R, int C,
+                  int S, cudaStream_t st) {
+  if (R < 1 || C < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(R) * C;
+  return launch_pdl(split_reduce_kernel<ROW_SCALE, OutT>,
+                    dim3(static_cast<unsigned>((n + 1023) / 1024)), dim3(256),
+                    0, st, static_cast<const int*>(ws), scale,
+                    static_cast<OutT*>(out), R, C, S);
+}
+
+// the GEMM of a backward call, then the split reduction where it splits
+template <bool ROW_SCALE, typename OutT>
+int gemm_and_reduce(const void* a, const void* b, const float* scale,
+                    void* out, void* ws, int R, int C, int Kc, int lda,
+                    int ldb, int splits, cudaStream_t st) {
+  int e = launch_gemm<ROW_SCALE, OutT>(a, b, scale, out, ws, R, C, Kc, lda,
+                                        ldb, splits, st);
+  if (e || splits == 1) return e;
+  return launch_reduce<ROW_SCALE, OutT>(ws, scale, out, R, C, splits, st);
+}
+
+template <bool ROW_SCALE>
+int gemm_out(int out_dtype, const void* a, const void* b, const float* scale,
+             void* out, void* ws, int R, int C, int Kc, int lda, int ldb,
+             int splits, cudaStream_t st) {
+  if (out_dtype == kFloat32)
+    return gemm_and_reduce<ROW_SCALE, float>(a, b, scale, out, ws, R, C, Kc,
+                                             lda, ldb, splits, st);
+  if (out_dtype == kBFloat16)
+    return gemm_and_reduce<ROW_SCALE, __nv_bfloat16>(a, b, scale, out, ws, R,
+                                                     C, Kc, lda, ldb, splits,
+                                                     st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int quant_rows(const void* g, const float* fold, const float* qs, void* gq,
+               int M, int N, int g_dtype, cudaStream_t st) {
+  if (M < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int ldq = pad_to16(N);
+  const bool vec = N % 8 == 0 && aligned16(g);
+  const bool vec_fold = N % 8 == 0 && aligned16(fold);
+  const size_t n = static_cast<size_t>(ceil_div(M, kQuantRows)) * (ldq / 8);
+  const unsigned grid = static_cast<unsigned>((n + kQuantThreads - 1) /
+                                              kQuantThreads);
+  int8_t* o = static_cast<int8_t*>(gq);
+  if (g_dtype == kFloat32)
+    return launch_pdl(quant_rows_kernel<float>, dim3(grid),
+                      dim3(kQuantThreads), 0, st,
+                      static_cast<const float*>(g), fold, qs, o, M, N, ldq,
+                      vec, vec_fold);
+  if (g_dtype == kBFloat16)
+    return launch_pdl(quant_rows_kernel<__nv_bfloat16>, dim3(grid),
+                      dim3(kQuantThreads), 0, st,
+                      static_cast<const __nv_bfloat16*>(g), fold, qs, o, M,
+                      N, ldq, vec, vec_fold);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// both of tn's passes in one launch (pack_tn_kernel)
+int pack_tn(const void* x, const void* g, const float* fold, const float* qs,
+            void* xt, void* gt, int M, int N, int K, int g_dtype,
+            cudaStream_t st) {
+  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(ceil_div(N > K ? N : K, 64), ceil_div(M, 64), 2);
+  const bool vec_g = N % 4 == 0 && aligned16(g);
+  const bool vec_x = K % 4 == 0 && aligned16(x);
+  const int8_t* xs = static_cast<const int8_t*>(x);
+  int8_t* gto = static_cast<int8_t*>(gt);
+  int8_t* xto = static_cast<int8_t*>(xt);
+  if (g_dtype == kFloat32)
+    return launch_pdl(pack_tn_kernel<float>, grid, dim3(256), 0, st,
+                      static_cast<const float*>(g), xs, fold, qs, gto, xto, M,
+                      N, K, pad_to16(M), vec_g, vec_x);
+  if (g_dtype == kBFloat16)
+    return launch_pdl(pack_tn_kernel<__nv_bfloat16>, grid, dim3(256), 0, st,
+                      static_cast<const __nv_bfloat16*>(g), xs, fold, qs, gto,
+                      xto, M, N, K, pad_to16(M), vec_g, vec_x);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace
 
-// g (M, N) carrier, w (K, N) int8, fold (N) f32, qs (M) f32, all
-// contiguous; out (M, K) in out_dtype (0 float32, 1 bfloat16).
+// ------------------------------------------------------------- the stages
+// g (M, N) carrier, fold (N) f32, qs (M) f32 -> gq (M, pad16(N)) int8
+extern "C" int repro_int8_quant_rows(const void* g, const void* fold,
+                                     const void* qs, void* gq, int M, int N,
+                                     int g_dtype, void* stream) {
+  return quant_rows(g, static_cast<const float*>(fold),
+                    static_cast<const float*>(qs), gq, M, N, g_dtype,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// tn's pass: x (M, K) int8 -> xT (K, pad16(M)) int8, and g (M, N) carrier,
+// fold (M) f32, qs (N) f32 -> gqT (N, pad16(M)) int8
+extern "C" int repro_int8_pack_tn(const void* x, const void* g,
+                                  const void* fold, const void* qs, void* xt,
+                                  void* gt, int M, int N, int K, int g_dtype,
+                                  void* stream) {
+  return pack_tn(x, g, static_cast<const float*>(fold),
+                 static_cast<const float*>(qs), xt, gt, M, N, K, g_dtype,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// a (R, lda), b (C, ldb) int8 K-major (lda, ldb multiples of 16, 16-byte
+// aligned), contraction Kc; scale per row (row_scale) or per column.
+// splits == 1: out (R, C) in out_dtype; splits > 1: each split's int32
+// partial sums into ws (splits, R, C), out and scale unused.
+extern "C" int repro_int8_gemm(const void* a, const void* b, const void* scale,
+                               void* out, void* ws, int R, int C, int Kc,
+                               int lda, int ldb, int row_scale, int splits,
+                               int out_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  if (splits > 1)
+    return launch_gemm<true, float>(a, b, s, out, ws, R, C, Kc, lda, ldb,
+                                    splits, st);
+  return row_scale ? gemm_out<true>(out_dtype, a, b, s, out, ws, R, C, Kc,
+                                    lda, ldb, 1, st)
+                   : gemm_out<false>(out_dtype, a, b, s, out, ws, R, C, Kc,
+                                     lda, ldb, 1, st);
+}
+
+// ws (S, R, C) int32 -> out (R, C) = cast(float(sum over S) * g(scale))
+extern "C" int repro_int8_split_reduce(const void* ws, const void* scale,
+                                       void* out, int R, int C, int S,
+                                       int row_scale, int out_dtype,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  if (out_dtype == kFloat32)
+    return row_scale ? launch_reduce<true, float>(ws, s, out, R, C, S, st)
+                     : launch_reduce<false, float>(ws, s, out, R, C, S, st);
+  if (out_dtype == kBFloat16)
+    return row_scale
+               ? launch_reduce<true, __nv_bfloat16>(ws, s, out, R, C, S, st)
+               : launch_reduce<false, __nv_bfloat16>(ws, s, out, R, C, S, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the split count the backward entries expect for an (R, C) output over a
+// contraction of Kc (the wrappers size the workspace by it)
+extern "C" int repro_int8_gemm_splits(int R, int C, int Kc) {
+  return gemm_splits(R, C, Kc);
+}
+
+// ---------------------------------------------------- the two backwards
+// g (M, N) carrier, w (K, ldw) int8 (ldw a multiple of 16, 16-byte
+// aligned), fold (N) f32, qs (M) f32, all contiguous; gq (M, pad16(N)) and
+// ws (splits, M, K) int32 (splits > 1 only) the wrapper's buffers; out (M,
+// K) in out_dtype (0 float32, 1 bfloat16).
 extern "C" int repro_int8_matmul_nt(const void* g, const void* w,
                                     const void* fold, const void* qs,
-                                    void* out, int M, int N, int K,
+                                    void* out, void* gq, void* ws, int M,
+                                    int N, int K, int ldw, int splits,
                                     int g_dtype, int out_dtype, void* stream) {
-  if (!dispatch2<NT>(g_dtype, out_dtype, g, w,
-                     static_cast<const float*>(fold),
-                     static_cast<const float*>(qs), out, M, N, K,
-                     static_cast<cudaStream_t>(stream)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(qs);
+  if (int e = quant_rows(g, static_cast<const float*>(fold), q, gq, M, N,
+                         g_dtype, st))
+    return e;
+  return gemm_out<true>(out_dtype, gq, w, q, out, ws, M, K, N, pad_to16(N),
+                        ldw, splits, st);
 }
 
 // x (M, K) int8, g (M, N) carrier, fold (M) f32, qs (N) f32, all
-// contiguous; out (K, N) in out_dtype.
+// contiguous; xt (K, pad16(M)), gt (N, pad16(M)) and ws (splits, K, N)
+// int32 (splits > 1 only) the wrapper's buffers; out (K, N) in out_dtype.
 extern "C" int repro_int8_matmul_tn(const void* x, const void* g,
                                     const void* fold, const void* qs,
-                                    void* out, int M, int N, int K,
+                                    void* out, void* xt, void* gt, void* ws,
+                                    int M, int N, int K, int splits,
                                     int g_dtype, int out_dtype, void* stream) {
-  if (!dispatch2<TN>(g_dtype, out_dtype, x, g,
-                     static_cast<const float*>(fold),
-                     static_cast<const float*>(qs), out, M, N, K,
-                     static_cast<cudaStream_t>(stream)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(qs);
+  if (int e = pack_tn(x, g, static_cast<const float*>(fold), q, xt, gt, M, N,
+                      K, g_dtype, st))
+    return e;
+  const int ldm = pad_to16(M);
+  return gemm_out<false>(out_dtype, xt, gt, q, out, ws, K, N, M, ldm, ldm,
+                         splits, st);
 }

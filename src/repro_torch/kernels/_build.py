@@ -33,8 +33,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "int8_matmul": {"repro_int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
     "int8_matmul_bwd": {
-        "repro_int8_matmul_nt": [_P] * 5 + [_I] * 5 + [_P],
-        "repro_int8_matmul_tn": [_P] * 5 + [_I] * 5 + [_P]},
+        "repro_int8_matmul_nt": [_P] * 7 + [_I] * 7 + [_P],
+        "repro_int8_matmul_tn": [_P] * 8 + [_I] * 6 + [_P],
+        "repro_int8_quant_rows": [_P] * 4 + [_I] * 3 + [_P],
+        "repro_int8_pack_tn": [_P] * 6 + [_I] * 4 + [_P],
+        "repro_int8_gemm": [_P] * 5 + [_I] * 8 + [_P],
+        "repro_int8_split_reduce": [_P] * 3 + [_I] * 5 + [_P],
+        "repro_int8_gemm_splits": [_I] * 3},
     "flash_attn_q8": {"repro_flash_attn_q8":
                       [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "flash_attn": {

@@ -14,17 +14,22 @@ forward computes
 
 with an exact integer sum and ``g`` mapping a 0 scale to 1, then casts to
 the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.  The
-transposed layouts take the fp gradient and quantize it inside the kernel
-(see their docstrings); the wrappers in ``kernels/ops.py`` reduce its
-scales.
+transposed layouts take the fp gradient, quantize it once into K-major int8
+payloads and multiply those on the int8 tensor cores (see their
+docstrings and the stages below); the wrappers in ``kernels/ops.py`` reduce
+its scales.
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CARRIERS = tuple(_DTYPE_CODES)
 
 
 def scale_guard(scale: torch.Tensor) -> torch.Tensor:
@@ -97,14 +102,15 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
 int8_matmul.launches = 0
 
 
-def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """float32 of the exact integer product of two integer-valued tensors:
-    int32 on the CPU, float64 on the card (no CUDA integer matmul; float64
-    is exact below 2**53, float32 only below 2**24)."""
+def _exact_matmul(a: torch.Tensor, b: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The exact integer product of two integer-valued tensors, cast to
+    ``dtype``: int32 on the CPU, float64 on the card (no CUDA integer
+    matmul; float64 is exact below 2**53, float32 only below 2**24)."""
     if a.is_cuda:
         return torch.matmul(a.to(torch.float64), b.to(torch.float64)
-                            ).to(torch.float32)
-    return torch.matmul(a.to(torch.int32), b.to(torch.int32)).to(torch.float32)
+                            ).to(dtype)
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32)).to(dtype)
 
 
 def _quant_grad(g: torch.Tensor, fold: torch.Tensor,
@@ -133,18 +139,259 @@ def int8_matmul_tn_plain(x: torch.Tensor, g: torch.Tensor,
     return (_exact_matmul(x.t(), hq) * qs).to(out_dtype)
 
 
-def _launch_bwd(entry: str, a: torch.Tensor, b: torch.Tensor,
-                fold: torch.Tensor, qs: torch.Tensor, out: torch.Tensor,
-                m: int, n: int, k: int, g: torch.Tensor) -> None:
+# ---------------------------------------------------------------------------
+# The backward's stages.  On the card each wrapper call runs: a quantize pass
+# that writes K-major int8 payloads once (nt: gq = quant_rows_packed; tn: xT
+# and gqT = pack_tn), then one int8 tensor-core GEMM of two K-major
+# operands with a rank-1 epilogue (int8_gemm_kmajor), split over the
+# contraction where the output tiles cannot fill the card
+# (int8_gemm_partials + int8_split_reduce).  Each stage
+# launches its kernel on CUDA tensors and runs its plain version on CPU
+# tensors; the tests hold each kernel to its plain stage and the plain
+# stages' composition to int8_matmul_nt_plain / int8_matmul_tn_plain.
+# ---------------------------------------------------------------------------
+
+#: contraction bytes per GEMM step, and the longest contraction whose int32
+#: sum is exact (|sum| <= 128 * 128 * contraction < 2**31)
+GEMM_STEP = 128
+MAX_CONTRACTION = 131071
+
+
+def _pad16(n: int) -> int:
+    """Row length in bytes of a packed payload: TMA strides are multiples of
+    16 bytes."""
+    return n + (-n) % 16
+
+
+def quant_rows_packed_plain(g: torch.Tensor, fold: torch.Tensor,
+                            q_scale: torch.Tensor) -> torch.Tensor:
+    """nt's quantize pass: (M, pad16(N)) int8, row m of it
+    clip(round(g[m] * fold / g(qs[m]))) and zeros past N."""
+    n = g.shape[1]
+    hq = _quant_grad(g, fold.to(torch.float32).reshape(1, -1),
+                     scale_guard(q_scale).reshape(-1, 1)).to(torch.int8)
+    return torch.nn.functional.pad(hq, (0, _pad16(n) - n))
+
+
+def quant_cols_packed_t_plain(g: torch.Tensor, fold: torch.Tensor,
+                              q_scale: torch.Tensor) -> torch.Tensor:
+    """tn's gradient pass: (N, pad16(M)) int8, its [n, m] =
+    clip(round(g[m, n] * fold[m] / g(qs[n]))) and zeros past M."""
+    m = g.shape[0]
+    hq = _quant_grad(g, fold.to(torch.float32).reshape(-1, 1),
+                     scale_guard(q_scale).reshape(1, -1)).to(torch.int8)
+    return torch.nn.functional.pad(hq.t(), (0, _pad16(m) - m)).contiguous()
+
+
+def transpose_packed_plain(x: torch.Tensor) -> torch.Tensor:
+    """tn's activation pass: x (M, K) int8 -> (K, pad16(M)), zeros past M."""
+    m = x.shape[0]
+    return torch.nn.functional.pad(x.t(), (0, _pad16(m) - m)).contiguous()
+
+
+def _split_bounds(kc: int, splits: int):
+    """The contraction ranges of ``splits`` splits: blocks of whole
+    ``GEMM_STEP``-byte steps, none empty (as the kernel cuts them)."""
+    steps = -(-kc // GEMM_STEP)
+    per = -(-steps // splits) if splits >= 1 else 0
+    if per < 1 or -(-steps // per) != splits:
+        raise ValueError(f"{splits} splits of a contraction of {kc}")
+    return [(s * per * GEMM_STEP, min((s + 1) * per * GEMM_STEP, kc))
+            for s in range(splits)]
+
+
+def _scale_of(scale: torch.Tensor, row_scale: bool) -> torch.Tensor:
+    s = scale_guard(scale)
+    return s.reshape(-1, 1) if row_scale else s.reshape(1, -1)
+
+
+def int8_gemm_partials_plain(a: torch.Tensor, b: torch.Tensor, kc: int,
+                             splits: int) -> torch.Tensor:
+    """Each split's exact int32 sums: (splits, R, C), [s, i, j] = the sum
+    of a[i, k] * b[j, k] over split s's contraction range."""
+    return torch.stack([
+        _exact_matmul(a[:, lo:hi], b[:, lo:hi].t(), torch.float64
+                      ).to(torch.int32)
+        for lo, hi in _split_bounds(kc, splits)])
+
+
+def int8_split_reduce_plain(ws: torch.Tensor, scale: torch.Tensor,
+                            row_scale: bool,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """cast(float(sum of the splits) * g(scale)), the scale per row or per
+    column of the (R, C) output."""
+    acc = ws.to(torch.int64).sum(dim=0).to(torch.float32)
+    return (acc * _scale_of(scale, row_scale)).to(out_dtype)
+
+
+def int8_gemm_kmajor_plain(a: torch.Tensor, b: torch.Tensor,
+                           scale: torch.Tensor, kc: int, row_scale: bool,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """C[i, j] = cast(float(sum_{k < kc} a[i, k] * b[j, k]) * g(s)) for two
+    K-major int8 operands a (R, >= kc) and b (C, >= kc), s = scale[i]
+    (``row_scale``) or scale[j]."""
+    return (_exact_matmul(a[:, :kc], b[:, :kc].t())
+            * _scale_of(scale, row_scale)).to(out_dtype)
+
+
+def _run(entry: str, *args) -> None:
     lib = _build.load("int8_matmul_bwd")
-    rc = getattr(lib, entry)(
-        _build.ptr(a), _build.ptr(b), _build.ptr(fold), _build.ptr(qs),
-        _build.ptr(out), m, n, k, _DTYPE_CODES[g.dtype],
-        _DTYPE_CODES[out.dtype], _build.stream_of(g))
-    _build.check(lib, rc, entry)
+    _build.check(lib, getattr(lib, entry)(*args), entry)
 
 
-_CARRIERS = tuple(_DTYPE_CODES)
+def _p(t: Optional[torch.Tensor]):
+    return _build.ptr(t) if t is not None else None
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_splits(r: int, c: int, kc: int) -> int:
+    """The split count the card's GEMM takes for an (r, c) output over a
+    contraction of ``kc`` (a function of the shapes and the SM count)."""
+    lib = _build.load("int8_matmul_bwd")
+    return int(lib.repro_int8_gemm_splits(r, c, kc))
+
+
+def _on_card(what: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one;
+    any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def _check_kmajor(what: str, dev, ops, kc: int) -> None:
+    _check_cuda(what, dev, [(n, t, (torch.int8,)) for n, t in ops])
+    for name, t in ops:
+        if (t.stride(0) % 16 or t.data_ptr() % 16 or t.shape[1] < kc):
+            raise ValueError(f"{what}: {name} must hold rows of >= {kc} "
+                             f"bytes, 16 bytes apart and 16-byte aligned")
+    if not 0 < kc <= MAX_CONTRACTION:
+        raise ValueError(f"{what}: contraction {kc} outside "
+                         f"[1, {MAX_CONTRACTION}]")
+
+
+def quant_rows_packed(g: torch.Tensor, fold: torch.Tensor,
+                      q_scale: torch.Tensor) -> torch.Tensor:
+    """nt's quantize pass (see :func:`quant_rows_packed_plain`)."""
+    if not _on_card("quant_rows_packed", g):
+        return quant_rows_packed_plain(g, fold, q_scale)
+    m, n = g.shape
+    _check_cuda("quant_rows_packed", g.device, (
+        ("g", g, _CARRIERS), ("fold", fold, (torch.float32,)),
+        ("q_scale", q_scale, (torch.float32,))))
+    if fold.numel() != n or q_scale.numel() != m:
+        raise ValueError(f"quant_rows_packed: fold {tuple(fold.shape)}, "
+                         f"q_scale {tuple(q_scale.shape)} for g {(m, n)}")
+    gq = torch.empty((m, _pad16(n)), dtype=torch.int8, device=g.device)
+    _run("repro_int8_quant_rows", _build.ptr(g), _build.ptr(fold),
+         _build.ptr(q_scale), _build.ptr(gq), m, n, _DTYPE_CODES[g.dtype],
+         _build.stream_of(g))
+    return gq
+
+
+def pack_tn(x: torch.Tensor, g: torch.Tensor, fold: torch.Tensor,
+            q_scale: torch.Tensor):
+    """tn's pass, one launch on the card: (:func:`transpose_packed_plain`
+    of x, :func:`quant_cols_packed_t_plain` of g)."""
+    if not _on_card("pack_tn", g):
+        return (transpose_packed_plain(x),
+                quant_cols_packed_t_plain(g, fold, q_scale))
+    m, n = g.shape
+    k = x.shape[1]
+    _check_cuda("pack_tn", g.device, (
+        ("x", x, (torch.int8,)), ("g", g, _CARRIERS),
+        ("fold", fold, (torch.float32,)),
+        ("q_scale", q_scale, (torch.float32,))))
+    if x.shape[0] != m or fold.numel() != m or q_scale.numel() != n:
+        raise ValueError(f"pack_tn: x {tuple(x.shape)}, g {tuple(g.shape)}, "
+                         f"fold {tuple(fold.shape)}, q_scale "
+                         f"{tuple(q_scale.shape)}")
+    xt = torch.empty((k, _pad16(m)), dtype=torch.int8, device=g.device)
+    gt = torch.empty((n, _pad16(m)), dtype=torch.int8, device=g.device)
+    _run("repro_int8_pack_tn", _build.ptr(x), _build.ptr(g), _build.ptr(fold),
+         _build.ptr(q_scale), _build.ptr(xt), _build.ptr(gt), m, n, k,
+         _DTYPE_CODES[g.dtype], _build.stream_of(g))
+    return xt, gt
+
+
+def int8_gemm_partials(a: torch.Tensor, b: torch.Tensor, kc: int,
+                       splits: int) -> torch.Tensor:
+    """The split GEMM's first kernel (see
+    :func:`int8_gemm_partials_plain`); splits >= 2 on the card."""
+    if not _on_card("int8_gemm_partials", a):
+        return int8_gemm_partials_plain(a, b, kc, splits)
+    _check_kmajor("int8_gemm_partials", a.device, (("a", a), ("b", b)), kc)
+    _split_bounds(kc, splits)
+    if splits < 2:
+        raise ValueError("int8_gemm_partials: takes 2 splits or more")
+    r, c = a.shape[0], b.shape[0]
+    ws = torch.empty((splits, r, c), dtype=torch.int32, device=a.device)
+    _run("repro_int8_gemm", _build.ptr(a), _build.ptr(b), None, None,
+         _build.ptr(ws), r, c, kc, a.stride(0), b.stride(0), 1, splits,
+         _DTYPE_CODES[torch.float32], _build.stream_of(a))
+    return ws
+
+
+def int8_split_reduce(ws: torch.Tensor, scale: torch.Tensor, row_scale: bool,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """The split GEMM's second kernel (see :func:`int8_split_reduce_plain`)."""
+    if not _on_card("int8_split_reduce", ws):
+        return int8_split_reduce_plain(ws, scale, row_scale, out_dtype)
+    s, r, c = ws.shape
+    _check_cuda("int8_split_reduce", ws.device, (
+        ("ws", ws, (torch.int32,)), ("scale", scale, (torch.float32,))))
+    if scale.numel() != (r if row_scale else c) or out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_split_reduce: scale {tuple(scale.shape)} or "
+                         f"out_dtype {out_dtype} for a ({r}, {c}) output")
+    out = torch.empty((r, c), dtype=out_dtype, device=ws.device)
+    _run("repro_int8_split_reduce", _build.ptr(ws), _build.ptr(scale),
+         _build.ptr(out), r, c, s, int(row_scale), _DTYPE_CODES[out_dtype],
+         _build.stream_of(ws))
+    return out
+
+
+def int8_gemm_kmajor(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                     kc: int, row_scale: bool, out_dtype=torch.float32,
+                     splits: Optional[int] = None) -> torch.Tensor:
+    """The GEMM of two K-major int8 operands with its rank-1 epilogue (see
+    :func:`int8_gemm_kmajor_plain`).  On the card: one kernel, or with
+    ``splits`` > 1 (default :func:`gemm_splits`) the partials and their
+    reduction; every split count gives the same bits."""
+    if not _on_card("int8_gemm_kmajor", a):
+        return int8_gemm_kmajor_plain(a, b, scale, kc, row_scale, out_dtype)
+    r, c = a.shape[0], b.shape[0]
+    splits = splits or gemm_splits(r, c, kc)
+    if splits > 1:
+        return int8_split_reduce(int8_gemm_partials(a, b, kc, splits), scale,
+                                 row_scale, out_dtype)
+    _check_kmajor("int8_gemm_kmajor", a.device, (("a", a), ("b", b)), kc)
+    _check_cuda("int8_gemm_kmajor", a.device,
+                (("scale", scale, (torch.float32,)),))
+    if scale.numel() != (r if row_scale else c) or out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_gemm_kmajor: scale {tuple(scale.shape)} or "
+                         f"out_dtype {out_dtype} for a ({r}, {c}) output")
+    out = torch.empty((r, c), dtype=out_dtype, device=a.device)
+    _run("repro_int8_gemm", _build.ptr(a), _build.ptr(b), _build.ptr(scale),
+         _build.ptr(out), None, r, c, kc, a.stride(0), b.stride(0),
+         int(row_scale), 1, _DTYPE_CODES[out_dtype], _build.stream_of(a))
+    return out
+
+
+def _workspace(splits: int, r: int, c: int, dev) -> Optional[torch.Tensor]:
+    return (torch.empty((splits, r, c), dtype=torch.int32, device=dev)
+            if splits > 1 else None)
+
+
+def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
+    """nt's weight operand as the GEMM reads it: ``w`` itself when its rows
+    are a multiple of 16 bytes long and it starts 16-byte aligned (GPT-2's
+    N of 768 and 3072), else one zero-padded copy (K, pad16(N))."""
+    k, n = w.shape
+    if n % 16 == 0 and w.data_ptr() % 16 == 0:
+        return w
+    return torch.nn.functional.pad(w, (0, _pad16(n) - n))
 
 
 def int8_matmul_nt(g: torch.Tensor, w: torch.Tensor, fold_scale: torch.Tensor,
@@ -161,7 +408,12 @@ def int8_matmul_nt(g: torch.Tensor, w: torch.Tensor, fold_scale: torch.Tensor,
                    * w[k, n]
 
     CPU tensors take :func:`int8_matmul_nt_plain`; CUDA tensors launch the
-    kernel (any M, N, K) or raise."""
+    kernel (any M, K and N up to ``MAX_CONTRACTION``) or raise: one quantize
+    pass into a packed (M, pad16(N)) int8 buffer, then the int8 GEMM.  Where
+    N is not a multiple of 16 (or ``w`` does not start 16-byte aligned) the
+    GEMM reads one zero-padded copy of ``w`` (K x pad16(N) bytes,
+    :func:`kmajor_weight`); at GPT-2's N of 768 and 3072 it reads ``w``
+    itself."""
     m, n = g.shape
     k, n2 = w.shape
     if n != n2 or fold_scale.numel() != n or q_scale.numel() != m:
@@ -178,9 +430,18 @@ def int8_matmul_nt(g: torch.Tensor, w: torch.Tensor, fold_scale: torch.Tensor,
         ("q_scale", q_scale, (torch.float32,))))
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"int8_matmul_nt: unsupported out_dtype {out_dtype}")
+    if n > MAX_CONTRACTION:
+        raise ValueError(f"int8_matmul_nt: contraction {n} > "
+                         f"{MAX_CONTRACTION} (int32 sums)")
     out = torch.empty((m, k), dtype=out_dtype, device=g.device)
-    _launch_bwd("repro_int8_matmul_nt", g, w, fold_scale, q_scale, out,
-                m, n, k, g)
+    gq = torch.empty((m, _pad16(n)), dtype=torch.int8, device=g.device)
+    wk = kmajor_weight(w)
+    splits = gemm_splits(m, k, n)
+    ws = _workspace(splits, m, k, g.device)
+    _run("repro_int8_matmul_nt", _build.ptr(g), _build.ptr(wk),
+         _build.ptr(fold_scale), _build.ptr(q_scale), _build.ptr(out),
+         _build.ptr(gq), _p(ws), m, n, k, wk.stride(0), splits,
+         _DTYPE_CODES[g.dtype], _DTYPE_CODES[out_dtype], _build.stream_of(g))
     int8_matmul_nt.launches += 1
     return out
 
@@ -200,7 +461,10 @@ def int8_matmul_tn(x: torch.Tensor, g: torch.Tensor, fold_scale: torch.Tensor,
                    * clip(round(g[m, n] * fold[m] / g(qs[n])))
 
     CPU tensors take :func:`int8_matmul_tn_plain`; CUDA tensors launch the
-    kernel (any M, N, K) or raise."""
+    kernel (any N, K and M up to ``MAX_CONTRACTION``) or raise: the gradient
+    quantized and transposed into (N, pad16(M)) int8, x transposed into (K,
+    pad16(M)), then the int8 GEMM, split over M where its output tiles
+    cannot fill the card."""
     m, k = x.shape
     m2, n = g.shape
     if m != m2 or fold_scale.numel() != m or q_scale.numel() != n:
@@ -217,9 +481,18 @@ def int8_matmul_tn(x: torch.Tensor, g: torch.Tensor, fold_scale: torch.Tensor,
         ("q_scale", q_scale, (torch.float32,))))
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"int8_matmul_tn: unsupported out_dtype {out_dtype}")
+    if m > MAX_CONTRACTION:
+        raise ValueError(f"int8_matmul_tn: contraction {m} > "
+                         f"{MAX_CONTRACTION} (int32 sums)")
     out = torch.empty((k, n), dtype=out_dtype, device=g.device)
-    _launch_bwd("repro_int8_matmul_tn", x, g, fold_scale, q_scale, out,
-                m, n, k, g)
+    xt = torch.empty((k, _pad16(m)), dtype=torch.int8, device=g.device)
+    gt = torch.empty((n, _pad16(m)), dtype=torch.int8, device=g.device)
+    splits = gemm_splits(k, n, m)
+    ws = _workspace(splits, k, n, g.device)
+    _run("repro_int8_matmul_tn", _build.ptr(x), _build.ptr(g),
+         _build.ptr(fold_scale), _build.ptr(q_scale), _build.ptr(out),
+         _build.ptr(xt), _build.ptr(gt), _p(ws), m, n, k, splits,
+         _DTYPE_CODES[g.dtype], _DTYPE_CODES[out_dtype], _build.stream_of(g))
     int8_matmul_tn.launches += 1
     return out
 

@@ -113,7 +113,10 @@ def int8_prepared_linear(x: torch.Tensor, wq: torch.Tensor,
 #   dW[k,n] = sum_m (x_int[m,k]*sx[m]) * g[m,n]  ~ sh[n] * sum_m x_int[m,k]*hq[m,n]
 #
 # with h = g*sw quantized per token (sh) for dx and h = g*sx per channel
-# for dW.  The absmax reduce runs here; round, clip and cast in the kernel.
+# for dW.  The absmax reduce runs here, in plain torch (XLA ops in the
+# reference).  On the card each kernel call then quantizes h once into
+# K-major int8 payloads (round, clip) and multiplies them on the int8 tensor
+# cores with the rank-1 epilogue (kernels/int8_matmul.py, its stages).
 # ---------------------------------------------------------------------------
 
 def int8_bwd_dx(g: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,

@@ -6,7 +6,10 @@ visible (the kernels have no CPU mode); on a machine with a card, run
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: the three int8 matmuls (forward, nt, tn) bit for bit; the
+Tolerances: the three int8 matmuls (forward, nt, tn) bit for bit, and so
+each stage of the backward against its plain stage (the quantize passes,
+the transpose, the int8 GEMM, the split partials and their reduction), a
+second nt or tn launch repeating the first's bits; the
 attention kernels within 1e-5 of the plain version at the float32 carrier
 (fp32 sums in another order), within one bfloat16 rounding step at the
 bfloat16 carrier (two fp32 values a few ulp apart can round to
@@ -29,6 +32,7 @@ touches; the bf16 forward's key tile equal to ``kv_tile`` at every head
 dim, and every flash wrapper refusing a CUDA tensor that does not start
 on a 16-byte boundary (the bf16 forward reads by TMA).
 """
+import importlib
 import pathlib
 import sys
 
@@ -59,6 +63,8 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402  (limits and helpers; imports no torch)
 
 SPEC = QuantSpec(8, Granularity.PER_TOKEN)
+# the int8 matmul module (the package re-exports a function of its name)
+im = importlib.import_module("repro_torch.kernels.int8_matmul")
 
 
 @pytest.fixture
@@ -220,15 +226,16 @@ def test_flash_q8_kernel(cuda, dtype, h, kh, hd, q_offset):
 
 
 def _bwd_inputs(m, n, other, dtype, seed):
-    """A gradient g (m, n) with an all-zero row and column and exact
-    rounding ties (row 0 and column 6 reach a scale of exactly 1 when their
-    fold scales are 1, as the tests set them), and an int8 payload
-    (other, n) or (m, other)."""
+    """A gradient g (m, n) with an all-zero row (where m > 3) and column
+    and exact rounding ties (row 0 and column 6 reach a scale of exactly 1
+    when their fold scales are 1, as the tests set them), and an int8
+    payload (other, n) or (m, other)."""
     rng = np.random.RandomState(seed)
     g = (rng.randn(m, n) * 0.02).astype(np.float32)
     g[0, :8] = [127.0, 0.5, 1.5, 2.5, -2.5, 0.0, 127.0, -3.5]
-    g[1:8, 6] = [0.5, 1.5, 2.5, -2.5, -0.5, -1.5, 4.5]
-    g[3] = 0.0
+    g[1:8, 6] = [0.5, 1.5, 2.5, -2.5, -0.5, -1.5, 4.5][:max(0, min(m, 8) - 1)]
+    if m > 3:
+        g[3] = 0.0
     g[:, 5] = 0.0
     return (torch.from_numpy(g).to(dtype),
             torch.from_numpy(rng.randint(-128, 128, (other, n)
@@ -238,42 +245,126 @@ def _bwd_inputs(m, n, other, dtype, seed):
             rng)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(256, 768, 3072), (130, 257, 90),
-                                   (64, 3072, 768)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_int8_matmul_nt_kernel(cuda, m, n, k, dtype):
+def _nt_case(cuda, m, n, k, dtype):
     g, w, _, rng = _bwd_inputs(m, n, k, dtype, seed=m + n + k)
     fold = torch.from_numpy(rng.uniform(1e-3, 0.1, (1, n)).astype(np.float32))
     fold[0, :8] = 1.0
     absmax = (g.float().abs() * fold).amax(dim=1, keepdim=True)
     qs = absmax.clamp_min(1e-12) / torch.full_like(absmax, 127.0)
     qs[7::7] = 0.0                  # zero scales: the guard maps them to 1
-    g, w, fold, qs = (t.to(cuda) for t in (g, w, fold, qs))
-    before = int8_matmul_nt.launches
-    got = int8_matmul_nt(g, w, fold, qs, out_dtype=dtype)
-    assert int8_matmul_nt.launches == before + 1
-    assert torch.equal(got, int8_matmul_nt_plain(g, w, fold, qs,
-                                                 out_dtype=dtype))
+    return tuple(t.to(cuda) for t in (g, w, fold, qs))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(512, 768, 3072), (130, 257, 90),
-                                   (1024, 3072, 768)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_int8_matmul_tn_kernel(cuda, m, n, k, dtype):
+def _tn_case(cuda, m, n, k, dtype):
     g, _, x, rng = _bwd_inputs(m, n, k, dtype, seed=m * n + k)
     fold = torch.from_numpy(rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32))
     fold[:8] = 1.0
     absmax = (g.float().abs() * fold).amax(dim=0, keepdim=True)
     qs = absmax.clamp_min(1e-12) / torch.full_like(absmax, 127.0)
     qs[:, 7::7] = 0.0
-    x, g, fold, qs = (t.to(cuda) for t in (x, g, fold, qs))
+    return tuple(t.to(cuda) for t in (x, g, fold, qs))
+
+
+#: (M, N, K): the training shape M = 8192 at (768, 768) (tn takes the split
+#: path there), the ragged shapes (N = 257: nt reads a padded copy of w),
+#: M < 64, and GPT-2's other linears at fewer tokens
+BWD_CUDA_SHAPES = [(8192, 768, 768), (256, 768, 3072), (130, 257, 90),
+                   (33, 257, 90), (64, 3072, 768), (1, 48, 40),
+                   (2048, 256, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", BWD_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_nt_kernel(cuda, m, n, k, dtype, out_dtype):
+    g, w, fold, qs = _nt_case(cuda, m, n, k, dtype)
+    before = int8_matmul_nt.launches
+    got = int8_matmul_nt(g, w, fold, qs, out_dtype=out_dtype)
+    assert int8_matmul_nt.launches == before + 1
+    assert torch.equal(got, int8_matmul_nt_plain(g, w, fold, qs,
+                                                 out_dtype=out_dtype))
+    # a second launch repeats the bits
+    assert torch.equal(int8_matmul_nt(g, w, fold, qs, out_dtype=out_dtype),
+                       got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", BWD_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_tn_kernel(cuda, m, n, k, dtype, out_dtype):
+    x, g, fold, qs = _tn_case(cuda, m, n, k, dtype)
     before = int8_matmul_tn.launches
-    got = int8_matmul_tn(x, g, fold, qs, out_dtype=dtype)
+    got = int8_matmul_tn(x, g, fold, qs, out_dtype=out_dtype)
     assert int8_matmul_tn.launches == before + 1
     assert torch.equal(got, int8_matmul_tn_plain(x, g, fold, qs,
-                                                 out_dtype=dtype))
+                                                 out_dtype=out_dtype))
+    assert torch.equal(int8_matmul_tn(x, g, fold, qs, out_dtype=out_dtype),
+                       got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", BWD_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_bwd_stage_kernels(cuda, m, n, k, dtype):
+    """Each stage kernel of the backward against its plain stage, bit for
+    bit: nt's quantize pass, tn's (the gradient quantized and transposed,
+    x transposed, one launch), the GEMM at both scale sides
+    and, for every split count, the split partials and their reduction."""
+    g, w, fw, qn = _nt_case(cuda, m, n, k, dtype)
+    x, _, fx, qt = _tn_case(cuda, m, n, k, dtype)
+    gq = im.quant_rows_packed(g, fw, qn)
+    assert torch.equal(gq, im.quant_rows_packed_plain(g, fw, qn))
+    xt, gt = im.pack_tn(x, g, fx, qt)
+    assert torch.equal(gt, im.quant_cols_packed_t_plain(g, fx, qt))
+    assert torch.equal(xt, im.transpose_packed_plain(x))
+    wk = im.kmajor_weight(w)
+    for out in (torch.float32, torch.bfloat16):
+        assert torch.equal(
+            im.int8_gemm_kmajor(gq, wk, qn, n, True, out, splits=1),
+            im.int8_gemm_kmajor_plain(gq, wk, qn, n, True, out))
+        want = im.int8_gemm_kmajor_plain(xt, gt, qt, m, False, out)
+        steps = -(-m // im.GEMM_STEP)
+        for s in range(1, min(steps, 4) + 1):
+            try:
+                im._split_bounds(m, s)
+            except ValueError:
+                continue
+            assert torch.equal(
+                im.int8_gemm_kmajor(xt, gt, qt, m, False, out, splits=s),
+                want), s
+            if s > 1:
+                ws = im.int8_gemm_partials(xt, gt, m, s)
+                assert torch.equal(ws, im.int8_gemm_partials_plain(xt, gt, m,
+                                                                   s))
+                assert torch.equal(im.int8_split_reduce(ws, qt, False, out),
+                                   want)
+
+
+@pytest.mark.cuda
+def test_int8_bwd_split_path_and_padded_weight(cuda):
+    """tn at the training shape (768, 768) takes the split path and equals
+    its plain version; nt reads a zero-padded copy of a w whose rows are not
+    a multiple of 16 bytes, or that starts off a 16-byte boundary, and w
+    itself otherwise."""
+    assert im.gemm_splits(768, 768, 8192) > 1
+    assert im.gemm_splits(8192, 768, 768) == 1
+    x, g, fold, qs = _tn_case(cuda, 8192, 768, 768, torch.bfloat16)
+    assert torch.equal(int8_matmul_tn(x, g, fold, qs, out_dtype=torch.float32),
+                       int8_matmul_tn_plain(x, g, fold, qs,
+                                            out_dtype=torch.float32))
+    g, w, fold, qs = _nt_case(cuda, 130, 257, 90, torch.float32)
+    wk = im.kmajor_weight(w)
+    assert tuple(wk.shape) == (90, 272) and not wk[:, 257:].any()
+    g2, w2, fold2, qs2 = _nt_case(cuda, 130, 256, 90, torch.float32)
+    assert im.kmajor_weight(w2) is w2
+    buf = torch.zeros(90 * 256 + 1, dtype=torch.int8, device=cuda)
+    w_off = buf[1:].view(90, 256)
+    w_off.copy_(w2)
+    assert w_off.data_ptr() % 16 and im.kmajor_weight(w_off) is not w_off
+    assert torch.equal(int8_matmul_nt(g2, w_off, fold2, qs2),
+                       int8_matmul_nt_plain(g2, w2, fold2, qs2))
 
 
 def adamw_bucket(rows, bs, recipe, seed, pad_rows=0):
