@@ -76,11 +76,12 @@ Phases, in order; any failure exits non-zero:
     training shape (BH = 96, S = 1024, hd = 64) and ``FLASH_SWEEP`` (head
     dims 16-256, Sq != Skv, an odd length, non-causal, the prefill
     shape), float32 and bfloat16, on the same inputs, within ``FLASH_TOL``
-    and, at bfloat16, ``FLASH_BF16`` with three controls outside it; #7
+    and, at bfloat16, ``FLASH_BF16`` with five controls outside it; #7
     equal to #8, repeats bit-identical, a planted NaN propagated; each
-    timed beside its bound (each product at its operands' peak rate),
-    plain version and SDPA, and #8 also at hd 128 (BH 16, S 512); the
-    bf16 forward's kernels hold ``HGMMA`` instructions in their SASS
+    timed beside its bound (the least the tensor cores need), plain
+    version and SDPA (the backward also with the card's queue full), and
+    #8, #9 and #10 also at hd 128 (BH 16, S 512); the bf16 forward's and
+    backward's kernels hold ``HGMMA`` instructions in their SASS
     (``cuobjdump``), or the phase fails (``check_flash``);
 14. phase 7 with ``attention_impl="flash_pallas"``: 10 finite steps, each
     launching exactly 72 / 72 / 72 / 1 int8 and AdamW kernels and #8, #9,
@@ -186,18 +187,24 @@ FLASH_SWEEP = (("hd16", 16, 512, 512, 16, True, 0),
 #: and the share of elements more than one bf16 step from the plain
 #: version.  The plain forward rounds p against the running max of the
 #: kernel's key tiles, as the kernel does, and sums each score in float64
-#: before rounding it to fp32, so that its scores carry no fp32 summation
-#: order of their own (cuBLAS's fp32 order alone lies up to 1.6e-4 rel L2
-#: and 4.8e-4 over one step from it at these shapes, PERF.md).  Three
-#: controls that move one rounding of p must exceed both limits: the plain
-#: forward with p left unrounded, the plain forward rounding p against the
-#: row's final max (the reference's _ref_attend), and #9's dv with p
-#: rounded to bf16.
-#: Readings on the H100 at every phase-13 shape (PERF.md): o from the
-#: tensor-core forward at most 1.21e-4 and 1.81e-4, the gradients bit for
-#: bit, controls at least 9.3e-4 and 3.6e-2; the rel L2 limit sits 1.65x
-#: above the largest sound reading and 4.6x below the smallest control,
-#: the step limit 5.5x and 36x.
+#: before rounding it to fp32; the plain backward sums its five products
+#: in float64, and delta (sum(dO * o), an input of both) is summed in
+#: float64 too (_flash_all), so that nothing compared carries an fp32
+#: summation order of its own (cuBLAS's fp32 order alone lies up to 1.6e-4
+#: rel L2 and 4.8e-4 over one step from the forward's, PERF.md; with delta
+#: summed in fp32, dq's row 0 under the causal mask is rounding noise).
+#: Five controls that move one rounding of p or ds must exceed both
+#: limits: the plain forward with p left unrounded, the plain forward
+#: rounding p against the row's final max (the reference's _ref_attend),
+#: #9's dv with p rounded to bf16, and #9's dk and #10's dq with ds rounded
+#: to bf16.
+#: Readings on the H100 at every phase-13 shape (PERF.md, call 3 of PR
+#: 18): o from the tensor-core forward at most 1.35e-4 and 1.35e-4, dq, dk
+#: and dv from the tensor-core backward at most 6.25e-5 and 3.24e-5 (the
+#: plain backward with fp32 sums: 6.78e-5 and 3.43e-5), controls at least
+#: 9.26e-4 and 3.42e-2; the rel L2 limit sits 1.5x above the largest sound
+#: reading and 4.6x below the smallest control, the step limit 7.4x and
+#: 34x.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_LSE_TOL = 2e-5
 FLASH_GRAD_TOL = 1e-4
@@ -245,13 +252,11 @@ def ladder_record(summary, history, verdicts):
             "spike_reasons": dict(s["spike_reasons"])}
 
 
-def bound_ms(nbytes: float, ops: float, rate: float, more=()):
+def bound_ms(nbytes: float, ops: float, rate: float):
     """Least time for the work: the larger of bytes over memory rate and
-    operations over peak rate, plus each further (operations, rate) pair
-    of ``more`` for work that mixes types; returns (ms, 'bytes' |
-    'operations')."""
+    operations over peak rate; returns (ms, 'bytes' | 'operations')."""
     t_mem = nbytes / HBM_BPS
-    t_ops = ops / rate + sum(n / r for n, r in more)
+    t_ops = ops / rate
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations")
 
@@ -2027,23 +2032,33 @@ def train_fake_card_vs_cpu(torch, dev, seed):
 
 def _flash_all(fa, q, k, v, do, causal, off):
     """#8's (o, lse), then #9's (dk, dv) and #10's dq from them with delta =
-    sum(dO * o); returns (o, lse, dq, dk, dv, delta)."""
+    sum(dO * o), summed in float64 and rounded to fp32; returns (o, lse, dq,
+    dk, dv, delta).  Under the causal mask at q_offset 0 query row 0 sees
+    key 0 alone, so o_0 = v_0 and dp_00 - delta_0 is zero in exact
+    arithmetic: with delta summed in fp32, dq's row 0 would be the
+    difference of two fp32 orders of the same 64 products (rounding noise,
+    more than one bf16 step apart between any two orders); the float64 sum
+    gives delta its exact value, as the plain backward's float64 sums give
+    dp theirs."""
     kw = dict(causal=causal, q_offset=off)
     o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = (do.double() * o.double()).sum(-1).float()
     dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     return o, lse, dq, dk, dv, delta
 
 
-def _flash_plain(fa, q, k, v, do, lse, delta, causal, off):
+def _flash_plain(fa, q, k, v, do, lse, delta, causal, off, **sums):
     """The plain versions on the kernels' inputs: #8's on q, k, v, #9's and
-    #10's on the lse and delta the kernels read; returns (o, lse, dq, dk,
+    #10's on the lse and delta the kernels read, their products summed in
+    float64 (their default) or ``sum_dtype=``; returns (o, lse, dq, dk,
     dv)."""
     kw = dict(causal=causal, q_offset=off)
     o, lse_p = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
-    dk, dv = fa.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
-    dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                               **kw, **sums)
+    dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw,
+                                         **sums)
     return o, lse_p, dq, dk, dv
 
 
@@ -2085,10 +2100,12 @@ def _flash_case(torch, fa, q, k, v, do, causal, off):
         text = (f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
                 f"(tol {FLASH_GRAD_TOL:.0e})")
     else:
-        # o, dq, dk, dv; then the controls, each one rounding of p moved:
-        # the plain forward with p left unrounded, with p rounded against
-        # the row's final max (the reference's _ref_attend, one tile), and
-        # dv from p rounded to the carrier
+        # o, dq, dk, dv; then the controls, each one rounding of p or ds
+        # moved: the plain forward with p left unrounded, with p rounded
+        # against the row's final max (the reference's _ref_attend, one
+        # tile), dv from p rounded to the carrier, and dk and dq from ds
+        # rounded to the carrier (the products summed in float64, as the
+        # plain backward's)
         dist = [_bf16_distance(torch, g, w)
                 for g, w in zip(got[:1] + got[2:5], want[:1] + want[2:])]
         kw = dict(causal=causal, q_offset=off)
@@ -2096,33 +2113,44 @@ def _flash_case(torch, fa, q, k, v, do, causal, off):
             q.float(), k.float(), v.float(), **kw)[0].to(q.dtype)
         row_o = fa.flash_attention_fwd_lse_plain(q, k, v, block_k=k.shape[1],
                                                  **kw)[0]
-        p, _ = fa._bwd_plain(q, k, v, do, got[1], got[5], causal, off)
-        ctrl_dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(),
-                               do.float()).to(q.dtype)
+        p, ds = fa._bwd_plain(q, k, v, do, got[1], got[5], causal, off)
+        f64 = torch.float64
+        ctrl_dv = fa._product("bqk,bqd->bkd", p.to(q.dtype), do,
+                              f64).to(q.dtype)
         del p
+        ds = ds.to(q.dtype)
+        ctrl_dk = fa._product("bqk,bqd->bkd", ds, q, f64).to(q.dtype)
+        ctrl_dq = fa._product("bqk,bkd->bqd", ds, k, f64).to(q.dtype)
+        del ds
         ctrl = [_bf16_distance(torch, c, w) for c, w in
-                ((ctrl_o, want[0]), (row_o, want[0]), (ctrl_dv, want[4]))]
-        # a reading, not a gate: the plain forward with its scores summed
-        # in fp32 (PR 15's plain version) against the float64-summed one
+                ((ctrl_o, want[0]), (row_o, want[0]), (ctrl_dv, want[4]),
+                 (ctrl_dk, want[3]), (ctrl_dq, want[2]))]
+        # readings, not gates: the plain forward with its scores summed in
+        # fp32 (PR 15's plain version), and the plain backward with its
+        # products summed in fp32, against the float64-summed ones
         f32 = _bf16_distance(torch, fa.flash_attention_fwd_lse_plain(
             q, k, v, score_dtype=torch.float32, **kw)[0], want[0])
+        bwd32 = _flash_plain(fa, q, k, v, do, got[1], got[5], causal, off,
+                             sum_dtype=torch.float32)[2:]
+        f32_bwd = [_bf16_distance(torch, g, w) for g, w in zip(bwd32,
+                                                                want[2:])]
+        del bwd32
         lim = FLASH_BF16
         within = lambda d: d[0] <= lim["rel_l2"] and d[1] <= lim["over_ulp"]
         outside = lambda d: d[0] > lim["rel_l2"] and d[1] > lim["over_ulp"]
         ok &= all(within(d) for d in dist) and all(outside(d) for d in ctrl)
+        pair = lambda ds_: ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ds_)
         text = ("o/dq/dk/dv rel L2 " + "/".join(f"{d[0]:.2e}" for d in dist)
                 + f" (limit {lim['rel_l2']:.0e}), over one bf16 step "
                 + "/".join(f"{d[1]:.2e}" for d in dist)
                 + f" (limit {lim['over_ulp']:.0e}); controls (rel L2, over "
-                "one step) p unrounded "
-                + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[:1])
-                + ", p against the final max "
-                + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[1:2])
-                + ", dv with p rounded "
-                + ", ".join(f"{c[0]:.2e}, {c[1]:.2e}" for c in ctrl[2:])
-                + ": all above both limits "
+                f"one step) p unrounded {pair(ctrl[:1])}, p against the "
+                f"final max {pair(ctrl[1:2])}, dv with p rounded "
+                f"{pair(ctrl[2:3])}, dk / dq with ds rounded "
+                f"{pair(ctrl[3:])}: all above both limits "
                 + ("yes" if all(outside(d) for d in ctrl) else "NO")
-                + f"; fp32-summed plain scores {f32[0]:.2e}, {f32[1]:.2e}")
+                + f"; fp32-summed plain scores {f32[0]:.2e}, {f32[1]:.2e}, "
+                f"fp32-summed plain dq/dk/dv {pair(f32_bwd)}")
     reading = (f"o max err {diff[0]:.2e} (tol {FLASH_TOL[dname]:.0e}), lse "
                f"{diff[1]:.2e} (tol {FLASH_LSE_TOL:.0e}), {text}; max abs "
                f"dq/dk/dv {diff[2]:.2e}/{diff[3]:.2e}/{diff[4]:.2e}; #7 == #8 "
@@ -2142,13 +2170,15 @@ def check_flash(torch, dev, gen, results):
     bit; a NaN planted in q reaching o, the LSE and the gradients.  Each
     kernel timed at the training shape (bf16) beside its plain version,
     its bound and SDPA: its forward for #7/#8, its backward for #9 and #10
-    together (a yardstick, unused by the port).  The bound counts each
-    product at the rate of its operands' type: at hd = 64 and the bf16
-    carrier q / 8, k, v, dO and the forward's rounded p are bf16 values,
-    so the score products of all four kernels, the forward's P.V and the
-    backward's dO.V are exact on the bf16 tensor cores; the backward's
-    p^T dO, ds^T q and ds k take fp32 p or ds, at the fp32 CUDA-core
-    rate."""
+    together (a yardstick, unused by the port); #9, #10 and SDPA's backward
+    also with the card's queue full (``queued_ms``).  The bound counts the
+    least the tensor cores need: at hd = 64 and the bf16 carrier q / 8, k,
+    v, dO and the forward's rounded p are bf16 values, so the score
+    products, the forward's P.V and the backward's dO.V are each one
+    bf16-exact product; each product with an fp32 operand (p^T dO, ds^T q,
+    ds k) is three bf16-exact products (the operand split into three bf16
+    terms), all at 989 TFLOP/s.  Last, the SASS checks
+    (``flash_sass_check``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
     bh, s, hd = TRAIN_BATCH * 12, TRAIN_SEQ, 64
@@ -2167,11 +2197,16 @@ def check_flash(torch, dev, gen, results):
                   f"hd={d:3d} {'causal' if causal else 'full':6s} "
                   f"q_offset={off:3d} {str(dt)[6:]:8s}: {reading}"
                   f"{'' if case_ok else '  <-- FAIL'}")
+            # the forward's float32 errors, as recorded since PR 15; the
+            # backward's at bf16, the carrier of the main path's new kernels
             if label == "train" and dt == torch.float32:
-                errs = {"flash_attention_fwd": diff[0],
-                        "flash_attention_fwd_lse": max(diff[0], diff[1]),
-                        "flash_attention_bwd_dkdv": max(diff[3], diff[4]),
-                        "flash_attention_bwd_dq": diff[2]}
+                errs.update({"flash_attention_fwd": diff[0],
+                             "flash_attention_fwd_lse": max(diff[0],
+                                                            diff[1])})
+            if label == "train" and dt == torch.bfloat16:
+                errs.update({"flash_attention_bwd_dkdv": max(diff[3],
+                                                             diff[4]),
+                             "flash_attention_bwd_dq": diff[2]})
             del q, k, v, do
     # a NaN in q row 70 of head 1 reaches its o and LSE rows, its dq row and
     # the dk / dv rows it attends to; head 0 stays finite
@@ -2201,65 +2236,94 @@ def check_flash(torch, dev, gen, results):
         q4, k4, v4, is_causal=True))
     leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
     o4 = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(o4, leaves, do4,
-                                                   retain_graph=True))
+    sdpa_call = lambda: torch.autograd.grad(o4, leaves, do4,
+                                            retain_graph=True)
+    sdpa_bwd, sdpa_bwd_q = time_ms(sdpa_call), queued_ms(sdpa_call)
     pairs = _visible_pairs(s, s, True, 0) * bh
     tens, rows = bh * s * hd * 2, bh * s * 4     # bf16 tensor, fp32 rows
     mm = 2 * hd * pairs                          # one product over the pairs
-    plan = (   # name, site line, kernel, plain, bytes, bf16 / fp32 FLOPs
+    plan = (   # name, site line, kernel, plain, bytes, bf16-exact FLOPs
         ("flash_attention_fwd", 116, lambda: fa.flash_attention_fwd(q, k, v),
-         lambda: fa.flash_attention_fwd_plain(q, k, v), 4 * tens,
-         2 * mm, 0, sdpa_fwd, "SDPA forward"),
+         lambda: fa.flash_attention_fwd_plain(q, k, v), 4 * tens, 2 * mm,
+         sdpa_fwd, None, "SDPA forward"),
         ("flash_attention_fwd_lse", 275,
          lambda: fa.flash_attention_fwd_lse(q, k, v),
          lambda: fa.flash_attention_fwd_lse_plain(q, k, v), 4 * tens + rows,
-         2 * mm, 0, sdpa_fwd, "SDPA forward"),
+         2 * mm, sdpa_fwd, None, "SDPA forward"),
+        # q.k, dO.v, and three terms each of p^T dO and ds^T q
         ("flash_attention_bwd_dkdv", 344,
          lambda: fa.flash_attention_bwd_dkdv(*bwd),
          lambda: fa.flash_attention_bwd_dkdv_plain(*bwd),
-         6 * tens + 2 * rows, 2 * mm, 2 * mm, sdpa_bwd,
+         6 * tens + 2 * rows, 8 * mm, sdpa_bwd, sdpa_bwd_q,
          "SDPA backward, dq+dk+dv together"),
+        # q.k, dO.v, and three terms of ds k
         ("flash_attention_bwd_dq", 369,
          lambda: fa.flash_attention_bwd_dq(*bwd),
          lambda: fa.flash_attention_bwd_dq_plain(*bwd),
-         5 * tens + 2 * rows, 2 * mm, mm, sdpa_bwd,
+         5 * tens + 2 * rows, 5 * mm, sdpa_bwd, sdpa_bwd_q,
          "SDPA backward, dq+dk+dv together"))
-    for name, line, kern, plain, nbytes, f16, f32, lib, lib_what in plan:
+    for name, line, kern, plain, nbytes, f16, lib, lib_q, lib_what in plan:
         ms = time_ms(kern)
+        ms_q = queued_ms(kern) if lib_q is not None else None
         plain_ms = time_ms(plain, iters=3, warmup=1)
-        bd, by = bound_ms(nbytes, f16, BF16_FLOPS, ((f32, FP32_FLOPS),))
+        bd, by = bound_ms(nbytes, f16, BF16_FLOPS)
+        queued = ("" if ms_q is None else
+                  f" (queued {ms_q:.4f}; library queued {lib_q:.4f})")
         print(f"{name} BH={bh} S={s} hd={hd} causal bf16: ms {ms:.4f}, "
               f"plain_ms {plain_ms:.4f}, bound_ms {bd:.5f} ({by}; "
-              f"{f16 / 1e9:.1f} GFLOP bf16-exact at 989 TFLOP/s + "
-              f"{f32 / 1e9:.1f} GFLOP fp32 at 67, {nbytes / 1e6:.1f} MB), "
-              f"{ms / bd:.1f}x the bound, library_ms({lib_what}) {lib:.4f}")
+              f"{f16 / 1e9:.1f} GFLOP bf16-exact at 989 TFLOP/s, "
+              f"{nbytes / 1e6:.1f} MB), {ms / bd:.1f}x the bound, "
+              f"library_ms({lib_what}) {lib:.4f}{queued}")
         fwd = name in ("flash_attention_fwd", "flash_attention_fwd_lse")
         results[name] = dict(
             route="cuda", source="src/repro_torch/csrc/"
-            + ("flash_fwd_sm90.cu" if fwd else "flash_attn.cu"),
+            + ("flash_fwd_sm90.cu" if fwd else "flash_bwd_sm90.cu"),
             replaces=f"src/repro/kernels/flash_attn.py:{line}",
-            tol=FLASH_TOL["float32"], shape=f"BH={bh},S={s},hd={hd},causal",
-            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bd,
-            bound_by=by, library_ms=lib)
+            tol=FLASH_TOL["float32" if fwd else "bfloat16"],
+            shape=f"BH={bh},S={s},hd={hd},causal", max_abs_err=errs[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=bd, bound_by=by,
+            library_ms=lib)
+        if ms_q is not None:
+            results[name].update(queued_ms=ms_q, library_queued_ms=lib_q)
     del q, k, v, do, o, lse, delta, bwd, q4, k4, v4, do4, leaves, o4
 
-    # #8 at hd 128 (the llama slice's head dim), BH 16, S 512, causal, bf16
+    # #8, #9 and #10 at hd 128 (the llama slice's head dim), BH 16, S 512,
+    # causal, bf16
     b2, s2, d2 = 16, 512, 128
-    q, k, v = (torch.randn((b2, s2, d2), generator=gen, device=dev)
-               .bfloat16() for _ in range(3))
-    q4, k4, v4 = (t.view(1, b2, s2, d2) for t in (q, k, v))
-    ms = time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v))
+    q, k, v, do = (torch.randn((b2, s2, d2), generator=gen, device=dev)
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_fwd_lse(q, k, v)
+    bwd = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+    q4, k4, v4, do4 = (t.view(1, b2, s2, d2) for t in (q, k, v, do))
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                           is_causal=True))
-    pairs2 = _visible_pairs(s2, s2, True, 0) * b2
-    bd, by = bound_ms(4 * b2 * s2 * d2 * 2 + b2 * s2 * 4,
-                      4 * d2 * pairs2, BF16_FLOPS)
-    print(f"flash_attention_fwd_lse BH={b2} S={s2} hd={d2} causal bf16: ms "
-          f"{ms:.4f}, bound_ms {bd:.5f} ({by}), {ms / bd:.1f}x the bound, "
-          f"library_ms(SDPA forward) {sdpa:.4f}")
-    results["flash_attention_fwd_lse"]["hd128"] = dict(
-        shape=f"BH={b2},S={s2},hd={d2},causal", ms=ms, bound_ms=bd,
-        bound_by=by, library_ms=sdpa)
+    leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+    o4 = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = queued_ms(lambda: torch.autograd.grad(o4, leaves, do4,
+                                                     retain_graph=True))
+    mm2 = 2 * d2 * _visible_pairs(s2, s2, True, 0) * b2
+    tens2, rows2 = b2 * s2 * d2 * 2, b2 * s2 * 4
+    for name, fn, nbytes, ops, lib, lib_what, timer in (
+            ("flash_attention_fwd_lse",
+             lambda: fa.flash_attention_fwd_lse(q, k, v), 4 * tens2 + rows2,
+             2 * mm2, sdpa, "SDPA forward", time_ms),
+            ("flash_attention_bwd_dkdv",
+             lambda: fa.flash_attention_bwd_dkdv(*bwd),
+             6 * tens2 + 2 * rows2, 8 * mm2, sdpa_bwd,
+             "SDPA backward, queued", queued_ms),
+            ("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq(*bwd),
+             5 * tens2 + 2 * rows2, 5 * mm2, sdpa_bwd,
+             "SDPA backward, queued", queued_ms)):
+        ms = timer(fn)
+        bd, by = bound_ms(nbytes, ops, BF16_FLOPS)
+        print(f"{name} BH={b2} S={s2} hd={d2} causal bf16: ms {ms:.4f}"
+              f"{' (queued)' if timer is queued_ms else ''}, bound_ms "
+              f"{bd:.5f} ({by}), {ms / bd:.1f}x the bound, "
+              f"library_ms({lib_what}) {lib:.4f}")
+        results[name]["hd128"] = dict(
+            shape=f"BH={b2},S={s2},hd={d2},causal", ms=ms, bound_ms=bd,
+            bound_by=by, library_ms=lib)
+    del q, k, v, do, o, lse, bwd, q4, k4, v4, do4, leaves, o4
     flash_sass_check()
 
 
@@ -2298,17 +2362,20 @@ def sass_counts(lib: str, mnemonic: str) -> dict:
 
 
 def flash_sass_check() -> None:
-    """Phase 13: the bf16 forward's kernels (``flash_fwd_sm90.cu``, every
-    head-dim template with and without the LSE store) run on the tensor
-    cores: count the ``HGMMA`` instructions of each in the built library's
-    SASS, and fail if any kernel has none."""
-    counts = sass_counts("flash_fwd_sm90", "HGMMA")
-    print(f"flash_fwd_sm90 SASS: {sum(counts.values())} HGMMA instructions "
-          f"over {len(counts)} kernels (each "
-          f"{min(counts.values(), default=0)}-"
-          f"{max(counts.values(), default=0)})")
-    if not counts or min(counts.values()) == 0:
-        fail(f"phase 13: a bf16 flash forward kernel has no HGMMA: {counts}")
+    """Phase 13: the bf16 flash kernels run on the tensor cores -- the
+    forward's (``flash_fwd_sm90.cu``, every head-dim template with and
+    without the LSE store) and the backward's (``flash_bwd_sm90.cu``, dK/dV
+    and dQ at each head-dim template): count the ``HGMMA`` instructions of
+    each in the built library's SASS, and fail if any kernel has none."""
+    for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        counts = sass_counts(lib, "HGMMA")
+        print(f"{lib} SASS: {sum(counts.values())} HGMMA instructions over "
+              f"{len(counts)} kernels (each "
+              f"{min(counts.values(), default=0)}-"
+              f"{max(counts.values(), default=0)})")
+        if not counts or min(counts.values()) == 0:
+            fail(f"phase 13: a bf16 flash kernel of {lib} has no HGMMA: "
+                 f"{counts}")
 
 
 def serve_flash(torch, dev, seed):

@@ -6,7 +6,9 @@
 //   the float32 carrier: flash_fwd_kernel<.., LSE = false / true>;
 //   (at bfloat16 both run flash_fwd_sm90.cu's tensor-core kernel);
 //   _fa_bwd, its dK/dV pallas_call (#9): flash_bwd_dkdv_kernel;
-//   _fa_bwd, its dQ pallas_call (#10): flash_bwd_dq_kernel.
+//   _fa_bwd, its dQ pallas_call (#10): flash_bwd_dq_kernel --
+//   at float32, and at bfloat16 for head dims above 128 (bfloat16 up to
+//   128 runs flash_bwd_sm90.cu's tensor-core kernels).
 // Layout (BH, S, d), each tensor contiguous, q/k/v/dO/outputs in the
 // carrier (float32 or bfloat16; the forward here float32 only), lse and
 // delta (BH, Sq) float32.
@@ -39,7 +41,8 @@
 // padded to HDP + 1 floats, conflict-free).  Products over a tile: a lane
 // owns HDP / 32 output columns and reuses each K/V (or q/dO) element it
 // loads across all the rows its warp owns.  Any Sq and Skv: the ragged
-// edges are guarded inside.  Tensor cores for the backward are later work.
+// edges are guarded inside.  The bf16 backward up to head dim 128 runs on
+// the tensor cores (flash_bwd_sm90.cu); above it, and at float32, here.
 #include <type_traits>
 
 #include "common.cuh"

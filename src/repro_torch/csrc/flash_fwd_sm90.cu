@@ -62,8 +62,6 @@
 // each branch to a slow path.  Running the next tile's S, or this tile's
 // P V, under the softmax cost registers or made ptxas serialize every
 // wgmma (C7514), so the softmax waits for them.
-#include <float.h>
-
 #include <type_traits>
 
 #include "common.cuh"
@@ -72,8 +70,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kProducerRegs = 24;
 
 // the key tile of the bf16 forward, kernels/flash_attn.py:kv_tile
 __host__ __device__ constexpr int kv_tile(int d) { return d <= 128 ? 64 : 32; }
@@ -121,76 +117,12 @@ __device__ __forceinline__ float floor_l(float l) {
   return l < 1e-30f ? 1e-30f : l;
 }
 
-// sc = t (first) or sc + t, in fp32 round-to-nearest
-template <int N>
-__device__ __forceinline__ void add_tile(float (&sc)[N], float (&t)[N],
-                                         bool first) {
-  fence_regs(t);
-#pragma unroll
-  for (int i = 0; i < N; ++i) sc[i] = first ? t[i] : __fadd_rn(sc[i], t[i]);
-}
-
-#define R8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (m64 x n32, fp32) (+)= A (smem, K-major) . B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : R8(0), R8(8)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (m64 x n64, fp32) (+)= A (smem, K-major) . B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (m64 x n64, fp32) += A (registers, bf16 pairs) . B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-#undef R8
-
-template <int BK>
-__device__ __forceinline__ void wgmma_scores(float (&d)[BK / 2], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  if constexpr (BK == 64) wgmma_ss_n64(d, a, b, accumulate);
-  else wgmma_ss_n32(d, a, b, accumulate);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // x = fl(q * scale) in place as hi (term 0), and for NQ = 3 its remainders
-// mid and lo (terms 1, 2): hi + mid + lo == x exactly while |x| >= 2^-110,
-// hi == x at a power-of-two scale while |x| >= 2^-126 (below, bf16's
-// subnormal step of 2^-133 drops at most 2^-134); a non-finite hi leaves
-// mid = lo = 0 so an inf in q stays an inf score.  The same formula:
-// kernels/flash_attn.py:bf16_q_terms.
+// mid and lo (terms 1, 2, sm90.cuh:bf16_terms): hi + mid + lo == x exactly
+// while |x| >= 2^-110, hi == x at a power-of-two scale while |x| >= 2^-126
+// (below, bf16's subnormal step of 2^-133 drops at most 2^-134); a
+// non-finite hi leaves mid = lo = 0 so an inf in q stays an inf score.  The
+// same formula: kernels/flash_attn.py:bf16_q_terms.
 template <int NQ>
 __device__ __forceinline__ void split_q(uint8_t* t0, int q_bytes, int off,
                                         float scale) {
@@ -204,12 +136,14 @@ __device__ __forceinline__ void split_q(uint8_t* t0, int q_bytes, int off,
   for (int i = 0; i < 8; ++i) {
     // __fmul_rn: x is rounded once, never fused into the subtraction
     const float x = __fmul_rn(__bfloat162float(e[i]), scale);
-    hi[i] = __float2bfloat16_rn(x);
     if constexpr (NQ == 3) {
-      const float h = __bfloat162float(hi[i]);
-      const float r = fabsf(h) <= FLT_MAX ? x - h : 0.0f;
-      mid[i] = __float2bfloat16_rn(r);
-      lo[i] = __float2bfloat16_rn(r - __bfloat162float(mid[i]));
+      float h, m, l;
+      bf16_terms(x, h, m, l);
+      hi[i] = __float2bfloat16_rn(h);
+      mid[i] = __float2bfloat16_rn(m);
+      lo[i] = __float2bfloat16_rn(l);
+    } else {
+      hi[i] = __float2bfloat16_rn(x);
     }
   }
   *reinterpret_cast<uint4*>(t0 + off) = hi4;
@@ -362,10 +296,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
             const uint64_t b =
                 gmma_desc(k_base + col * BK * 128 + within, 16, 1024);
             const uint32_t a = q_base + col * BQ * 128 + within;
-            wgmma_scores<BK>(ring[r], gmma_desc(a, 16, 1024), b, j > 0);
+            wgmma_ss<BK>(ring[r], gmma_desc(a, 16, 1024), b, j > 0);
 #pragma unroll
             for (int term = 1; term < NQ; ++term)
-              wgmma_scores<BK>(ml, gmma_desc(a + term * C::Q_BYTES, 16, 1024),
+              wgmma_ss<BK>(ml, gmma_desc(a + term * C::Q_BYTES, 16, 1024),
                                b, ks16 + term > 1);
           }
       };
@@ -481,7 +415,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
           for (int kk = 0; kk < BK / 16; ++kk)
             wgmma_rs_n64(acc[c], pa[kk],
                          gmma_desc(v_base + c * BK * 128 + kk * 2048, BK * 128,
-                                   1024));
+                                   1024),
+                         1);
       };
       auto pv_done = [&] {
 #pragma unroll
@@ -554,33 +489,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 }
 
 // ----------------------------------------------------------------- host
-// a (BH, S, HD) bf16 tensor as a 3-D map, boxes of 64 columns x rows x 1
-bool make_map(CUtensorMap* map, const void* base, int BH, int S, int HD,
-              int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
-                                 static_cast<cuuint64_t>(S) * HD * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HDP, int NQ>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int BH, int Sq, int Skv, int HD, float scale, int causal,
            int q_offset, cudaStream_t stream) {
   using C = Cfg<HDP, NQ>;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, BH, Sq, HD, C::BQ) ||
-      !make_map(&tk, k, BH, Skv, HD, C::BK) ||
-      !make_map(&tv, v, BH, Skv, HD, C::BK))
+  if (!make_map_bf16_3d(&tq, q, BH, Sq, HD, C::BQ) ||
+      !make_map_bf16_3d(&tk, k, BH, Skv, HD, C::BK) ||
+      !make_map_bf16_3d(&tv, v, BH, Skv, HD, C::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_sm = sm_count();
   // one persistent block per SM, or per work item when there are fewer

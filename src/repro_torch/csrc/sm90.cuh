@@ -1,16 +1,21 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_fwd_sm90.cu, int8_matmul_bwd.cu): shared-memory addresses,
-// mbarriers, TMA tile loads, wgmma descriptors and fences, and the lookup of
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, int8_matmul_bwd.cu): shared-memory
+// addresses, mbarriers, TMA tile loads, wgmma descriptors, fences and the
+// bf16 wgmma forms, the exact three-term bf16 split, and the lookup of
 // cuTensorMapEncodeTiled through the runtime (so no library links -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see encode_tiled)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kSmemMax = 232448;  // a block's dynamic shared memory, sm_90
+// registers a producer warpgroup keeps after setmaxnreg.dec
+constexpr int kProducerRegs = 24;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -111,6 +116,94 @@ __device__ __forceinline__ void fence_regs(int (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// sc = t (first) or sc + t, in fp32 round-to-nearest (the tensor cores'
+// own fp32 sums do not round to nearest)
+template <int N>
+__device__ __forceinline__ void add_tile(float (&sc)[N], float (&t)[N],
+                                         bool first) {
+  fence_regs(t);
+#pragma unroll
+  for (int i = 0; i < N; ++i) sc[i] = first ? t[i] : __fadd_rn(sc[i], t[i]);
+}
+
+// the bf16 forms, fp32 accumulators: m64 x nN is N / 2 registers a thread,
+// element 4j + 2i + e at row 16 * warp + lane / 4 + 8i, column 8j +
+// 2 * (lane % 4) + e
+#define SM90_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), \
+    "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+    "+f"(d[i + 7])
+
+// d (m64 x n32, fp32) (+)= A (smem, K-major) . B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F8(0), SM90_F8(8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64 x n64, fp32) (+)= A (smem, K-major) . B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// S (m64 x nN) (+)= A . B, both K-major in shared memory, N = 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, accumulate);
+  else wgmma_ss_n32(d, a, b, accumulate);
+}
+
+// d (m64 x n64, fp32) (+)= A (registers, bf16 pairs) . B (smem, MN-major).
+// A's k16 slice kk of an m64 x nN accumulator fragment x is the registers
+// pack_bf16(x[8kk + 2r], x[8kk + 2r + 1]), r = 0..3.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+#undef SM90_F8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x as three bf16 terms, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+// - mid): hi + mid + lo == x exactly while |x| >= 2^-110 (below, bf16's
+// subnormal step of 2^-133 drops at most 2^-134); a non-finite hi leaves
+// mid = lo = 0, so an inf or a NaN stays one.  Each product of a term with
+// a bf16 value is exact in fp32.  kernels/flash_attn.py:bf16_terms is the
+// same formula.
+__device__ __forceinline__ void bf16_terms(float x, float& hi, float& mid,
+                                           float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = fabsf(hi) <= FLT_MAX ? __fsub_rn(x, hi) : 0.0f;
+  mid = __bfloat162float(__float2bfloat16_rn(r));
+  lo = __fsub_rn(r, mid);  // exact; rounded to bf16 where it is packed
+}
+
 // ------------------------------------------- programmatic dependent launch
 // wait until the grid this one depends on (the kernel before it on the
 // stream) has finished and its writes are visible; returns at once when the
@@ -164,6 +257,25 @@ int launch_pdl(void (*kern)(KArgs...), dim3 grid, dim3 block, size_t smem,
   cfg.numAttrs = 1;
   return static_cast<int>(
       cudaLaunchKernelEx(&cfg, kern, static_cast<KArgs>(args)...));
+}
+
+// a (BH, S, HD) bf16 tensor as a 3-D TMA map, boxes of 64 columns x rows x
+// 1, 128-byte swizzle; the hardware fills zeros past S and past HD
+inline bool make_map_bf16_3d(CUtensorMap* map, const void* base, int BH,
+                             int S, int HD, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
+                                 static_cast<cuuint64_t>(S) * HD * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the card's SM count, read once

@@ -51,6 +51,12 @@ SIGNATURES = {
     "flash_fwd_sm90": {
         "repro_flash_fwd_sm90": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
         "repro_flash_kv_tile": [_I]},
+    "flash_bwd_sm90": {
+        "repro_flash_bwd_sm90_dkdv":
+            [_P] * 8 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+        "repro_flash_bwd_sm90_dq":
+            [_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+        "repro_flash_bwd_max_head_dim": []},
     "decode_attn": {
         "repro_decode_attn": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
         "repro_decode_attn_paged":

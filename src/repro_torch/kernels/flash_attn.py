@@ -3,9 +3,10 @@ causal over the int8 KV cache for the int8-KV prefill of the serving path.
 
 Over fp K/V, in the reference's ``(BH, S, d)`` layout (the ports of
 ``repro/kernels/flash_attn.py``; each launches a kernel on CUDA tensors --
-the forward at bfloat16 ``csrc/flash_fwd_sm90.cu`` on the tensor cores,
-everything else ``csrc/flash_attn.cu`` -- and runs its ``*_plain`` version
-on CPU tensors):
+at bfloat16 the forward ``csrc/flash_fwd_sm90.cu`` and the backward, up to
+head dim 128, ``csrc/flash_bwd_sm90.cu``, both on the tensor cores;
+everything else ``csrc/flash_attn.cu`` on the CUDA cores -- and runs its
+``*_plain`` version on CPU tensors):
 
 * :func:`flash_attention_fwd` -- ``flash_attention_fwd`` (#7);
 * :func:`flash_attention_fwd_lse` -- ``_fwd_with_lse`` (#8), the output and
@@ -33,6 +34,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 #: head dims of the fp flash kernels: every multiple of 16 up to 256
 FLASH_MAX_HEAD_DIM = 256
+#: the largest head dim of the tensor-core backward (``csrc/flash_bwd_sm90.cu``
+#: exports it as ``repro_flash_bwd_max_head_dim``)
+FLASH_BWD_SM90_MAX_HEAD_DIM = 128
 
 
 def _check_args(q, kq, causal, q_offset):
@@ -149,7 +153,8 @@ def _check_flash(what: str, q, k, v, q_offset: int, extra=()):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.device.type == "cuda":
-        # the bf16 forward reads q, k, v by TMA, which takes 16-byte bases
+        # the bf16 kernels read q, k, v and dO by TMA, which takes 16-byte
+        # bases
         for name, t, *_ in (("q", q), ("k", k), ("v", v), *extra):
             if t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must start on a 16-byte "
@@ -183,24 +188,35 @@ def kv_tile(d: int) -> int:
     return 64 if d <= 128 else 32
 
 
+def bf16_terms(x: torch.Tensor):
+    """A float32 tensor as three bfloat16 terms, each as float32: hi =
+    bf16(x), mid = bf16(x - hi) and lo = bf16(x - hi - mid), summing to x
+    exactly while |x| >= 2**-110 (below, bf16's subnormal step of 2**-133
+    drops bits of x, at most 2**-134).  A non-finite hi leaves mid = lo =
+    0, so an inf or a NaN stays in hi.  Each product of a term with a bf16
+    value is exact in fp32.  ``bf16_terms`` in ``csrc/sm90.cuh`` is the same
+    formula: the tensor-core kernels split q (the forward) and p and ds (the
+    backward) so."""
+    x = x.float()
+    hi = x.bfloat16().float()
+    r = torch.where(hi.abs() <= torch.finfo(torch.float32).max, x - hi,
+                    torch.zeros_like(x))
+    mid = r.bfloat16().float()
+    return hi, mid, (r - mid).bfloat16().float()
+
+
 def bf16_q_terms(q: torch.Tensor, d: int):
     """The bfloat16 terms that the bf16 forward feeds the tensor cores in
     place of x = fl(q_f32 * scale), scale = 1/sqrt(d) in float32
     (``split_q`` in ``csrc/flash_fwd_sm90.cu``, the same formula), each as
     float32.  Where the scale is a power of two (d = 16, 64, 256) one term,
-    hi = bf16(x), equal to x while |x| >= 2**-126; elsewhere three, hi, mid
-    = bf16(x - hi) and lo = bf16(x - hi - mid), summing to x exactly while
-    |x| >= 2**-110.  Below those, bf16's subnormal step (2**-133) drops
-    bits of x, at most 2**-134.  A non-finite hi leaves mid = lo = 0."""
+    hi = bf16(x), equal to x while |x| >= 2**-126 (below, at most 2**-134
+    off); elsewhere :func:`bf16_terms` of x."""
     scale = torch.tensor(_scale(d), dtype=torch.float32)
     x = q.float() * scale
-    hi = x.bfloat16().float()
     if math.frexp(scale.item())[0] == 0.5:
-        return (hi,)
-    r = torch.where(hi.abs() <= torch.finfo(torch.float32).max, x - hi,
-                    torch.zeros_like(x))
-    mid = r.bfloat16().float()
-    return hi, mid, (r - mid).bfloat16().float()
+        return (x.bfloat16().float(),)
+    return bf16_terms(x)
 
 
 def flash_attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
@@ -252,38 +268,93 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                                          block_k=block_k)[0]
 
 
-def _bwd_plain(q, k, v, do, lse, delta, causal, q_offset):
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, sum_dtype):
+    """einsum of a and b with the products summed in ``sum_dtype`` and the
+    sums rounded to fp32."""
+    return torch.einsum(eq, a.to(sum_dtype), b.to(sum_dtype)).float()
+
+
+def _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
+               sum_dtype: torch.dtype = torch.float64):
     """p and ds of the backward, whole-matrix, in #9/#10's order: the
-    scale after the product, p = exp(s - lse) in fp32."""
+    scale after the product, p = exp(s - lse) in fp32; q.k and dO.v summed
+    in ``sum_dtype`` and rounded to fp32."""
     sq, skv, d = q.shape[1], k.shape[1], q.shape[2]
     scale = _scale(d)
-    s = scale * torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    s = scale * _product("bqd,bkd->bqk", q, k, sum_dtype)
     if causal:
         s = s.masked_fill(~_causal_keep(sq, skv, q_offset, q.device), -1e30)
     p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    dp = _product("bqd,bkd->bqk", do, v, sum_dtype)
     return p, p * (dp - delta[..., None]) * scale
 
 
 def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, *,
-                                   causal: bool = True, q_offset: int = 0):
-    """Plain PyTorch version of #9: dV = p^T dO, dK = ds^T q, in q's type."""
+                                   causal: bool = True, q_offset: int = 0,
+                                   sum_dtype: torch.dtype = torch.float64):
+    """Plain PyTorch version of #9: dV = p^T dO, dK = ds^T q, in q's type.
+    Each of its four products (q.k, dO.v, p^T dO, ds^T q) is summed in
+    ``sum_dtype`` and rounded to fp32 -- float64 by default, so that the
+    sums carry no fp32 order of their own and the kernels are held to the
+    function, not to another fp32 order."""
     _check_flash("flash_attention_bwd_dkdv", q, k, v, q_offset,
                  _bwd_extra(q, do, lse, delta))
-    p, ds = _bwd_plain(q, k, v, do, lse, delta, causal, q_offset)
-    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
-    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    p, ds = _bwd_plain(q, k, v, do, lse, delta, causal, q_offset, sum_dtype)
+    dv = _product("bqk,bqd->bkd", p, do, sum_dtype)
+    dk = _product("bqk,bqd->bkd", ds, q, sum_dtype)
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, *,
-                                 causal: bool = True,
-                                 q_offset: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of #10: dQ = ds k, in q's type."""
+                                 causal: bool = True, q_offset: int = 0,
+                                 sum_dtype: torch.dtype = torch.float64
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of #10: dQ = ds k, in q's type; q.k, dO.v and
+    ds k summed in ``sum_dtype`` (as #9's plain version)."""
     _check_flash("flash_attention_bwd_dq", q, k, v, q_offset,
                  _bwd_extra(q, do, lse, delta))
-    _, ds = _bwd_plain(q, k, v, do, lse, delta, causal, q_offset)
-    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+    _, ds = _bwd_plain(q, k, v, do, lse, delta, causal, q_offset, sum_dtype)
+    return _product("bqk,bkd->bqd", ds, k, sum_dtype).to(q.dtype)
+
+
+#: the sums of the plain backward on the CPU path: fp32, the reference's
+#: own (its dot_general sums in fp32).  Under the causal mask at q_offset 0
+#: query row 0 sees key 0 alone, so dp_00 - delta_0 is zero in exact
+#: arithmetic and dq's row 0 is the rounding noise of two sums of the same
+#: products; fp32 sums keep that noise equal to JAX's on the CPU, where
+#: float64 sums (the plain functions' default) would make it exactly 0.
+CPU_SUM_DTYPE = torch.float32
+
+
+def bwd_library(dtype: torch.dtype, d: int) -> str:
+    """The library a CUDA backward call (#9, #10) launches, by a fixed rule:
+    bfloat16 at head dims up to :data:`FLASH_BWD_SM90_MAX_HEAD_DIM` takes
+    the tensor-core kernels (``"flash_bwd_sm90"``); float32 (TF32 would
+    leave the float32 tolerances) and head dims in (128, 256] (their dK and
+    dV accumulators alone would take 128 registers a thread or more) take
+    PR 15's CUDA-core kernels (``"flash_attn"``)."""
+    if dtype == torch.bfloat16 and d <= FLASH_BWD_SM90_MAX_HEAD_DIM:
+        return "flash_bwd_sm90"
+    return "flash_attn"
+
+
+def _launch_bwd(which: str, q, k, v, do, lse, delta, outs, causal,
+                q_offset):
+    """#9 (``which="dkdv"``, outs (dk, dv)) or #10 (``"dq"``, outs (dq,))
+    through the library :func:`bwd_library` names; raises on a CUDA
+    error."""
+    bh, sq, skv, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2]
+    name = bwd_library(q.dtype, d)
+    lib = _build.load(name)
+    args = [_build.ptr(t) for t in (q, k, v, do, lse, delta, *outs)]
+    args += [bh, sq, skv, d, _scale(d), int(causal), int(q_offset)]
+    if name == "flash_bwd_sm90":
+        rc = getattr(lib, f"repro_flash_bwd_sm90_{which}")(
+            *args, _build.stream_of(q))
+    else:
+        rc = getattr(lib, f"repro_flash_attn_bwd_{which}")(
+            *args, _DTYPE_CODES[q.dtype], _build.stream_of(q))
+    _build.check(lib, rc, f"flash_attention_bwd_{which}")
 
 
 def _launch_fwd(q, k, v, causal, q_offset, with_lse):
@@ -341,43 +412,38 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
                              q_offset: int = 0):
     """#9: (dK, dV), each (BH, Skv, d) in q's type, from q, k, v, dO (q's
-    type), lse and delta (BH, Sq) float32.  One block per key tile walks
-    the query tiles; no atomics, so a launch repeats its bits."""
+    type), lse and delta (BH, Sq) float32.  CPU tensors take the plain
+    version with fp32 sums (:data:`CPU_SUM_DTYPE`); CUDA tensors launch the
+    kernel :func:`bwd_library` names (bfloat16 at d <= 128: the tensor
+    cores, ``csrc/flash_bwd_sm90.cu``; float32, and d in (128, 256]:
+    ``csrc/flash_attn.cu``) or raise.  A block per key block walks the
+    query tiles; no atomics, so a launch repeats its bits."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
                                               causal=causal,
-                                              q_offset=q_offset)
-    bh, sq, skv, d = _check_flash("flash_attention_bwd_dkdv", q, k, v,
-                                  q_offset, _bwd_extra(q, do, lse, delta))
+                                              q_offset=q_offset,
+                                              sum_dtype=CPU_SUM_DTYPE)
+    _check_flash("flash_attention_bwd_dkdv", q, k, v, q_offset,
+                 _bwd_extra(q, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _build.load("flash_attn")
-    rc = lib.repro_flash_attn_bwd_dkdv(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-        _build.ptr(lse), _build.ptr(delta), _build.ptr(dk), _build.ptr(dv),
-        bh, sq, skv, d, _scale(d), int(causal), int(q_offset),
-        _DTYPE_CODES[q.dtype], _build.stream_of(q))
-    _build.check(lib, rc, "flash_attention_bwd_dkdv")
+    _launch_bwd("dkdv", q, k, v, do, lse, delta, (dk, dv), causal, q_offset)
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            q_offset: int = 0) -> torch.Tensor:
-    """#10: dQ (BH, Sq, d) in q's type from #9's inputs; one block per
-    query tile walks the key tiles."""
+    """#10: dQ (BH, Sq, d) in q's type from #9's inputs, the kernel chosen
+    by the same rule (:func:`bwd_library`); a block per query block walks
+    the key tiles."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
-                                            causal=causal, q_offset=q_offset)
-    bh, sq, skv, d = _check_flash("flash_attention_bwd_dq", q, k, v,
-                                  q_offset, _bwd_extra(q, do, lse, delta))
+                                            causal=causal, q_offset=q_offset,
+                                            sum_dtype=CPU_SUM_DTYPE)
+    _check_flash("flash_attention_bwd_dq", q, k, v, q_offset,
+                 _bwd_extra(q, do, lse, delta))
     dq = torch.empty_like(q)
-    lib = _build.load("flash_attn")
-    rc = lib.repro_flash_attn_bwd_dq(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-        _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), bh, sq, skv, d,
-        _scale(d), int(causal), int(q_offset), _DTYPE_CODES[q.dtype],
-        _build.stream_of(q))
-    _build.check(lib, rc, "flash_attention_bwd_dq")
+    _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), causal, q_offset)
     flash_attention_bwd_dq.launches += 1
     return dq
 
