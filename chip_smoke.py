@@ -5,18 +5,30 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build the CUDA kernel libraries of ``_build.SOURCES`` (eight sources
+1. build the CUDA kernel libraries of ``_build.SOURCES`` (ten sources
    under ``src/repro_torch/csrc``, one nvcc each, all at once;
-   ``decode_attn.cu`` holds the dense and the paged decode kernels,
-   ``flash_attn.cu`` the float32 flash forward and both backward kernels,
-   ``flash_fwd_sm90.cu`` the bf16 flash forward on the tensor cores,
-   ``int8_matmul_bwd.cu`` the int8 backward's quantize passes and its int8
-   tensor-core GEMM) and print the build time;
+   ``int8_matmul.cu`` holds the forward's two routes -- its weight
+   transpose and int8 tensor-core GEMM (``gemm_s8.cuh``, shared with the
+   backward) and the CUDA-core dp4a kernel; ``decode_attn.cu`` the dense
+   and the paged decode kernels; ``flash_attn.cu`` the float32 flash
+   forward and both backward kernels; ``flash_fwd_sm90.cu`` and
+   ``flash_bwd_sm90.cu`` the bf16 flash forward and backward on the tensor
+   cores; ``flash_q8_sm90.cu`` the bf16 int8-KV prefill on the tensor
+   cores, ``flash_attn_q8.cu`` its float32 instance; ``int8_matmul_bwd.cu``
+   the int8 backward's quantize passes) and print the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's shapes, and time kernel, plain version and a
    library yardstick (``torch._int_mm``; SDPA on dequantized K/V) beside
-   the bound computed from the inputs' bytes and operations; 3b. the paged
+   the bound computed from the inputs' bytes and operations:
+   ``int8_matmul`` bit for bit on both its routes at M = 16, 17, 64, 2048
+   and 8192, bf16 and float32 output, each route timed call by call and
+   queued (``queued_ms``), the forward's GEMM kernels holding ``IGMMA``
+   (``check_int8_matmul``); ``flash_attention_fwd_q8`` at the serving gate
+   and the engine's shapes, bf16 within one bf16 step and its output
+   before the cast within ``Q8_TOL``, float32 within ``Q8_TOL``, timed
+   beside the CUDA-core kernel at bf16, the ``flash_q8_sm90`` kernels holding
+   ``HGMMA`` (``check_flash_q8``); 3b. the paged
    decode kernel the same way at pages of 16, 64 and 256 rows, and bit for
    bit against the dense decode kernel on the same logical cache
    (``check_decode_attention_paged``);
@@ -281,37 +293,83 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+#: phase 3: the forward's shapes -- the decode step's 16 slots, M = 17 and
+#: 64 past the route's crossover, a prefill of 2048 rows and the training
+#: step's 8192 tokens -- at GPT-2 small's three (K, N), bf16 output; and
+#: float32 output at (768, 768)
+INT8_FWD_ROWS = (16, 17, 64, 2048, 8192)
+INT8_FWD_KN = ((768, 768), (768, 3072), (3072, 768))
+
+
 def check_int8_matmul(torch, dev, gen, results):
-    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+    """Phase 3, #3: the wrapper (its route by ``fwd_route``) and both
+    routes -- the tensor-core one (transpose pass + s8 wgmma GEMM) and the
+    CUDA-core dp4a kernel, the port's first forward at every M -- bit
+    for bit against the plain version at every shape and output dtype; each
+    timed call by call and with the card's queue full (``queued_ms``), both
+    routes at every M (the crossover readings at M = 16, 17, 64), beside
+    the bound, the plain version and ``torch._int_mm`` (queued; it takes M >
+    16 only); the forward's GEMM kernels hold ``IGMMA`` in their SASS."""
+    import importlib
+    im = importlib.import_module("repro_torch.kernels.int8_matmul")
     rows = []
-    for m in (16, 2048):
-        for k, n in ((768, 768), (768, 3072), (3072, 768)):
-            x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int8)
-            w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
-                              dtype=torch.int8)
-            rs = torch.rand((m, 1), generator=gen, device=dev) * 0.05
-            cs = torch.rand((1, n), generator=gen, device=dev) * 0.01
-            got = int8_matmul(x, w, rs, cs, out_dtype=torch.bfloat16)
-            want = int8_matmul_plain(x, w, rs, cs, out_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.equal(got, want):
-                fail(f"int8_matmul M={m} K={k} N={n} not bit-exact "
-                     f"(max err {err})")
-            ms = time_ms(lambda: int8_matmul(x, w, rs, cs))
-            plain = time_ms(lambda: int8_matmul_plain(x, w, rs, cs), iters=5)
-            # torch._int_mm (int8 x int8 -> int32, no epilogue) takes M > 16
-            lib = (time_ms(lambda: torch._int_mm(x, w)) if m > 16 else None)
-            b, by = bound_ms(m * k + k * n + 4 * (m + n) + 2 * m * n,
-                             2.0 * m * n * k, INT8_OPS)
-            rows.append(dict(shape=f"M={m},K={k},N={n}", max_abs_err=err,
-                             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=lib))
-            print(f"int8_matmul M={m:5d} K={k:4d} N={n:4d}: bit-exact "
-                  f"(tol 0), ms {ms:.4f}, plain_ms {plain:.4f}, bound_ms "
-                  f"{b:.5f} ({by}), library_ms(_int_mm) "
-                  f"{'n/a (M<=16)' if lib is None else f'{lib:.4f}'}")
+    cases = [(m, k, n, torch.bfloat16) for m in INT8_FWD_ROWS
+             for k, n in INT8_FWD_KN]
+    cases += [(m, 768, 768, torch.float32) for m in INT8_FWD_ROWS]
+    for m, k, n, dt in cases:
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        rs = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+        cs = torch.rand((1, n), generator=gen, device=dev) * 0.01
+        rs[::7] = 0.0                  # zero scales: the guard maps them to 1
+        want = im.int8_matmul_plain(x, w, rs, cs, out_dtype=dt)
+        route = im.fwd_route(m, n, k)
+        got = {"wrapper": im.int8_matmul(x, w, rs, cs, out_dtype=dt),
+               "wgmma": im.int8_matmul_wgmma(x, w, rs, cs, out_dtype=dt),
+               "dp4a": im.int8_matmul_dp4a(x, w, rs, cs, out_dtype=dt)}
+        torch.cuda.synchronize()
+        err = max((g.float() - want.float()).abs().max().item()
+                  for g in got.values())
+        for name, g in got.items():
+            if not torch.equal(g, want):
+                fail(f"int8_matmul ({name}) M={m} K={k} N={n} {dt} not "
+                     f"bit-exact (max err {err})")
+        route_ms = {r: queued_ms(lambda f=f: f(x, w, rs, cs, dt))
+                    for r, f in (("wgmma", im.int8_matmul_wgmma),
+                                 ("dp4a", im.int8_matmul_dp4a))}
+        call_ms = {r: time_ms(lambda f=f: f(x, w, rs, cs, dt))
+                   for r, f in (("wgmma", im.int8_matmul_wgmma),
+                                ("dp4a", im.int8_matmul_dp4a))}
+        plain = time_ms(lambda: im.int8_matmul_plain(x, w, rs, cs, dt),
+                        iters=3)
+        # torch._int_mm (int8 x int8 -> int32, no epilogue) takes M > 16
+        lib = queued_ms(lambda: torch._int_mm(x, w)) if m > 16 else None
+        es = 2 if dt == torch.bfloat16 else 4
+        b, by = bound_ms(m * k + k * n + 4 * (m + n) + es * m * n,
+                         2.0 * m * n * k, INT8_OPS)
+        rows.append(dict(
+            shape=f"M={m},K={k},N={n},{str(dt)[6:]}", fwd_route=route,
+            max_abs_err=err, ms=route_ms[route], ms_call=call_ms[route],
+            route_ms=route_ms, route_ms_call=call_ms,
+            splits=im.gemm_splits(m, n, k), plain_ms=plain, bound_ms=b,
+            bound_by=by, library_ms=lib))
+        print(f"int8_matmul M={m:5d} K={k:4d} N={n:4d} {str(dt)[6:]}: "
+              f"bit-exact on both routes (tol 0), route {route}; queued ms "
+              f"wgmma {route_ms['wgmma']:.4f} ({im.gemm_splits(m, n, k)} "
+              f"split(s)), dp4a {route_ms['dp4a']:.4f}; call by "
+              f"call wgmma {call_ms['wgmma']:.4f}, dp4a "
+              f"{call_ms['dp4a']:.4f}; plain_ms {plain:.4f}, bound_ms "
+              f"{b:.5f} ({by}), library_ms(_int_mm, queued) "
+              f"{'n/a (M<=16)' if lib is None else f'{lib:.4f}'}")
+    counts = sass_counts("int8_matmul", "IGMMA")
+    gemm = {fn: c for fn, c in counts.items() if "gemm_s8_kernel" in fn}
+    print(f"int8_matmul SASS: {sum(gemm.values())} IGMMA instructions over "
+          f"{len(gemm)} GEMM kernels (each "
+          f"{min(gemm.values(), default=0)}-{max(gemm.values(), default=0)})")
+    if not gemm or min(gemm.values()) == 0:
+        fail(f"phase 3: a forward GEMM kernel has no IGMMA: {gemm}")
     # the JSON entry reports the shape with the most launches on the main
     # path: the decode step's wq, wk, wv and wo at M = 16 slots (4 of every
     # 6 decode launches); kernels.json keeps every shape
@@ -546,43 +604,124 @@ def check_decode_attention_paged(torch, dev, gen, results):
         shapes=rows_out, **rows_out[1])
 
 
+#: phase 3, #11: the serving gate (4 prompts of 256 over 1024-row
+#: buffers) and the engine's extremes (16 slots at the 512 bucket, one
+#: prompt at 32), GPT-2 small's heads
+Q8_SHAPES = ((4, 256, 1024, 12, 12, 64), (16, 512, 1024, 12, 12, 64),
+             (1, 32, 1024, 12, 12, 64))
+#: #11's limit on max |kernel - plain| at float32: the CUDA-core kernel's
+#: output, and the tensor-core kernel's output before its bf16 cast
+Q8_TOL = 1e-3
+
+
+def _q8_control(torch, q, kq, ks, vq, vs):
+    """The plain version with p * g(vs) rounded to one bf16 term before the
+    P.V product: what feeding the tensor cores one term, not three, gives."""
+    from repro_torch.kernels.flash_attn import scale_guard
+    b, sq, h, hd = q.shape
+    skv, kh = kq.shape[1], kq.shape[2]
+    g = h // kh
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(b, sq, kh, g, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, kq.float())
+    s = s * scale_guard(ks)[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+    qpos = torch.arange(sq, device=q.device)
+    s = s.masked_fill(torch.arange(skv, device=q.device)[None, :]
+                      > qpos[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    p = p * scale_guard(vs)[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+    ctx = torch.einsum("bkgqt,btkd->bqkgd", p.bfloat16().float(), vq.float())
+    return ctx.reshape(b, sq, h, hd)
+
+
 def check_flash_q8(torch, dev, gen, results):
+    """Phase 3, #11 at ``Q8_SHAPES``: the bf16 tensor-core kernel
+    (``flash_q8_sm90.cu``) within one bf16 step of the plain version, its
+    output before the cast within ``Q8_TOL`` of the plain version at
+    float32 (rel L2 printed beside a control that rounds p * g(vs) to one
+    bf16 term), a repeat bit-identical; the float32 carrier (the
+    CUDA-core kernel) within ``Q8_TOL``; each timed call by call and
+    queued beside the CUDA-core kernel at bf16 (the first port's), SDPA on
+    dequantized K/V (queued), the plain version and the bound (bytes, or
+    the bf16-exact products at 989 TFLOP/s, each fp32 operand counted as
+    its terms); ``HGMMA`` in every ``flash_q8_sm90`` kernel's SASS."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import (flash_attention_fwd_q8,
-                                                flash_attention_fwd_q8_plain)
-    b, sq, skv, h, kh, hd = 4, 256, 1024, 12, 12, 64
-    kq, ks, vq, vs = _int8_cache(torch, dev, gen, b, skv, kh, hd, [sq] * b)
-    q = torch.randn((b, sq, h, hd), generator=gen, device=dev).bfloat16()
-    errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        got = flash_attention_fwd_q8(q.to(dt), kq, ks, vq, vs, causal=True)
-        want = flash_attention_fwd_q8_plain(q.to(dt), kq, ks, vq, vs,
-                                            causal=True)
-        errs[dt] = attention_err(torch, got, want)
-    err, tol = errs[torch.float32], 1e-3
-    ms = time_ms(lambda: flash_attention_fwd_q8(q, kq, ks, vq, vs))
-    plain = time_ms(lambda: flash_attention_fwd_q8_plain(q, kq, ks, vq, vs),
-                    iters=5)
-    kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3)
-    vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3)
-    qt = q.permute(0, 2, 1, 3)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd,
-                                                         is_causal=True))
-    visible = min(skv, sq)                   # q_offset 0: causal rows
-    nbytes = (2 * q.numel() * 2 + 2 * b * visible * kh * (hd + 4))
-    ops = 4.0 * hd * b * h * (sq * (sq + 1) / 2)
-    bd, by = bound_ms(nbytes, ops, FP32_FLOPS)
-    print(f"flash_attention_fwd_q8 B={b} Sq={sq} Skv={skv} H={h} hd={hd} "
-          f"causal: max err {err:.2e} (tol {tol}, fp32 carrier, bf16-valued "
-          f"inputs), bf16 carrier within one bf16 step (max err "
-          f"{errs[torch.bfloat16]:.2e}), ms {ms:.4f}, "
-          f"plain_ms {plain:.4f}, bound_ms {bd:.5f} ({by}), "
-          f"library_ms(SDPA) {lib:.4f}")
+    from repro_torch.kernels import flash_attn as fa
+    rows = []
+    for b, sq, skv, h, kh, hd in Q8_SHAPES:
+        kq, ks, vq, vs = _int8_cache(torch, dev, gen, b, skv, kh, hd,
+                                     [sq] * b)
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).bfloat16()
+        got = fa.flash_attention_fwd_q8(q, kq, ks, vq, vs, causal=True)
+        want = fa.flash_attention_fwd_q8_plain(q, kq, ks, vq, vs, causal=True)
+        bf16_err = attention_err(torch, got, want)
+        again = fa.flash_attention_fwd_q8(q, kq, ks, vq, vs, causal=True)
+        f32 = fa.launch_q8("flash_q8_sm90", q, kq, ks, vq, vs, causal=True,
+                           out_dtype=torch.float32)
+        want32 = fa.flash_attention_fwd_q8_plain(q.float(), kq, ks, vq, vs,
+                                                 causal=True)
+        core = fa.flash_attention_fwd_q8(q.float(), kq, ks, vq, vs,
+                                         causal=True)
+        ctl = _q8_control(torch, q, kq, ks, vq, vs)
+        torch.cuda.synchronize()
+        err = (f32 - want32).abs().max().item()
+        core_err = (core - want32).abs().max().item()
+        rel = _rel_l2(torch, [f32], [want32])
+        ctl_rel = _rel_l2(torch, [ctl], [want32])
+        if not torch.equal(again, got):
+            fail(f"flash_attention_fwd_q8 {b}x{sq}: a repeat gave other bits")
+        if err > Q8_TOL or core_err > Q8_TOL:
+            fail(f"flash_attention_fwd_q8 {b}x{sq}: max err {err} (bf16 "
+                 f"kernel before its cast) / {core_err} (fp32 kernel) > "
+                 f"{Q8_TOL}")
+        ms = queued_ms(lambda: fa.flash_attention_fwd_q8(q, kq, ks, vq, vs))
+        ms_call = time_ms(lambda: fa.flash_attention_fwd_q8(q, kq, ks, vq, vs))
+        core_ms = queued_ms(lambda: fa.launch_q8("flash_attn_q8", q, kq, ks,
+                                                vq, vs))
+        plain = time_ms(lambda: fa.flash_attention_fwd_q8_plain(
+            q, kq, ks, vq, vs), iters=3)
+        kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3)
+        vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3)
+        qt = q.permute(0, 2, 1, 3)
+        lib = queued_ms(lambda: F.scaled_dot_product_attention(
+            qt, kd, vd, is_causal=True))
+        lib_call = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kd, vd, is_causal=True))
+        # q read and out written once, the causally visible K/V rows and
+        # their scales once; per visible pair q.k (one term at hd 64, three
+        # elsewhere) and p.v (three terms), 2 * hd FLOPs each
+        visible = min(skv, sq)
+        nbytes = 2 * q.numel() * 2 + 2 * b * visible * kh * (hd + 4)
+        q_terms = 1 if hd == 64 else 3
+        ops = (q_terms + 3) * 2.0 * hd * b * h * (sq * (sq + 1) / 2)
+        bd, by = bound_ms(nbytes, ops, BF16_FLOPS)
+        rows.append(dict(shape=f"B={b},Sq={sq},Skv={skv},H={h},hd={hd}",
+                         max_abs_err=err, bf16_max_abs_err=bf16_err,
+                         rel_l2=rel, control_rel_l2=ctl_rel,
+                         fp32_max_abs_err=core_err, ms=ms, ms_call=ms_call,
+                         cuda_core_ms=core_ms, plain_ms=plain, bound_ms=bd,
+                         bound_by=by, library_ms=lib, library_ms_call=lib_call))
+        print(f"flash_attention_fwd_q8 B={b} Sq={sq} Skv={skv} H={h} hd={hd} "
+              f"causal, bf16 (flash_q8_sm90): within one bf16 step (max err "
+              f"{bf16_err:.2e}), repeat bit-identical, before the cast max "
+              f"err {err:.2e} (tol {Q8_TOL}) rel L2 {rel:.2e} (control, "
+              f"p*g(vs) as one bf16 term: {ctl_rel:.2e}); fp32 carrier "
+              f"(flash_attn_q8) max err {core_err:.2e}; queued ms {ms:.4f} "
+              f"(call by call {ms_call:.4f}), the CUDA-core kernel at bf16 queued "
+              f"{core_ms:.4f}, plain_ms {plain:.4f}, bound_ms {bd:.5f} ({by}),"
+              f" library_ms(SDPA, queued) {lib:.4f} (call by call "
+              f"{lib_call:.4f})")
+        del kq, ks, vq, vs, q, got, want, again, f32, want32, core, ctl, kd, vd
+    counts = sass_counts("flash_q8_sm90", "HGMMA")
+    print(f"flash_q8_sm90 SASS: {sum(counts.values())} HGMMA instructions "
+          f"over {len(counts)} kernels (each "
+          f"{min(counts.values(), default=0)}-"
+          f"{max(counts.values(), default=0)})")
+    if not counts or min(counts.values()) == 0:
+        fail(f"phase 3: a flash_q8_sm90 kernel has no HGMMA: {counts}")
     results["flash_attention_fwd_q8"] = dict(
-        route="cuda", source="src/repro_torch/csrc/flash_attn_q8.cu",
-        replaces="src/repro/kernels/flash_attn.py:468", tol=tol,
-        shape=f"B={b},Sq={sq},Skv={skv},H={h},hd={hd}", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+        route="cuda", source="src/repro_torch/csrc/flash_q8_sm90.cu",
+        replaces="src/repro/kernels/flash_attn.py:468", tol=Q8_TOL,
+        shapes=rows, **rows[0])
 
 
 def serve_model(torch, dev, seed):
@@ -1058,9 +1197,31 @@ def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: the kernels of one int8 backward call, by name, and the stage each is
+#: the kernels of one int8 backward call, by name, and the stage each is;
+#: the GEMM and the reduction are shared with the forward
+#: (``csrc/gemm_s8.cuh``), whose scale mode, 2, tells its kernels apart
 BWD_STAGES = (("quant_rows_kernel", "quantize"), ("pack_tn_kernel", "quantize"),
               ("gemm_s8_kernel", "gemm"), ("split_reduce_kernel", "reduce"))
+#: the kernels of one forward call (``csrc/int8_matmul.cu``): the dp4a
+#: route's, or the tensor-core route's transpose, GEMM and reduction
+FWD_STAGES = (("int8_matmul_kernel", "dp4a"), ("transpose_kernel", "transpose"),
+              ("gemm_s8_kernel", "gemm"), ("split_reduce_kernel", "reduce"))
+
+
+def int8_kernel_side(name: str):
+    """"fwd", "bwd" or None for a profiled kernel name: the forward's
+    kernels (``FWD_STAGES``, the shared GEMM and reduction at scale mode 2,
+    both scales) or the backward's (``BWD_STAGES``, modes 0 and 1)."""
+    import re
+    shared = ("gemm_s8_kernel" in name or "split_reduce_kernel" in name)
+    if shared:
+        both = re.search(r"_kernel<\s*(\(int\))?\s*2\s*,", name)
+        return "fwd" if both else "bwd"
+    if any(key in name for key, _ in FWD_STAGES):
+        return "fwd"
+    if any(key in name for key, _ in BWD_STAGES):
+        return "bwd"
+    return None
 
 
 def bwd_stage_ms(torch, kind, g, other, fold, qs, k, n, dt) -> dict:
@@ -1348,14 +1509,17 @@ def profile_train_step(torch, step_fn, state, batch) -> None:
           f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{sum(k[2] for k in kern)} kernel launches")
     # the twelve largest, and every flash kernel and every kernel of the
-    # int8 backward wherever it ranks
-    bwd = [k for k in kern if any(key in k[0] for key, _ in BWD_STAGES)]
+    # int8 forward and backward wherever it ranks
+    side = {k[0]: int8_kernel_side(k[0]) for k in kern}
     for rank, (name, us, n) in enumerate(kern):
-        if rank < 12 or "flash" in name or any(name == b[0] for b in bwd):
+        if rank < 12 or "flash" in name or side[name]:
             print(f"profile:   {us / 1e3:8.3f} ms {n:5d} launches "
                   f"{name[:90]}")
-    print(f"profile: the int8 backward (nt and tn) {sum(b[1] for b in bwd) / 1e3:.3f} "
-          f"ms in {sum(b[2] for b in bwd)} launches")
+    for key, what in (("fwd", "the int8 forward (int8_matmul)"),
+                      ("bwd", "the int8 backward (nt and tn)")):
+        ks = [k for k in kern if side[k[0]] == key]
+        print(f"profile: {what} {sum(k[1] for k in ks) / 1e3:.3f} ms in "
+              f"{sum(k[2] for k in ks)} launches")
 
 
 def _rel_l2(torch, a, b) -> float:

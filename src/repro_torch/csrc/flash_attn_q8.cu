@@ -1,7 +1,11 @@
-// Causal flash-attention forward over an int8 KV cache, for Hopper (sm_90a).
+// Causal flash-attention forward over an int8 KV cache, for Hopper (sm_90a),
+// on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attn.py:flash_attention_fwd_q8 (its
-// body is _flash_fwd_q8_kernel): the int8-KV prefill of the serving path.
+// body is _flash_fwd_q8_kernel): the int8-KV prefill of the serving path,
+// at the float32 carrier (kernels/flash_attn.py:q8_library; the bf16
+// carrier runs flash_q8_sm90.cu on the tensor cores).  Its bf16 instance
+// stays as the yardstick the tensor-core kernel is timed against.
 // q (B, Sq, H, hd) in the carrier; kq/vq (B, Skv, K, hd) int8 payloads with
 // ks/vs (B, Skv, K, 1) fp32 per-(position, head) scales; GQA through kv head
 // h / (H / K), no repeat.  s = ((q * 1/sqrt(hd)) . kq) * g(ks) (the K scale
@@ -21,7 +25,6 @@
 // scores of two kv rows, the warp reduces max and sum by shuffles, and the
 // probabilities go through shared memory to the P.V product, where a lane
 // owns hd/32 output columns.  Dequantized K/V never reach device memory.
-// Tensor-core MMA and TMA pipelining are later work.
 #include "common.cuh"
 
 namespace {

@@ -112,47 +112,6 @@ struct Cfg {
   static_assert(SMEM <= kSmemMax, "shared memory over the block limit");
 };
 
-// max(l, 1e-30) that keeps a NaN l (jnp.maximum; fmaxf would drop it)
-__device__ __forceinline__ float floor_l(float l) {
-  return l < 1e-30f ? 1e-30f : l;
-}
-
-// x = fl(q * scale) in place as hi (term 0), and for NQ = 3 its remainders
-// mid and lo (terms 1, 2, sm90.cuh:bf16_terms): hi + mid + lo == x exactly
-// while |x| >= 2^-110, hi == x at a power-of-two scale while |x| >= 2^-126
-// (below, bf16's subnormal step of 2^-133 drops at most 2^-134); a
-// non-finite hi leaves mid = lo = 0 so an inf in q stays an inf score.  The
-// same formula: kernels/flash_attn.py:bf16_q_terms.
-template <int NQ>
-__device__ __forceinline__ void split_q(uint8_t* t0, int q_bytes, int off,
-                                        float scale) {
-  uint4 in = *reinterpret_cast<uint4*>(t0 + off);
-  bf16* e = reinterpret_cast<bf16*>(&in);
-  uint4 hi4, mid4, lo4;
-  bf16* hi = reinterpret_cast<bf16*>(&hi4);
-  bf16* mid = reinterpret_cast<bf16*>(&mid4);
-  bf16* lo = reinterpret_cast<bf16*>(&lo4);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    // __fmul_rn: x is rounded once, never fused into the subtraction
-    const float x = __fmul_rn(__bfloat162float(e[i]), scale);
-    if constexpr (NQ == 3) {
-      float h, m, l;
-      bf16_terms(x, h, m, l);
-      hi[i] = __float2bfloat16_rn(h);
-      mid[i] = __float2bfloat16_rn(m);
-      lo[i] = __float2bfloat16_rn(l);
-    } else {
-      hi[i] = __float2bfloat16_rn(x);
-    }
-  }
-  *reinterpret_cast<uint4*>(t0 + off) = hi4;
-  if constexpr (NQ == 3) {
-    *reinterpret_cast<uint4*>(t0 + q_bytes + off) = mid4;
-    *reinterpret_cast<uint4*>(t0 + 2 * q_bytes + off) = lo4;
-  }
-}
-
 // ---------------------------------------------------------------- kernel
 template <int HDP, int NQ, bool LSE>
 __global__ void __launch_bounds__(Cfg<HDP, NQ>::THREADS, 1)

@@ -32,25 +32,27 @@
 //     axis of both row-major operands: hence its two transposes.  The
 //     quantizer is the reference's: h = g*fold (__fmul_rn, never fused),
 //     rint(h / qs) with an IEEE division (__fdiv_rn) and round-half-to-even.
-//  2. One s8 tensor-core GEMM for both layouts,
+//  2. One s8 tensor-core GEMM for both layouts (gemm_s8.cuh, shared with
+//     the forward in int8_matmul.cu),
 //       C[i, j] = cast(float(sum_k A[i, k] B[j, k]) * g(s)),
-//     A (R, lda) and B (C, ldb) K-major int8, s per output row (nt: qs[m])
-//     or per column (tn: qs[n]).  128 x 128 output tiles in 128-byte
-//     contraction steps; a producer warp streams the A and B tiles by TMA
-//     (128-byte swizzle; the hardware fills zeros past every edge, so a
-//     ragged M, N or contraction needs no code) into a 3-stage mbarrier
-//     ring; two consumer warpgroups each run wgmma m64n128k32.s32.s8.s8 into
-//     int32 registers, one group in flight while the next is issued.  Two
-//     blocks share an SM, so one block's epilogue (int32 -> fp32 round to
-//     nearest, one multiply by the guarded scale, the cast, masked stores)
-//     runs under the other's products.
+//     A (R, lda) and B (C, ldb) K-major int8, s per output row (nt: qs[m],
+//     kRowScale) or per column (tn: qs[n], kColScale).  128 x 128 output
+//     tiles in 128-byte contraction steps; a producer warp streams the A
+//     and B tiles by TMA (128-byte swizzle; the hardware fills zeros past
+//     every edge, so a ragged M, N or contraction needs no code) into a
+//     3-stage mbarrier ring; two consumer warpgroups each run
+//     wgmma m64n128k32.s32.s8.s8 into int32 registers, one group in flight
+//     while the next is issued.  Two blocks share an SM, so one block's
+//     epilogue (int32 -> fp32 round to nearest, one multiply by the guarded
+//     scale, the cast, masked stores) runs under the other's products.
 //  3. Split the contraction where the output tiles cannot fill the card
 //     (tn at (768, 768): 36 tiles for 132 SMs).  Each split writes its
 //     exact int32 partial tile to a workspace, and a second kernel adds the
 //     splits in a fixed order and dequantizes once.  Integer addition is
 //     associative, so every split count gives the same bits, run after run;
 //     there are no atomics.  The split count comes from the shapes alone
-//     (repro_int8_gemm_splits).
+//     (gemm_splits; the wrappers read it from the forward's library,
+//     int8_matmul.cu:repro_int8_gemm_splits).
 //  4. The two to three kernels of a call are programmatic dependent
 //     launches: the card starts each while the one before it drains, and
 //     each waits (griddepcontrol.wait) before it reads what that one wrote.
@@ -62,32 +64,9 @@
 // the reference's int32 accumulator; the entry points refuse more.  At M =
 // 8192 the largest value is 1.3e8; (float)sum is exact below 2^24 and
 // rounded to nearest once above, as the plain version's cast is.
-#include "common.cuh"
-#include "sm90.cuh"
+#include "gemm_s8.cuh"
 
 namespace {
-
-constexpr int kMaxContraction = 131071;
-
-// ------------------------------------------------------------ quantize
-__device__ __forceinline__ int8_t quant_g(float g, float fold, float qs) {
-  float r = rintf(__fdiv_rn(__fmul_rn(g, fold), qs));
-  r = fminf(fmaxf(r, -128.0f), 127.0f);
-  return static_cast<int8_t>(static_cast<int>(r));
-}
-
-// four consecutive elements from a 4-element-aligned address
-template <typename T>
-struct alignas(4 * sizeof(T)) Vec4 {
-  T v[4];
-};
-
-template <typename T>
-__device__ __forceinline__ float as_f32(T x) { return to_f32(x); }
-template <>
-__device__ __forceinline__ float as_f32<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
 
 constexpr int kQuantThreads = 256;
 constexpr int kQuantRows = 4;  // rows per thread of nt's pass
@@ -146,61 +125,6 @@ quant_rows_kernel(const GT* __restrict__ g, const float* __restrict__ fold,
   }
 }
 
-// tn's passes, a (R, Cn) source into its K-major transpose dst (Cn, ldd):
-// dst[c, r] = quant_g(src[r, c], fold[r], g(qs[c])) (QUANT, the gradient)
-// or src[r, c] (the int8 activation payload) for r < R, and 0 for R <= r <
-// ldd.  A block turns the 64 x 64 tile (r0, c0): each thread loads 4 rows x
-// 4 columns, packs each column's 4 rows into one word of shared memory, and
-// the tile leaves as 16-byte row segments of dst.  vec: Cn % 4 == 0 and src
-// 16-byte aligned, so each thread's 4 columns load as one vector.
-template <typename T, bool QUANT>
-__device__ __forceinline__ void pack_t_tile(
-    const T* __restrict__ src, const float* __restrict__ fold,
-    const float* __restrict__ qs, int8_t* __restrict__ dst, int R, int Cn,
-    int ldd, bool vec, int r0, int c0, uint32_t (&tile)[64][17]) {
-  const int t = threadIdx.x, cq = t % 16, rq = t / 16;
-  const int cb = c0 + 4 * cq;  // this thread's first column
-  grid_dependency_wait();
-  float cs[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    cs[i] = QUANT && cb + i < Cn ? scale_guard(qs[cb + i]) : 1.0f;
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = r0 + 4 * rq + j;
-    if (r >= R) continue;
-    const T* row = src + static_cast<size_t>(r) * Cn;
-    float v[4];
-    if (vec && cb < Cn) {
-      const Vec4<T> q = *reinterpret_cast<const Vec4<T>*>(row + cb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = as_f32(q.v[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = cb + i < Cn ? as_f32(row[cb + i]) : 0.0f;
-    }
-    const float fr = QUANT ? fold[r] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int8_t b = 0;
-      if (cb + i < Cn)
-        b = QUANT ? quant_g(v[i], fr, cs[i]) : static_cast<int8_t>(v[i]);
-      w[i] |= static_cast<uint32_t>(static_cast<uint8_t>(b)) << (8 * j);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tile[4 * cq + i][rq] = w[i];
-  __syncthreads();
-  const int c = t / 4, q = t % 4;
-  if (c0 + c < Cn && r0 + 16 * q < ldd) {
-    const uint4 o = make_uint4(tile[c][4 * q], tile[c][4 * q + 1],
-                               tile[c][4 * q + 2], tile[c][4 * q + 3]);
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(c0 + c) * ldd + r0 +
-                              16 * q) = o;
-  }
-}
-
 // both of tn's passes in one launch: blocks z = 0 quantize and transpose
 // the gradient g (M, N) into gt, blocks z = 1 transpose x (M, K) into xt
 template <typename GT>
@@ -220,333 +144,7 @@ pack_tn_kernel(const GT* __restrict__ g, const int8_t* __restrict__ x,
   }
 }
 
-// ----------------------------------------------------------------- GEMM
-constexpr int kBM = 128;  // output rows per block: two warpgroups of 64
-constexpr int kBN = 128;  // output columns per block
-constexpr int kBK = 128;  // contraction bytes per stage: one swizzle row
-constexpr int kStages = 3;
-constexpr int kTileA = kBM * kBK;
-constexpr int kTileB = kBN * kBK;
-// two consumer warpgroups and one producer warp; two blocks per SM, so
-// each thread may hold 65536 / 576 registers (no setmaxnreg: its budget
-// would be shared by both blocks of the SM)
-constexpr int kGemmThreads = 288;
-constexpr int kGemmSmem = kStages * (kTileA + kTileB) + 1024 + 64;
-static_assert(2 * (kGemmSmem + 1024) <= 233472, "two blocks must fit an SM");
-
-#define R8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
-    "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-
-// d (m64 x n128, int32) += A (smem, K-major) . B (smem, K-major), k = 32
-__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
-      : "l"(a), "l"(b), "r"(1));
-}
-#undef R8
-
-// two adjacent outputs (c, c + 1) of one row; pair: the row length is
-// even, so the two share one aligned store
-template <typename T>
-__device__ __forceinline__ void store2(T* p, T v0, T v1, bool ok1, bool pair);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float v0, float v1,
-                                              bool ok1, bool pair) {
-  if (pair && ok1) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-  else { p[0] = v0; if (ok1) p[1] = v1; }
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      __nv_bfloat16 v0,
-                                                      __nv_bfloat16 v1,
-                                                      bool ok1, bool pair) {
-  if (pair && ok1) *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(v0, v1);
-  else { p[0] = v0; if (ok1) p[1] = v1; }
-}
-template <>
-__device__ __forceinline__ void store2<int>(int* p, int v0, int v1, bool ok1,
-                                            bool pair) {
-  if (pair && ok1) *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
-  else { p[0] = v0; if (ok1) p[1] = v1; }
-}
-
-// grid (C tiles, R tiles, splits): block z sums contraction steps [z * kps,
-// min((z + 1) * kps, n_kb)) of 128 bytes.  ws == nullptr: the dequantized
-// output; else split z's int32 partial sums into ws[z] (R, C).
-template <bool ROW_SCALE, typename OutT>
-__global__ void __launch_bounds__(kGemmThreads, 2)
-gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
-               const __grid_constant__ CUtensorMap tb,
-               const float* __restrict__ scale, OutT* __restrict__ out,
-               int* __restrict__ ws, int R, int C, int kps, int n_kb) {
-  extern __shared__ uint8_t smem_raw[];
-  // 128-byte swizzle atoms repeat every 1024 bytes: align the tiles to it
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* as = smem;                       // kStages x [128 rows][128 B]
-  uint8_t* bs = as + kStages * kTileA;      // kStages x [128 rows][128 B]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(bs + kStages * kTileB);
-  auto bar_full = [&](int s) { return smem_u32(bars + s); };
-  auto bar_empty = [&](int s) { return smem_u32(bars + kStages + s); };
-
-  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
-  const int kb0 = blockIdx.z * kps;
-  const int nk = min(n_kb, kb0 + kps) - kb0;
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_full(s), 1);
-      mbar_init(bar_empty(s), 8);  // lane 0 of each consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  // the operands (and the scales) come from the kernels before this one
-  grid_dependency_wait();
-
-  if (warp == 8) {
-    // ---------------------------------------------------------- producer
-    if (threadIdx.x == 256) {
-      for (int t = 0; t < nk; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(bar_empty(s), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full(s), kTileA + kTileB);
-        const int k = (kb0 + t) * kBK;
-        tma_load_2d(smem_u32(as + s * kTileA), &ta, bar_full(s), k, i0);
-        tma_load_2d(smem_u32(bs + s * kTileB), &tb, bar_full(s), k, j0);
-      }
-    }
-    return;
-  }
-
-  // ----------------------------------------------------------- consumers
-  const int wg = warp / 4, lane = threadIdx.x % 32;
-  int acc[kBN / 2];
-#pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
-  fence_regs(acc);
-  for (int t = 0; t < nk; ++t) {
-    const int s = t % kStages;
-    mbar_wait(bar_full(s), (t / kStages) & 1);
-    const uint32_t a = smem_u32(as + s * kTileA) + wg * 64 * kBK;
-    const uint32_t b = smem_u32(bs + s * kTileB);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk)
-      wgmma_s8_n128(acc, gmma_desc(a + 32 * kk, 16, 1024),
-                    gmma_desc(b + 32 * kk, 16, 1024));
-    wgmma_commit();
-    // the previous stage's products are done: hand its tiles back
-    wgmma_wait<1>();
-    if (t > 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty((t - 1) % kStages));
-    }
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-
-  // acc[4j + 2i + e] holds row 16 (warp % 4) + lane / 4 + 8i of this
-  // warpgroup's 64, column 8j + 2 (lane % 4) + e
-  const bool pair = C % 2 == 0;
-  int* part = ws != nullptr ? ws + static_cast<size_t>(blockIdx.z) * R * C
-                            : nullptr;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = i0 + 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * i;
-    if (r >= R) continue;
-    const float rs =
-        ROW_SCALE && part == nullptr ? scale_guard(scale[r]) : 1.0f;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int c = j0 + 8 * j + 2 * (lane % 4);
-      if (c >= C) continue;
-      const bool ok1 = c + 1 < C;
-      const int v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
-      const size_t at = static_cast<size_t>(r) * C + c;
-      if (part != nullptr) {
-        store2<int>(part + at, v0, v1, ok1, pair);
-      } else {
-        const float s0 = ROW_SCALE ? rs : scale_guard(scale[c]);
-        const float s1 =
-            ROW_SCALE ? rs : (ok1 ? scale_guard(scale[c + 1]) : 1.0f);
-        store2<OutT>(out + at, from_f32<OutT>(__int2float_rn(v0) * s0),
-                     from_f32<OutT>(__int2float_rn(v1) * s1), ok1, pair);
-      }
-    }
-  }
-}
-
-// out[r, c] = cast(float(sum_z ws[z, r, c]) * g(s)), the splits added in
-// order z = 0, 1, ... (exact int32); four outputs a thread, read as one
-// vector of each split where R * C % 4 == 0
-template <bool ROW_SCALE, typename OutT>
-__global__ void __launch_bounds__(256)
-split_reduce_kernel(const int* __restrict__ ws,
-                    const float* __restrict__ scale, OutT* __restrict__ out,
-                    int R, int C, int S) {
-  const size_t n = static_cast<size_t>(R) * C;
-  const size_t i0 = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
-  if (i0 >= n) return;
-  grid_dependency_wait();
-  int sum[4] = {0, 0, 0, 0};
-  if (n % 4 == 0) {
-    for (int z = 0; z < S; ++z) {
-      const int4 v = *reinterpret_cast<const int4*>(ws + z * n + i0);
-      sum[0] += v.x; sum[1] += v.y; sum[2] += v.z; sum[3] += v.w;
-    }
-  } else {
-    for (int z = 0; z < S; ++z)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (i0 + e < n) sum[e] += ws[z * n + i0 + e];
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const size_t idx = i0 + e;
-    if (idx >= n) break;
-    const int r = static_cast<int>(idx / C), c = static_cast<int>(idx % C);
-    out[idx] = from_f32<OutT>(__int2float_rn(sum[e]) *
-                              scale_guard(scale[ROW_SCALE ? r : c]));
-  }
-}
-
 // ----------------------------------------------------------------- host
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-int pad_to16(int n) { return ceil_div(n, 16) * 16; }
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// an int8 (rows, inner) operand with rows ld bytes apart as a 2-D map,
-// boxes of 128 bytes x box_rows; zero fill past inner and rows
-bool make_map(CUtensorMap* map, const void* base, int inner, int rows,
-              int ld, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || !aligned16(base) || ld % 16 || ld < inner) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// splits of the contraction for an (R, C) output over Kc: the count that
-// minimises a cost model -- the busiest SM's 128-byte steps (two blocks
-// share an SM) plus the workspace's bytes -- at least two steps a split
-int gemm_splits(int R, int C, int Kc) {
-  const int n_sm = sm_count() > 0 ? sm_count() : 132;
-  const long tiles = static_cast<long>(ceil_div(R, kBM)) * ceil_div(C, kBN);
-  const int n_kb = ceil_div(Kc, kBK);
-  // one step of one 128 x 128 tile on an SM, and the workspace's rate, in
-  // microseconds and bytes per microsecond (H100 readings, rounded)
-  const double t_step = 0.45, bw = 2.5e6;
-  int best = 1;
-  double best_cost = 1e300;
-  for (int s = 1; s <= 16 && s <= n_kb; ++s) {
-    const int kps = ceil_div(n_kb, s);
-    if (ceil_div(n_kb, kps) != s || (s > 1 && kps < 2)) continue;
-    const double waves = static_cast<double>((tiles * s + n_sm - 1) / n_sm);
-    double cost = waves * kps * t_step;
-    if (s > 1) cost += (2.0 * s + 1.0) * 4.0 * R * C / bw;
-    if (cost < best_cost) {
-      best_cost = cost;
-      best = s;
-    }
-  }
-  return best;
-}
-
-// validates the split count: splits blocks of kps steps, none empty
-bool split_steps(int Kc, int splits, int* kps) {
-  const int n_kb = ceil_div(Kc, kBK);
-  if (splits < 1 || splits > n_kb) return false;
-  *kps = ceil_div(n_kb, splits);
-  return ceil_div(n_kb, *kps) == splits;
-}
-
-template <typename K>
-int prepare_gemm(K kern) {
-  int e = static_cast<int>(cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem));
-  if (e) return e;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-      static_cast<int>(cudaSharedmemCarveoutMaxShared)));
-}
-
-// one GEMM launch: the dequantized output (splits == 1) or the int32
-// partials of each split into ws
-template <bool ROW_SCALE, typename OutT>
-int launch_gemm(const void* a, const void* b, const float* scale, void* out,
-                void* ws, int R, int C, int Kc, int lda, int ldb, int splits,
-                cudaStream_t st) {
-  int kps = 0;
-  if (R < 1 || C < 1 || Kc < 1 || Kc > kMaxContraction ||
-      !split_steps(Kc, splits, &kps) || (splits > 1 && ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap ta, tb;
-  if (!make_map(&ta, a, Kc, R, lda, kBM) || !make_map(&tb, b, Kc, C, ldb, kBN))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = gemm_s8_kernel<ROW_SCALE, OutT>;
-  static const int prepared = prepare_gemm(kern);  // once per instance
-  if (prepared) return prepared;
-  return launch_pdl(kern, dim3(ceil_div(C, kBN), ceil_div(R, kBM), splits),
-                    dim3(kGemmThreads), kGemmSmem, st, ta, tb, scale,
-                    static_cast<OutT*>(out),
-                    splits > 1 ? static_cast<int*>(ws) : nullptr, R, C, kps,
-                    ceil_div(Kc, kBK));
-}
-
-template <bool ROW_SCALE, typename OutT>
-int launch_reduce(const void* ws, const float* scale, void* out, int R, int C,
-                  int S, cudaStream_t st) {
-  if (R < 1 || C < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(R) * C;
-  return launch_pdl(split_reduce_kernel<ROW_SCALE, OutT>,
-                    dim3(static_cast<unsigned>((n + 1023) / 1024)), dim3(256),
-                    0, st, static_cast<const int*>(ws), scale,
-                    static_cast<OutT*>(out), R, C, S);
-}
-
-// the GEMM of a backward call, then the split reduction where it splits
-template <bool ROW_SCALE, typename OutT>
-int gemm_and_reduce(const void* a, const void* b, const float* scale,
-                    void* out, void* ws, int R, int C, int Kc, int lda,
-                    int ldb, int splits, cudaStream_t st) {
-  int e = launch_gemm<ROW_SCALE, OutT>(a, b, scale, out, ws, R, C, Kc, lda,
-                                        ldb, splits, st);
-  if (e || splits == 1) return e;
-  return launch_reduce<ROW_SCALE, OutT>(ws, scale, out, R, C, splits, st);
-}
-
-template <bool ROW_SCALE>
-int gemm_out(int out_dtype, const void* a, const void* b, const float* scale,
-             void* out, void* ws, int R, int C, int Kc, int lda, int ldb,
-             int splits, cudaStream_t st) {
-  if (out_dtype == kFloat32)
-    return gemm_and_reduce<ROW_SCALE, float>(a, b, scale, out, ws, R, C, Kc,
-                                             lda, ldb, splits, st);
-  if (out_dtype == kBFloat16)
-    return gemm_and_reduce<ROW_SCALE, __nv_bfloat16>(a, b, scale, out, ws, R,
-                                                     C, Kc, lda, ldb, splits,
-                                                     st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 int quant_rows(const void* g, const float* fold, const float* qs, void* gq,
                int M, int N, int g_dtype, cudaStream_t st) {
   if (M < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -626,12 +224,12 @@ extern "C" int repro_int8_gemm(const void* a, const void* b, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scale);
   if (splits > 1)
-    return launch_gemm<true, float>(a, b, s, out, ws, R, C, Kc, lda, ldb,
-                                    splits, st);
-  return row_scale ? gemm_out<true>(out_dtype, a, b, s, out, ws, R, C, Kc,
-                                    lda, ldb, 1, st)
-                   : gemm_out<false>(out_dtype, a, b, s, out, ws, R, C, Kc,
-                                     lda, ldb, 1, st);
+    return launch_gemm<kRowScale, float>(a, b, nullptr, nullptr, out, ws, R,
+                                         C, Kc, lda, ldb, splits, st);
+  return row_scale ? gemm_out<kRowScale>(out_dtype, a, b, s, nullptr, out, ws,
+                                         R, C, Kc, lda, ldb, 1, st)
+                   : gemm_out<kColScale>(out_dtype, a, b, nullptr, s, out, ws,
+                                         R, C, Kc, lda, ldb, 1, st);
 }
 
 // ws (S, R, C) int32 -> out (R, C) = cast(float(sum over S) * g(scale))
@@ -641,20 +239,10 @@ extern "C" int repro_int8_split_reduce(const void* ws, const void* scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scale);
-  if (out_dtype == kFloat32)
-    return row_scale ? launch_reduce<true, float>(ws, s, out, R, C, S, st)
-                     : launch_reduce<false, float>(ws, s, out, R, C, S, st);
-  if (out_dtype == kBFloat16)
-    return row_scale
-               ? launch_reduce<true, __nv_bfloat16>(ws, s, out, R, C, S, st)
-               : launch_reduce<false, __nv_bfloat16>(ws, s, out, R, C, S, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the split count the backward entries expect for an (R, C) output over a
-// contraction of Kc (the wrappers size the workspace by it)
-extern "C" int repro_int8_gemm_splits(int R, int C, int Kc) {
-  return gemm_splits(R, C, Kc);
+  return row_scale ? reduce_out<kRowScale>(out_dtype, ws, s, nullptr, out, R,
+                                           C, S, st)
+                   : reduce_out<kColScale>(out_dtype, ws, nullptr, s, out, R,
+                                           C, S, st);
 }
 
 // ---------------------------------------------------- the two backwards
@@ -672,8 +260,8 @@ extern "C" int repro_int8_matmul_nt(const void* g, const void* w,
   if (int e = quant_rows(g, static_cast<const float*>(fold), q, gq, M, N,
                          g_dtype, st))
     return e;
-  return gemm_out<true>(out_dtype, gq, w, q, out, ws, M, K, N, pad_to16(N),
-                        ldw, splits, st);
+  return gemm_out<kRowScale>(out_dtype, gq, w, q, nullptr, out, ws, M, K, N,
+                             pad_to16(N), ldw, splits, st);
 }
 
 // x (M, K) int8, g (M, N) carrier, fold (M) f32, qs (N) f32, all
@@ -690,6 +278,6 @@ extern "C" int repro_int8_matmul_tn(const void* x, const void* g,
                       K, g_dtype, st))
     return e;
   const int ldm = pad_to16(M);
-  return gemm_out<false>(out_dtype, xt, gt, q, out, ws, K, N, M, ldm, ldm,
-                         splits, st);
+  return gemm_out<kColScale>(out_dtype, xt, gt, nullptr, q, out, ws, K, N, M,
+                             ldm, ldm, splits, st);
 }

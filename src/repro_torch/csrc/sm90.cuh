@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, int8_matmul_bwd.cu): shared-memory
-// addresses, mbarriers, TMA tile loads, wgmma descriptors, fences and the
-// bf16 wgmma forms, the exact three-term bf16 split, and the lookup of
-// cuTensorMapEncodeTiled through the runtime (so no library links -lcuda).
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_q8_sm90.cu, gemm_s8.cuh):
+// shared-memory addresses, mbarriers, TMA tile loads, wgmma descriptors,
+// fences and the bf16 wgmma forms, the exact three-term bf16 split and the
+// split of a scaled Q tile, and the lookup of cuTensorMapEncodeTiled
+// through the runtime (so no library links -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see encode_tiled)
@@ -77,6 +78,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2) : "memory");
+}
+
+// the same for a 4-D map
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -202,6 +215,49 @@ __device__ __forceinline__ void bf16_terms(float x, float& hi, float& mid,
   const float r = fabsf(hi) <= FLT_MAX ? __fsub_rn(x, hi) : 0.0f;
   mid = __bfloat162float(__float2bfloat16_rn(r));
   lo = __fsub_rn(r, mid);  // exact; rounded to bf16 where it is packed
+}
+
+// max(l, 1e-30) that keeps a NaN l (jnp.maximum; fmaxf would drop it)
+__device__ __forceinline__ float floor_l(float l) {
+  return l < 1e-30f ? 1e-30f : l;
+}
+
+// The Q tile's 16 bytes at t0 + off (eight bf16 values of q) as the terms
+// the tensor cores read (flash_fwd_sm90.cu, flash_q8_sm90.cu): x = fl(q *
+// scale) in place as hi (term 0), and for NQ = 3 its remainders
+// mid and lo (terms 1, 2, bf16_terms): hi + mid + lo == x exactly
+// while |x| >= 2^-110, hi == x at a power-of-two scale while |x| >= 2^-126
+// (below, bf16's subnormal step of 2^-133 drops at most 2^-134); a
+// non-finite hi leaves mid = lo = 0 so an inf in q stays an inf score.  The
+// same formula: kernels/flash_attn.py:bf16_q_terms.
+template <int NQ>
+__device__ __forceinline__ void split_q(uint8_t* t0, int q_bytes, int off,
+                                        float scale) {
+  uint4 in = *reinterpret_cast<uint4*>(t0 + off);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&in);
+  uint4 hi4, mid4, lo4;
+  __nv_bfloat16* hi = reinterpret_cast<__nv_bfloat16*>(&hi4);
+  __nv_bfloat16* mid = reinterpret_cast<__nv_bfloat16*>(&mid4);
+  __nv_bfloat16* lo = reinterpret_cast<__nv_bfloat16*>(&lo4);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    // __fmul_rn: x is rounded once, never fused into the subtraction
+    const float x = __fmul_rn(__bfloat162float(e[i]), scale);
+    if constexpr (NQ == 3) {
+      float h, m, l;
+      bf16_terms(x, h, m, l);
+      hi[i] = __float2bfloat16_rn(h);
+      mid[i] = __float2bfloat16_rn(m);
+      lo[i] = __float2bfloat16_rn(l);
+    } else {
+      hi[i] = __float2bfloat16_rn(x);
+    }
+  }
+  *reinterpret_cast<uint4*>(t0 + off) = hi4;
+  if constexpr (NQ == 3) {
+    *reinterpret_cast<uint4*>(t0 + q_bytes + off) = mid4;
+    *reinterpret_cast<uint4*>(t0 + 2 * q_bytes + off) = lo4;
+  }
 }
 
 // ------------------------------------------- programmatic dependent launch

@@ -31,16 +31,23 @@ BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: source name -> {C entry point: argtypes}; every entry returns int
 SIGNATURES = {
-    "int8_matmul": {"repro_int8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
+    "int8_matmul": {
+        "repro_int8_matmul_dp4a": [_P] * 5 + [_I] * 4 + [_P],
+        "repro_int8_matmul_wgmma": [_P] * 7 + [_I] * 6 + [_P],
+        "repro_int8_transpose": [_P] * 2 + [_I] * 2 + [_P],
+        "repro_int8_gemm_fwd": [_P] * 6 + [_I] * 7 + [_P],
+        "repro_int8_split_reduce_fwd": [_P] * 4 + [_I] * 4 + [_P],
+        "repro_int8_gemm_splits": [_I] * 3},
     "int8_matmul_bwd": {
         "repro_int8_matmul_nt": [_P] * 7 + [_I] * 7 + [_P],
         "repro_int8_matmul_tn": [_P] * 8 + [_I] * 6 + [_P],
         "repro_int8_quant_rows": [_P] * 4 + [_I] * 3 + [_P],
         "repro_int8_pack_tn": [_P] * 6 + [_I] * 4 + [_P],
         "repro_int8_gemm": [_P] * 5 + [_I] * 8 + [_P],
-        "repro_int8_split_reduce": [_P] * 3 + [_I] * 5 + [_P],
-        "repro_int8_gemm_splits": [_I] * 3},
+        "repro_int8_split_reduce": [_P] * 3 + [_I] * 5 + [_P]},
     "flash_attn_q8": {"repro_flash_attn_q8":
+                      [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
+    "flash_q8_sm90": {"repro_flash_q8_sm90":
                       [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "flash_attn": {
         "repro_flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 3 + [_P],

@@ -16,10 +16,14 @@ everything else ``csrc/flash_attn.cu`` on the CUDA cores -- and runs its
 * :func:`flash_attention` -- the ``flash_attention`` custom VJP as a
   ``torch.autograd.Function``: #8 forward, #9 and #10 backward.
 
-Over the int8 cache: :func:`flash_attention_fwd_q8` launches
-``csrc/flash_attn_q8.cu`` (the port of ``flash_attention_fwd_q8``, #11) and
-runs :func:`flash_attention_fwd_q8_plain` on CPU tensors.  Both keep the
-dequantized K/V in fp32, as the JAX kernel does.
+Over the int8 cache: :func:`flash_attention_fwd_q8` (the port of
+``flash_attention_fwd_q8``, #11) launches, at bfloat16,
+``csrc/flash_q8_sm90.cu`` on the tensor cores and, at float32,
+``csrc/flash_attn_q8.cu`` on the CUDA cores (:func:`q8_library`), and runs
+:func:`flash_attention_fwd_q8_plain` on CPU tensors.  All three keep the
+dequantized K/V and p * g(vs) in fp32, as the JAX kernel does (the
+tensor-core kernel feeds fp32 values to the tensor cores as exact bf16
+terms, :func:`bf16_terms`).
 """
 from __future__ import annotations
 
@@ -78,21 +82,15 @@ def flash_attention_fwd_q8_plain(q: torch.Tensor, kq: torch.Tensor,
     return ctx.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def flash_attention_fwd_q8(q: torch.Tensor, kq: torch.Tensor,
-                           ks: torch.Tensor, vq: torch.Tensor,
-                           vs: torch.Tensor, *, causal: bool = True,
-                           q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, hd); kq/vq: (B, Skv, K, hd) int8; ks/vs: (B, Skv, K, 1)
-    fp32 -> (B, Sq, H, hd) in q's dtype.  H % K == 0 (GQA/MQA); causal
-    masking makes any never-written cache tail (rows >= q_offset + Sq)
-    invisible.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
-    b, sq, h, hd, skv, kh = _check_args(q, kq, causal, q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_q8_plain(q, kq, ks, vq, vs, causal=causal,
-                                            q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd_q8: unsupported device {q.device}")
+def q8_library(dtype: torch.dtype) -> str:
+    """The library a CUDA call of #11 launches, by a fixed rule: bfloat16
+    takes the tensor-core kernel (``"flash_q8_sm90"``); float32 the
+    CUDA-core kernel (``"flash_attn_q8"``: TF32 would drop 13 bits of every
+    operand and leave the float32 tolerance)."""
+    return "flash_q8_sm90" if dtype == torch.bfloat16 else "flash_attn_q8"
+
+
+def _check_q8_cuda(q, kq, ks, vq, vs, b, sq, h, hd, skv, kh):
     if q.dtype not in _DTYPE_CODES or hd not in _HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd_q8: dtype {q.dtype}, head dim "
                          f"{hd} (kernel takes {list(_DTYPE_CODES)} and "
@@ -106,14 +104,63 @@ def flash_attention_fwd_q8(q: torch.Tensor, kq: torch.Tensor,
                 or tuple(t.shape) != shape):
             raise ValueError(f"flash_attention_fwd_q8: {name} must be a "
                              f"contiguous {dt} {shape} tensor on {q.device}")
-    out = torch.empty_like(q)
-    lib = _build.load("flash_attn_q8")
-    rc = lib.repro_flash_attn_q8(
-        _build.ptr(q), _build.ptr(kq), _build.ptr(ks), _build.ptr(vq),
-        _build.ptr(vs), _build.ptr(out), b, sq, skv, h, kh, hd,
-        1.0 / math.sqrt(hd), int(causal), int(q_offset),
-        _DTYPE_CODES[q.dtype], _build.stream_of(q))
+    # the bf16 kernel reads q, kq and vq by TMA, which takes 16-byte bases
+    for name, t in (("q", q), ("kq", kq), ("vq", vq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_fwd_q8: {name} must start on "
+                             f"a 16-byte boundary (data_ptr "
+                             f"{t.data_ptr():#x})")
+
+
+def launch_q8(lib_name: str, q: torch.Tensor, kq: torch.Tensor,
+              ks: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor, *,
+              causal: bool = True, q_offset: int = 0,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One launch of #11's kernel in the library ``lib_name`` on CUDA
+    tensors, counted nowhere: what :func:`flash_attention_fwd_q8` runs, and
+    the card's checks' way to time the CUDA-core body at bfloat16
+    (``"flash_attn_q8"``) or to read the tensor-core kernel's output before
+    its cast (``"flash_q8_sm90"``, ``out_dtype=torch.float32``).  Raises on
+    what the kernel does not take and on a CUDA error."""
+    b, sq, h, hd, skv, kh = _check_args(q, kq, causal, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd_q8: unsupported device {q.device}")
+    _check_q8_cuda(q, kq, ks, vq, vs, b, sq, h, hd, skv, kh)
+    out_dtype = out_dtype or q.dtype
+    if lib_name == "flash_q8_sm90" and q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_fwd_q8: the tensor-core kernel "
+                         "takes bfloat16 q")
+    if lib_name == "flash_attn_q8" and out_dtype != q.dtype:
+        raise ValueError("flash_attention_fwd_q8: the CUDA-core kernel "
+                         "writes q's dtype")
+    out = torch.empty((b, sq, h, hd), dtype=out_dtype, device=q.device)
+    lib = _build.load(lib_name)
+    entry = (lib.repro_flash_q8_sm90 if lib_name == "flash_q8_sm90"
+             else lib.repro_flash_attn_q8)
+    rc = entry(_build.ptr(q), _build.ptr(kq), _build.ptr(ks), _build.ptr(vq),
+               _build.ptr(vs), _build.ptr(out), b, sq, skv, h, kh, hd,
+               1.0 / math.sqrt(hd), int(causal), int(q_offset),
+               _DTYPE_CODES[out_dtype], _build.stream_of(q))
     _build.check(lib, rc, "flash_attention_fwd_q8")
+    return out
+
+
+def flash_attention_fwd_q8(q: torch.Tensor, kq: torch.Tensor,
+                           ks: torch.Tensor, vq: torch.Tensor,
+                           vs: torch.Tensor, *, causal: bool = True,
+                           q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); kq/vq: (B, Skv, K, hd) int8; ks/vs: (B, Skv, K, 1)
+    fp32 -> (B, Sq, H, hd) in q's dtype.  H % K == 0 (GQA/MQA); causal
+    masking makes any never-written cache tail (rows >= q_offset + Sq)
+    invisible.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel :func:`q8_library` names (hd in 32, 64, 128; q, kq and vq on
+    16-byte boundaries) or raise."""
+    b, sq, h, hd, skv, kh = _check_args(q, kq, causal, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_q8_plain(q, kq, ks, vq, vs, causal=causal,
+                                            q_offset=q_offset)
+    out = launch_q8(q8_library(q.dtype), q, kq, ks, vq, vs, causal=causal,
+                    q_offset=q_offset)
     flash_attention_fwd_q8.launches += 1
     return out
 

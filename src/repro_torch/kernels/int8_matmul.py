@@ -13,11 +13,15 @@ forward computes
     y[m, n] = ((float) sum_k x[m, k] * w[k, n]) * g(rs[m]) * g(cs[n])
 
 with an exact integer sum and ``g`` mapping a 0 scale to 1, then casts to
-the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.  The
-transposed layouts take the fp gradient, quantize it once into K-major int8
-payloads and multiply those on the int8 tensor cores (see their
-docstrings and the stages below); the wrappers in ``kernels/ops.py`` reduce
-its scales.
+the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.  Above
+:data:`FWD_DP4A_MAX_M` rows it transposes the weight into a K-major payload
+and multiplies on the int8 tensor cores (:func:`fwd_route`); the decode
+step's few rows take a CUDA-core kernel.  The transposed layouts take the
+fp gradient, quantize it once into K-major int8 payloads and multiply those
+on the int8 tensor cores (see their docstrings and the stages below); the
+wrappers in ``kernels/ops.py`` reduce its scales.  The forward and the
+backward share one GEMM (``csrc/gemm_s8.cuh``), with the scale per row,
+per column or both.
 """
 from __future__ import annotations
 
@@ -64,14 +68,24 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
             * scale_guard(col_scale).reshape(1, -1)).to(out_dtype)
 
 
-def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
-                col_scale: torch.Tensor,
-                out_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: int8 (M, K); w: int8 (K, N); row_scale fp32 (M, 1) or (M,);
-    col_scale fp32 (1, N) or (N,) -> (M, N) ``out_dtype``.
+#: the most rows the forward's CUDA-core (dp4a) route takes; more go to
+#: the int8 tensor cores (set from phase 3's queued readings at M = 16, 17
+#: and 64, PERF.md)
+FWD_DP4A_MAX_M = 16
 
-    CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
-    kernel (any M, N, K) or raise."""
+
+def fwd_route(m: int, n: int, k: int) -> str:
+    """The forward's route on the card for an (m, k) x (k, n) call:
+    ``"dp4a"`` (the decode step's M <= :data:`FWD_DP4A_MAX_M` rows, a
+    weight-streaming call whose time is its host dispatch) or ``"wgmma"``
+    (the weight transposed into a K-major payload, then the int8
+    tensor-core GEMM with both scales).  Both routes are kernels and give
+    the same bits."""
+    del n, k  # the crossover is a row count at GPT-2's widths
+    return "dp4a" if m <= FWD_DP4A_MAX_M else "wgmma"
+
+
+def _check_fwd(x, w, row_scale, col_scale, out_dtype):
     m, k = x.shape
     k2, n = w.shape
     if k != k2:
@@ -80,7 +94,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
         raise ValueError(f"int8_matmul: scales {tuple(row_scale.shape)}, "
                          f"{tuple(col_scale.shape)} for ({m}, {n}) output")
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
+        return m, n, k
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     _check_cuda("int8_matmul", x.device, (
@@ -89,12 +103,67 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
         ("col_scale", col_scale, (torch.float32,))))
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"int8_matmul: unsupported out_dtype {out_dtype}")
+    return m, n, k
+
+
+def int8_matmul_dp4a(x: torch.Tensor, w: torch.Tensor,
+                     row_scale: torch.Tensor, col_scale: torch.Tensor,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The forward's CUDA-core route at any M (a stage: no launch count).
+    CPU tensors take :func:`int8_matmul_plain`."""
+    m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    lib = _build.load("int8_matmul")
-    rc = lib.repro_int8_matmul(_build.ptr(x), _build.ptr(w), _build.ptr(row_scale),
-            _build.ptr(col_scale), _build.ptr(out), m, n, k,
-            _DTYPE_CODES[out_dtype], _build.stream_of(x))
-    _build.check(lib, rc, "int8_matmul")
+    _run("repro_int8_matmul_dp4a", _build.ptr(x), _build.ptr(w),
+         _build.ptr(row_scale), _build.ptr(col_scale), _build.ptr(out), m, n,
+         k, _DTYPE_CODES[out_dtype], _build.stream_of(x))
+    return out
+
+
+def int8_matmul_wgmma(x: torch.Tensor, w: torch.Tensor,
+                      row_scale: torch.Tensor, col_scale: torch.Tensor,
+                      out_dtype=torch.bfloat16,
+                      splits: Optional[int] = None) -> torch.Tensor:
+    """The forward's tensor-core route at any M (a stage: no launch count):
+    w transposed into (N, pad16(K)), then the GEMM with both scales, split
+    ``splits`` ways (default :func:`gemm_splits`) over the contraction.
+    CPU tensors take :func:`int8_matmul_plain`."""
+    m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
+    if k > MAX_CONTRACTION:
+        raise ValueError(f"int8_matmul: contraction {k} > {MAX_CONTRACTION} "
+                         f"(int32 sums)")
+    splits = splits or gemm_splits(m, n, k)
+    _split_bounds(k, splits)
+    xk = kmajor_weight(x)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    wt = torch.empty((n, _pad16(k)), dtype=torch.int8, device=x.device)
+    ws = _workspace(splits, m, n, x.device)
+    _run("repro_int8_matmul_wgmma", _build.ptr(xk), _build.ptr(w),
+         _build.ptr(row_scale), _build.ptr(col_scale), _build.ptr(out),
+         _build.ptr(wt), _p(ws), m, n, k, xk.stride(0), splits,
+         _DTYPE_CODES[out_dtype], _build.stream_of(x))
+    return out
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
+                col_scale: torch.Tensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: int8 (M, K); w: int8 (K, N); row_scale fp32 (M, 1) or (M,);
+    col_scale fp32 (1, N) or (N,) -> (M, N) ``out_dtype``.
+
+    CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
+    kernels of the route :func:`fwd_route` names (any M, N and K; K up to
+    ``MAX_CONTRACTION`` on the tensor cores) or raise.  A call is one
+    launch on the counter, whatever kernels its route runs."""
+    m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
+    route = (int8_matmul_dp4a if fwd_route(m, n, k) == "dp4a"
+             else int8_matmul_wgmma)
+    out = route(x, w, row_scale, col_scale, out_dtype)
     int8_matmul.launches += 1
     return out
 
@@ -234,8 +303,38 @@ def int8_gemm_kmajor_plain(a: torch.Tensor, b: torch.Tensor,
             * _scale_of(scale, row_scale)).to(out_dtype)
 
 
+def _dequant_fwd(acc: torch.Tensor, rs: torch.Tensor, cs: torch.Tensor,
+                 out_dtype) -> torch.Tensor:
+    """The forward's epilogue on an fp32 sum: (acc * g(rs)) * g(cs), two
+    roundings in that order, then the cast."""
+    return ((acc * _scale_of(rs, True)) * _scale_of(cs, False)).to(out_dtype)
+
+
+def int8_gemm_fwd_plain(a: torch.Tensor, b: torch.Tensor, rs: torch.Tensor,
+                        cs: torch.Tensor, kc: int,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The forward's GEMM of two K-major int8 operands a (R, >= kc) and b
+    (C, >= kc): C[i, j] = cast((float(sum_{k < kc} a[i, k] b[j, k]) *
+    g(rs[i])) * g(cs[j]))."""
+    return _dequant_fwd(_exact_matmul(a[:, :kc], b[:, :kc].t()), rs, cs,
+                        out_dtype)
+
+
+def int8_split_reduce_fwd_plain(ws: torch.Tensor, rs: torch.Tensor,
+                                cs: torch.Tensor,
+                                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The forward's split reduction: the splits' exact sum, then
+    :func:`int8_gemm_fwd_plain`'s epilogue."""
+    acc = ws.to(torch.int64).sum(dim=0).to(torch.float32)
+    return _dequant_fwd(acc, rs, cs, out_dtype)
+
+
 def _run(entry: str, *args) -> None:
-    lib = _build.load("int8_matmul_bwd")
+    """Call the C entry point ``entry`` of the library that exports it (the
+    forward's or the backward's, ``_build.SIGNATURES``); raise on a CUDA
+    error."""
+    name = next(n for n, sig in _build.SIGNATURES.items() if entry in sig)
+    lib = _build.load(name)
     _build.check(lib, getattr(lib, entry)(*args), entry)
 
 
@@ -246,8 +345,9 @@ def _p(t: Optional[torch.Tensor]):
 @functools.lru_cache(maxsize=None)
 def gemm_splits(r: int, c: int, kc: int) -> int:
     """The split count the card's GEMM takes for an (r, c) output over a
-    contraction of ``kc`` (a function of the shapes and the SM count)."""
-    lib = _build.load("int8_matmul_bwd")
+    contraction of ``kc`` (a function of the shapes and the SM count; the
+    forward's and the backward's libraries share it, ``csrc/gemm_s8.cuh``)."""
+    lib = _build.load("int8_matmul")
     return int(lib.repro_int8_gemm_splits(r, c, kc))
 
 
@@ -379,15 +479,87 @@ def int8_gemm_kmajor(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def transpose_packed(x: torch.Tensor) -> torch.Tensor:
+    """The forward's transpose pass (see :func:`transpose_packed_plain`): w
+    (K, N) -> (N, pad16(K)), one launch on the card."""
+    if not _on_card("transpose_packed", x):
+        return transpose_packed_plain(x)
+    _check_cuda("transpose_packed", x.device, (("x", x, (torch.int8,)),))
+    r, c = x.shape
+    out = torch.empty((c, _pad16(r)), dtype=torch.int8, device=x.device)
+    _run("repro_int8_transpose", _build.ptr(x), _build.ptr(out), r, c,
+             _build.stream_of(x))
+    return out
+
+
+def _check_fwd_scales(what, a, b, rs, cs, out_dtype):
+    _check_cuda(what, a.device, (("rs", rs, (torch.float32,)),
+                                 ("cs", cs, (torch.float32,))))
+    if (rs.numel() != a.shape[0] or cs.numel() != b.shape[0]
+            or out_dtype not in _DTYPE_CODES):
+        raise ValueError(f"{what}: rs {tuple(rs.shape)}, cs {tuple(cs.shape)}"
+                         f" or out_dtype {out_dtype} for a "
+                         f"({a.shape[0]}, {b.shape[0]}) output")
+
+
+def int8_split_reduce_fwd(ws: torch.Tensor, rs: torch.Tensor,
+                          cs: torch.Tensor,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The forward's split reduction (see
+    :func:`int8_split_reduce_fwd_plain`), one launch on the card."""
+    if not _on_card("int8_split_reduce_fwd", ws):
+        return int8_split_reduce_fwd_plain(ws, rs, cs, out_dtype)
+    s, r, c = ws.shape
+    _check_cuda("int8_split_reduce_fwd", ws.device,
+                (("ws", ws, (torch.int32,)),))
+    _check_fwd_scales("int8_split_reduce_fwd", ws[0], ws[0].t(), rs, cs,
+                      out_dtype)
+    out = torch.empty((r, c), dtype=out_dtype, device=ws.device)
+    _run("repro_int8_split_reduce_fwd", _build.ptr(ws), _build.ptr(rs),
+             _build.ptr(cs), _build.ptr(out), r, c, s,
+             _DTYPE_CODES[out_dtype], _build.stream_of(ws))
+    return out
+
+
+def int8_gemm_fwd(a: torch.Tensor, b: torch.Tensor, rs: torch.Tensor,
+                  cs: torch.Tensor, kc: int, out_dtype=torch.bfloat16,
+                  splits: Optional[int] = None) -> torch.Tensor:
+    """The forward's GEMM of two K-major int8 operands with both scales (see
+    :func:`int8_gemm_fwd_plain`).  On the card: one kernel, or with
+    ``splits`` > 1 (default :func:`gemm_splits`) the partials and their
+    reduction (two kernels); every split count gives the same bits."""
+    if not _on_card("int8_gemm_fwd", a):
+        return int8_gemm_fwd_plain(a, b, rs, cs, kc, out_dtype)
+    _check_kmajor("int8_gemm_fwd", a.device, (("a", a), ("b", b)), kc)
+    _check_fwd_scales("int8_gemm_fwd", a, b, rs, cs, out_dtype)
+    r, c = a.shape[0], b.shape[0]
+    splits = splits or gemm_splits(r, c, kc)
+    _split_bounds(kc, splits)
+    if splits > 1:
+        ws = torch.empty((splits, r, c), dtype=torch.int32, device=a.device)
+        _run("repro_int8_gemm_fwd", _build.ptr(a), _build.ptr(b), None,
+                 None, None, _build.ptr(ws), r, c, kc, a.stride(0),
+                 b.stride(0), splits, _DTYPE_CODES[torch.float32],
+                 _build.stream_of(a))
+        return int8_split_reduce_fwd(ws, rs, cs, out_dtype)
+    out = torch.empty((r, c), dtype=out_dtype, device=a.device)
+    _run("repro_int8_gemm_fwd", _build.ptr(a), _build.ptr(b),
+             _build.ptr(rs), _build.ptr(cs), _build.ptr(out), None, r, c, kc,
+             a.stride(0), b.stride(0), 1, _DTYPE_CODES[out_dtype],
+             _build.stream_of(a))
+    return out
+
+
 def _workspace(splits: int, r: int, c: int, dev) -> Optional[torch.Tensor]:
     return (torch.empty((splits, r, c), dtype=torch.int32, device=dev)
             if splits > 1 else None)
 
 
 def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
-    """nt's weight operand as the GEMM reads it: ``w`` itself when its rows
-    are a multiple of 16 bytes long and it starts 16-byte aligned (GPT-2's
-    N of 768 and 3072), else one zero-padded copy (K, pad16(N))."""
+    """A K-major int8 operand as the GEMM reads it (nt's weight w (K, N),
+    the forward's activation x (M, K)): the tensor itself when its rows are
+    a multiple of 16 bytes long and it starts 16-byte aligned (GPT-2's 768
+    and 3072), else one zero-padded copy (rows, pad16(inner))."""
     k, n = w.shape
     if n % 16 == 0 and w.data_ptr() % 16 == 0:
         return w

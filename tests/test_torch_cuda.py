@@ -6,14 +6,19 @@ visible (the kernels have no CPU mode); on a machine with a card, run
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: the three int8 matmuls (forward, nt, tn) bit for bit, and so
-each stage of the backward against its plain stage (the quantize passes,
-the transpose, the int8 GEMM, the split partials and their reduction), a
-second nt or tn launch repeating the first's bits; the
+Tolerances: the three int8 matmuls (forward, nt, tn) bit for bit -- the
+forward on both its routes (dp4a and the tensor cores) at any M, the
+wrapper taking the route ``fwd_route`` names -- and so each stage of the
+forward and the backward against its plain stage (the quantize passes,
+the transposes, the int8 GEMM with its scale per row, per column or both,
+the split partials and their reduction), a second nt or tn launch
+repeating the first's bits; the
 attention kernels within 1e-5 of the plain version at the float32 carrier
 (fp32 sums in another order), within one bfloat16 rounding step at the
 bfloat16 carrier (two fp32 values a few ulp apart can round to
-neighbouring bf16 values), and the decode step's written cache rows bit
+neighbouring bf16 values; the int8-KV prefill's tensor-core kernel also
+within 1e-3 of the float32 plain version before its cast, and routed by
+``q8_library``), and the decode step's written cache rows bit
 for bit; the paged decode step equal to the dense one bit for bit on the
 same logical cache (context and written rows), its written pools equal
 to its plain version's outside the trash page 0; the fused AdamW step bit for bit in params, payloads, scales and
@@ -102,23 +107,88 @@ def _cache(dev, b, s, kh, hd, lengths, seed):
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(16, 768, 3072), (70, 3072, 768),
-                                   (5, 40, 24)])
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_int8_matmul_kernel(cuda, m, k, n, out_dtype):
+def _mm_case(cuda, m, k, n):
+    """int8 payloads and scales, every 3rd row scale and 4th column scale
+    0 (the guard maps them to 1)."""
     rng = np.random.RandomState(m + k + n)
     x = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(np.int8))
     w = torch.from_numpy(rng.randint(-128, 128, (k, n)).astype(np.int8))
     rs = torch.from_numpy(rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32))
     cs = torch.from_numpy(rng.uniform(1e-3, 0.1, (1, n)).astype(np.float32))
-    rs[::3] = 0.0                   # zero scales: the guard maps them to 1
-    x, w, rs, cs = (t.to(cuda) for t in (x, w, rs, cs))
+    rs[::3] = 0.0
+    cs[:, ::4] = 0.0
+    return tuple(t.to(cuda) for t in (x, w, rs, cs))
+
+
+#: (M, K, N): the decode step's 16 slots, M = 17 and 64 past the crossover,
+#: the training shape M = 8192, ragged M, N and K (K = 40 and 90: x is read
+#: through a padded copy), GPT-2's three linears
+FWD_CUDA_SHAPES = [(16, 768, 3072), (70, 3072, 768), (5, 40, 24),
+                   (17, 768, 768), (64, 768, 3072), (8192, 768, 3072),
+                   (130, 90, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", FWD_CUDA_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel(cuda, m, k, n, out_dtype):
+    """The wrapper (one launch on its counter) and both routes at any M,
+    bit for bit against the plain version."""
+    x, w, rs, cs = _mm_case(cuda, m, k, n)
     before = int8_matmul.launches
     got = int8_matmul(x, w, rs, cs, out_dtype=out_dtype)
     assert int8_matmul.launches == before + 1
-    assert torch.equal(got, int8_matmul_plain(x, w, rs, cs,
-                                              out_dtype=out_dtype))
+    want = int8_matmul_plain(x, w, rs, cs, out_dtype=out_dtype)
+    assert torch.equal(got, want)
+    for route in (im.int8_matmul_dp4a, im.int8_matmul_wgmma):
+        assert torch.equal(route(x, w, rs, cs, out_dtype), want), route
+    assert int8_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(17, 768, 768), (130, 90, 257),
+                                   (1024, 768, 768), (300, 3072, 48)])
+def test_int8_fwd_stage_kernels(cuda, m, k, n):
+    """The forward's stage kernels against their plain stages, bit for bit:
+    the weight's transpose pass, the GEMM with both scales at every split
+    count (up to 4), the split partials' reduction."""
+    x, w, rs, cs = _mm_case(cuda, m, k, n)
+    wt = im.transpose_packed(w)
+    assert torch.equal(wt, im.transpose_packed_plain(w))
+    xk = im.kmajor_weight(x)
+    for out in (torch.float32, torch.bfloat16):
+        want = im.int8_gemm_fwd_plain(xk, wt, rs, cs, k, out)
+        assert torch.equal(want, int8_matmul_plain(x, w, rs, cs, out))
+        for s in range(1, min(-(-k // im.GEMM_STEP), 4) + 1):
+            try:
+                im._split_bounds(k, s)
+            except ValueError:
+                continue
+            assert torch.equal(im.int8_gemm_fwd(xk, wt, rs, cs, k, out,
+                                                splits=s), want), s
+            if s > 1:
+                ws = im.int8_gemm_partials(xk, wt, k, s)
+                assert torch.equal(im.int8_split_reduce_fwd(ws, rs, cs, out),
+                                   want)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_routes_by_rows(cuda, monkeypatch):
+    """A CUDA call takes the route ``fwd_route`` names: the CUDA-core kernel
+    at M <= 16, the transpose pass and the tensor-core GEMM above (one
+    launch on the counter either way)."""
+    taken = []
+    for name in ("int8_matmul_dp4a", "int8_matmul_wgmma"):
+        real = getattr(im, name)
+        monkeypatch.setattr(im, name, lambda *a, _r=real, _n=name, **kw:
+                            taken.append(_n) or _r(*a, **kw))
+    for m in (1, 16, 17, 64):
+        x, w, rs, cs = _mm_case(cuda, m, 768, 768)
+        taken.clear()
+        im.int8_matmul(x, w, rs, cs)
+        assert taken == ["int8_matmul_" + im.fwd_route(m, 768, 768)], m
+        assert taken == ["int8_matmul_dp4a" if m <= 16
+                         else "int8_matmul_wgmma"]
 
 
 @pytest.mark.cuda
@@ -213,12 +283,21 @@ def test_decode_attention_paged_rejects_what_it_cannot_take(cuda):
             decode_attention_paged(args["q"], args["pool"], sc, args["pool"],
                                    sc, rows, rows, args["pos"], args["table"])
 
+#: (B, Sq, Skv, H, KH, hd, q_offset): GQA 6/2 and MQA 2/1, hd 32 / 64 /
+#: 128, an offset of 7, ragged Sq and Skv, and the engine's shapes (16
+#: slots at the 512 bucket, one prompt at 32, over 1024-row buffers)
+Q8_CUDA_SHAPES = [(2, 130, 200, 6, 2, 64, 0), (2, 130, 200, 4, 4, 32, 7),
+                  (2, 130, 200, 2, 1, 128, 0), (16, 512, 1024, 12, 12, 64, 0),
+                  (1, 32, 1024, 12, 12, 64, 0)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kh,hd,q_offset", [(6, 2, 64, 0), (4, 4, 32, 7),
-                                              (2, 1, 128, 0)])
-def test_flash_q8_kernel(cuda, dtype, h, kh, hd, q_offset):
-    b, sq, skv = 2, 130, 200
+@pytest.mark.parametrize("b,sq,skv,h,kh,hd,q_offset", Q8_CUDA_SHAPES)
+def test_flash_q8_kernel(cuda, dtype, b, sq, skv, h, kh, hd, q_offset):
+    """Within 1e-5 at float32 and one bf16 step at bfloat16; the bf16
+    kernel's output before its cast within 1e-3 of the plain version at
+    float32 (phase 3's limit), and a second launch repeats its bits."""
     kq, ks, vq, vs = _cache(cuda, b, skv, kh, hd, [q_offset + sq] * b, seed=h)
     q = torch.randn((b, sq, h, hd), generator=torch.Generator().manual_seed(2)
                     ).to(cuda, dtype)
@@ -227,6 +306,41 @@ def test_flash_q8_kernel(cuda, dtype, h, kh, hd, q_offset):
     want = flash_attention_fwd_q8_plain(q, kq, ks, vq, vs, causal=True,
                                         q_offset=q_offset)
     assert_attention_close(got, want)
+    assert torch.equal(flash_attention_fwd_q8(q, kq, ks, vq, vs, causal=True,
+                                              q_offset=q_offset), got)
+    if dtype == torch.bfloat16:
+        f32 = fa.launch_q8("flash_q8_sm90", q, kq, ks, vq, vs, causal=True,
+                           q_offset=q_offset, out_dtype=torch.float32)
+        want32 = flash_attention_fwd_q8_plain(q.float(), kq, ks, vq, vs,
+                                              causal=True, q_offset=q_offset)
+        assert (f32 - want32).abs().max().item() <= 1e-3
+        assert torch.equal(f32.bfloat16(), got)
+
+
+@pytest.mark.cuda
+def test_flash_q8_routes_bf16_to_the_tensor_cores(cuda, monkeypatch):
+    """A CUDA call of #11 loads the library ``q8_library`` names: at bf16
+    ``flash_q8_sm90``, at float32 ``flash_attn_q8``; the tensor-core
+    kernel refuses a q that is not bf16 and a misaligned kq."""
+    from repro_torch.kernels import _build
+    loaded = []
+    real_load = _build.load
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loaded.append(name) or real_load(name))
+    kq, ks, vq, vs = _cache(cuda, 1, 64, 2, 64, [64], seed=0)
+    for dtype, want in ((torch.bfloat16, "flash_q8_sm90"),
+                        (torch.float32, "flash_attn_q8")):
+        q = torch.randn((1, 64, 4, 64), device=cuda).to(dtype)
+        loaded.clear()
+        flash_attention_fwd_q8(q, kq, ks, vq, vs)
+        assert loaded == [want], (dtype, loaded)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.launch_q8("flash_q8_sm90", q, kq, ks, vq, vs)
+    buf = torch.zeros(kq.numel() + 1, dtype=torch.int8, device=cuda)
+    odd = buf[1:].view(kq.shape)
+    odd.copy_(kq)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd_q8(q.bfloat16(), odd, ks, vq, vs)
 
 
 def _bwd_inputs(m, n, other, dtype, seed):
