@@ -28,9 +28,13 @@ Phases, in order; any failure exits non-zero:
    and the engine's shapes, bf16 within one bf16 step and its output
    before the cast within ``Q8_TOL``, float32 within ``Q8_TOL``, timed
    beside the CUDA-core kernel at bf16, the ``flash_q8_sm90`` kernels holding
-   ``HGMMA`` (``check_flash_q8``); 3b. the paged
-   decode kernel the same way at pages of 16, 64 and 256 rows, and bit for
-   bit against the dense decode kernel on the same logical cache
+   ``HGMMA`` (``check_flash_q8``); ``decode_attention`` at 16 slots of 1024
+   rows with positions on its chunk edges, within 1e-3 at float32 (one bf16
+   step at bf16), the written rows bit for bit, a second launch
+   bit-identical, timed queued and call by call beside SDPA
+   (``check_decode_attention``); 3b. the paged decode kernel the same way
+   at pages of 16, 64 and 256 rows, and bit for bit against the dense
+   decode kernel on the same logical cache
    (``check_decode_attention_paged``);
 4. serve GPT-2 small (random weights from ``--seed``, bf16 carrier, W8A8
    prepared weights, int8 KV cache) through the continuous-batching engine:
@@ -418,14 +422,70 @@ def _dequant(torch, q, s):
     return q.float() * scale_guard(s)
 
 
-def check_decode_attention(torch, dev, gen, results):
+def _decode_pos(torch, dev, gen, b, s):
+    """Phase 3's ragged positions: pos 0 (slot 0), a full slot (pos == S,
+    the clamped write), the kernel's chunk edges 1, C - 1, C, C + 1 and S -
+    1, the rest drawn from [1, S)."""
+    from repro_torch.kernels.decode_attn import DECODE_CHUNK as c
+    pos = torch.randint(1, s, (b,), generator=gen, device=dev)
+    edges = [0, s, 1, c - 1, c, c + 1, s - 1]
+    pos[:len(edges)] = torch.tensor(edges, device=dev)
+    return pos.to(torch.int32)
+
+
+def _decode_times(torch, fn, plain, sdpa, nbytes, ops):
+    """#12 / #13 timed queued and call by call, its plain version, SDPA
+    queued and call by call, and the bound."""
+    bd, by = bound_ms(nbytes, ops, FP32_FLOPS)
+    return dict(ms=queued_ms(fn), ms_call=time_ms(fn),
+                plain_ms=time_ms(plain, iters=5), bound_ms=bd, bound_by=by,
+                library_ms=queued_ms(sdpa), library_ms_call=time_ms(sdpa))
+
+
+def _decode_cost(q, nk, pos, kh, hd, g, extra=0):
+    """Bytes (each live cache row's payloads and scales, q and ctx, the
+    new rows read, the written row, pos; ``extra`` more) and fp32 FLOPs of
+    one decode step."""
+    b = q.shape[0]
+    rows = pos.clamp(0, None).long()
+    row_bytes = kh * (hd + 4)
+    nbytes = (2 * int(rows.sum()) * row_bytes + 2 * q.numel() * 2
+              + 2 * nk.numel() * 2 + 2 * b * row_bytes + 4 * b + extra)
+    return nbytes, 4.0 * hd * g * kh * float((rows + 1).sum())
+
+
+def _sdpa_yardstick(torch, dev, q, kq, ks, vq, vs, pos):
+    """SDPA over K/V dequantized beforehand (not timed), the decode step's
+    valid rows unmasked."""
     import torch.nn.functional as F
+    b, kh, g, hd = q.shape
+    s = kq.shape[1]
+    kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3)
+    vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3)
+    qs = q.reshape(b, kh * g, 1, hd)
+    mask = (torch.arange(s, device=dev)[None, :] < pos[:, None].clamp(min=1)
+            )[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
+
+
+def _time_line(t) -> str:
+    return (f"queued ms {t['ms']:.4f} (call by call {t['ms_call']:.4f}), "
+            f"plain_ms {t['plain_ms']:.4f}, bound_ms {t['bound_ms']:.5f} "
+            f"({t['bound_by']}), library_ms(SDPA, queued) "
+            f"{t['library_ms']:.4f} (call by call {t['library_ms_call']:.4f})")
+
+
+def check_decode_attention(torch, dev, gen, results):
+    """Phase 3, #12 at GPT-2 small's decode widths (16 slots of 1024 rows,
+    12 kv heads of 64) at ``_decode_pos``'s positions: ctx within 1e-3 of
+    the plain version at float32 (within one bf16 step at bfloat16), the
+    written rows bit for bit, a second launch on a clone of the same cache
+    bit-identical in ctx and written rows; timed queued and call by call
+    beside SDPA."""
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_plain)
     b, s, kh, g, hd = 16, 1024, 12, 1, 64
-    pos = torch.randint(1, s, (b,), generator=gen, device=dev)
-    pos[0], pos[1] = 0, s
-    pos = pos.to(torch.int32)
+    pos = _decode_pos(torch, dev, gen, b, s)
     cache = _int8_cache(torch, dev, gen, b, s, kh, hd, pos)
     q = torch.randn((b, kh, g, hd), generator=gen, device=dev).bfloat16()
     nk = torch.randn((b, kh, hd), generator=gen, device=dev).bfloat16()
@@ -434,43 +494,36 @@ def check_decode_attention(torch, dev, gen, results):
     for dt in (torch.float32, torch.bfloat16):
         kc = [t.clone() for t in cache]
         pc = [t.clone() for t in cache]
+        rc = [t.clone() for t in cache]
         args = [t.to(dt) for t in (q, nk, nv)]
         got = decode_attention(args[0], *kc, *args[1:], pos)
         want = decode_attention_plain(args[0], *pc, *args[1:], pos)
+        again = decode_attention(args[0], *rc, *args[1:], pos)
         errs[dt] = attention_err(torch, got, want)
         for name, a, c in zip(("kq", "ks", "vq", "vs"), kc, pc):
             if not torch.equal(a, c):
                 fail(f"decode_attention written cache {name} not bit-exact "
                      f"({dt})")
+        if not (torch.equal(again, got)
+                and all(torch.equal(a, c) for a, c in zip(rc, kc))):
+            fail(f"decode_attention: a second launch gave other bits ({dt})")
     err, tol = errs[torch.float32], 1e-3
-    ms = time_ms(lambda: decode_attention(q, *kc, nk, nv, pos))
-    plain = time_ms(lambda: decode_attention_plain(q, *pc, nk, nv, pos),
-                    iters=5)
-    # yardstick: SDPA over K/V dequantized beforehand (not timed)
-    kd = _dequant(torch, cache[0], cache[1]).bfloat16().permute(0, 2, 1, 3)
-    vd = _dequant(torch, cache[2], cache[3]).bfloat16().permute(0, 2, 1, 3)
-    qs = q.reshape(b, kh * g, 1, hd)
-    mask = (torch.arange(s, device=dev)[None, :] < pos[:, None].clamp(min=1)
-            )[:, None, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd,
-                                                         attn_mask=mask))
-    rows = pos.clamp(0, s).long()
-    row_bytes = kh * (hd + 4)
-    nbytes = (2 * int(rows.sum()) * row_bytes + 2 * q.numel() * 2
-              + 2 * nk.numel() * 2 + 2 * b * row_bytes + 4 * b)
-    ops = 4.0 * hd * g * kh * float((rows + 1).sum())
-    bd, by = bound_ms(nbytes, ops, FP32_FLOPS)
+    if not err <= tol:
+        fail(f"decode_attention: ctx max err {err} > {tol}")
+    t = _decode_times(
+        torch, lambda: decode_attention(q, *kc, nk, nv, pos),
+        lambda: decode_attention_plain(q, *pc, nk, nv, pos),
+        _sdpa_yardstick(torch, dev, q, *cache, pos),
+        *_decode_cost(q, nk, pos, kh, hd, g))
     print(f"decode_attention B={b} S={s} K={kh} G={g} hd={hd} pos "
-          f"[0, {s}, ragged]: ctx max err {err:.2e} (tol {tol}, fp32 "
+          f"{pos.tolist()}: ctx max err {err:.2e} (tol {tol}, fp32 "
           f"carrier, bf16-valued inputs), bf16 carrier within one bf16 "
-          f"step (max err {errs[torch.bfloat16]:.2e}), "
-          f"written rows bit-exact, ms {ms:.4f}, plain_ms {plain:.4f}, "
-          f"bound_ms {bd:.5f} ({by}), library_ms(SDPA) {lib:.4f}")
+          f"step (max err {errs[torch.bfloat16]:.2e}), written rows "
+          f"bit-exact, a second launch bit-identical; {_time_line(t)}")
     results["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:250", tol=tol,
-        shape=f"B={b},S={s},K={kh},G={g},hd={hd}", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=lib)
+        shape=f"B={b},S={s},K={kh},G={g},hd={hd}", max_abs_err=err, **t)
 
 
 def paged_from_dense(torch, dense, lengths, page, seed):
@@ -503,29 +556,26 @@ def paged_from_dense(torch, dense, lengths, page, seed):
 def check_decode_attention_paged(torch, dev, gen, results):
     """Phase 3b: #13 at GPT-2 small's decode widths (16 slots, a logical
     cache of 1024 rows, 12 kv heads of 64) over shuffled pools of pages of
-    16, 64 (the serving phases' page) and 256 rows, ragged positions with a
-    freed slot (pos 0, a table row of trash-page entries) and a full one
-    (pos == maxp * page, the clamped write).  (a) Against its plain version
-    at both carriers: ctx within 1e-3 at float32 (within one bf16 step at
-    bfloat16), the written pools bit for bit outside the trash page.
-    (b) Against #12 on the source dense cache: ctx and the written rows at
-    their logical positions bit for bit."""
-    import torch.nn.functional as F
+    16, 64 (the serving phases' page) and 256 rows, at ``_decode_pos``'s
+    positions with a freed slot (pos 0, a table row of trash-page entries)
+    and a full one (pos == maxp * page, the clamped write).  (a) Against
+    its plain version at both carriers: ctx within 1e-3 at float32 (within
+    one bf16 step at bfloat16), the written pools bit for bit outside the
+    trash page, a second launch on a clone bit-identical.  (b) Against #12
+    on the source dense cache: ctx and the written rows at their logical
+    positions bit for bit.  Timed queued and call by call beside SDPA."""
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_paged,
                                                  decode_attention_paged_plain,
                                                  paged_logical_view)
     b, s, kh, g, hd = 16, 1024, 12, 1, 64
-    pos = torch.randint(1, s, (b,), generator=gen, device=dev)
-    pos[0], pos[1] = 0, s
-    pos = pos.to(torch.int32)
+    pos = _decode_pos(torch, dev, gen, b, s)
     dense = _int8_cache(torch, dev, gen, b, s, kh, hd, pos)
     q = torch.randn((b, kh, g, hd), generator=gen, device=dev).bfloat16()
     nk = torch.randn((b, kh, hd), generator=gen, device=dev).bfloat16()
     nv = torch.randn((b, kh, hd), generator=gen, device=dev).bfloat16()
-    rows = pos.clamp(0, s).long()
     live = torch.arange(1, b, device=dev)            # slot 0: the trash page
-    at = rows.clamp(max=s - 1)[1:]
+    at = pos.clamp(0, s - 1).long()[1:]
     rows_out = []
     for page in (16, PAGE, 256):
         pools, table = paged_from_dense(torch, dense, pos.tolist(), page,
@@ -536,15 +586,22 @@ def check_decode_attention_paged(torch, dev, gen, results):
             args = [t.to(dt) for t in (q, nk, nv)]
             kc = [t.clone() for t in pools]
             pc = [t.clone() for t in pools]
+            rc = [t.clone() for t in pools]
             got = decode_attention_paged(args[0], *kc, *args[1:], pos, table)
             want = decode_attention_paged_plain(args[0], *pc, *args[1:], pos,
                                                 table)
+            again = decode_attention_paged(args[0], *rc, *args[1:], pos,
+                                           table)
             errs[dt] = attention_err(torch, got, want)
             for name, a, c in zip(("kq", "ks", "vq", "vs"), kc, pc):
                 if not torch.equal(a[1:], c[1:]):
                     fail(f"decode_attention_paged page {page}: written pool "
                          f"{name} not bit-exact against the plain version "
                          f"({dt})")
+            if not (torch.equal(again, got) and all(
+                    torch.equal(a[1:], c[1:]) for a, c in zip(rc, kc))):
+                fail(f"decode_attention_paged page {page}: a second launch "
+                     f"gave other bits ({dt})")
             dc = [t.clone() for t in dense]
             kc = [t.clone() for t in pools]
             dctx = decode_attention(args[0], *dc, *args[1:], pos)
@@ -565,38 +622,24 @@ def check_decode_attention_paged(torch, dev, gen, results):
                  f"> {tol}")
         kc = [t.clone() for t in pools]
         pc = [t.clone() for t in pools]
-        ms = time_ms(lambda: decode_attention_paged(q, *kc, nk, nv, pos,
-                                                    table))
-        plain = time_ms(lambda: decode_attention_paged_plain(
-            q, *pc, nk, nv, pos, table), iters=5)
-        # yardstick: SDPA over the gathered K/V, dequantized beforehand
-        # (neither the gather nor the dequantization is timed)
+        # the yardstick reads the gathered logical view (gather untimed)
         view = [paged_logical_view(t, table) for t in pools]
-        kd = _dequant(torch, view[0], view[1]).bfloat16().permute(0, 2, 1, 3)
-        vd = _dequant(torch, view[2], view[3]).bfloat16().permute(0, 2, 1, 3)
-        qs = q.reshape(b, kh * g, 1, hd)
-        mask = (torch.arange(s, device=dev)[None, :]
-                < pos[:, None].clamp(min=1))[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kd, vd, attn_mask=mask))
-        row_bytes = kh * (hd + 4)
-        nbytes = (2 * int(rows.sum()) * row_bytes + 2 * q.numel() * 2
-                  + 2 * nk.numel() * 2 + 2 * b * row_bytes + 4 * b
-                  + 4 * table.numel())
-        ops = 4.0 * hd * g * kh * float((rows + 1).sum())
-        bd, by = bound_ms(nbytes, ops, FP32_FLOPS)
+        t = _decode_times(
+            torch, lambda: decode_attention_paged(q, *kc, nk, nv, pos, table),
+            lambda: decode_attention_paged_plain(q, *pc, nk, nv, pos, table),
+            _sdpa_yardstick(torch, dev, q, *view, pos),
+            *_decode_cost(q, nk, pos, kh, hd, g, extra=4 * table.numel()))
         print(f"decode_attention_paged B={b} S={s} page={page} K={kh} G={g} "
-              f"hd={hd} pos [0 (trash slot), {s}, ragged]: ctx max err "
-              f"{err:.2e} (tol {tol}, fp32 carrier), bf16 carrier within one "
-              f"bf16 step (max err {errs[torch.bfloat16]:.2e}), written pools "
-              f"bit-exact outside page 0; ctx and written rows bit-identical "
-              f"to decode_attention on the dense cache (both carriers); ms "
-              f"{ms:.4f}, plain_ms {plain:.4f}, bound_ms {bd:.5f} ({by}), "
-              f"library_ms(SDPA) {lib:.4f}")
+              f"hd={hd} pos [0 (trash slot), {s}, chunk edges, ragged]: ctx "
+              f"max err {err:.2e} (tol {tol}, fp32 carrier), bf16 carrier "
+              f"within one bf16 step (max err {errs[torch.bfloat16]:.2e}), "
+              f"written pools bit-exact outside page 0, a second launch "
+              f"bit-identical; ctx and written rows bit-identical to "
+              f"decode_attention on the dense cache (both carriers); "
+              f"{_time_line(t)}")
         rows_out.append(dict(shape=f"B={b},S={s},page={page},K={kh},G={g},"
-                             f"hd={hd}", max_abs_err=err, ms=ms,
-                             plain_ms=plain, bound_ms=bd, bound_by=by,
-                             library_ms=lib))
+                             f"hd={hd}", max_abs_err=err, **t))
+        del pools, kc, pc, rc, view
     # the JSON entry reports the serving phases' page of 64 rows
     results["decode_attention_paged"] = dict(
         route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
@@ -845,6 +888,11 @@ def profile_decode(torch, eng, cfg, rng) -> None:
     for name, us, n in kern[:8]:
         print(f"profile:   {us / 4e3:8.3f} ms/step {n // 4:5d} launches/step "
               f"{name[:90]}")
+    attn = [k for k in kern if "decode_chunk_kernel" in k[0]
+            or "decode_combine_kernel" in k[0]]
+    print(f"profile: decode attention (decode_attn.cu's two kernels) "
+          f"{sum(k[1] for k in attn) / 4e3:.3f} ms/step in "
+          f"{sum(k[2] for k in attn) // 4} kernels/step")
 
 
 def serve_paged(torch, dev, seed, dense_tokens, dense_bytes, dense_stats):

@@ -65,9 +65,10 @@ SIGNATURES = {
             [_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
         "repro_flash_bwd_max_head_dim": []},
     "decode_attn": {
-        "repro_decode_attn": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+        "repro_decode_attn": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
         "repro_decode_attn_paged":
-            [_P] * 10 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
+            [_P] * 11 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+        "repro_decode_chunk": []},
     "opt_update": {"repro_fused_adamw": [_P] * 10 + [_I] * 11 + [_P]},
     "qdq": {"repro_qdq_row": [_P] * 2 + [_I] * 4 + [_P],
             "repro_qdq_scaled": [_P] * 3 + [_I] * 5 + [_P]},

@@ -9,9 +9,11 @@ launch the two entry points of ``csrc/decode_attn.cu`` on CUDA tensors and
 run their plain versions on CPU tensors.  Per slot, ``pos[b]`` is both the
 number of valid cache rows and the write row; a freed slot riding the
 batched step with ``pos[b] == S`` (paged: ``maxp * page``) writes into the
-last row.  Both kernels walk the same 128-row logical tiles, so the paged
-step equals the dense one bit for bit on the same logical cache, whatever
-the page size.
+last row.  Both kernels split each slot's logical rows into chunks of
+:data:`DECODE_CHUNK` rows, one block each, and combine the chunks in chunk
+order in a second launch, so the paged step equals the dense one bit for
+bit on the same logical cache, whatever the page size, and a launch
+repeats its bits.
 
 Unlike the JAX kernels, which alias their outputs onto the donated cache
 buffers and return them, every version here MUTATES ``kq``, ``ks``, ``vq``
@@ -34,6 +36,18 @@ from repro_torch.kernels.int8_matmul import scale_guard
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
+#: logical cache rows per chunk block of the kernel (``csrc/decode_attn.cu``
+#: CHUNK, which the library reports as ``repro_decode_chunk``)
+DECODE_CHUNK = 128
+
+
+def _workspace(q: torch.Tensor, rows: int):
+    """The kernels' float32 workspace, (m, l, acc) of every (slot, kv head,
+    chunk), and the chunk count of a ``rows``-row logical cache."""
+    b, kh, g, hd = q.shape
+    nc = -(-rows // DECODE_CHUNK)
+    return torch.empty(b * kh * nc * g * (hd + 2), dtype=torch.float32,
+                       device=q.device), nc
 
 
 def _quantize_rows(x: torch.Tensor, qmin: int, qmax: int):
@@ -130,12 +144,14 @@ def decode_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         ("new_v", new_v, q.dtype, (b, kh, hd)),
         ("pos", pos, torch.int32, (b,))))
     out = torch.empty_like(q)
+    ws, nc = _workspace(q, s)
     lib = _build.load("decode_attn")
     rc = lib.repro_decode_attn(
         _build.ptr(q), _build.ptr(kq), _build.ptr(ks), _build.ptr(vq),
         _build.ptr(vs), _build.ptr(new_k), _build.ptr(new_v), _build.ptr(pos),
-        _build.ptr(out), b, s, kh, g, hd, 1.0 / math.sqrt(hd), qmin, qmax,
-        _DTYPE_CODES[q.dtype], _build.stream_of(q))
+        _build.ptr(out), _build.ptr(ws), b, s, kh, g, hd, nc,
+        1.0 / math.sqrt(hd), qmin, qmax, _DTYPE_CODES[q.dtype],
+        _build.stream_of(q))
     _build.check(lib, rc, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -219,13 +235,14 @@ def decode_attention_paged(q: torch.Tensor, kq: torch.Tensor,
         ("pos", pos, torch.int32, (b,)),
         ("page_table", page_table, torch.int32, (b, maxp))))
     out = torch.empty_like(q)
+    ws, nc = _workspace(q, maxp * page)
     lib = _build.load("decode_attn")
     rc = lib.repro_decode_attn_paged(
         _build.ptr(q), _build.ptr(kq), _build.ptr(ks), _build.ptr(vq),
         _build.ptr(vs), _build.ptr(new_k), _build.ptr(new_v), _build.ptr(pos),
-        _build.ptr(page_table), _build.ptr(out), b, maxp, page, kh, g, hd,
-        1.0 / math.sqrt(hd), qmin, qmax, _DTYPE_CODES[q.dtype],
-        _build.stream_of(q))
+        _build.ptr(page_table), _build.ptr(out), _build.ptr(ws), b, maxp,
+        page, kh, g, hd, nc, 1.0 / math.sqrt(hd), qmin, qmax,
+        _DTYPE_CODES[q.dtype], _build.stream_of(q))
     _build.check(lib, rc, "decode_attention_paged")
     decode_attention_paged.launches += 1
     return out

@@ -19,9 +19,11 @@ bfloat16 carrier (two fp32 values a few ulp apart can round to
 neighbouring bf16 values; the int8-KV prefill's tensor-core kernel also
 within 1e-3 of the float32 plain version before its cast, and routed by
 ``q8_library``), and the decode step's written cache rows bit
-for bit; the paged decode step equal to the dense one bit for bit on the
-same logical cache (context and written rows), its written pools equal
-to its plain version's outside the trash page 0; the fused AdamW step bit for bit in params, payloads, scales and
+for bit, a second launch repeating its bits, at G of 1-16 and positions on
+the edges of the kernel's chunks; the paged decode step equal to the dense
+one bit for bit on the same logical cache (context and written rows) at
+pages of 8-256 rows, its written pools equal to its plain version's
+outside the trash page 0; the fused AdamW step bit for bit in params, payloads, scales and
 zero points (both versions round every op on its own), its update-norm sum
 within 1e-5 relative (partial sums in another order); the fused fake
 quantization kernels ``qdq_row`` / ``qdq_scaled`` bit for bit, exact x.5
@@ -55,7 +57,8 @@ from repro_torch.kernels import (decode_attention, decode_attention_paged,
                                  flash_attention_fwd_q8, fused_adamw_blocks,
                                  int8_matmul, int8_matmul_nt, int8_matmul_tn,
                                  qdq_row, qdq_scaled)
-from repro_torch.kernels.decode_attn import (decode_attention_paged_plain,
+from repro_torch.kernels.decode_attn import (DECODE_CHUNK,
+                                             decode_attention_paged_plain,
                                              decode_attention_plain)
 from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
@@ -191,22 +194,52 @@ def test_int8_matmul_routes_by_rows(cuda, monkeypatch):
                          else "int8_matmul_wgmma"]
 
 
+#: decode kernel cases (kv heads, group, head dim): G in {1, 3, 8, 16} at
+#: every head dim the kernel takes
+DECODE_CASES = [(4, 1, 32), (2, 3, 64), (1, 8, 128), (2, 16, 64),
+                (1, 16, 128), (1, 16, 32), (12, 1, 64)]
+
+
+def _decode_pos(s):
+    """Per-slot positions: pos 0 (slot 0), the edges of the kernel's
+    chunks (1, C - 1, C, C + 1), a middle one, S - 1 and S (the clamped
+    write of a full slot)."""
+    c = DECODE_CHUNK
+    return [0, 1, c - 1, c, c + 1, min(2 * c + 37, s - 2), s - 1, s]
+
+
+def _decode_rows(dev, dtype, b, kh, g, hd, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dev, dtype)
+            for shape in ((b, kh, g, hd), (b, kh, hd), (b, kh, hd))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kh,g,hd", [(2, 3, 64), (4, 1, 32), (1, 8, 128)])
-def test_decode_attention_kernel(cuda, dtype, kh, g, hd):
-    b, s = 4, 300
-    pos = torch.tensor([0, 1, 299, 300], dtype=torch.int32, device=cuda)
-    cache = _cache(cuda, b, s, kh, hd, pos.cpu(), seed=kh * g)
-    gen = torch.Generator().manual_seed(1)
-    q, nk, nv = (torch.randn(shape, generator=gen).to(cuda, dtype)
-                 for shape in ((b, kh, g, hd), (b, kh, hd), (b, kh, hd)))
+@pytest.mark.parametrize("kh,g,hd", DECODE_CASES)
+@pytest.mark.parametrize("s", [300, 1024])
+def test_decode_attention_kernel(cuda, dtype, kh, g, hd, s):
+    """Against the plain version (context, and the written rows bit for
+    bit) at positions on the chunk edges; a second launch on a clone of the
+    same cache repeats the context's and the written rows' bits."""
+    from repro_torch.kernels import _build
+    assert _build.load("decode_attn").repro_decode_chunk() == DECODE_CHUNK
+    pos_l = _decode_pos(s)
+    b = len(pos_l)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda)
+    cache = _cache(cuda, b, s, kh, hd, pos_l, seed=kh * g + s)
+    q, nk, nv = _decode_rows(cuda, dtype, b, kh, g, hd, seed=1)
     kc = [t.clone() for t in cache]
     pc = [t.clone() for t in cache]
+    rc = [t.clone() for t in cache]
     got = decode_attention(q, *kc, nk, nv, pos)
     want = decode_attention_plain(q, *pc, nk, nv, pos)
     assert_attention_close(got, want)
     for a, c in zip(kc, pc):
+        assert torch.equal(a, c)
+    again = decode_attention(q, *rc, nk, nv, pos)
+    assert torch.equal(again, got)
+    for a, c in zip(rc, kc):
         assert torch.equal(a, c)
 
 
@@ -232,26 +265,35 @@ def _paged(cache, lengths, page, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("page", [8, 256])
-@pytest.mark.parametrize("kh,g,hd", [(2, 3, 64), (1, 8, 128), (4, 1, 32)])
+@pytest.mark.parametrize("page", [8, 16, 64, 256])
+@pytest.mark.parametrize("kh,g,hd", [(2, 3, 64), (1, 8, 128), (4, 1, 32),
+                                     (2, 16, 64)])
 def test_decode_attention_paged_kernel(cuda, dtype, page, kh, g, hd):
-    """Pos 0 on the freed slot, pos == maxp * page on a full one; pages
-    smaller than the kernel's 128-row tile and larger."""
-    b, s = 4, 512
-    pos = torch.tensor([0, 1, 300, s], dtype=torch.int32, device=cuda)
-    cache = _cache(cuda, b, s, kh, hd, pos.cpu(), seed=page + kh)
-    pools, table = _paged(cache, pos.tolist(), page, seed=page)
-    gen = torch.Generator().manual_seed(3)
-    q, nk, nv = (torch.randn(shape, generator=gen).to(cuda, dtype)
-                 for shape in ((b, kh, g, hd), (b, kh, hd), (b, kh, hd)))
+    """Pos 0 on the freed slot, the chunk edges, pos == maxp * page on a
+    full one over a 1024-row logical cache; pages smaller than the
+    kernel's chunk and larger.  Against the plain version, bit for bit
+    against the dense kernel on the source cache, and a second launch
+    repeats the first's bits."""
+    s = 1024
+    pos_l = _decode_pos(s)
+    b = len(pos_l)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda)
+    cache = _cache(cuda, b, s, kh, hd, pos_l, seed=page + kh)
+    pools, table = _paged(cache, pos_l, page, seed=page)
+    q, nk, nv = _decode_rows(cuda, dtype, b, kh, g, hd, seed=3)
     kc = [t.clone() for t in pools]
     pc = [t.clone() for t in pools]
+    rc = [t.clone() for t in pools]
     before = decode_attention_paged.launches
     got = decode_attention_paged(q, *kc, nk, nv, pos, table)
     assert decode_attention_paged.launches == before + 1
     want = decode_attention_paged_plain(q, *pc, nk, nv, pos, table)
     assert_attention_close(got, want)
     for a, c in zip(kc, pc):
+        assert torch.equal(a[1:], c[1:])
+    assert torch.equal(decode_attention_paged(q, *rc, nk, nv, pos, table),
+                       got)
+    for a, c in zip(rc, kc):
         assert torch.equal(a[1:], c[1:])
     # the dense kernel on the source cache: bit for bit
     dc = [t.clone() for t in cache]

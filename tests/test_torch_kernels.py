@@ -6,7 +6,8 @@ against the JAX Pallas kernel in interpret mode on the same numpy inputs:
 * ``int8_matmul``: bit for bit (exact integer sums, the same epilogue
   order), ragged shapes and zero scales included;
 * ``decode_attention``: context within 1e-5 (fp32 sums in another order),
-  the written cache rows bit for bit;
+  the written cache rows bit for bit; the CUDA kernel's split-KV recurrence
+  (chunks combined in a fixed order) within 1e-6 of both;
 * ``flash_attention_fwd_q8``: within 1e-5.
 
 The CUDA kernels themselves are held against these plain versions on the
@@ -27,7 +28,8 @@ from repro.kernels.ref import int8_matmul_ref as j_mm_ref
 
 from repro_torch.kernels import (decode_attention, flash_attention_fwd_q8,
                                  int8_matmul)
-from repro_torch.kernels.decode_attn import decode_attention_plain
+from repro_torch.kernels.decode_attn import (DECODE_CHUNK,
+                                             decode_attention_plain)
 
 SPEC = JSpec(8, JGran.PER_TOKEN)
 
@@ -126,6 +128,75 @@ def test_decode_attention_matches_pallas(h, kh, lengths):
     for i in (0, 2):
         np.testing.assert_array_equal(tcache[i].numpy(), np.asarray(jout[1 + i]))
     assert np.isfinite(ctx.numpy()).all()
+
+
+def _chunked_decode(q, kq, ks, vq, vs, nk, nv, pos, chunk, qmin=-128,
+                    qmax=127):
+    """The CUDA kernel's recurrence (``csrc/decode_attn.cu``) in float32:
+    each chunk of ``chunk`` logical rows below pos[b] gives its own max m,
+    sum l and p * g(vs) . V; the chunks combine in chunk order 0..n-1
+    (M = max m_c, L = sum exp(m_c - M) l_c, A likewise); then the freshly
+    quantized new row folds in and A / L is the context."""
+    b, kh, g, hd = q.shape
+    s = kq.shape[1]
+    qf = q.float() * (1.0 / np.sqrt(hd))
+    guard = lambda t: torch.where(t == 0, torch.ones_like(t), t)   # noqa: E731
+
+    def quant(x):
+        x = x.float()
+        sc = x.abs().amax(-1, keepdim=True).clamp_min(1e-12) / qmax
+        return torch.clamp(torch.round(x / sc), qmin, qmax), sc
+
+    (nkq, nks), (nvq, nvs) = quant(nk), quant(nv)
+    out = torch.empty(b, kh, g, hd)
+    for i in range(b):
+        n_valid = min(max(int(pos[i]), 0), s)
+        for h in range(kh):
+            parts = []
+            for t0 in range(0, n_valid, chunk):
+                rows = slice(t0, min(t0 + chunk, n_valid))
+                sc = (qf[i, h] @ kq[i, rows, h].float().T) * guard(
+                    ks[i, rows, h, 0])
+                m = sc.amax(-1, keepdim=True)
+                p = torch.exp(sc - m)
+                acc = (p * guard(vs[i, rows, h, 0])) @ vq[i, rows, h].float()
+                parts.append((m, p.sum(-1, keepdim=True), acc))
+            big_m = torch.full((g, 1), -1e30)
+            for m, _, _ in parts:
+                big_m = torch.maximum(big_m, m)
+            big_l, big_a = torch.zeros(g, 1), torch.zeros(g, hd)
+            for m, l, acc in parts:
+                f = torch.exp(m - big_m)
+                big_l = big_l + f * l
+                big_a = big_a + f * acc
+            s_new = (qf[i, h] @ (nkq[i, h] * nks[i, h]))[:, None]
+            m_new = torch.maximum(big_m, s_new)
+            alpha, p_new = torch.exp(big_m - m_new), torch.exp(s_new - m_new)
+            big_l = alpha * big_l + p_new
+            big_a = big_a * alpha + p_new * (nvq[i, h] * nvs[i, h])
+            out[i, h] = big_a / big_l.clamp_min(1e-30)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [4, 8, DECODE_CHUNK])
+@pytest.mark.parametrize("h,kh", [(4, 4), (8, 2), (3, 1)])    # MHA/GQA/MQA
+@pytest.mark.parametrize("lengths", [[0, 12, 7], [4, 8, 9]])  # chunk edges
+def test_decode_chunked_combine_matches_pallas(chunk, h, kh, lengths):
+    """The split-KV recurrence and fixed-order combine of the CUDA kernel,
+    at chunks of 4 and 8 rows (and the kernel's own, one chunk here) on
+    12-row caches, within 1e-6 of the Pallas kernel (kv tiles of 4, one
+    online softmax) and of the plain version (one softmax over every row):
+    the three take float32 sums and exponentials in other orders, a few ulp
+    of a context of order 1 apart."""
+    q, kq, ks, vq, vs, nk, nv, pos = _decode_inputs(3, 12, kh, h // kh, 16,
+                                                    lengths, seed=h * kh)
+    t = [torch.from_numpy(a) for a in (q, kq, ks, vq, vs, nk, nv, pos)]
+    got = _chunked_decode(*t, chunk=chunk)
+    jout = j_decode(*(jnp.asarray(a) for a in (q, kq, ks, vq, vs, nk, nv, pos)),
+                    block_k=4, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jout[0]), atol=1e-6)
+    plain = decode_attention_plain(t[0], *(a.clone() for a in t[1:5]), *t[5:])
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6)
 
 
 def test_decode_attention_scale_zero_rows_inert():
