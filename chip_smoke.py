@@ -7,10 +7,12 @@ Phases, in order; any failure exits non-zero:
 
 1. build the CUDA kernel libraries of ``_build.SOURCES`` (ten sources
    under ``src/repro_torch/csrc``, one nvcc each, all at once;
-   ``int8_matmul.cu`` holds the forward's two routes -- its weight
-   transpose and int8 tensor-core GEMM (``gemm_s8.cuh``, shared with the
-   backward) and the CUDA-core dp4a kernel; ``decode_attn.cu`` the dense
-   and the paged decode kernels; ``flash_attn.cu`` the float32 flash
+   ``int8_matmul.cu`` holds the forward's two routes -- the decode step's
+   split-K weight stream reduced in a thread-block cluster (one kernel,
+   also the fused entry that quantizes fp activations per token), its
+   weight transpose and int8 tensor-core GEMM (``gemm_s8.cuh``, shared with
+   the backward) -- and the first CUDA-core dp4a kernel; ``decode_attn.cu``
+   the dense and the paged decode kernels; ``flash_attn.cu`` the float32 flash
    forward and both backward kernels; ``flash_fwd_sm90.cu`` and
    ``flash_bwd_sm90.cu`` the bf16 flash forward and backward on the tensor
    cores; ``flash_q8_sm90.cu`` the bf16 int8-KV prefill on the tensor
@@ -21,10 +23,16 @@ Phases, in order; any failure exits non-zero:
    at the serving path's shapes, and time kernel, plain version and a
    library yardstick (``torch._int_mm``; SDPA on dequantized K/V) beside
    the bound computed from the inputs' bytes and operations:
-   ``int8_matmul`` bit for bit on both its routes at M = 16, 17, 64, 2048
-   and 8192, bf16 and float32 output, each route timed call by call and
-   queued (``queued_ms``), the forward's GEMM kernels holding ``IGMMA``
-   (``check_int8_matmul``); ``flash_attention_fwd_q8`` at the serving gate
+   ``int8_matmul`` bit for bit on both its routes (the cluster route up
+   to 16 rows, a repeat bit-identical) and the first dp4a kernel at M =
+   16, 17, 32, 64, 2048 and 8192, bf16 and float32 output, each timed call
+   by call and queued (``queued_ms``), at M = 16 also over the decode
+   step's 72 weights with the L2 cold; the fused decode entry
+   ``int8_quant_matmul`` bit for bit at M = 1, 7 and 16, both carriers,
+   and on rows holding a NaN or an infinity, timed against quantize_int +
+   ``int8_matmul``; the forward's GEMM kernels holding
+   ``IGMMA``, the cluster kernels ``IMMA`` (``check_int8_matmul``);
+   ``flash_attention_fwd_q8`` at the serving gate
    and the engine's shapes, bf16 within one bf16 step and its output
    before the cast within ``Q8_TOL``, float32 within ``Q8_TOL``, timed
    beside the CUDA-core kernel at bf16, the ``flash_q8_sm90`` kernels holding
@@ -297,42 +305,67 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-#: phase 3: the forward's shapes -- the decode step's 16 slots, M = 17 and
-#: 64 past the route's crossover, a prefill of 2048 rows and the training
-#: step's 8192 tokens -- at GPT-2 small's three (K, N), bf16 output; and
-#: float32 output at (768, 768)
-INT8_FWD_ROWS = (16, 17, 64, 2048, 8192)
+#: phase 3: the forward's shapes -- the decode step's 16 slots, M = 17, 32
+#: and 64 past the cluster route's limit, a prefill of 2048 rows and the
+#: training step's 8192 tokens -- at GPT-2 small's three (K, N), bf16
+#: output; and float32 output at (768, 768)
+INT8_FWD_ROWS = (16, 17, 32, 64, 2048, 8192)
 INT8_FWD_KN = ((768, 768), (768, 3072), (3072, 768))
+#: the decode step's 72 weights: per layer wq, wk, wv and wo (768, 768), w1
+#: (768, 3072) and w2 (3072, 768) -- 85 MB, more than the 50 MB L2
+DECODE_STEP_KN = ((768, 768),) * 4 + ((768, 3072), (3072, 768))
+#: the fused decode entry's rows: one slot, a ragged count, all 16 slots
+INT8_QUANT_ROWS = (1, 7, 16)
+
+
+def _int8_case(torch, dev, gen, m, k, n):
+    """int8 payloads x (m, k), w (k, n) and scales rs (m, 1), cs (1, n),
+    every 7th row scale 0 (the guard maps it to 1)."""
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    rs = torch.rand((m, 1), generator=gen, device=dev) * 0.05
+    cs = torch.rand((1, n), generator=gen, device=dev) * 0.01
+    rs[::7] = 0.0
+    return x, w, rs, cs
 
 
 def check_int8_matmul(torch, dev, gen, results):
-    """Phase 3, #3: the wrapper (its route by ``fwd_route``) and both
-    routes -- the tensor-core one (transpose pass + s8 wgmma GEMM) and the
-    CUDA-core dp4a kernel, the port's first forward at every M -- bit
-    for bit against the plain version at every shape and output dtype; each
-    timed call by call and with the card's queue full (``queued_ms``), both
-    routes at every M (the crossover readings at M = 16, 17, 64), beside
-    the bound, the plain version and ``torch._int_mm`` (queued; it takes M >
-    16 only); the forward's GEMM kernels hold ``IGMMA`` in their SASS."""
+    """Phase 3, #3: the wrapper (its route by ``fwd_route``), both routes --
+    the cluster's split-K weight stream (M <= ``FWD_GEMV_MAX_M``) and the
+    tensor-core one (transpose pass + s8 wgmma GEMM) -- and the first dp4a
+    kernel, bit for bit against the plain version at every shape and output
+    dtype, the cluster route's repeat bit-identical; each timed call by call
+    and with the card's queue full (``queued_ms``), every route at every M it
+    takes, beside the bound, the plain version and ``torch._int_mm``
+    (queued; it takes M > 16 only, so at M = 16 on x zero-padded to 17
+    rows).  At M = 16: the cluster sizes 1-8 queued, and a round over the
+    decode step's 72 distinct weights (``DECODE_STEP_KN``, the L2 cold) per
+    call.  The fused entry ``int8_quant_matmul`` bit for bit against its
+    plain version at ``INT8_QUANT_ROWS``, both carriers, an all-zero row
+    included, and on rows holding a NaN or an infinity, timed against the
+    unfused chain.  The forward's GEMM kernels hold ``IGMMA`` in their
+    SASS, the cluster kernels ``IMMA``."""
     import importlib
     im = importlib.import_module("repro_torch.kernels.int8_matmul")
+    from repro_torch.core.qconfig import Granularity, QuantSpec
+    from repro_torch.core.quantizer import quantize_int
     rows = []
     cases = [(m, k, n, torch.bfloat16) for m in INT8_FWD_ROWS
              for k, n in INT8_FWD_KN]
     cases += [(m, 768, 768, torch.float32) for m in INT8_FWD_ROWS]
     for m, k, n, dt in cases:
-        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                          dtype=torch.int8)
-        w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
-        rs = torch.rand((m, 1), generator=gen, device=dev) * 0.05
-        cs = torch.rand((1, n), generator=gen, device=dev) * 0.01
-        rs[::7] = 0.0                  # zero scales: the guard maps them to 1
+        x, w, rs, cs = _int8_case(torch, dev, gen, m, k, n)
         want = im.int8_matmul_plain(x, w, rs, cs, out_dtype=dt)
         route = im.fwd_route(m, n, k)
+        routes = {"wgmma": im.int8_matmul_wgmma, "dp4a": im.int8_matmul_dp4a}
+        if m <= im.FWD_GEMV_MAX_M:
+            routes["gemv"] = im.int8_matmul_gemv
         got = {"wrapper": im.int8_matmul(x, w, rs, cs, out_dtype=dt),
-               "wgmma": im.int8_matmul_wgmma(x, w, rs, cs, out_dtype=dt),
-               "dp4a": im.int8_matmul_dp4a(x, w, rs, cs, out_dtype=dt)}
+               **{r: f(x, w, rs, cs, dt) for r, f in routes.items()}}
+        if "gemv" in routes:
+            got["gemv repeat"] = im.int8_matmul_gemv(x, w, rs, cs, dt)
         torch.cuda.synchronize()
         err = max((g.float() - want.float()).abs().max().item()
                   for g in got.values())
@@ -341,32 +374,47 @@ def check_int8_matmul(torch, dev, gen, results):
                 fail(f"int8_matmul ({name}) M={m} K={k} N={n} {dt} not "
                      f"bit-exact (max err {err})")
         route_ms = {r: queued_ms(lambda f=f: f(x, w, rs, cs, dt))
-                    for r, f in (("wgmma", im.int8_matmul_wgmma),
-                                 ("dp4a", im.int8_matmul_dp4a))}
+                    for r, f in routes.items()}
         call_ms = {r: time_ms(lambda f=f: f(x, w, rs, cs, dt))
-                   for r, f in (("wgmma", im.int8_matmul_wgmma),
-                                ("dp4a", im.int8_matmul_dp4a))}
+                   for r, f in routes.items()}
         plain = time_ms(lambda: im.int8_matmul_plain(x, w, rs, cs, dt),
                         iters=3)
-        # torch._int_mm (int8 x int8 -> int32, no epilogue) takes M > 16
-        lib = queued_ms(lambda: torch._int_mm(x, w)) if m > 16 else None
+        # torch._int_mm (int8 x int8 -> int32, no epilogue) takes M > 16:
+        # at M <= 16 it runs on x zero-padded to 17 rows, padded here
+        xl = (x if m > 16 else torch.nn.functional.pad(x, (0, 0, 0, 17 - m)))
+        lib = queued_ms(lambda: torch._int_mm(xl, w))
         es = 2 if dt == torch.bfloat16 else 4
         b, by = bound_ms(m * k + k * n + 4 * (m + n) + es * m * n,
                          2.0 * m * n * k, INT8_OPS)
-        rows.append(dict(
+        row = dict(
             shape=f"M={m},K={k},N={n},{str(dt)[6:]}", fwd_route=route,
             max_abs_err=err, ms=route_ms[route], ms_call=call_ms[route],
             route_ms=route_ms, route_ms_call=call_ms,
             splits=im.gemm_splits(m, n, k), plain_ms=plain, bound_ms=b,
-            bound_by=by, library_ms=lib))
+            bound_by=by, library_ms=lib,
+            library="torch._int_mm" + ("" if m > 16 else
+                                       " on x zero-padded to 17 rows"))
+        if m == 16 and dt == torch.bfloat16:
+            row["gemv_splits_ms"] = {
+                s: queued_ms(lambda s=s: im.int8_matmul_gemv(
+                    x, w, rs, cs, dt, splits=s))
+                for s in (1, 2, 4, 8)}
+        rows.append(row)
+        line = "; ".join(f"{r} {route_ms[r]:.4f} / {call_ms[r]:.4f}"
+                         for r in routes)
         print(f"int8_matmul M={m:5d} K={k:4d} N={n:4d} {str(dt)[6:]}: "
-              f"bit-exact on both routes (tol 0), route {route}; queued ms "
-              f"wgmma {route_ms['wgmma']:.4f} ({im.gemm_splits(m, n, k)} "
-              f"split(s)), dp4a {route_ms['dp4a']:.4f}; call by "
-              f"call wgmma {call_ms['wgmma']:.4f}, dp4a "
-              f"{call_ms['dp4a']:.4f}; plain_ms {plain:.4f}, bound_ms "
-              f"{b:.5f} ({by}), library_ms(_int_mm, queued) "
-              f"{'n/a (M<=16)' if lib is None else f'{lib:.4f}'}")
+              f"bit-exact on every route (tol 0), route {route}; queued / "
+              f"call by call ms: {line} ({im.gemm_splits(m, n, k)} GEMM "
+              f"split(s)); plain_ms {plain:.4f}, bound_ms {b:.5f} ({by}), "
+              f"library_ms ({row['library']}, queued) {lib:.4f}")
+        if "gemv_splits_ms" in row:
+            print(f"int8_matmul M=16 K={k} N={n}: cluster sizes, queued ms "
+                  + ", ".join(f"{s}: {t:.4f}"
+                              for s, t in row["gemv_splits_ms"].items()))
+    cold = _int8_decode_round(torch, dev, gen, im)
+    spec = QuantSpec(8, Granularity.PER_TOKEN)
+    fused = _int8_quant_check(torch, dev, gen, im, spec, quantize_int)
+    host = _int8_host_us(torch, dev, gen, im, spec, quantize_int)
     counts = sass_counts("int8_matmul", "IGMMA")
     gemm = {fn: c for fn, c in counts.items() if "gemm_s8_kernel" in fn}
     print(f"int8_matmul SASS: {sum(gemm.values())} IGMMA instructions over "
@@ -374,13 +422,154 @@ def check_int8_matmul(torch, dev, gen, results):
           f"{min(gemm.values(), default=0)}-{max(gemm.values(), default=0)})")
     if not gemm or min(gemm.values()) == 0:
         fail(f"phase 3: a forward GEMM kernel has no IGMMA: {gemm}")
+    gv = {fn: c for fn, c in sass_counts("int8_matmul", "IMMA").items()
+          if "gemv_s8_kernel" in fn}
+    print(f"int8_matmul SASS: {sum(gv.values())} IMMA instructions over "
+          f"{len(gv)} cluster kernels (each "
+          f"{min(gv.values(), default=0)}-{max(gv.values(), default=0)})")
+    if not gv or min(gv.values()) == 0:
+        fail(f"phase 3: a cluster kernel has no IMMA: {gv}")
     # the JSON entry reports the shape with the most launches on the main
     # path: the decode step's wq, wk, wv and wo at M = 16 slots (4 of every
     # 6 decode launches); kernels.json keeps every shape
     results["int8_matmul"] = dict(
         route="cuda", source="src/repro_torch/csrc/int8_matmul.cu",
         replaces="src/repro/kernels/int8_matmul.py:84", tol=0.0,
-        shapes=rows, **rows[0])
+        shapes=rows, l2_cold=cold, fused_entry=fused, host_us=host, **rows[0])
+
+
+def _int8_decode_round(torch, dev, gen, im):
+    """The decode step's 72 weights at M = 16, each its own buffer (85 MB
+    together, so every call finds its weight out of the L2): ms per call
+    over the round for the cluster route, the first dp4a kernel and the
+    tensor-core route, back to back and queued, beside the round's bound."""
+    args = []
+    for _ in range(12):
+        for k, n in DECODE_STEP_KN:
+            x, w, rs, cs = _int8_case(torch, dev, gen, 16, k, n)
+            args.append((x, w, rs, cs, torch.bfloat16))
+    nbytes = sum(x.numel() + w.numel() + 4 * (16 + w.shape[1])
+                 + 2 * 16 * w.shape[1] for x, w, *_ in args)
+    out = {"weights": len(args), "weight_bytes": sum(a[1].numel()
+                                                     for a in args),
+           "bound_ms": nbytes / HBM_BPS * 1e3 / len(args)}
+    for r, f in (("gemv", im.int8_matmul_gemv), ("dp4a", im.int8_matmul_dp4a),
+                 ("wgmma", im.int8_matmul_wgmma)):
+        out[r] = {"ms_call": time_cold_ms(f, args, 2 * len(args), len(args)),
+                  "ms": time_cold_ms(f, args, 2 * len(args), len(args),
+                                     queued=True)}
+    print(f"int8_matmul L2 cold, a round over the decode step's "
+          f"{len(args)} weights ({out['weight_bytes'] / 1e6:.1f} MB) at M = "
+          f"16, ms per call queued / call by call: "
+          + "; ".join(f"{r} {out[r]['ms']:.4f} / {out[r]['ms_call']:.4f}"
+                      for r in ("gemv", "dp4a", "wgmma"))
+          + f"; bound {out['bound_ms']:.5f} (bytes)")
+    return out
+
+
+def host_us(fn, iters: int = 500, warmup: int = 20) -> float:
+    """Host microseconds per call: the host clock around ``iters`` calls,
+    which the card keeps up with (each call's kernels are shorter than its
+    dispatch), then one synchronize outside the window."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def _int8_host_us(torch, dev, gen, im, spec, quantize_int):
+    """Where a decode linear's host time goes, at M = 16, (768, 3072), bf16:
+    the fused entry, the unfused chain and the cluster route's wrapper, and
+    the stream lookup every wrapper makes (``_build.stream_of`` against a
+    ``torch.cuda.Stream`` object's handle)."""
+    from repro_torch.kernels import _build
+    x, w, rs, cs = _int8_case(torch, dev, gen, 16, 768, 3072)
+    xf = torch.randn((16, 768), generator=gen, device=dev).to(torch.bfloat16)
+    dt = torch.bfloat16
+
+    def chain():
+        xq, sc, _ = quantize_int(xf, spec)
+        return im.int8_matmul(xq, w, sc, cs, dt)
+    out = {"int8_quant_matmul": host_us(
+               lambda: im.int8_quant_matmul(xf, w, cs, spec, dt)),
+           "quantize_int + int8_matmul": host_us(chain),
+           "int8_matmul_gemv": host_us(
+               lambda: im.int8_matmul_gemv(x, w, rs, cs, dt)),
+           "_build.stream_of": host_us(lambda: _build.stream_of(x)),
+           "torch.cuda.current_stream(dev).cuda_stream": host_us(
+               lambda: torch.cuda.current_stream(dev).cuda_stream)}
+    print("int8_matmul host us per call at M = 16, K = 768, N = 3072: "
+          + "; ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def _int8_quant_check(torch, dev, gen, im, spec, quantize_int):
+    """The fused decode entry at ``INT8_QUANT_ROWS`` x GPT-2's three (K, N)
+    x both carriers, an all-zero row wherever M > 1: bit for bit against
+    ``int8_quant_matmul_plain`` (quantize_int + the plain matmul), a
+    repeat bit-identical; at M = 16 timed queued and call by call, and the
+    unfused chain (quantize_int + int8_matmul) call by call.  Then at M = 16
+    rows holding a NaN, +inf, -inf, or a NaN and an inf, against the plain
+    version: NaN where it has NaN, the same bits elsewhere."""
+    out = []
+    for m in INT8_QUANT_ROWS:
+        for k, n in INT8_FWD_KN:
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.randn((m, k), generator=gen, device=dev)
+                     * 3).to(dt)
+                if m > 1:
+                    x[m // 2] = 0.0
+                _, w, _, cs = _int8_case(torch, dev, gen, m, k, n)
+                want = im.int8_quant_matmul_plain(x, w, cs, spec, dt)
+                got = im.int8_quant_matmul(x, w, cs, spec, dt)
+                again = im.int8_quant_matmul(x, w, cs, spec, dt)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(again, got)):
+                    fail(f"int8_quant_matmul M={m} K={k} N={n} {dt}: not "
+                         f"bit-exact or a repeat differs (max err "
+                         f"{(got.float() - want.float()).abs().max().item()})")
+                if m != 16:
+                    continue
+
+                def chain():
+                    xq, sc, _ = quantize_int(x, spec)
+                    return im.int8_matmul(xq, w, sc, cs, dt)
+                fused = (lambda: im.int8_quant_matmul(x, w, cs, spec, dt))
+                row = dict(shape=f"M={m},K={k},N={n},{str(dt)[6:]}",
+                           ms=queued_ms(fused), ms_call=time_ms(fused),
+                           chain_ms_call=time_ms(chain))
+                out.append(row)
+                print(f"int8_quant_matmul {row['shape']}: bit-exact (tol 0) "
+                      f"at M = {', '.join(map(str, INT8_QUANT_ROWS))}, a "
+                      f"repeat bit-identical; fused ms queued {row['ms']:.4f}"
+                      f", call by call {row['ms_call']:.4f}; quantize_int + "
+                      f"int8_matmul call by call {row['chain_ms_call']:.4f}")
+    bad = {3: [(767, float("nan"))], 5: [(0, float("inf"))],
+           9: [(384, float("-inf"))],
+           11: [(1, float("nan")), (2, float("inf"))]}
+    for k, n in INT8_FWD_KN:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn((16, k), generator=gen, device=dev) * 3).to(dt)
+            for r, cells in bad.items():
+                for c, v in cells:
+                    x[r, c * k // 768] = v
+            _, w, _, cs = _int8_case(torch, dev, gen, 16, k, n)
+            want = im.int8_quant_matmul_plain(x, w, cs, spec, dt)
+            got = im.int8_quant_matmul(x, w, cs, spec, dt)
+            same = (got == want) | (got.isnan() & want.isnan())
+            if not (bool(same.all()) and bool(got[[3, 11]].isnan().all())):
+                fail(f"int8_quant_matmul K={k} N={n} {dt}: rows holding a "
+                     f"NaN or an infinity differ from the plain version")
+    print("int8_quant_matmul: rows holding a NaN or an infinity match the "
+          "plain version (NaN where it has NaN, the same bits elsewhere) at "
+          "M = 16, GPT-2's three (K, N), both carriers")
+    return out
 
 
 def _int8_cache(torch, dev, gen, b, s, kh, hd, lengths):
@@ -893,6 +1082,20 @@ def profile_decode(torch, eng, cfg, rng) -> None:
     print(f"profile: decode attention (decode_attn.cu's two kernels) "
           f"{sum(k[1] for k in attn) / 4e3:.3f} ms/step in "
           f"{sum(k[2] for k in attn) // 4} kernels/step")
+    fwd = [k for k in kern if int8_kernel_side(k[0]) == "fwd"]
+    print(f"profile: the int8 forward (int8_matmul, FWD_STAGES) "
+          f"{sum(k[1] for k in fwd) / 4e3:.3f} ms/step in "
+          f"{sum(k[2] for k in fwd) // 4} kernels/step")
+    # the host's side: self CPU time of the traced torch ops (the profiler's
+    # own cost included; Python between the ops is not traced)
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.self_cpu_time_total), key=lambda h: -h[1])
+    print(f"profile: host, self CPU time of the traced ops "
+          f"{sum(h[1] for h in host) / 4e3:.2f} ms/step; the largest: "
+          + ", ".join(f"{name} {us / 4e3:.3f} ms ({n // 4}/step)"
+                      for name, us, n in host[:8]))
 
 
 def serve_paged(torch, dev, seed, dense_tokens, dense_bytes, dense_stats):
@@ -1101,8 +1304,9 @@ def _teacher_forced(torch, model, cfg, params, toks, policy, device):
 def plain_versions(names):
     """Inside, the model calls the named kernels' plain versions in their
     place, on whatever device its tensors are: the card-against-card
-    comparisons of phases 5, 8, 12 and 15.  Nothing in the port does
-    this."""
+    comparisons of phases 5, 8, 12 and 15.  ``int8_matmul`` swaps both of
+    its entries on the ``ops`` module: the int8 one and the fused decode
+    entry ``int8_quant_matmul``.  Nothing in the port does this."""
     import repro_torch.kernels.flash_attn as flash_attn
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.opt_update as opt_update
@@ -1111,28 +1315,33 @@ def plain_versions(names):
     from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
     from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
                                                  int8_matmul_plain,
-                                                 int8_matmul_tn_plain)
+                                                 int8_matmul_tn_plain,
+                                                 int8_quant_matmul_plain)
     from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
-    sites = {"int8_matmul": (ops, int8_matmul_plain),
-             "qdq_row": (ops, qdq_row_plain),
-             "qdq_scaled": (ops, qdq_scaled_plain),
-             "flash_attention_fwd_q8": (attention,
-                                        flash_attention_fwd_q8_plain),
-             "decode_attention": (attention, decode_attention_plain),
-             "int8_matmul_nt": (ops, int8_matmul_nt_plain),
-             "int8_matmul_tn": (ops, int8_matmul_tn_plain),
-             "fused_adamw_blocks": (opt_update,
-                                    opt_update.fused_adamw_blocks_plain),
-             **{n: (flash_attn, getattr(flash_attn, n + "_plain"))
+    sites = {"int8_matmul": [(ops, "int8_matmul", int8_matmul_plain),
+                             (ops, "int8_quant_matmul",
+                              int8_quant_matmul_plain)],
+             "qdq_row": [(ops, "qdq_row", qdq_row_plain)],
+             "qdq_scaled": [(ops, "qdq_scaled", qdq_scaled_plain)],
+             "flash_attention_fwd_q8": [(attention, "flash_attention_fwd_q8",
+                                         flash_attention_fwd_q8_plain)],
+             "decode_attention": [(attention, "decode_attention",
+                                   decode_attention_plain)],
+             "int8_matmul_nt": [(ops, "int8_matmul_nt", int8_matmul_nt_plain)],
+             "int8_matmul_tn": [(ops, "int8_matmul_tn", int8_matmul_tn_plain)],
+             "fused_adamw_blocks": [(opt_update, "fused_adamw_blocks",
+                                     opt_update.fused_adamw_blocks_plain)],
+             **{n: [(flash_attn, n, getattr(flash_attn, n + "_plain"))]
                 for n in FLASH_KERNELS}}
-    saved = [(sites[n][0], n, getattr(sites[n][0], n)) for n in names]
+    swaps = [site for n in names for site in sites[n]]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     try:
-        for n in names:
-            setattr(sites[n][0], n, sites[n][1])
+        for mod, attr, plain in swaps:
+            setattr(mod, attr, plain)
         yield
     finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def _agreement(torch, card, cpu, margin):
@@ -1174,8 +1383,9 @@ def card_vs_cpu(torch, dev, seed):
        against CPU: max |d logit| <= ``B_LIMIT``, a fixed limit set from
        recorded readings (PERF.md), top-1 equal wherever the margin exceeds
        it.  Card against card: with the plain ``int8_matmul`` in the
-       kernel's place every logit must be bit-identical -- every one of the
-       forward's int8 matmuls equals its plain version."""
+       kernel's place (both entries, the decode linears' fused one too)
+       every logit must be bit-identical -- every one of the forward's int8
+       matmuls equals its plain version."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = dataclasses.replace(get_config("gpt2-small"), dtype="float32")
@@ -1250,10 +1460,12 @@ def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 #: (``csrc/gemm_s8.cuh``), whose scale mode, 2, tells its kernels apart
 BWD_STAGES = (("quant_rows_kernel", "quantize"), ("pack_tn_kernel", "quantize"),
               ("gemm_s8_kernel", "gemm"), ("split_reduce_kernel", "reduce"))
-#: the kernels of one forward call (``csrc/int8_matmul.cu``): the dp4a
-#: route's, or the tensor-core route's transpose, GEMM and reduction
-FWD_STAGES = (("int8_matmul_kernel", "dp4a"), ("transpose_kernel", "transpose"),
-              ("gemm_s8_kernel", "gemm"), ("split_reduce_kernel", "reduce"))
+#: the kernels of one forward call (``csrc/int8_matmul.cu``): the cluster
+#: route's one kernel, or the tensor-core route's transpose, GEMM and
+#: reduction (and the first dp4a kernel, on no route)
+FWD_STAGES = (("gemv_s8_kernel", "gemv"), ("int8_matmul_kernel", "dp4a"),
+              ("transpose_kernel", "transpose"), ("gemm_s8_kernel", "gemm"),
+              ("split_reduce_kernel", "reduce"))
 
 
 def int8_kernel_side(name: str):
@@ -1732,17 +1944,21 @@ def train_card_vs_cpu(torch, dev, seed):
 # phases 9-12: the fake-quant gradient kernels and the guarded training path
 # ---------------------------------------------------------------------------
 
-def time_cold_ms(fn, args_list, iters: int = 20, warmup: int = 3) -> float:
-    """``time_ms`` cycling through argument tuples whose tensors together
-    exceed the 50 MB L2, so each launch reads its input from device memory
-    as the train step's gradient does (the matmul that made it has moved
-    on to other tensors)."""
+def time_cold_ms(fn, args_list, iters: int = 20, warmup: int = 3,
+                 queued: bool = False) -> float:
+    """``time_ms`` (or, ``queued``, ``queued_ms``) cycling through argument
+    tuples whose tensors together exceed the 50 MB L2, so each launch reads
+    its input from device memory as the train step's gradient and the
+    decode step's weights are read (the work that touched them last has
+    moved on to other tensors)."""
     import torch
     n = len(args_list)
     for i in range(warmup):
         fn(*args_list[i % n])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for i in range(iters):
         fn(*args_list[i % n])

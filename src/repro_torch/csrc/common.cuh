@@ -42,6 +42,27 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// jnp.max / torch.amax semantics: a NaN operand gives NaN (max.NaN and
+// min.NaN are one instruction each, as fmaxf and fminf, which drop a NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float warp_max_nan(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

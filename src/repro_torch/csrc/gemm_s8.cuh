@@ -61,6 +61,26 @@ __device__ __forceinline__ float as_f32<int8_t>(int8_t x) {
   return static_cast<float>(x);
 }
 
+// eight consecutive values of a row as floats: one or two vector loads
+// (vec) or element by element, 0 past n_end
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, int n0, int n_end, bool vec,
+                                      float (&v)[8]) {
+  if (vec && n0 < n_end) {
+    const Vec4<T> lo = *reinterpret_cast<const Vec4<T>*>(p + n0);
+    const Vec4<T> hi = *reinterpret_cast<const Vec4<T>*>(p + n0 + 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = to_f32(lo.v[e]);
+      v[e + 4] = to_f32(hi.v[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = n0 + e < n_end ? to_f32(p[n0 + e]) : 0.0f;
+  }
+}
+
 // a (R, Cn) source into its K-major transpose dst (Cn, ldd): dst[c, r] =
 // quant_g(src[r, c], fold[r], g(qs[c])) (QUANT, tn's gradient) or src[r, c]
 // (an int8 payload) for r < R, and 0 for R <= r < ldd.  A block of 256

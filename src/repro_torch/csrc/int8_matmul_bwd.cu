@@ -71,26 +71,6 @@ namespace {
 constexpr int kQuantThreads = 256;
 constexpr int kQuantRows = 4;  // rows per thread of nt's pass
 
-// eight consecutive values of a row as floats: one or two vector loads
-// (vec) or element by element, 0 past n_end
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, int n0, int n_end, bool vec,
-                                      float (&v)[8]) {
-  if (vec && n0 < n_end) {
-    const Vec4<T> lo = *reinterpret_cast<const Vec4<T>*>(p + n0);
-    const Vec4<T> hi = *reinterpret_cast<const Vec4<T>*>(p + n0 + 4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = to_f32(lo.v[e]);
-      v[e + 4] = to_f32(hi.v[e]);
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = n0 + e < n_end ? to_f32(p[n0 + e]) : 0.0f;
-  }
-}
-
 // nt's pass: gq[m, n] = quant_g(g[m, n], fold[n], g(qs[m])) for n < N and
 // 0 for N <= n < ldq.  A thread writes 8 bytes of each of kQuantRows rows,
 // so its 8 fold values load once.  vec (vec_fold): N % 8 == 0 and g (fold)

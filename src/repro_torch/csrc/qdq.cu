@@ -44,18 +44,6 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-// jnp.max / torch.amax semantics: a NaN operand gives NaN
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ float warp_max_nan(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // clip(rint(x / s), -qmax - 1, qmax) * s, each op rounded on its own
 __device__ __forceinline__ float qdq1(float x, float s, float qmax) {
   float r = rintf(__fdiv_rn(x, s));

@@ -33,6 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "int8_matmul": {
         "repro_int8_matmul_dp4a": [_P] * 5 + [_I] * 4 + [_P],
+        "repro_int8_gemv": [_P] * 5 + [_I] * 8 + [_P],
         "repro_int8_matmul_wgmma": [_P] * 7 + [_I] * 6 + [_P],
         "repro_int8_transpose": [_P] * 2 + [_I] * 2 + [_P],
         "repro_int8_gemm_fwd": [_P] * 6 + [_I] * 7 + [_P],
@@ -163,9 +164,16 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+# Both return plain ints, which ctypes passes as the entry points'
+# c_void_p arguments: a decode step makes hundreds of launches, and a
+# c_void_p object or a torch.cuda.Stream costs microseconds of host time
+# each (PERF.md).
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def ptr(t) -> int:
+    return t.data_ptr()
+
+
+def stream_of(t) -> int:
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

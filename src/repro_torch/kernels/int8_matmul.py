@@ -13,10 +13,13 @@ forward computes
     y[m, n] = ((float) sum_k x[m, k] * w[k, n]) * g(rs[m]) * g(cs[n])
 
 with an exact integer sum and ``g`` mapping a 0 scale to 1, then casts to
-the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.  Above
-:data:`FWD_DP4A_MAX_M` rows it transposes the weight into a K-major payload
-and multiplies on the int8 tensor cores (:func:`fwd_route`); the decode
-step's few rows take a CUDA-core kernel.  The transposed layouts take the
+the carrier -- bit for bit ``repro.kernels.ref.int8_matmul_ref``.  Up to
+:data:`FWD_GEMV_MAX_M` rows (the decode step) it runs one kernel: a split-K
+weight stream reduced in a thread-block cluster; :func:`int8_quant_matmul`
+is the same kernel taking the fp activations and quantizing them per token
+in its prologue, bit for bit ``quantize_int``.  Above, it transposes the
+weight into a K-major payload and multiplies on the int8 tensor cores
+(:func:`fwd_route`).  The transposed layouts take the
 fp gradient, quantize it once into K-major int8 payloads and multiply those
 on the int8 tensor cores (see their docstrings and the stages below); the
 wrappers in ``kernels/ops.py`` reduce its scales.  The forward and the
@@ -26,11 +29,14 @@ per column or both.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+
+if TYPE_CHECKING:
+    from repro_torch.core.qconfig import QuantSpec
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CARRIERS = tuple(_DTYPE_CODES)
@@ -68,21 +74,35 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
             * scale_guard(col_scale).reshape(1, -1)).to(out_dtype)
 
 
-#: the most rows the forward's CUDA-core (dp4a) route takes; more go to
-#: the int8 tensor cores (set from phase 3's queued readings at M = 16, 17
-#: and 64, PERF.md)
-FWD_DP4A_MAX_M = 16
+#: the cluster route's kernel (``csrc/int8_matmul.cu:gemv_s8_kernel``): 32
+#: output columns a cluster, contraction splits of whole 32-row steps, at
+#: most 8 blocks a cluster (the portable size)
+GEMV_COLS, GEMV_STEP, GEMV_MAX_SPLITS = 32, 32, 8
+
+#: the most rows the forward's cluster route takes -- one 16-row mma tile,
+#: the decode step's 16 slots; more go to the int8 tensor cores.  Readings
+#: at M = 16, 17, 32 and 64 (PERF.md) put the crossover between 17 and 32,
+#: but no caller brings 17 to 31 rows (prefill and training bring
+#: thousands), so the kernel holds one tile
+FWD_GEMV_MAX_M = 16
 
 
 def fwd_route(m: int, n: int, k: int) -> str:
     """The forward's route on the card for an (m, k) x (k, n) call:
-    ``"dp4a"`` (the decode step's M <= :data:`FWD_DP4A_MAX_M` rows, a
-    weight-streaming call whose time is its host dispatch) or ``"wgmma"``
-    (the weight transposed into a K-major payload, then the int8
+    ``"gemv"`` (the decode step, M <= :data:`FWD_GEMV_MAX_M` rows: one
+    launch, a split-K weight stream reduced in a thread-block cluster) or
+    ``"wgmma"`` (the weight transposed into a K-major payload, then the int8
     tensor-core GEMM with both scales).  Both routes are kernels and give
     the same bits."""
     del n, k  # the crossover is a row count at GPT-2's widths
-    return "dp4a" if m <= FWD_DP4A_MAX_M else "wgmma"
+    return "gemv" if m <= FWD_GEMV_MAX_M else "wgmma"
+
+
+def gemv_splits(k: int) -> int:
+    """The cluster size the route takes for a contraction of k rows: as
+    many splits as fill the card at GPT-2's widths, at most
+    :data:`GEMV_MAX_SPLITS` and never more than k has 32-row steps."""
+    return min(GEMV_MAX_SPLITS, -(-k // GEMV_STEP))
 
 
 def _check_fwd(x, w, row_scale, col_scale, out_dtype):
@@ -93,10 +113,8 @@ def _check_fwd(x, w, row_scale, col_scale, out_dtype):
     if row_scale.numel() != m or col_scale.numel() != n:
         raise ValueError(f"int8_matmul: scales {tuple(row_scale.shape)}, "
                          f"{tuple(col_scale.shape)} for ({m}, {n}) output")
-    if x.device.type == "cpu":
+    if not _on_card("int8_matmul", x):
         return m, n, k
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_matmul: unsupported device {x.device}")
     _check_cuda("int8_matmul", x.device, (
         ("x", x, (torch.int8,)), ("w", w, (torch.int8,)),
         ("row_scale", row_scale, (torch.float32,)),
@@ -109,16 +127,59 @@ def _check_fwd(x, w, row_scale, col_scale, out_dtype):
 def int8_matmul_dp4a(x: torch.Tensor, w: torch.Tensor,
                      row_scale: torch.Tensor, col_scale: torch.Tensor,
                      out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The forward's CUDA-core route at any M (a stage: no launch count).
-    CPU tensors take :func:`int8_matmul_plain`."""
+    """The first CUDA-core (dp4a) kernel at any M, on no route: the
+    yardstick the routes are timed against (a stage: no launch count).  CPU
+    tensors take :func:`int8_matmul_plain`."""
     m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     _run("repro_int8_matmul_dp4a", _build.ptr(x), _build.ptr(w),
          _build.ptr(row_scale), _build.ptr(col_scale), _build.ptr(out), m, n,
          k, _DTYPE_CODES[out_dtype], _build.stream_of(x))
     return out
+
+
+_X_INT8 = 2          # the kernel's code for int8 activations
+
+
+def _gemv(x, w, row_scale, col_scale, out_dtype, splits, bits):
+    """Launch the cluster kernel on CUDA tensors already checked: x int8
+    with ``row_scale`` (the int8 entry) or fp with ``row_scale`` None,
+    quantized to ``bits`` in the kernel (the fused entry)."""
+    m, k = x.shape
+    n = w.shape[1]
+    if not 0 < m <= FWD_GEMV_MAX_M:
+        raise ValueError(f"int8 gemv: {m} rows outside [1, {FWD_GEMV_MAX_M}]")
+    if k > MAX_CONTRACTION:
+        raise ValueError(f"int8 gemv: contraction {k} > {MAX_CONTRACTION} "
+                         f"(int32 sums)")
+    splits = splits or gemv_splits(k)
+    if not 0 < splits <= GEMV_MAX_SPLITS:
+        raise ValueError(f"int8 gemv: {splits} splits outside "
+                         f"[1, {GEMV_MAX_SPLITS}]")
+    wk = kmajor_weight(w)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    x_code = _X_INT8 if x.dtype == torch.int8 else _DTYPE_CODES[x.dtype]
+    _run("repro_int8_gemv", _build.ptr(x), _build.ptr(wk), _p(row_scale),
+         _build.ptr(col_scale), _build.ptr(out), m, n, k, wk.stride(0),
+         splits, x_code, _DTYPE_CODES[out_dtype], bits, _build.stream_of(x))
+    return out
+
+
+def int8_matmul_gemv(x: torch.Tensor, w: torch.Tensor,
+                     row_scale: torch.Tensor, col_scale: torch.Tensor,
+                     out_dtype=torch.bfloat16,
+                     splits: Optional[int] = None) -> torch.Tensor:
+    """The forward's cluster route (a stage: no launch count): M <=
+    :data:`FWD_GEMV_MAX_M`, a cluster of ``splits`` blocks (default
+    :func:`gemv_splits`) per 32 output columns, the products by
+    ``mma.sync``; every split count gives the same bits.  CPU tensors take
+    :func:`int8_matmul_plain`."""
+    _check_fwd(x, w, row_scale, col_scale, out_dtype)
+    if not x.is_cuda:
+        return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
+    return _gemv(x, w, row_scale, col_scale, out_dtype, splits, 8)
 
 
 def int8_matmul_wgmma(x: torch.Tensor, w: torch.Tensor,
@@ -130,7 +191,7 @@ def int8_matmul_wgmma(x: torch.Tensor, w: torch.Tensor,
     ``splits`` ways (default :func:`gemm_splits`) over the contraction.
     CPU tensors take :func:`int8_matmul_plain`."""
     m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
     if k > MAX_CONTRACTION:
         raise ValueError(f"int8_matmul: contraction {k} > {MAX_CONTRACTION} "
@@ -155,13 +216,13 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
     col_scale fp32 (1, N) or (N,) -> (M, N) ``out_dtype``.
 
     CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
-    kernels of the route :func:`fwd_route` names (any M, N and K; K up to
-    ``MAX_CONTRACTION`` on the tensor cores) or raise.  A call is one
-    launch on the counter, whatever kernels its route runs."""
+    kernels of the route :func:`fwd_route` names (any M, N and K up to
+    ``MAX_CONTRACTION``) or raise.  A call is one launch on the counter,
+    whatever kernels its route runs."""
     m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
-    route = (int8_matmul_dp4a if fwd_route(m, n, k) == "dp4a"
+    route = (int8_matmul_gemv if fwd_route(m, n, k) == "gemv"
              else int8_matmul_wgmma)
     out = route(x, w, row_scale, col_scale, out_dtype)
     int8_matmul.launches += 1
@@ -169,6 +230,85 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, row_scale: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+def quant_fwd_eligible(spec: "QuantSpec") -> bool:
+    """Does :func:`int8_quant_matmul`'s prologue compute ``quantize_int(x,
+    spec)`` exactly?  Per token, symmetric, nearest rounding, no blocks, no
+    sqrt domain, 8 bits or fewer."""
+    # imported here: repro_torch.core imports the kernels' wrappers
+    from repro_torch.core.qconfig import Granularity, RoundMode
+    return (spec.granularity is Granularity.PER_TOKEN and spec.symmetric
+            and spec.round_mode is RoundMode.NEAREST and spec.block_size == 0
+            and not spec.sqrt_domain and spec.bits <= 8)
+
+
+def takes_quant_fwd(x: torch.Tensor, spec: "QuantSpec", out_dtype) -> bool:
+    """Does a linear on the fp activations x (M, K) take the fused entry?
+    On the card, a spec it computes exactly, a carrier in and out, and M
+    within the cluster route (:func:`fwd_route`)."""
+    return (x.is_cuda and quant_fwd_eligible(spec) and x.dtype in _CARRIERS
+            and out_dtype in _DTYPE_CODES
+            and fwd_route(x.shape[0], 0, x.shape[1]) == "gemv")
+
+
+def _col_scale(w_scale: torch.Tensor, n: int) -> torch.Tensor:
+    """A per-channel (1, N) or per-tensor (1, 1) weight scale as the N
+    contiguous float32 the kernels read: the tensor itself where it already
+    is that (a prepared weight's scale; no op, so no host time)."""
+    if (w_scale.dtype == torch.float32 and w_scale.numel() == n
+            and w_scale.is_contiguous()):
+        return w_scale
+    return w_scale.to(torch.float32).reshape(1, -1).expand(1, n).contiguous()
+
+
+def int8_quant_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
+                            w_scale: torch.Tensor, a_spec: "QuantSpec",
+                            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`int8_quant_matmul`: ``quantize_int`` of x,
+    then :func:`int8_matmul_plain` (``ops.int8_payload_linear``'s
+    arithmetic)."""
+    from repro_torch.core.quantizer import quantize_int
+    xq, scale, _ = quantize_int(x, a_spec)
+    return int8_matmul_plain(xq, wq, scale, _col_scale(w_scale, wq.shape[1]),
+                             out_dtype)
+
+
+def int8_quant_matmul(x: torch.Tensor, wq: torch.Tensor,
+                      w_scale: torch.Tensor, a_spec: "QuantSpec",
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The decode linear in one launch: x fp32 / bf16 (M, K), M <=
+    :data:`FWD_GEMV_MAX_M`; wq int8 (K, N), w_scale fp32 (1, N) or (1, 1) ->
+    (M, N) ``out_dtype``, equal bit for bit to ``quantize_int(x, a_spec)``
+    followed by :func:`int8_matmul` (:func:`int8_quant_matmul_plain`).
+
+    The cluster kernel quantizes x per token in its prologue: each block's
+    partial row absmax, their max through distributed shared memory, scale =
+    max(absmax, 1e-12) / qmax, payload clamp(rint(x / scale)); a NaN or an
+    infinity in a row reaches its outputs as in the plain version.  ``a_spec``
+    must satisfy :func:`quant_fwd_eligible`, or this raises.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.  A call
+    adds one to ``int8_matmul.launches``."""
+    if not quant_fwd_eligible(a_spec):
+        raise ValueError(f"int8_quant_matmul: [{a_spec.describe()}] is not "
+                         f"per-token, symmetric, nearest, unblocked <= 8 bits")
+    m, k = x.shape
+    k2, n = wq.shape
+    if k != k2 or w_scale.numel() not in (1, n):
+        raise ValueError(f"int8_quant_matmul: x {tuple(x.shape)}, wq "
+                         f"{tuple(wq.shape)}, w_scale {tuple(w_scale.shape)}")
+    if not _on_card("int8_quant_matmul", x):
+        return int8_quant_matmul_plain(x, wq, w_scale, a_spec, out_dtype)
+    cs = _col_scale(w_scale, n)
+    _check_cuda("int8_quant_matmul", x.device, (
+        ("x", x, _CARRIERS), ("wq", wq, (torch.int8,)),
+        ("w_scale", cs, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_quant_matmul: unsupported out_dtype "
+                         f"{out_dtype}")
+    out = _gemv(x, wq, None, cs, out_dtype, None, a_spec.bits)
+    int8_matmul.launches += 1
+    return out
 
 
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -329,13 +469,20 @@ def int8_split_reduce_fwd_plain(ws: torch.Tensor, rs: torch.Tensor,
     return _dequant_fwd(acc, rs, cs, out_dtype)
 
 
+_ENTRIES = {}        # C entry point -> (its library, the function)
+
+
 def _run(entry: str, *args) -> None:
     """Call the C entry point ``entry`` of the library that exports it (the
     forward's or the backward's, ``_build.SIGNATURES``); raise on a CUDA
-    error."""
-    name = next(n for n, sig in _build.SIGNATURES.items() if entry in sig)
-    lib = _build.load(name)
-    _build.check(lib, getattr(lib, entry)(*args), entry)
+    error.  Each entry is looked up once (a decode step makes 72 calls)."""
+    found = _ENTRIES.get(entry)
+    if found is None:
+        lib = _build.load(next(n for n, sig in _build.SIGNATURES.items()
+                               if entry in sig))
+        found = _ENTRIES[entry] = (lib, getattr(lib, entry))
+    lib, fn = found
+    _build.check(lib, fn(*args), entry)
 
 
 def _p(t: Optional[torch.Tensor]):
@@ -354,11 +501,11 @@ def gemm_splits(r: int, c: int, kc: int) -> int:
 def _on_card(what: str, t: torch.Tensor) -> bool:
     """False for a CPU tensor (the plain version runs), True for a CUDA one;
     any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"{what}: unsupported device {t.device}")
-    return True
+    return False
 
 
 def _check_kmajor(what: str, dev, ops, kc: int) -> None:

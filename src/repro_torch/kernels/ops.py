@@ -6,8 +6,10 @@ paper's W8A8 recipe with real integer compute, forward and backward
 (``int8_payload_linear``, ``int8_linear``, ``int8_prepared_linear``,
 ``int8_bwd_dx``, ``int8_bwd_dw``).  The activation quantization and the
 column / tensor / gradient absmax reduces stay plain torch, as they stay
-in XLA in the JAX package; the kernels take any shape, so nothing is
-padded to the TPU's (8, 128) tiles."""
+in XLA in the JAX package, except at the decode step: there a prepared
+linear is one kernel that quantizes its activations per token itself
+(``int8_quant_matmul``).  The kernels take any shape, so nothing is padded
+to the TPU's (8, 128) tiles."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,7 +19,8 @@ import torch
 from repro_torch.core.qconfig import Granularity, QuantSpec, RoundMode
 from repro_torch.core.quantizer import _EPS, _div, quantize_int
 from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
-                                             int8_matmul_tn)
+                                             int8_matmul_tn, int8_quant_matmul,
+                                             takes_quant_fwd)
 from repro_torch.kernels.qdq import qdq_row, qdq_scaled
 
 
@@ -94,12 +97,20 @@ def int8_prepared_linear(x: torch.Tensor, wq: torch.Tensor,
                          ) -> torch.Tensor:
     """Real-int8 linear on a prepared weight: ``wq`` (K, N) int8 payload and
     ``w_scale`` (1, N) fp32, quantized once (``repro_torch.infer.prepare``).
-    Only the activations are quantized here, per ``a_spec``."""
+    Only the activations are quantized, per ``a_spec``: on the card at the
+    decode step's few rows by ``int8_quant_matmul``, one launch with the
+    quantization in its prologue (``takes_quant_fwd``), else here, then
+    ``int8_matmul``; both give the same bits."""
     out_dtype = out_dtype or x.dtype
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    xq, row_scale, _ = quantize_int(x2, a_spec)     # zero == 0 (symmetric)
-    out = int8_payload_linear(xq, row_scale, wq, w_scale, out_dtype=out_dtype)
+    if takes_quant_fwd(x2, a_spec, out_dtype):
+        out = int8_quant_matmul(x2.contiguous(), wq.contiguous(), w_scale,
+                                a_spec, out_dtype=out_dtype)
+    else:
+        xq, row_scale, _ = quantize_int(x2, a_spec)  # zero == 0 (symmetric)
+        out = int8_payload_linear(xq, row_scale, wq, w_scale,
+                                  out_dtype=out_dtype)
     return out.reshape(*shape[:-1], wq.shape[1])
 
 

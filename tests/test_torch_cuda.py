@@ -7,8 +7,13 @@ visible (the kernels have no CPU mode); on a machine with a card, run
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: the three int8 matmuls (forward, nt, tn) bit for bit -- the
-forward on both its routes (dp4a and the tensor cores) at any M, the
-wrapper taking the route ``fwd_route`` names -- and so each stage of the
+forward on both its routes (the cluster's split-K weight stream up to 16
+rows, at every cluster size, and the tensor cores at any M) and the first
+dp4a kernel, the wrapper taking the route ``fwd_route`` names, the fused
+decode entry ``int8_quant_matmul`` against quantize_int + the plain
+matmul (rows holding a NaN or an infinity included), a repeat
+bit-identical -- and so each
+stage of the
 forward and the backward against its plain stage (the quantize passes,
 the transposes, the int8 GEMM with its scale per row, per column or both,
 the split partials and their reduction), a second nt or tn launch
@@ -123,7 +128,8 @@ def _mm_case(cuda, m, k, n):
     return tuple(t.to(cuda) for t in (x, w, rs, cs))
 
 
-#: (M, K, N): the decode step's 16 slots, M = 17 and 64 past the crossover,
+#: (M, K, N): the decode step's 16 slots, M = 17 and 64 past the route's
+#: limit,
 #: the training shape M = 8192, ragged M, N and K (K = 40 and 90: x is read
 #: through a padded copy), GPT-2's three linears
 FWD_CUDA_SHAPES = [(16, 768, 3072), (70, 3072, 768), (5, 40, 24),
@@ -135,17 +141,109 @@ FWD_CUDA_SHAPES = [(16, 768, 3072), (70, 3072, 768), (5, 40, 24),
 @pytest.mark.parametrize("m,k,n", FWD_CUDA_SHAPES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_kernel(cuda, m, k, n, out_dtype):
-    """The wrapper (one launch on its counter) and both routes at any M,
-    bit for bit against the plain version."""
+    """The wrapper (one launch on its counter), both routes at every M they
+    take (the cluster route up to 16 rows) and the first dp4a kernel, bit for
+    bit against the plain version."""
     x, w, rs, cs = _mm_case(cuda, m, k, n)
     before = int8_matmul.launches
     got = int8_matmul(x, w, rs, cs, out_dtype=out_dtype)
     assert int8_matmul.launches == before + 1
     want = int8_matmul_plain(x, w, rs, cs, out_dtype=out_dtype)
     assert torch.equal(got, want)
-    for route in (im.int8_matmul_dp4a, im.int8_matmul_wgmma):
+    routes = [im.int8_matmul_dp4a, im.int8_matmul_wgmma]
+    if m <= im.FWD_GEMV_MAX_M:
+        routes.append(im.int8_matmul_gemv)
+    for route in routes:
         assert torch.equal(route(x, w, rs, cs, out_dtype), want), route
     assert int8_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 768, 768), (16, 3072, 768),
+                                   (7, 90, 257), (1, 40, 24), (13, 300, 130),
+                                   (16, 5000, 100), (16, 131071, 48)])
+def test_int8_gemv_every_cluster_size(cuda, m, k, n):
+    """The cluster route at every cluster size (1-8 blocks, a short or empty
+    last split), ragged K and N (N = 257 and 130 read through a padded
+    weight copy), contractions over several 256-row stages and the longest
+    the int32 sums allow: the plain version's bits, and a repeat's.  More
+    than 16 rows raise."""
+    x, w, rs, cs = _mm_case(cuda, m, k, n)
+    for out in (torch.float32, torch.bfloat16):
+        want = int8_matmul_plain(x, w, rs, cs, out)
+        for splits in range(1, im.GEMV_MAX_SPLITS + 1):
+            got = im.int8_matmul_gemv(x, w, rs, cs, out, splits=splits)
+            again = im.int8_matmul_gemv(x, w, rs, cs, out, splits=splits)
+            assert torch.equal(got, want), splits
+            assert torch.equal(again, got), splits
+    x, w, rs, cs = _mm_case(cuda, im.FWD_GEMV_MAX_M + 1, k, n)
+    with pytest.raises(ValueError):
+        im.int8_matmul_gemv(x, w, rs, cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 16])
+@pytest.mark.parametrize("k,n", [(768, 768), (3072, 768), (90, 257),
+                                 (40, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quant_matmul_kernel(cuda, m, k, n, dtype):
+    """The fused decode entry: per-token quantization in the kernel's
+    prologue, an all-zero row included, bit for bit quantize_int +
+    int8_matmul_plain (its plain version) at ragged K and N, a repeat
+    bit-identical, one launch on int8_matmul's counter per call; and
+    ops.int8_prepared_linear takes it (one launch) with the same bits."""
+    import repro_torch.kernels.ops as ops
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy((rng.standard_normal((m, k)) * 3).astype(np.float32))
+    x[m // 2] = 0.0
+    x = x.to(dtype).to(cuda)
+    _, w, _, cs = _mm_case(cuda, m, k, n)
+    cs = cs.abs() + 1e-3                    # a prepared weight's scales
+    want = im.int8_quant_matmul_plain(x, w, cs, SPEC, dtype)
+    before = int8_matmul.launches
+    got = im.int8_quant_matmul(x, w, cs, SPEC, dtype)
+    again = im.int8_quant_matmul(x, w, cs, SPEC, dtype)
+    assert int8_matmul.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(again, got)
+    xq, scale, _ = quantize_int(x, SPEC)
+    assert torch.equal(got, int8_matmul_plain(xq, w, scale, cs, dtype))
+    assert im.takes_quant_fwd(x, SPEC, dtype)
+    lin = ops.int8_prepared_linear(x, w, cs, SPEC)
+    assert int8_matmul.launches == before + 3
+    assert torch.equal(lin, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(768, 3072), (3072, 768), (90, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quant_matmul_nonfinite_rows(cuda, k, n, dtype):
+    """The fused entry on rows holding a NaN, +inf or -inf (in the first,
+    a middle and the last contraction split): the row scale carries them as
+    quantize_int's torch.amax and torch.clamp do, so the outputs equal the
+    plain version's -- NaN where it has NaN, the same bits elsewhere -- a
+    NaN row all NaN, the finite rows untouched."""
+    rng = np.random.RandomState(k + n)
+    x = torch.from_numpy((rng.standard_normal((16, k)) * 3).astype(np.float32))
+    clean_x = x.clone()
+    x[3, k - 1] = float("nan")
+    x[5, 0] = float("inf")
+    x[9, k // 2] = float("-inf")
+    x[11, 1] = float("nan")
+    x[11, 2] = float("inf")
+    x, clean_x = (t.to(dtype).to(cuda) for t in (x, clean_x))
+    _, w, _, cs = _mm_case(cuda, 16, k, n)
+    cs = cs.abs() + 1e-3
+    want = im.int8_quant_matmul_plain(x, w, cs, SPEC, dtype)
+    got = im.int8_quant_matmul(x, w, cs, SPEC, dtype)
+    again = im.int8_quant_matmul(x, w, cs, SPEC, dtype)
+    same = (got == want) | (got.isnan() & want.isnan())
+    assert bool(same.all()), (got[~same][:8], want[~same][:8])
+    assert bool(((again == got) | (again.isnan() & got.isnan())).all())
+    assert bool(got[3].isnan().all() and got[11].isnan().all())
+    assert not bool(got[[5, 9]].isfinite().any())
+    finite = [r for r in range(16) if r not in (3, 5, 9, 11)]
+    clean = im.int8_quant_matmul(clean_x, w, cs, SPEC, dtype)
+    assert torch.equal(got[finite], clean[finite])
 
 
 @pytest.mark.cuda
@@ -177,11 +275,12 @@ def test_int8_fwd_stage_kernels(cuda, m, k, n):
 
 @pytest.mark.cuda
 def test_int8_matmul_routes_by_rows(cuda, monkeypatch):
-    """A CUDA call takes the route ``fwd_route`` names: the CUDA-core kernel
-    at M <= 16, the transpose pass and the tensor-core GEMM above (one
-    launch on the counter either way)."""
+    """A CUDA call takes the route ``fwd_route`` names: the cluster's
+    split-K weight stream at M <= FWD_GEMV_MAX_M, the transpose pass and the
+    tensor-core GEMM above (one launch on the counter either way); the
+    first dp4a kernel on no route."""
     taken = []
-    for name in ("int8_matmul_dp4a", "int8_matmul_wgmma"):
+    for name in ("int8_matmul_dp4a", "int8_matmul_gemv", "int8_matmul_wgmma"):
         real = getattr(im, name)
         monkeypatch.setattr(im, name, lambda *a, _r=real, _n=name, **kw:
                             taken.append(_n) or _r(*a, **kw))
@@ -190,7 +289,7 @@ def test_int8_matmul_routes_by_rows(cuda, monkeypatch):
         taken.clear()
         im.int8_matmul(x, w, rs, cs)
         assert taken == ["int8_matmul_" + im.fwd_route(m, 768, 768)], m
-        assert taken == ["int8_matmul_dp4a" if m <= 16
+        assert taken == ["int8_matmul_gemv" if m <= im.FWD_GEMV_MAX_M
                          else "int8_matmul_wgmma"]
 
 

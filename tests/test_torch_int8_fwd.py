@@ -1,6 +1,6 @@
 """The staged int8 forward (``repro_torch.kernels.int8_matmul``) on the CPU.
 
-On the card ``int8_matmul`` above ``FWD_DP4A_MAX_M`` rows runs in stages:
+On the card ``int8_matmul`` above ``FWD_GEMV_MAX_M`` rows runs in stages:
 a transpose pass that writes the weight K-major once, wT (N, pad16(K)),
 then the int8 GEMM of two K-major operands with both scales in its
 epilogue, ((float)sum * g(rs)) * g(cs), split over the contraction where
@@ -142,16 +142,17 @@ def test_epilogue_order_is_row_then_column(splits):
 
 
 @pytest.mark.parametrize("m,route", [
-    (1, "dp4a"), (16, "dp4a"),            # decode: 16 slots and fewer
+    (1, "gemv"), (16, "gemv"),            # decode: 16 slots and fewer
     (17, "wgmma"), (64, "wgmma"),         # a bucket of one prompt
     (32 * 4, "wgmma"), (512 * 16, "wgmma"),  # prefill, B x bucket
     (8 * 1024, "wgmma")])                 # a training step's tokens
 @pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
 def test_fwd_route(m, route, k, n):
     """The route of each forward shape of the main path: the decode step's
-    16 slots on the CUDA cores, prefill and training on the tensor cores."""
+    16 slots on the cluster route (a split-K weight stream, one 16-row
+    tile), prefill and training on the tensor-core GEMM."""
     assert im.fwd_route(m, n, k) == route
-    assert im.FWD_DP4A_MAX_M == 16
+    assert im.FWD_GEMV_MAX_M == 16
 
 
 def test_transposed_weight_layout():
@@ -177,6 +178,8 @@ def test_forward_stage_wrappers_take_cpu_tensors(out_dtype):
     ws = im.int8_gemm_partials(xk, wt, k, 3)
     assert torch.equal(im.int8_split_reduce_fwd(ws, rs, cs, out_dtype), want)
     assert torch.equal(im.int8_matmul_dp4a(x, w, rs, cs, out_dtype), want)
+    assert torch.equal(im.int8_matmul_gemv(x[:16], w, rs[:16], cs, out_dtype),
+                       want[:16])
     assert torch.equal(im.int8_matmul_wgmma(x, w, rs, cs, out_dtype), want)
     before = im.int8_matmul.launches
     assert torch.equal(im.int8_matmul(x, w, rs, cs, out_dtype), want)
