@@ -61,29 +61,38 @@ Phases, in order; any failure exits non-zero:
 6. hold the training kernels against their plain versions at the training
    path's shapes -- ``int8_matmul_nt`` and ``int8_matmul_tn`` bit for bit
    at M = 8192 tokens (the three (K, N) at bf16, (768, 768) at fp32), a
-   second launch bit-identical to the first, ``fused_adamw_blocks`` on a
-   bucket of GPT-2 small's size (bit for bit in params, payloads and
-   scales) -- and time each beside its bound, its plain version and a
-   yardstick (``torch._int_mm`` on int8 operands of the same contraction;
-   none for AdamW); nt and tn with the card's queue full, and each of their
-   stages (quantize pass, int8 GEMM, split reduction) timed alone; every
-   GEMM kernel of ``int8_matmul_bwd.cu`` holds
-   integer wgmma (``IGMMA``) in its SASS (``cuobjdump``), or the phase
-   fails (``check_int8_bwd``);
+   second launch bit-identical to the first -- and time each beside its
+   bound, its plain version and a yardstick (``torch._int_mm`` on int8
+   operands of the same contraction), with the card's queue full, and each
+   of their stages (quantize pass, int8 GEMM, split reduction) timed alone;
+   every GEMM kernel of ``int8_matmul_bwd.cu`` holds integer wgmma
+   (``IGMMA``) in its SASS (``cuobjdump``), or the phase fails
+   (``check_int8_bwd``); 6b. the fused AdamW kernel's two entries:
+   ``fused_adamw_blocks`` on a bucket of GPT-2 small's size and
+   ``fused_adamw_leaves`` on GPT-2 small's own leaves (two steps, the
+   second reading the first's views), each bit for bit in params, payloads,
+   scales and zero points, the update-norm sum within 1e-5 relative, a
+   repeat bit-identical, timed queued beside the byte bound and the plain
+   version (no PyTorch yardstick); the kernel holds bulk copies
+   (``UBLKCP``) in its SASS, or the phase fails; then ``adamw_update``'s
+   device time on GPT-2 small and its kernels by kind
+   (``check_fused_adamw``);
 7. train GPT-2 small at full width and depth (random weights from
    ``--seed``, bf16 carrier, 8 x 1024 tokens a step from the port's
    synthetic corpus, the paper's W8/A8/G8 recipe on the int8 kernels with
    blockwise 8-bit Adam moments) for 10 steps: ce, grad norm and ms per
    step, tokens/s, peak memory and, over one profiled step, the device's
    idle share; every ce and grad norm must be finite and each training
-   kernel must launch exactly 72 / 72 / 72 / 1 times a step (and the
-   serving kernels never);
+   kernel (nt, tn, the forward, ``fused_adamw_leaves``) must launch
+   exactly 72 / 72 / 72 / 1 times a step (and the serving kernels and the
+   bucket entry ``fused_adamw_blocks`` never);
 8. one train step on gpt2-mini, card against CPU (see
    ``train_card_vs_cpu`` for the checks and their limits);
 9. the fake-quant gradient kernels ``qdq_row`` and ``qdq_scaled`` bit for
-   bit against their plain versions at the gradients' shapes, timed beside
-   their bound, plain version and a fake-quantize yardstick
-   (``check_qdq``);
+   bit against their plain versions at the gradients' shapes, timed with
+   the L2 cold, queued and call by call, beside their bound, plain version
+   and a fake-quantize yardstick; ``qdq_row``'s streaming kernel holds bulk
+   copies (``UBLKCP``) in its SASS, or the phase fails (``check_qdq``);
 10. GPT-2 small at full width through the port's ``Trainer`` under the
     fake-quant recipes ``paper_wag8`` (10 steps: ms/step, tokens/s, peak
     memory, idle share), ``w8c,a8t,g8n`` and ``w8c,a8t,g8c``: 72 qdq
@@ -145,11 +154,12 @@ INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention")
-TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_blocks")
+TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_leaves")
 QDQ_KERNELS = ("qdq_row", "qdq_scaled")
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
-KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS + ("decode_attention_paged",) \
+KERNEL_NAMES = SERVE_KERNELS + TRAIN_KERNELS + ("fused_adamw_blocks",) \
+    + ("decode_attention_paged",) \
     + QDQ_KERNELS + FLASH_KERNELS
 #: phases 4 and 4b: 32 requests, prompts of 32-512 tokens, 64 new tokens
 #: each, 16 slots of 1024 rows; 4b's pages hold 64 rows, its requests
@@ -1331,6 +1341,8 @@ def plain_versions(names):
              "int8_matmul_tn": [(ops, "int8_matmul_tn", int8_matmul_tn_plain)],
              "fused_adamw_blocks": [(opt_update, "fused_adamw_blocks",
                                      opt_update.fused_adamw_blocks_plain)],
+             "fused_adamw_leaves": [(opt_update, "fused_adamw_leaves",
+                                     opt_update.fused_adamw_leaves_plain)],
              **{n: [(flash_attn, n, getattr(flash_attn, n + "_plain"))]
                 for n in FLASH_KERNELS}}
     swaps = [site for n in names for site in sites[n]]
@@ -1599,15 +1611,20 @@ def check_int8_bwd(torch, dev, gen, results):
         fail(f"phase 6: an int8 backward GEMM kernel has no IGMMA: {gemm}")
 
 
+#: phase 6b's bucket rows are padded to a multiple of this: the JAX
+#: reference's tile (``repro/optim/adamw.py``), as the port padded its
+#: bucket before it read the leaves where they lie
+BUCKET_TILE_ROWS = 256
+
+
 def gpt2_bucket_rows(torch, dev, cfg):
     """(rows, params) of the fused AdamW bucket for ``cfg`` under 128-wide
-    blocks: every quantizable leaf's blocks, padded to the optimizer's
+    blocks: every quantizable leaf's blocks, padded to the reference's
     tile, and the parameters they hold."""
     from repro_torch.core import qadam
     from repro_torch.core.qconfig import parse_spec
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_flatten
-    from repro_torch.optim.adamw import TILE_ROWS
     spec = parse_spec("8c-b128")
     params = build_model(cfg).init_params(
         torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -1616,19 +1633,102 @@ def gpt2_bucket_rows(torch, dev, cfg):
                for p in leaves if qadam.quantizable(p))
     n_params = sum(p.numel() for p in leaves if qadam.quantizable(p))
     del params, leaves
-    return rows + (-rows) % TILE_ROWS, n_params
+    return rows + (-rows) % BUCKET_TILE_ROWS, n_params
+
+
+def gpt2_leaves(torch, dev, gen, rec, seed=0):
+    """GPT-2 small's quantizable leaves as the optimizer reads them: params
+    from ``init_params`` (``seed``), random fp32 gradients, and both
+    moments of random values quantized per leaf with ``rec``'s codecs (m2
+    through its sqrt domain).  A dict of lists: g, p, m1, m2 (QStates)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import qadam
+    from repro_torch.core.quantizer import quantize_int
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten
+    params = build_model(get_config("gpt2-small")).init_params(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    p = [t for t in tree_flatten(params)[0] if qadam.quantizable(t)]
+    del params
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    return {"p": p, "g": [rand(t.shape, 1e-2) for t in p],
+            "m1": [qadam.QState(*quantize_int(rand(t.shape, 1e-3),
+                                              rec.adam_m1)) for t in p],
+            "m2": [qadam.QState(*quantize_int(
+                torch.rand(t.shape, generator=gen, device=dev).mul_(
+                    1e-5).sqrt_(), rec.adam_m2)) for t in p]}
+
+
+def _leaves_out(out):
+    """The tensors of a ``fused_adamw_leaves`` result, in order."""
+    p, m1, m2, _ = out
+    return [*p, *(t for m in m1 for t in m), *(t for m in m2 for t in m)]
+
+
+def _same(torch, got, want):
+    """(bit for bit?, max |difference|) over two lists of tensors."""
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    return all(torch.equal(a, b) for a, b in zip(got, want)), err
+
+
+def optimizer_device_time(torch, call, reps: int = 5):
+    """Device time of one optimizer call with the card's queue full: the
+    card sleeps while the host queues the whole call, then CUDA events
+    time it (the median of ``reps``); and torch.profiler's device time of
+    its kernels over one more call, by kind.  Returns (ms, {kind: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        low = e.key.lower()
+        kind = ("fused AdamW kernel" if "adamw" in low else
+                "concatenation" if "cat" in low else
+                "reductions" if "reduce" in low else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return sorted(times)[reps // 2], kinds
 
 
 def check_fused_adamw(torch, dev, gen, results):
-    """Phase 6b: the fused AdamW step on a bucket of GPT-2 small's size
-    (random gradient, params and moments; the slice's codecs), bit for bit
-    against its plain version in params, payloads, scales and zero points;
-    the update-norm sum within 1e-5 relative (another summation order)."""
+    """Phase 6b: the fused AdamW kernel's two entries on GPT-2 small.
+
+    The bucket entry on a bucket of GPT-2 small's size (random gradient,
+    params and moments; the slice's codecs) and the leaves entry on GPT-2
+    small's own quantizable leaves (``gpt2_leaves``: params from
+    ``init_params``, random fp32 gradients, moments quantized per leaf), a
+    second step from the first one's outputs (views into its bucket), each
+    bit for bit against its plain version in params, payloads, scales and
+    zero points, the update-norm sum within 1e-5 relative (another
+    summation order), and a repeat bit-identical (the sum too).  Both
+    timed queued beside the byte bound; then ``adamw_update`` on GPT-2
+    small's params and the train policy: its device time with the card's
+    queue full and its kernels by kind (``optimizer_device_time``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.qconfig import parse_recipe
     from repro_torch.core.quantizer import quantize_int
     from repro_torch.kernels.opt_update import (codec_of, fused_adamw_blocks,
-                                                fused_adamw_blocks_plain)
+                                                fused_adamw_blocks_plain,
+                                                fused_adamw_leaves,
+                                                fused_adamw_leaves_plain)
     rec = parse_recipe("m1:8c-b128,m2:8c-asym-b128-sqrt")
     rows, n_params = gpt2_bucket_rows(torch, dev, get_config("gpt2-small"))
     bs = 128
@@ -1643,20 +1743,29 @@ def check_fused_adamw(torch, dev, gen, results):
                        1 - 0.95 ** 3], dtype=torch.float32, device=dev)
     kw = dict(m1_codec=codec_of(rec.adam_m1), m2_codec=codec_of(rec.adam_m2),
               weight_decay=True)
+
+    def sum_rel(got, want):
+        return abs(got.item() - want.item()) / want.item()
     ref = [t.clone() for t in bucket]
+    again = [t.clone() for t in bucket]
     got = fused_adamw_blocks(*bucket, sc, **kw)
     want = fused_adamw_blocks_plain(*ref, sc, **kw)
+    rep = fused_adamw_blocks(*again, sc, **kw)
     torch.cuda.synchronize()
-    err = max((a.float() - b.float()).abs().max().item()
-              for a, b in zip(bucket[1:], ref[1:]))
-    if not all(torch.equal(a, b) for a, b in zip(bucket[1:], ref[1:])):
+    exact, err = _same(torch, bucket[1:], ref[1:])
+    if not exact:
         fail(f"fused_adamw_blocks not bit-exact on {rows} x {bs} (max err "
              f"{err})")
-    rel = abs(got[3].item() - want[3].item()) / want[3].item()
+    rel = sum_rel(got[3], want[3])
     if rel > 1e-5:
         fail(f"fused_adamw_blocks update-norm sum off by {rel:.2e} relative")
-    ms = time_ms(lambda: fused_adamw_blocks(*bucket, sc, **kw))
-    plain = time_ms(lambda: fused_adamw_blocks_plain(*ref, sc, **kw), iters=3)
+    if not (_same(torch, again[1:], bucket[1:])[0]
+            and torch.equal(rep[3], got[3])):
+        fail("fused_adamw_blocks: a repeat is not bit-identical")
+    del ref, again
+    ms = queued_ms(lambda: fused_adamw_blocks(*bucket, sc, **kw), iters=10)
+    plain = time_ms(lambda: fused_adamw_blocks_plain(*bucket, sc, **kw),
+                    iters=3)
     n = rows * bs
     # reads g, p (fp32) and both int8 payloads, writes p and both payloads;
     # scale and zero of both moments read and written once a row
@@ -1664,14 +1773,87 @@ def check_fused_adamw(torch, dev, gen, results):
     b, by = bound_ms(nbytes, 35.0 * n, FP32_FLOPS)
     print(f"fused_adamw_blocks {rows} x {bs} ({n_params} GPT-2 small params "
           f"in the bucket): bit-exact (tol 0; update-norm sum rel "
-          f"{rel:.1e}, tol 1e-5), ms {ms:.4f}, plain_ms {plain:.4f}, "
-          f"bound_ms {b:.5f} ({by}), library_ms none (no PyTorch call "
-          f"computes blockwise 8-bit AdamW)")
+          f"{rel:.1e}, tol 1e-5), repeat bit-identical, queued ms "
+          f"{ms:.4f}, plain_ms {plain:.4f}, bound_ms {b:.5f} ({by}), "
+          f"library_ms none (no PyTorch call computes blockwise 8-bit AdamW)")
     results["fused_adamw_blocks"] = dict(
         route="cuda", source="src/repro_torch/csrc/opt_update.cu",
         replaces="src/repro/kernels/opt_update.py:160", tol=0.0,
         shape=f"rows={rows},bs={bs}", max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=b, bound_by=by, library_ms=None)
+    del bucket, got, want, rep, g, p
+
+    lv = gpt2_leaves(torch, dev, gen, rec)
+    args = (lv["g"], lv["p"], lv["m1"], lv["m2"], sc)
+    first = fused_adamw_leaves(*args, **kw)
+    errs = []
+    for step, (got, want) in enumerate((
+            (first, fused_adamw_leaves_plain(*args, **kw)),
+            # the optimizer's steady state: moments and params are views
+            # into the previous step's bucket
+            (fused_adamw_leaves(lv["g"], *first[:3], sc, **kw),
+             fused_adamw_leaves_plain(lv["g"], *first[:3], sc, **kw)))):
+        torch.cuda.synchronize()
+        exact, e = _same(torch, _leaves_out(got), _leaves_out(want))
+        errs.append(e)
+        if not exact:
+            fail(f"fused_adamw_leaves step {step + 1} not bit-exact on "
+                 f"{len(lv['p'])} leaves (max err {e})")
+        rel_l = sum_rel(got[3], want[3])
+        if rel_l > 1e-5:
+            fail(f"fused_adamw_leaves step {step + 1} update-norm sum off by "
+                 f"{rel_l:.2e} relative")
+    rep = fused_adamw_leaves(*args, **kw)
+    if not (_same(torch, _leaves_out(rep), _leaves_out(first))[0]
+            and torch.equal(rep[3], first[3])):
+        fail("fused_adamw_leaves: a repeat is not bit-identical")
+    del rep, got, want
+    rows_l = sum(int(m.q.shape[0]) for m in lv["m1"])
+    ms_l = queued_ms(lambda: fused_adamw_leaves(*args, **kw), iters=10)
+    plain_l = time_ms(lambda: fused_adamw_leaves_plain(*args, **kw), iters=3)
+    n_l = rows_l * bs
+    b_l, by_l = bound_ms(n_l * 16 + rows_l * 32 + 32, 35.0 * n_l, FP32_FLOPS)
+    print(f"fused_adamw_leaves {len(lv['p'])} GPT-2 small leaves ({rows_l} "
+          f"rows of {bs}, none padded): two steps bit-exact (tol 0; "
+          f"update-norm sum rel {rel_l:.1e}, tol 1e-5), repeat "
+          f"bit-identical, queued ms {ms_l:.4f}, plain_ms {plain_l:.4f} "
+          f"(concatenation included), bound_ms {b_l:.5f} ({by_l}), "
+          f"library_ms none")
+    results["fused_adamw_leaves"] = dict(
+        route="cuda", source="src/repro_torch/csrc/opt_update.cu",
+        replaces="src/repro/kernels/opt_update.py:160", tol=0.0,
+        shape=f"leaves={len(lv['p'])},rows={rows_l},bs={bs}",
+        max_abs_err=max(errs), ms=ms_l, plain_ms=plain_l, bound_ms=b_l,
+        bound_by=by_l, library_ms=None)
+    del lv, args, first
+    bulk_sass_check(("opt_update", "adamw_stream_kernel"))
+    adamw_update_time(torch, dev, gen)
+
+
+def adamw_update_time(torch, dev, gen):
+    """Phase 6b's last part: one ``adamw_update`` on GPT-2 small's params
+    (``init_params``, seed 0), random fp32 gradients and fresh int8
+    moments under ``TRAIN_POLICY``, the call phase 7's step makes: its
+    device time with the card's queue full, its kernels by kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import adamw_update, init_adam_state
+    from repro_torch.core.qpolicy import as_policy
+    policy = as_policy(TRAIN_POLICY)
+    opt = OptConfig(lr=6e-4, warmup_steps=5, total_steps=TRAIN_STEPS,
+                    state_storage="int")
+    params = build_model(get_config("gpt2-small")).init_params(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev) * 1e-2, params)
+    state = init_adam_state(params, policy, opt)
+    ms, kinds = optimizer_device_time(
+        torch, lambda: adamw_update(params, grads, state, opt, policy))
+    print(f"adamw_update on GPT-2 small ({TRAIN_POLICY.split('@')[0]}): "
+          f"device {ms:.4f} ms a call with the queue full; kernels by kind "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(kinds.items())))
 
 
 def train(torch, dev, seed, impl="xla"):
@@ -1706,7 +1888,7 @@ def train(torch, dev, seed, impl="xla"):
     flash = {} if impl == "xla" else {k: cfg.n_layers for k in FLASH_KERNELS
                                       if k != "flash_attention_fwd"}
     want = _expect(int8_matmul=linears, int8_matmul_nt=linears,
-                   int8_matmul_tn=linears, fused_adamw_blocks=1, **flash)
+                   int8_matmul_tn=linears, fused_adamw_leaves=1, **flash)
     # the serving phases stopped their schedulers (a running emit thread
     # holds its engine), but an engine and its scheduler refer to each
     # other: collect the cycles so the peak below is the train step's own
@@ -1997,8 +2179,10 @@ def check_qdq(torch, dev, gen, results):
     """Phase 9: ``qdq_row`` and ``qdq_scaled`` (per channel, (1, F), and per
     tensor, (1, 1)) bit for bit against their plain versions at the
     gradients' shapes, (8192, 768) and (8192, 3072), bfloat16 and float32,
-    8 and 4 bits, with planted ties and an all-zero row; each timed beside
-    its byte bound, its plain version and a PyTorch yardstick:
+    8 and 4 bits, with planted ties and an all-zero row; each timed with
+    the L2 cold, queued (the kernel's time: ``ms``) and call by call (its
+    wrapper's host dispatch included), beside its byte bound, its plain
+    version and a PyTorch yardstick:
     ``torch.amax`` + ``fake_quantize_per_channel_affine`` (axis 0 for #1,
     axis 1 for the per-channel #2) and ``fake_quantize_per_tensor_affine``
     (per-tensor #2), which multiply by a reciprocal -- a time, not an
@@ -2053,18 +2237,21 @@ def check_qdq(torch, dev, gen, results):
                     if not torch.equal(got, want):
                         fail(f"{name} {kind} ({m}, {f}) {dname} bits {bits} "
                              f"not bit-exact (max err {err})")
-                    ms = time_cold_ms(kern, copies)
+                    ms = time_cold_ms(kern, copies, queued=True)
+                    call_ms = time_cold_ms(kern, copies)
                     plain_ms = time_ms(plain, iters=5)
                     lib, lib_dtype = _yardstick_ms(torch, lib_fn, x)
                     b, by = bound_ms(nbytes + extra, 7.0 * x.numel(),
                                      FP32_FLOPS)
                     rows[name].append(dict(
                         shape=f"({m},{f}) {dname} bits={bits} {kind}",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        max_abs_err=err, ms=ms, call_ms=call_ms,
+                        plain_ms=plain_ms,
                         bound_ms=b, bound_by=by, library_ms=lib,
                         library_dtype=lib_dtype))
                     print(f"{name} {kind:11s} ({m}, {f:4d}) {dname:8s} bits "
-                          f"{bits}: bit-exact (tol 0), ms {ms:.4f}, plain_ms "
+                          f"{bits}: bit-exact (tol 0), queued ms {ms:.4f}, "
+                          f"call by call {call_ms:.4f}, plain_ms "
                           f"{plain_ms:.4f}, bound_ms {b:.5f} ({by}), "
                           f"library_ms(fake_quantize, {lib_dtype}) "
                           f"{lib:.4f}")
@@ -2076,6 +2263,7 @@ def check_qdq(torch, dev, gen, results):
             route="cuda", source="src/repro_torch/csrc/qdq.cu",
             replaces=f"src/repro/kernels/qdq.py:{line}", tol=0.0,
             shapes=rows[name], **rows[name][0])
+    bulk_sass_check(("qdq", "qdq_row_stream_kernel"))
 
 
 def _step_recorder(torch, fn, log, kind):
@@ -2275,8 +2463,8 @@ def train_guarded(torch, dev, seed):
             fail(f"phase 11 ladder {rec} != LADDER_EXPECT {LADDER_EXPECT}")
         want = {"primary": _expect(int8_matmul=linears, int8_matmul_nt=linears,
                                    int8_matmul_tn=linears,
-                                   fused_adamw_blocks=1),
-                "fallback": _expect(qdq_row=linears, fused_adamw_blocks=1)}
+                                   fused_adamw_leaves=1),
+                "fallback": _expect(qdq_row=linears, fused_adamw_leaves=1)}
         for i, r in enumerate(log):
             if r["launches"] != want[r["kind"]]:
                 fail(f"phase 11 call {i} ({r['kind']}): launches "
@@ -2787,6 +2975,25 @@ def sass_counts(lib: str, mnemonic: str) -> dict:
                                     for tok in line.split()):
             counts[fn] += 1
     return counts
+
+
+#: the SASS opcode of a 1-D bulk copy (``cp.async.bulk``) on sm_90a
+BULK_SASS = "UBLKCP"
+
+
+def bulk_sass_check(*libs) -> None:
+    """Phases 6b and 9: the streaming kernels read by 1-D bulk copies --
+    for each (library, kernel name) the ``BULK_SASS`` instructions of every
+    instance of the kernel in the built library's SASS; fail if one has
+    none."""
+    for lib, kern in libs:
+        counts = {k: v for k, v in sass_counts(lib, BULK_SASS).items()
+                  if kern in k}
+        print(f"{lib} SASS: {sum(counts.values())} {BULK_SASS} instructions "
+              f"over {len(counts)} {kern} instances: "
+              f"{sorted(counts.values())}")
+        if not counts or not all(counts.values()):
+            fail(f"a {kern} instance of {lib} has no {BULK_SASS}: {counts}")
 
 
 def flash_sass_check() -> None:

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_q8_sm90.cu, gemm_s8.cuh):
-// shared-memory addresses, mbarriers, TMA tile loads, wgmma descriptors,
-// fences and the bf16 wgmma forms, the exact three-term bf16 split and the
-// split of a scaled Q tile, and the lookup of cuTensorMapEncodeTiled
-// through the runtime (so no library links -lcuda).
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_q8_sm90.cu, gemm_s8.cuh) and
+// the streaming ones (opt_update.cu, qdq.cu, decode_attn.cu):
+// shared-memory addresses, mbarriers, TMA tile loads, 1-D bulk copies,
+// wgmma descriptors, fences and the bf16 wgmma forms, the exact three-term
+// bf16 split and the split of a scaled Q tile, and the lookup of
+// cuTensorMapEncodeTiled through the runtime (so no library links -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see encode_tiled)
@@ -90,6 +91,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3) : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, completing `bar`'s transaction
+// bytes: no tensor map (opt_update.cu, qdq.cu)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -29,6 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: source name -> {C entry point: argtypes}; every entry returns int
 SIGNATURES = {
     "int8_matmul": {
@@ -70,7 +71,8 @@ SIGNATURES = {
         "repro_decode_attn_paged":
             [_P] * 11 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
         "repro_decode_chunk": []},
-    "opt_update": {"repro_fused_adamw": [_P] * 10 + [_I] * 11 + [_P]},
+    "opt_update": {"repro_fused_adamw":
+                   [_P, _I, _I, _L, _I, _I] + [_P] * 9 + [_I] * 10 + [_P]},
     "qdq": {"repro_qdq_row": [_P] * 2 + [_I] * 4 + [_P],
             "repro_qdq_scaled": [_P] * 3 + [_I] * 5 + [_P]},
 }

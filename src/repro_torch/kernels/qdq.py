@@ -70,18 +70,23 @@ def qdq_row(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
 
     CPU tensors take :func:`qdq_row_plain`; CUDA tensors launch the kernel
     (any rows, F) or raise."""
+    code = _DTYPE_CODES.get(x.dtype)
+    # the fake-quant step's call: only what the kernel needs is checked
+    if (x.is_cuda and code is not None and x.dim() == 2 and x.numel()
+            and x.is_contiguous() and 2 <= bits <= 16):
+        out = torch.empty_like(x)
+        rows, f = x.shape
+        lib = _build.load("qdq")
+        rc = lib.repro_qdq_row(x.data_ptr(), out.data_ptr(), rows, f, bits,
+                               code, _build.stream_of(x))
+        if rc:
+            _build.check(lib, rc, "qdq_row")
+        qdq_row.launches += 1
+        return out
     _check_x("qdq_row", x)
     if x.device.type == "cpu":
         return qdq_row_plain(x, bits)
-    _qmax(bits)
-    out = torch.empty_like(x)
-    lib = _build.load("qdq")
-    rc = lib.repro_qdq_row(_build.ptr(x), _build.ptr(out), x.shape[0],
-                           x.shape[1], bits, _DTYPE_CODES[x.dtype],
-                           _build.stream_of(x))
-    _build.check(lib, rc, "qdq_row")
-    qdq_row.launches += 1
-    return out
+    raise ValueError(f"qdq: bits must be in [2, 16], got {bits}")
 
 
 def qdq_scaled(x: torch.Tensor, scale: torch.Tensor,

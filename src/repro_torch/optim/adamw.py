@@ -9,12 +9,13 @@ for the update.  Two update paths share those semantics:
   separate torch ops (the compared oracle, and the only path for fp or
   fake storage, non-blockwise moment codecs and non-quantizable leaves);
 * the **fused** path: quantizable leaves with blockwise int8 moments are
-  flattened into one padded (rows, block_size) bucket per param dtype, in
-  the reference's leaf order and padding, and updated by one launch of
-  ``kernels/opt_update.fused_adamw_blocks``.  The kernel updates the bucket
-  in place (where the JAX package donates its buffers); the bucket is a
-  fresh concatenation, so the caller's state is not modified, and the new
-  params and moments are views into it.
+  updated by one launch of ``kernels/opt_update.fused_adamw_leaves`` per
+  param dtype, which reads every leaf where it lies and writes one fresh
+  (rows, block_size) bucket in the reference's leaf order and padding (the
+  JAX package concatenates the leaves into that bucket first and pads it
+  to its tile; the padding rows update to 0 and are never read).  The
+  caller's state is not modified, and the new params and moments are views
+  into the bucket.
 
 ``adamw_update(..., fused=None)`` takes the fused path on CUDA tensors
 whenever the moment pair is eligible; ``fused=True`` / ``False`` force the
@@ -35,10 +36,6 @@ from repro_torch.core.qconfig import QuantRecipe
 from repro_torch.core.quantizer import _div
 from repro_torch.kernels import opt_update as _ok
 from repro_torch.models.common import tree_flatten, tree_unflatten
-
-#: bucket rows are padded to a multiple of this (the reference's tile)
-TILE_ROWS = 256
-
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -143,53 +140,34 @@ def _leaf_update(p, gf, m1, m2, lr, c1, c2, cfg: OptConfig):
 def _fused_bucket(idxs: List[int], p_leaves, g_leaves, m1_leaves, m2_leaves,
                   clip, lr, c1, c2, cfg: OptConfig, recipe):
     """One fused-kernel launch over the leaves in ``idxs`` (one param dtype,
-    the policy's moment specs).  Returns (new_p, new_m1, new_m2) keyed by
-    leaf index, and the bucket's sum of delta^2."""
+    the policy's moment specs), read where they lie.  Returns (new_p,
+    new_m1, new_m2) keyed by leaf index -- views into one fresh bucket --
+    and the bucket's sum of delta^2."""
     m1_spec, m2_spec = recipe.adam_m1, recipe.adam_m2
     bs = m1_spec.block_size
-    nblocks = []
     for i in idxs:
         (nb, _), _ = qadam.blockwise_state_shapes(p_leaves[i].shape, m1_spec)
         for m in (m1_leaves[i], m2_leaves[i]):
             if tuple(m.q.shape) != (nb, bs):
                 raise ValueError(f"moment payload {tuple(m.q.shape)} is not "
                                  f"the blockwise layout ({nb}, {bs})")
-        nblocks.append(nb)
 
-    g_cat = torch.cat([qadam.flatten_blocks(g_leaves[i].to(torch.float32), bs)
-                       for i in idxs])
-    p_cat = torch.cat([qadam.flatten_blocks(p_leaves[i], bs) for i in idxs])
-    parts = [torch.cat([getattr(ms[i], part) for i in idxs])
-             for ms in (m1_leaves, m2_leaves)
-             for part in ("q", "scale", "zero")]
-    rows = g_cat.shape[0]
-    pad = (-rows) % TILE_ROWS
-    if pad:
-        # fully padded rows: 0 payloads and 0 scales decode to 0, update
-        # to 0, and the encode guard keeps their fresh scales finite
-        g_cat, p_cat, *parts = (torch.nn.functional.pad(t, (0, 0, 0, pad))
-                                for t in (g_cat, p_cat, *parts))
+    dev = p_leaves[idxs[0]].device
 
     def const(v):
-        return torch.full((), v, dtype=torch.float32, device=g_cat.device)
+        return torch.full((), v, dtype=torch.float32, device=dev)
     scalars = torch.stack([clip.to(torch.float32), lr.to(torch.float32),
                            const(cfg.b1), const(cfg.b2), const(cfg.eps),
                            const(cfg.weight_decay), c1.to(torch.float32),
                            c2.to(torch.float32)])
-    p_new, m1_new, m2_new, sumsq = _ok.fused_adamw_blocks(
-        g_cat, p_cat, *parts, scalars,
+    p_new, m1_new, m2_new, sumsq = _ok.fused_adamw_leaves(
+        [g_leaves[i] for i in idxs], [p_leaves[i] for i in idxs],
+        [m1_leaves[i] for i in idxs], [m2_leaves[i] for i in idxs], scalars,
         m1_codec=_ok.codec_of(m1_spec), m2_codec=_ok.codec_of(m2_spec),
         weight_decay=bool(cfg.weight_decay))
-
-    out_p, out_m1, out_m2 = {}, {}, {}
-    off = 0
-    for i, nb in zip(idxs, nblocks):
-        sl = slice(off, off + nb)
-        out_p[i] = qadam.unflatten_blocks(p_new[sl], p_leaves[i].shape)
-        out_m1[i] = qadam.QState(*(t[sl] for t in m1_new))
-        out_m2[i] = qadam.QState(*(t[sl] for t in m2_new))
-        off += nb
-    return out_p, out_m1, out_m2, sumsq
+    return ({i: p for i, p in zip(idxs, p_new)},
+            {i: qadam.QState(*m) for i, m in zip(idxs, m1_new)},
+            {i: qadam.QState(*m) for i, m in zip(idxs, m2_new)}, sumsq)
 
 
 def adamw_update(params, grads, state: AdamState, cfg: OptConfig,

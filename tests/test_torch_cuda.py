@@ -29,10 +29,14 @@ the edges of the kernel's chunks; the paged decode step equal to the dense
 one bit for bit on the same logical cache (context and written rows) at
 pages of 8-256 rows, its written pools equal to its plain version's
 outside the trash page 0; the fused AdamW step bit for bit in params, payloads, scales and
-zero points (both versions round every op on its own), its update-norm sum
-within 1e-5 relative (partial sums in another order); the fused fake
+zero points (both versions round every op on its own) through both of its
+entries -- a bucket in place (also 4 bytes off alignment) and leaves read
+where they lie (one 4 bytes off, ragged tails, two steps, a repeat
+bit-identical) -- its update-norm sum within 1e-5 relative (partial sums
+in another order); the fused fake
 quantization kernels ``qdq_row`` / ``qdq_scaled`` bit for bit, exact x.5
-ties, all-zero rows and NaN rows included; the fp flash kernels #7-#10
+ties, all-zero rows and NaN rows included, ``qdq_row`` at widths on both
+sides of each of its paths' limits; the fp flash kernels #7-#10
 against their plain versions on the same inputs (the plain backward reads
 the kernels' lse and delta): outputs within 2e-5 at float32 and 2e-2 at
 bfloat16, LSE rows within 2e-5, gradients within 1e-4 relative L2 at
@@ -60,7 +64,7 @@ from repro_torch.core.qconfig import Granularity, QuantSpec
 from repro_torch.core.quantizer import quantize_int
 from repro_torch.kernels import (decode_attention, decode_attention_paged,
                                  flash_attention_fwd_q8, fused_adamw_blocks,
-                                 int8_matmul, int8_matmul_nt, int8_matmul_tn,
+                                 fused_adamw_leaves, int8_matmul, int8_matmul_nt, int8_matmul_tn,
                                  qdq_row, qdq_scaled)
 from repro_torch.kernels.decode_attn import (DECODE_CHUNK,
                                              decode_attention_paged_plain,
@@ -71,7 +75,8 @@ from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
                                              int8_matmul_plain,
                                              int8_matmul_tn_plain)
 from repro_torch.kernels.opt_update import (codec_of,
-                                            fused_adamw_blocks_plain)
+                                            fused_adamw_blocks_plain,
+                                            fused_adamw_leaves_plain)
 from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
 from repro_torch.core.qconfig import parse_recipe
 
@@ -672,6 +677,116 @@ def test_fused_adamw_kernel(cuda, recipe):
     assert torch.isclose(got[3], want[3], rtol=1e-5, atol=0.0)
 
 
+def adamw_leaves(shapes, recipe, seed, device):
+    """Leaves of the given shapes as the optimizer reads them (fp32 params
+    and gradients, both moments quantized per leaf from random values);
+    leaf 1's params start 4 bytes into their allocation, so the kernel
+    takes that segment by its direct path."""
+    from repro_torch.core.qadam import QState
+    from repro_torch.core.quantizer import quantize_int
+    rng = np.random.RandomState(seed)
+    g, p, m1, m2 = [], [], [], []
+    for i, sh in enumerate(shapes):
+        n = int(np.prod(sh))
+        buf = torch.from_numpy(rng.randn(n + 1).astype(np.float32)).to(device)
+        p.append(buf[1:].view(sh) if i == 1 else buf[:n].view(sh).clone())
+        g.append(torch.from_numpy(
+            (rng.randn(*sh) * 1e-2).astype(np.float32)).to(device))
+        v2 = rng.rand(*sh) * 1e-5
+        v2 = np.sqrt(v2) if recipe.adam_m2.sqrt_domain else v2
+        m1.append(QState(*(t.to(device) for t in quantize_int(
+            torch.from_numpy((rng.randn(*sh) * 1e-3).astype(np.float32)),
+            recipe.adam_m1))))
+        m2.append(QState(*(t.to(device) for t in quantize_int(
+            torch.from_numpy(v2.astype(np.float32)), recipe.adam_m2))))
+    return g, p, m1, m2
+
+
+def leaves_flat(out):
+    p, m1, m2, _ = out
+    return [*p, *(t for m in m1 for t in m), *(t for m in m2 for t in m)]
+
+
+#: the leaves entry also at 32- and 256-wide rows: at 32 a consumer warp
+#: holds 8 rows, so a part tile of 4 rows leaves half of it idle
+LEAVES_RECIPES = ADAM_RECIPES + ["m1:8c-b32,m2:8c-asym-b32",
+                                 "m1:8c-b256,m2:8c-asym-b256-sqrt"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", LEAVES_RECIPES)
+def test_fused_adamw_leaves_kernel(cuda, recipe):
+    """The leaves entry bit for bit against its plain version: a ragged
+    leaf, one at a 4-byte offset (the direct path), aligned ones that
+    stream through the ring (whole tiles and a part tile); a second step
+    from the first's outputs (views into its bucket); a repeat
+    bit-identical, the update-norm sum too."""
+    rec = parse_recipe(recipe)
+    sc = adamw_bucket(1, 64, rec, seed=0)[-1]
+    kw = dict(m1_codec=codec_of(rec.adam_m1), m2_codec=codec_of(rec.adam_m2),
+              weight_decay=True)
+    shapes = [(130, 70), (96, 200), (12, 768, 64), (5000,), (64, 128)]
+    g, p, m1, m2 = adamw_leaves(shapes, rec, seed=5, device=cuda)
+    sc = sc.to(cuda)
+    inputs = (g, p, m1, m2)
+    for _ in range(2):
+        before = fused_adamw_leaves.launches
+        got = fused_adamw_leaves(*inputs, sc, **kw)
+        assert fused_adamw_leaves.launches == before + 1
+        want = fused_adamw_leaves_plain(*inputs, sc, **kw)
+        for a, b in zip(leaves_flat(got), leaves_flat(want)):
+            assert a.shape == b.shape and torch.equal(a, b)
+        assert torch.isclose(got[3], want[3], rtol=1e-5, atol=0.0)
+        again = fused_adamw_leaves(*inputs, sc, **kw)
+        for a, b in zip(leaves_flat(again), leaves_flat(got)):
+            assert torch.equal(a, b)
+        assert torch.equal(again[3], got[3])
+        inputs = (g, *got[:3])
+
+
+@pytest.mark.cuda
+def test_fused_adamw_leaves_over_launches(cuda, monkeypatch):
+    """More leaves than a launch's table holds (2 here, 256 in the
+    kernel): one launch a group, rows following each other, the partials
+    summed in order; bit for bit against the plain version."""
+    from repro_torch.kernels import opt_update
+    monkeypatch.setattr(opt_update, "MAX_SEGMENTS", 2)
+    rec = parse_recipe(ADAM_RECIPES[0])
+    sc = adamw_bucket(1, 64, rec, seed=0)[-1].to(cuda)
+    kw = dict(m1_codec=codec_of(rec.adam_m1), m2_codec=codec_of(rec.adam_m2),
+              weight_decay=True)
+    g, p, m1, m2 = adamw_leaves([(130, 70), (96, 200), (5000,), (64, 128),
+                                 (33, 129)], rec, seed=8, device=cuda)
+    got = fused_adamw_leaves(g, p, m1, m2, sc, **kw)
+    want = fused_adamw_leaves_plain(g, p, m1, m2, sc, **kw)
+    for a, b in zip(leaves_flat(got), leaves_flat(want)):
+        assert torch.equal(a, b)
+    assert torch.isclose(got[3], want[3], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_fused_adamw_blocks_unaligned_bucket(cuda):
+    """A bucket whose tensors start 4 bytes into their allocations: the
+    kernel takes every row by its direct path, in place."""
+    rec = parse_recipe(ADAM_RECIPES[0])
+    bucket = adamw_bucket(300, 128, rec, seed=9)
+    off = []
+    for t in bucket[:-1]:
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=cuda)
+        view = buf[4 // t.element_size():][:t.numel()].view(t.shape)
+        view.copy_(t.to(cuda))
+        off.append(view)
+    kw = dict(m1_codec=codec_of(rec.adam_m1), m2_codec=codec_of(rec.adam_m2),
+              weight_decay=True)
+    sc = bucket[-1].to(cuda)
+    ref = [t.clone() for t in off]
+    got = fused_adamw_blocks(*off, sc, **kw)
+    want = fused_adamw_blocks_plain(*ref, sc, **kw)
+    for a, b in zip(off[1:], ref[1:]):
+        assert torch.equal(a, b)
+    assert torch.isclose(got[3], want[3], rtol=1e-5, atol=0.0)
+
+
 def qdq_inputs(rows, f, bits, seed):
     """(rows, f) float32 values with the rounding cases planted: row 0
     reaches absmax qmax (a per-row scale of exactly 1) and holds exact x.5
@@ -723,6 +838,32 @@ def test_qdq_scaled_kernel(cuda, rows, f, dtype, bits, per_channel):
     got = qdq_scaled(x, scale, bits)
     assert qdq_scaled.launches == before + 1
     assert torch.equal(got, qdq_scaled_plain(x, scale, bits))
+
+
+#: qdq_row by width: rows up to 2 KB held in registers, up to 24 KB
+#: streamed through shared memory, wider ones in two passes -- widths on
+#: both sides of each limit (bf16 1024 / 1032 and 12288 / 12296, fp32 512
+#: / 520 and 6144 / 6152 values), 1-8 rows to a stage, and narrow rows
+QDQ_STREAM_WIDTHS = [8, 16, 512, 520, 1024, 1032, 1536, 3080, 6144, 6152,
+                     12288, 12296]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", QDQ_STREAM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdq_row_stream_widths(cuda, f, dtype):
+    """Bit for bit at every width the register, streaming, two-pass and
+    element paths divide, with row counts off every tile multiple, ties,
+    an all-zero row and a NaN row; a repeat bit-identical."""
+    for rows in (37, 5):
+        x = qdq_inputs(rows, f, 8, seed=f + rows).to(dtype).to(cuda)
+        x[rows - 1, f // 2] = float("nan")
+        got = qdq_row(x)
+        torch.testing.assert_close(got, qdq_row_plain(x), rtol=0, atol=0,
+                                   equal_nan=True)
+        assert bool(got[rows - 1].isnan().all())
+        torch.testing.assert_close(qdq_row(x), got, rtol=0, atol=0,
+                                   equal_nan=True)
 
 
 @pytest.mark.cuda
