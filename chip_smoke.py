@@ -124,7 +124,30 @@ Phases, in order; any failure exits non-zero:
     (``serve_flash``);
 15. the flash path at float32 under ``*=fp`` against the CPU, against
     ``_attend`` and against its plain versions on the card, within
-    ``FLASH_LIMITS`` (``flash_card_vs_cpu``).
+    ``FLASH_LIMITS`` (``flash_card_vs_cpu``);
+16. the llama family at Yi-6B's full width (``configs/yi_6b.py``: 32
+    layers, d_model 4096, 32 query heads over 4 KV heads of 128, the gated
+    MLP's 11,008, RoPE, RMSNorm, an untied head of 64,000): 16a. the four
+    serving kernels at Yi's shapes with phase 3's gates -- ``int8_matmul``
+    bit for bit at ``YI_INT8_KN`` x M = 16 and 2048, its fused decode entry
+    at M = 16 on finite rows and on rows holding a NaN or an infinity, the
+    weight transpose of its tensor-core route and an L2-cold round over the
+    decode step's linears timed alone; ``flash_attention_fwd_q8`` at
+    ``YI_Q8_SHAPE``; ``decode_attention`` and ``decode_attention_paged`` at
+    ``YI_DECODE_SHAPE`` (pages of 16, 64, 256 bit for bit against the dense
+    kernel), each timed beside its bound and SDPA on dequantized K/V with
+    the KV heads expanded (``yi_kernels``); 16b. serve Yi-6B (random
+    float32 weights from ``--seed``, freed once prepared; bf16 carrier,
+    ``POLICY``) through the dense engine, 16 slots of 4096 rows, 32
+    requests of 128-2048 prompt tokens, 64 new tokens each: every request
+    to length, exactly 224 ``int8_matmul`` and 32 ``decode_attention`` a
+    decode step and 224 and 32 ``flash_attention_fwd_q8`` a prefill launch;
+    decode ms/step, tokens/s, prefill ms, peak memory, one profiled decode
+    step and the untied head's share (``serve_yi``); 16c. the same requests
+    through the paged engine (pages of 64 rows): 16b's tokens, 32
+    ``decode_attention_paged`` a step, every page back
+    (``serve_yi_paged``); 16d. phase 5's checks at Yi's width and 2 layers,
+    its limits but B's, which is ``YI_B_LIMIT`` there (``yi_card_vs_cpu``).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -654,13 +677,16 @@ def _decode_cost(q, nk, pos, kh, hd, g, extra=0):
 
 
 def _sdpa_yardstick(torch, dev, q, kq, ks, vq, vs, pos):
-    """SDPA over K/V dequantized beforehand (not timed), the decode step's
-    valid rows unmasked."""
+    """SDPA over K/V dequantized beforehand, the KV heads expanded to the
+    query heads (neither timed), the decode step's valid rows unmasked."""
     import torch.nn.functional as F
     b, kh, g, hd = q.shape
     s = kq.shape[1]
-    kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3)
-    vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3)
+    # the KV heads expanded to the query heads (KV-major groups)
+    kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3
+                                                    ).repeat_interleave(g, 1)
+    vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3
+                                                    ).repeat_interleave(g, 1)
     qs = q.reshape(b, kh * g, 1, hd)
     mask = (torch.arange(s, device=dev)[None, :] < pos[:, None].clamp(min=1)
             )[:, None, None, :]
@@ -674,16 +700,32 @@ def _time_line(t) -> str:
             f"{t['library_ms']:.4f} (call by call {t['library_ms_call']:.4f})")
 
 
-def check_decode_attention(torch, dev, gen, results):
+#: #12 / #13's shapes (B, S, K, G, hd): GPT-2 small's decode step (phase
+#: 3) and Yi-6B's (phase 16: 8 query heads of 128 a KV head)
+DECODE_SHAPE = (16, 1024, 12, 1, 64)
+YI_DECODE_SHAPE = (16, 4096, 4, 8, 128)
+
+
+def _store(results, name, tag, entry):
+    """A kernel's entry in ``results``: phase 3's the entry itself, a later
+    phase's under its ``tag`` inside it (kernels.json keeps both)."""
+    if tag:
+        results[name][tag] = entry
+    else:
+        results[name] = entry
+
+
+def check_decode_attention(torch, dev, gen, results, shape=DECODE_SHAPE,
+                           tag=None):
     """Phase 3, #12 at GPT-2 small's decode widths (16 slots of 1024 rows,
-    12 kv heads of 64) at ``_decode_pos``'s positions: ctx within 1e-3 of
-    the plain version at float32 (within one bf16 step at bfloat16), the
-    written rows bit for bit, a second launch on a clone of the same cache
-    bit-identical in ctx and written rows; timed queued and call by call
-    beside SDPA."""
+    12 kv heads of 64; phase 16: ``YI_DECODE_SHAPE``) at ``_decode_pos``'s
+    positions: ctx within 1e-3 of the plain version at float32 (within one
+    bf16 step at bfloat16), the written rows bit for bit, a second launch
+    on a clone of the same cache bit-identical in ctx and written rows;
+    timed queued and call by call beside SDPA."""
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_plain)
-    b, s, kh, g, hd = 16, 1024, 12, 1, 64
+    b, s, kh, g, hd = shape
     pos = _decode_pos(torch, dev, gen, b, s)
     cache = _int8_cache(torch, dev, gen, b, s, kh, hd, pos)
     q = torch.randn((b, kh, g, hd), generator=gen, device=dev).bfloat16()
@@ -719,10 +761,10 @@ def check_decode_attention(torch, dev, gen, results):
           f"carrier, bf16-valued inputs), bf16 carrier within one bf16 "
           f"step (max err {errs[torch.bfloat16]:.2e}), written rows "
           f"bit-exact, a second launch bit-identical; {_time_line(t)}")
-    results["decode_attention"] = dict(
+    _store(results, "decode_attention", tag, dict(
         route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:250", tol=tol,
-        shape=f"B={b},S={s},K={kh},G={g},hd={hd}", max_abs_err=err, **t)
+        shape=f"B={b},S={s},K={kh},G={g},hd={hd}", max_abs_err=err, **t))
 
 
 def paged_from_dense(torch, dense, lengths, page, seed):
@@ -752,9 +794,11 @@ def paged_from_dense(torch, dense, lengths, page, seed):
     return pools, torch.from_numpy(table).to(dense[0].device)
 
 
-def check_decode_attention_paged(torch, dev, gen, results):
+def check_decode_attention_paged(torch, dev, gen, results,
+                                 shape=DECODE_SHAPE, tag=None):
     """Phase 3b: #13 at GPT-2 small's decode widths (16 slots, a logical
-    cache of 1024 rows, 12 kv heads of 64) over shuffled pools of pages of
+    cache of 1024 rows, 12 kv heads of 64; phase 16: ``YI_DECODE_SHAPE``)
+    over shuffled pools of pages of
     16, 64 (the serving phases' page) and 256 rows, at ``_decode_pos``'s
     positions with a freed slot (pos 0, a table row of trash-page entries)
     and a full one (pos == maxp * page, the clamped write).  (a) Against
@@ -767,7 +811,7 @@ def check_decode_attention_paged(torch, dev, gen, results):
                                                  decode_attention_paged,
                                                  decode_attention_paged_plain,
                                                  paged_logical_view)
-    b, s, kh, g, hd = 16, 1024, 12, 1, 64
+    b, s, kh, g, hd = shape
     pos = _decode_pos(torch, dev, gen, b, s)
     dense = _int8_cache(torch, dev, gen, b, s, kh, hd, pos)
     q = torch.randn((b, kh, g, hd), generator=gen, device=dev).bfloat16()
@@ -840,10 +884,10 @@ def check_decode_attention_paged(torch, dev, gen, results):
                              f"hd={hd}", max_abs_err=err, **t))
         del pools, kc, pc, rc, view
     # the JSON entry reports the serving phases' page of 64 rows
-    results["decode_attention_paged"] = dict(
+    _store(results, "decode_attention_paged", tag, dict(
         route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:374", tol=1e-3,
-        shapes=rows_out, **rows_out[1])
+        shapes=rows_out, **rows_out[1]))
 
 
 #: phase 3, #11: the serving gate (4 prompts of 256 over 1024-row
@@ -875,7 +919,7 @@ def _q8_control(torch, q, kq, ks, vq, vs):
     return ctx.reshape(b, sq, h, hd)
 
 
-def check_flash_q8(torch, dev, gen, results):
+def check_flash_q8(torch, dev, gen, results, shapes=Q8_SHAPES, tag=None):
     """Phase 3, #11 at ``Q8_SHAPES``: the bf16 tensor-core kernel
     (``flash_q8_sm90.cu``) within one bf16 step of the plain version, its
     output before the cast within ``Q8_TOL`` of the plain version at
@@ -885,11 +929,13 @@ def check_flash_q8(torch, dev, gen, results):
     queued beside the CUDA-core kernel at bf16 (the first port's), SDPA on
     dequantized K/V (queued), the plain version and the bound (bytes, or
     the bf16-exact products at 989 TFLOP/s, each fp32 operand counted as
-    its terms); ``HGMMA`` in every ``flash_q8_sm90`` kernel's SASS."""
+    its terms); ``HGMMA`` in every ``flash_q8_sm90`` kernel's SASS.
+    Phase 16 runs it at ``YI_Q8_SHAPE`` (``tag``), the SASS check left to
+    phase 3."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
     rows = []
-    for b, sq, skv, h, kh, hd in Q8_SHAPES:
+    for b, sq, skv, h, kh, hd in shapes:
         kq, ks, vq, vs = _int8_cache(torch, dev, gen, b, skv, kh, hd,
                                      [sq] * b)
         q = torch.randn((b, sq, h, hd), generator=gen, device=dev).bfloat16()
@@ -921,8 +967,13 @@ def check_flash_q8(torch, dev, gen, results):
                                                 vq, vs))
         plain = time_ms(lambda: fa.flash_attention_fwd_q8_plain(
             q, kq, ks, vq, vs), iters=3)
-        kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3)
-        vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3)
+        # the KV heads expanded to the query heads (KV-major groups)
+        kd = _dequant(torch, kq, ks).bfloat16().permute(0, 2, 1, 3
+                                                        ).repeat_interleave(
+                                                            h // kh, 1)
+        vd = _dequant(torch, vq, vs).bfloat16().permute(0, 2, 1, 3
+                                                        ).repeat_interleave(
+                                                            h // kh, 1)
         qt = q.permute(0, 2, 1, 3)
         lib = queued_ms(lambda: F.scaled_dot_product_attention(
             qt, kd, vd, is_causal=True))
@@ -936,13 +987,15 @@ def check_flash_q8(torch, dev, gen, results):
         q_terms = 1 if hd == 64 else 3
         ops = (q_terms + 3) * 2.0 * hd * b * h * (sq * (sq + 1) / 2)
         bd, by = bound_ms(nbytes, ops, BF16_FLOPS)
-        rows.append(dict(shape=f"B={b},Sq={sq},Skv={skv},H={h},hd={hd}",
+        rows.append(dict(shape=f"B={b},Sq={sq},Skv={skv},H={h},K={kh},"
+                               f"hd={hd}",
                          max_abs_err=err, bf16_max_abs_err=bf16_err,
                          rel_l2=rel, control_rel_l2=ctl_rel,
                          fp32_max_abs_err=core_err, ms=ms, ms_call=ms_call,
                          cuda_core_ms=core_ms, plain_ms=plain, bound_ms=bd,
                          bound_by=by, library_ms=lib, library_ms_call=lib_call))
-        print(f"flash_attention_fwd_q8 B={b} Sq={sq} Skv={skv} H={h} hd={hd} "
+        print(f"flash_attention_fwd_q8 B={b} Sq={sq} Skv={skv} H={h} K={kh} "
+              f"hd={hd} "
               f"causal, bf16 (flash_q8_sm90): within one bf16 step (max err "
               f"{bf16_err:.2e}), repeat bit-identical, before the cast max "
               f"err {err:.2e} (tol {Q8_TOL}) rel L2 {rel:.2e} (control, "
@@ -953,6 +1006,9 @@ def check_flash_q8(torch, dev, gen, results):
               f" library_ms(SDPA, queued) {lib:.4f} (call by call "
               f"{lib_call:.4f})")
         del kq, ks, vq, vs, q, got, want, again, f32, want32, core, ctl, kd, vd
+    if tag:
+        results["flash_attention_fwd_q8"][tag] = rows[0]
+        return
     counts = sass_counts("flash_q8_sm90", "HGMMA")
     print(f"flash_q8_sm90 SASS: {sum(counts.values())} HGMMA instructions "
           f"over {len(counts)} kernels (each "
@@ -1378,10 +1434,12 @@ def true_fan_in(params, cfg):
     return dict(params, blocks=blocks)
 
 
-def card_vs_cpu(torch, dev, seed):
+def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
     """Phase 5: teacher-forced logits of the card against the CPU, float32
     carrier, the weights of ``init_params`` (seed + 1) at the true fan-in
-    scale (``true_fan_in``), 2 prompts of 64 tokens + 8 decode steps.  Each
+    scale (``true_fan_in``), 2 prompts of 64 tokens + 8 decode steps, on
+    GPT-2 small (phase 16d: ``cfg``, Yi-6B's width at 2 layers, and B
+    held to ``b_limit``, ``YI_B_LIMIT`` there).  Each
     policy is also run on the card with the three kernels' plain versions
     in their place, which shows how far PyTorch's own CPU and CUDA ops take
     the two devices apart.
@@ -1400,7 +1458,8 @@ def card_vs_cpu(torch, dev, seed):
        matmuls equals its plain version."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config("gpt2-small"), dtype="float32")
+    cfg = cfg or dataclasses.replace(get_config("gpt2-small"),
+                                     dtype="float32")
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(seed + 1)
     params = true_fan_in(model.init_params(gen, device="cpu"), cfg)
@@ -1411,7 +1470,7 @@ def card_vs_cpu(torch, dev, seed):
                                device)
     ok = True
     for label, policy, limit in (("A", "kv_cache=a8t,*=w8c", 1e-2),
-                                 ("B", POLICY, B_LIMIT)):
+                                 ("B", POLICY, b_limit)):
         cpu, cpu_kv = run(policy, "cpu")
         card, card_kv = run(policy, dev)
         with plain_versions(SERVE_KERNELS):
@@ -1420,7 +1479,8 @@ def card_vs_cpu(torch, dev, seed):
         spread = (card_plain - cpu).abs().max().item()
         flips = [float((card_kv["k"][i].cpu() != cpu_kv["k"][i]).float()
                        .mean()) for i in range(cfg.n_layers)]
-        print(f"card vs cpu {label} {policy} (float32 carrier, 2 x 64 prompt "
+        print(f"card vs cpu {label} {cfg.name} {cfg.n_layers}L d="
+              f"{cfg.d_model} {policy} (float32 carrier, 2 x 64 prompt "
               f"+ 8 teacher-forced steps): max |dlogit| {err:.3e} (limit "
               f"{limit:.1e}), top-1 agree {n_agree}/{cpu.shape[0] * cpu.shape[1]}"
               f" ({n_bad} disagreements where the CPU's top-2 margin > "
@@ -1432,13 +1492,14 @@ def card_vs_cpu(torch, dev, seed):
             with plain_versions(["int8_matmul"]):
                 card_mm_plain, _ = run(policy, dev)
             same = torch.equal(card_mm_plain, card)
-            print(f"card vs card {label}: plain int8_matmul in the kernel's "
+            print(f"card vs card {label} {cfg.name}: plain int8_matmul in the "
+                  f"kernel's "
                   f"place: logits {'bit-identical' if same else 'DIFFER'} "
                   f"(tol 0; max |dlogit| "
                   f"{(card_mm_plain - card).abs().max().item():.3e})")
             ok &= same
     if not ok:
-        fail("card and CPU logits disagree")
+        fail(f"card and CPU logits disagree ({cfg.name})")
 
 
 def _grad_scale(torch, g, fold, dim):
@@ -3136,6 +3197,345 @@ def flash_card_vs_cpu(torch, dev, seed):
         fail("phase 15: the flash path out of FLASH_LIMITS")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the llama family at Yi-6B's full width
+# ---------------------------------------------------------------------------
+
+#: phase 16a: #3's (K, N) pairs in a Yi-6B layer -- wq and wo (4096, 4096),
+#: wk and wv (4096, 512), w_gate and w_up (4096, 11008), w_down (11008,
+#: 4096) -- at the decode step's 16 slots and a 2048-row prefill
+YI_INT8_KN = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096))
+YI_INT8_ROWS = (16, 2048)
+#: the decode step's seven linears of one layer, in call order
+YI_DECODE_KN = ((4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
+                (4096, 11008), (4096, 11008), (11008, 4096))
+#: #11 at Yi's prefill: 2 prompts of 2048 over 4096-row buffers, 32 heads
+#: over 4 KV heads of 128 (B, Sq, Skv, H, K, hd)
+YI_Q8_SHAPE = (2, 2048, 4096, 32, 4, 128)
+#: phases 16b and 16c: 16 slots of 4096 rows, 32 requests of 128-2048
+#: prompt tokens, 64 new tokens each; the paged engine's pages hold 64 rows
+YI_REQUESTS, YI_NEW, YI_SLOTS, YI_SEQ = 32, 64, 16, 4096
+YI_PROMPT = (128, 2048)
+#: the block linears of a llama layer
+YI_LINEARS = 7
+#: phase 16d, policy B at Yi-6B's width and 2 layers: phase 5's B_LIMIT
+#: (0.1) cannot hold there.  Readings at seeds 0-3 (``tools/yi_readings.py``,
+#: PERF.md): the card against the CPU 0.095-0.188, and the kernels' plain
+#: versions on the card against the CPU 0.089-0.216 -- PyTorch's own fp32
+#: ops on the two devices, carried by the per-token int8 codec across
+#: 4,096- and 11,008-wide rows (1.4-27% of layer 1's K payloads differ).
+#: Set above every reading; what shows the kernels right at this width is
+#: the card against the card with the plain int8_matmul in the kernel's
+#: place, bit-identical at every seed.
+YI_B_LIMIT = 0.3
+
+
+def check_int8_yi(torch, dev, gen, results):
+    """Phase 16a, #3 at ``YI_INT8_KN`` x ``YI_INT8_ROWS``, bf16 output: the
+    wrapper (and at M = 16 the cluster route twice, a repeat bit-identical)
+    bit for bit against the plain version, timed queued and call by call
+    beside the bound, the plain version and ``torch._int_mm`` (queued; at M
+    = 16 on x zero-padded to 17 rows); the fused decode entry
+    ``int8_quant_matmul`` bit for bit at M = 16 on bf16 rows (an all-zero
+    row among them), a repeat bit-identical, and on rows holding a NaN or
+    an infinity; the weight transpose that the tensor-core route runs on
+    every call, timed alone; and the decode step's seven linears of a layer
+    through the fused entry over four layers' distinct weights (700 MB, the
+    L2 cold), ms per call beside the round's byte bound."""
+    import importlib
+    im = importlib.import_module("repro_torch.kernels.int8_matmul")
+    from repro_torch.core.qconfig import Granularity, QuantSpec
+    spec = QuantSpec(8, Granularity.PER_TOKEN)
+    dt = torch.bfloat16
+    rows = []
+    for k, n in YI_INT8_KN:
+        for m in YI_INT8_ROWS:
+            x, w, rs, cs = _int8_case(torch, dev, gen, m, k, n)
+            want = im.int8_matmul_plain(x, w, rs, cs, out_dtype=dt)
+            got = {"wrapper": im.int8_matmul(x, w, rs, cs, out_dtype=dt)}
+            if m <= im.FWD_GEMV_MAX_M:
+                got["gemv"] = im.int8_matmul_gemv(x, w, rs, cs, dt)
+                got["gemv repeat"] = im.int8_matmul_gemv(x, w, rs, cs, dt)
+            torch.cuda.synchronize()
+            for name, g in got.items():
+                if not torch.equal(g, want):
+                    fail(f"phase 16a int8_matmul ({name}) M={m} K={k} N={n}: "
+                         f"not bit-exact (max err "
+                         f"{(g.float() - want.float()).abs().max().item()})")
+            fn = (lambda: im.int8_matmul(x, w, rs, cs, dt))
+            xl = x if m > 16 else torch.nn.functional.pad(
+                x, (0, 0, 0, 17 - m))
+            b, by = bound_ms(m * k + k * n + 4 * (m + n) + 2 * m * n,
+                             2.0 * m * n * k, INT8_OPS)
+            row = dict(shape=f"M={m},K={k},N={n},bfloat16",
+                       fwd_route=im.fwd_route(m, n, k), max_abs_err=0.0,
+                       ms=queued_ms(fn), ms_call=time_ms(fn),
+                       plain_ms=time_ms(lambda: im.int8_matmul_plain(
+                           x, w, rs, cs, dt), iters=3),
+                       bound_ms=b, bound_by=by,
+                       library_ms=queued_ms(lambda: torch._int_mm(xl, w)))
+            if m <= im.FWD_GEMV_MAX_M:
+                xf = (torch.randn((m, k), generator=gen, device=dev)
+                      * 3).to(dt)
+                xf[m // 2] = 0.0
+                fwant = im.int8_quant_matmul_plain(xf, w, cs, spec, dt)
+                fgot = im.int8_quant_matmul(xf, w, cs, spec, dt)
+                again = im.int8_quant_matmul(xf, w, cs, spec, dt)
+                xb = xf.clone()
+                xb[3, k - 1] = float("nan")
+                xb[5, 0] = float("inf")
+                xb[9, k // 2] = float("-inf")
+                xb[11, 1], xb[11, 2] = float("nan"), float("inf")
+                bwant = im.int8_quant_matmul_plain(xb, w, cs, spec, dt)
+                bgot = im.int8_quant_matmul(xb, w, cs, spec, dt)
+                torch.cuda.synchronize()
+                same = (bgot == bwant) | (bgot.isnan() & bwant.isnan())
+                if not (torch.equal(fgot, fwant) and torch.equal(again, fgot)
+                        and bool(same.all())
+                        and bool(bgot[[3, 11]].isnan().all())):
+                    fail(f"phase 16a int8_quant_matmul M={m} K={k} N={n}: not "
+                         f"bit-exact, a repeat differs, or rows holding a NaN "
+                         f"or an infinity differ from the plain version")
+                ffn = (lambda: im.int8_quant_matmul(xf, w, cs, spec, dt))
+                row.update(fused_ms=queued_ms(ffn), fused_ms_call=time_ms(ffn))
+            else:
+                row["transpose_ms"] = queued_ms(lambda: im.transpose_packed(w))
+            rows.append(row)
+            extra = (f"; fused entry bit-exact (NaN and inf rows too), "
+                     f"queued {row['fused_ms']:.4f} (call by call "
+                     f"{row['fused_ms_call']:.4f})" if "fused_ms" in row else
+                     f"; its weight transpose alone {row['transpose_ms']:.4f}")
+            print(f"phase 16a int8_matmul M={m:5d} K={k:5d} N={n:5d} bf16: "
+                  f"bit-exact (tol 0), route {row['fwd_route']}; queued ms "
+                  f"{row['ms']:.4f} (call by call {row['ms_call']:.4f}), "
+                  f"plain_ms {row['plain_ms']:.4f}, bound_ms "
+                  f"{row['bound_ms']:.5f} ({by}), library_ms (torch._int_mm"
+                  f"{'' if m > 16 else ' on 17 rows'}, queued) "
+                  f"{row['library_ms']:.4f}{extra}")
+            del x, w, rs, cs, want, got
+    # the transposes a prefill launch runs: 32 layers x 7 linears
+    per_layer = sum(next(r["transpose_ms"] for r in rows
+                         if r["shape"].startswith(f"M=2048,K={k},N={n},"))
+                    for k, n in YI_DECODE_KN)
+    print(f"phase 16a int8_matmul: the tensor-core route's weight transposes "
+          f"of one prefill launch (32 layers x {YI_LINEARS} linears, queued): "
+          f"{32 * per_layer:.3f} ms")
+    args = []
+    for _ in range(4):
+        for k, n in YI_DECODE_KN:
+            _, w, _, cs = _int8_case(torch, dev, gen, 16, k, n)
+            xf = torch.randn((16, k), generator=gen, device=dev).to(dt)
+            args.append((xf, w, cs, spec, dt))
+    nbytes = sum(a[0].numel() * 2 + a[1].numel() + 4 * a[1].shape[1]
+                 + 2 * 16 * a[1].shape[1] for a in args)
+    cold = dict(weights=len(args),
+                weight_bytes=sum(a[1].numel() for a in args),
+                bound_ms=nbytes / HBM_BPS * 1e3 / len(args),
+                ms=time_cold_ms(im.int8_quant_matmul, args, 2 * len(args),
+                                len(args), queued=True),
+                ms_call=time_cold_ms(im.int8_quant_matmul, args,
+                                     2 * len(args), len(args)))
+    print(f"phase 16a int8_quant_matmul L2 cold, a round over a Yi layer's "
+          f"7 linears x 4 ({cold['weight_bytes'] / 1e6:.1f} MB) at M = 16: "
+          f"ms per call queued {cold['ms']:.4f}, call by call "
+          f"{cold['ms_call']:.4f}; bound {cold['bound_ms']:.5f} (bytes); a "
+          f"decode step's 224: {224 * cold['ms']:.3f} ms queued")
+    del args
+    results["int8_matmul"]["yi"] = dict(shapes=rows, l2_cold=cold)
+
+
+def yi_kernels(torch, dev, gen, results):
+    """Phase 16a: #3, #11, #12 and #13 at Yi-6B's shapes against their
+    plain versions with phase 3's gates (#12 and #13 with the positions on
+    the chunk edges, #13 at pages of 16, 64 and 256 bit for bit against
+    #12 on the same logical cache)."""
+    check_int8_yi(torch, dev, gen, results)
+    check_flash_q8(torch, dev, gen, results, shapes=(YI_Q8_SHAPE,), tag="yi")
+    check_decode_attention(torch, dev, gen, results, shape=YI_DECODE_SHAPE,
+                           tag="yi")
+    check_decode_attention_paged(torch, dev, gen, results,
+                                 shape=YI_DECODE_SHAPE, tag="yi")
+
+
+def yi_prompts(cfg, seed):
+    """The 32 prompts of phases 16b and 16c (128-2048 tokens), drawn from
+    ``seed``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(YI_PROMPT[0], YI_PROMPT[1] + 1, size=YI_REQUESTS)
+    return [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def _yi_serve_run(torch, eng, cfg, prompts, label):
+    """Serve ``prompts`` to length through ``eng``'s queue with the counts
+    and the peak memory reset before; checks every request's 64 tokens and
+    the launch counts against the engine's own prefill and decode counts.
+    Returns (counts, tokens by request in submit order, stats)."""
+    from repro_torch import kernels
+    from repro_torch.infer import Request
+    ids = [eng.submit(Request(tokens=p, max_new_tokens=YI_NEW))
+           for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    st = dict(eng.stats)
+    if sorted(r.request_id for r in out) != sorted(ids):
+        fail(f"{label}: not every request answered")
+    for r in out:
+        if (len(r.tokens) != YI_NEW or r.finish_reason != "length"
+                or not all(0 <= t < cfg.vocab_size for t in r.tokens)):
+            fail(f"{label}: request {r.request_id}: {len(r.tokens)} tokens, "
+                 f"{r.finish_reason}")
+    gen_tok = sum(len(r.tokens) for r in out)
+    lat = eng.scheduler.latency_stats()
+    dec_ms = st["decode_s"] * 1e3 / max(st["decode_steps"], 1)
+    print(f"{label}: {eng.path_summary()}, {cfg.name} {cfg.n_layers}L d="
+          f"{cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} hd="
+          f"{cfg.head_dim} carrier {cfg.dtype}, {YI_SLOTS} slots x {YI_SEQ} "
+          f"rows, {len(out)} requests of {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} prompt tokens, {YI_NEW} new each: "
+          f"{gen_tok} tokens in {wall:.3f} s ({gen_tok / wall:.1f} tok/s end "
+          f"to end); prefill {st['prefill_calls']} launches "
+          f"{st['prefill_s'] * 1e3:.1f} ms ({st['prefill_tokens']} prompt "
+          f"tokens, {st['prefill_tokens'] / max(st['prefill_s'], 1e-9):.0f} "
+          f"tok/s); decode {st['decode_steps']} steps "
+          f"{st['decode_s'] * 1e3:.1f} ms ({dec_ms:.2f} ms/step, "
+          f"{st['decode_tokens'] / max(st['decode_s'], 1e-9):.1f} tok/s); "
+          f"latency p50 {lat['p50_s']:.3f} s p99 {lat['p99_s']:.3f} s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(allocated at rest {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB)")
+    print(f"{label}: launch counts {counts}")
+    attn = "decode_attention_paged" if eng.paged else "decode_attention"
+    want = {"int8_matmul": YI_LINEARS * cfg.n_layers
+            * (st["prefill_calls"] + st["decode_steps"]),
+            "flash_attention_fwd_q8": cfg.n_layers * st["prefill_calls"],
+            attn: cfg.n_layers * st["decode_steps"]}
+    for name, n in counts.items():
+        if n != want.get(name, 0) or (name in want and n <= 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
+    tokens = {r.request_id: r.tokens for r in out}
+    return counts, [tokens[i] for i in ids], st
+
+
+def _head_ms(torch, eng, cfg):
+    """Device ms of the decode step's untied head on 16 rows, queued: the
+    whole ``logits_chunk``, and apart its fp32 upcast of the (d, V) head
+    and the fp32 product."""
+    from repro_torch.models.lm import logits_chunk
+    h = torch.randn((YI_SLOTS, 1, cfg.d_model), device="cuda").bfloat16()
+    head = eng.params["lm_head"]
+    hf = head.to(torch.float32)
+    return dict(head_ms=queued_ms(lambda: logits_chunk(eng.params, h, cfg,
+                                                       eng.policy)),
+                upcast_ms=queued_ms(lambda: head.to(torch.float32)),
+                product_ms=queued_ms(lambda: torch.matmul(
+                    h.to(torch.float32), hf)))
+
+
+def serve_yi(torch, dev, seed):
+    """Phase 16b: Yi-6B at full width and depth (``configs/yi_6b.py``),
+    random float32 weights from ``seed`` on the card's generator, freed once
+    the engine has prepared them: the dense engine under ``POLICY`` (bf16
+    carrier, W8A8 prepared weights, int8 KV), 16 slots of 4096 rows, the 32
+    requests of ``yi_prompts`` to 64 tokens each.  Each kernel launches as
+    often as the engine's counts say (224 #3 and 32 #12 a decode step, 224
+    #3 and 32 #11 a prefill launch); then one profiled decode step and the
+    untied head's share.  Returns (counts, tokens, stats, the engine's
+    prepared parameters for 16c)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine
+    from repro_torch.infer.prepare import params_nbytes
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("yi-6b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    fp32_bytes = params_nbytes(params)
+    eng = Engine(model, params, POLICY, max_slots=YI_SLOTS, max_seq=YI_SEQ,
+                 device=dev, seed=seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"phase 16b: {cfg.name} float32 weights {fp32_bytes / 1e9:.2f} GB "
+          f"drawn and prepared in {time.perf_counter() - t0:.1f} s, freed; "
+          f"the engine holds {params_nbytes(eng.params) / 1e9:.2f} GB of "
+          f"parameters (int8 block weights, bf16 embedding and head) and "
+          f"{eng.kv_cache_nbytes() / 1e9:.2f} GB of int8 KV cache")
+    prompts = yi_prompts(cfg, seed)
+    counts, tokens, st = _yi_serve_run(torch, eng, cfg, prompts,
+                                       "phase 16b engine")
+    profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
+    head = _head_ms(torch, eng, cfg)
+    print(f"phase 16b: the untied head on 16 rows, queued: logits_chunk "
+          f"{head['head_ms']:.4f} ms a decode step, of which its fp32 upcast "
+          f"of the (4096, 64000) head alone {head['upcast_ms']:.4f} ms and "
+          f"the fp32 product alone {head['product_ms']:.4f} ms")
+    eng.scheduler.stop()
+    return counts, tokens, st, eng.params
+
+
+def serve_yi_paged(torch, dev, seed, params, dense_tokens, dense_stats):
+    """Phase 16c: phase 16b's requests through the paged engine (pages of
+    64 rows, the default pool) on the same prepared parameters: the tokens
+    equal 16b's, 224 #3 and 32 #13 a decode step (no #12), every page back
+    after the run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("yi-6b")
+    eng = Engine(build_model(cfg), params, POLICY, max_slots=YI_SLOTS,
+                 max_seq=YI_SEQ, device=dev, seed=seed, paged=True,
+                 page_size=PAGE)
+    counts, tokens, st = _yi_serve_run(torch, eng, cfg, yi_prompts(cfg, seed),
+                                       "phase 16c paged engine")
+    for i, (got, want) in enumerate(zip(tokens, dense_tokens)):
+        if got != want:
+            at = next(j for j, (a, c) in enumerate(zip(got, want)) if a != c)
+            fail(f"phase 16c: request {i} differs from the dense engine's at "
+                 f"token {at} ({got[at]} vs {want[at]})")
+    if eng.pool.free_pages != eng.n_pages - 1 or eng.pool.live_pages:
+        fail(f"phase 16c: pages kept after the run: {eng.pool.free_pages} "
+             f"free of {eng.n_pages - 1}")
+    dense_ms = dense_stats["decode_s"] * 1e3 / max(dense_stats["decode_steps"],
+                                                   1)
+    print(f"phase 16c: tokens equal to phase 16b's for all {len(tokens)}; "
+          f"{eng.n_pages} pages of {PAGE} rows, every page back; peak live "
+          f"KV {eng.scheduler.peak_live_bytes / 1e9:.3f} GB of the dense "
+          f"cache's {eng.kv_cache_nbytes() / 1e9:.3f} GB pool; decode "
+          f"{st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.2f} ms/step "
+          f"against the dense engine's {dense_ms:.2f}")
+    profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
+    eng.scheduler.stop()
+    return counts
+
+
+def yi_card_vs_cpu(torch, dev, seed):
+    """Phase 16d: phase 5 at Yi-6B's full width and 2 layers (float32
+    carrier, ``true_fan_in`` weights, the gated leaves included), with
+    phase 5's A check and limit, and its B check with ``YI_B_LIMIT``."""
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu(torch, dev, seed, cfg=dataclasses.replace(
+        get_config("yi-6b"), n_layers=2, dtype="float32"),
+        b_limit=YI_B_LIMIT)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3199,12 +3599,20 @@ def main() -> int:
     flash_counts = train(torch, dev, args.seed, impl="flash_pallas")
     serve_flash_counts = serve_flash(torch, dev, args.seed)
     flash_card_vs_cpu(torch, dev, args.seed)
+    yi_kernels(torch, dev, gen, results)
+    yi_counts, yi_tokens, yi_stats, yi_params = serve_yi(torch, dev,
+                                                         args.seed)
+    yi_paged_counts = serve_yi_paged(torch, dev, args.seed, yi_params,
+                                     yi_tokens, yi_stats)
+    del yi_params
+    yi_card_vs_cpu(torch, dev, args.seed)
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
     # fake-quant training (phase 10), the guarded path (phase 11), flash
-    # training (phase 14) and flash-prefill serving (phase 14b), each
-    # path's counts read right after its run
+    # training (phase 14), flash-prefill serving (phase 14b) and Yi-6B
+    # served dense and paged (phases 16b and 16c), each path's counts read
+    # right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -3215,7 +3623,9 @@ def main() -> int:
                    "train_fake": fake_counts[name],
                    "train_guarded": guarded_counts[name],
                    "train_flash": flash_counts[name],
-                   "serve_flash": serve_flash_counts[name]}
+                   "serve_flash": serve_flash_counts[name],
+                   "serve_yi": yi_counts[name],
+                   "serve_yi_paged": yi_paged_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

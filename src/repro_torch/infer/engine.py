@@ -144,8 +144,10 @@ class Engine:
                  monitor: Optional[MonitorConfig] = None):
         cfg = model.cfg
         if max_seq > cfg.max_seq:
-            raise ValueError(f"max_seq {max_seq} exceeds the learned-position "
-                             f"table ({cfg.max_seq})")
+            what = ("the learned-position table" if cfg.pos == "learned"
+                    else "the config's context")
+            raise ValueError(f"max_seq {max_seq} exceeds {what} "
+                             f"({cfg.max_seq})")
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -161,9 +163,13 @@ class Engine:
                 f"KV cache path {kv_path!r} (dequantize-on-read) is not "
                 "ported; use a per-token int8 kv_cache spec (a8t) or fp")
         self._kv_int8 = kv_path == INT8_BACKEND
+        # the carrier cast happens once here (the embedding and an untied
+        # head included): the model's per-call cast then finds every leaf
+        # in the carrier and copies nothing
         params = cast_params(tree_map(lambda x: _to_device(x, self.device),
                                       params), self._dtype)
         self.params = prepare_params(cfg, params, self.policy)
+        del params
         self.paged = bool(paged)
         if self.paged:
             # the reference's tile rule: halved until it divides max_seq

@@ -29,14 +29,15 @@ from repro_torch.models.common import Params, tree_map
 
 _ATTN_ROLES = {"wq": "attn_qkv", "wk": "attn_qkv", "wv": "attn_qkv",
                "wo": "attn_out"}
-_MLP_ROLES = {"w_fc1": "mlp_up", "w_fc2": "mlp_down"}
+_MLP_ROLES = {"w_gate": "mlp_up", "w_up": "mlp_up", "w_fc1": "mlp_up",
+              "w_down": "mlp_down", "w_fc2": "mlp_down"}
 _MODULE_TABLES = {"attn": _ATTN_ROLES, "mlp": _MLP_ROLES}
 
 
 def quantize_weight(w: torch.Tensor, spec: QuantSpec) -> QState:
     """Quantize one (possibly layer-stacked) weight into payload + scales,
     reducing over the trailing matmul axes only (nearest rounding)."""
-    xf = w.to(torch.float32)
+    xf = w.to(torch.float32, copy=True)
     if spec.granularity is Granularity.PER_CHANNEL:
         axes = (-2,)
     elif spec.granularity is Granularity.PER_TENSOR:
@@ -44,7 +45,9 @@ def quantize_weight(w: torch.Tensor, spec: QuantSpec) -> QState:
     else:                                    # PER_TOKEN: one scale per in-row
         axes = (-1,)
     scale, zero = compute_scale_zero(xf, spec, axes=axes)
-    q = torch.clamp(torch.round(xf / scale) - zero, spec.qmin, spec.qmax)
+    # in place on the fp32 copy, op for op the reference's chain: a stacked
+    # Yi-6B MLP weight is 5.8 GB in fp32
+    q = xf.div_(scale).round_().sub_(zero).clamp_(spec.qmin, spec.qmax)
     return QState(q.to(storage_dtype(spec.bits)), scale, zero)
 
 
@@ -59,7 +62,9 @@ def _preparable_spec(res: Optional[Resolved]) -> Optional[QuantSpec]:
 
 def prepare_params(cfg, params: Params, policy) -> Params:
     """A copy of ``params`` with every block weight the policy quantizes
-    replaced by its stored-integer :class:`QState`."""
+    replaced by its stored-integer :class:`QState`; a weight already
+    prepared stays as it is, so a prepared tree can serve another
+    engine."""
     policy = as_policy(policy)
     n_layers = cfg.n_layers
     carrier = getattr(torch, cfg.dtype)
@@ -70,7 +75,9 @@ def prepare_params(cfg, params: Params, policy) -> Params:
 
     def prep(w, role: str):
         spec = _preparable_spec(resolve_uniform(role))
-        return w if spec is None else quantize_weight(w.to(carrier), spec)
+        if spec is None or isinstance(w, QState):    # raw, or prepared
+            return w
+        return quantize_weight(w.to(carrier), spec)
 
     out = dict(params)
     out["blocks"] = {

@@ -61,14 +61,13 @@ def _check_cuda(what: str, device, tensors) -> None:
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                       row_scale: torch.Tensor, col_scale: torch.Tensor,
                       out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version.  The int32 sum is exact on both devices: the
-    CPU multiplies int32 tensors; CUDA has no integer matmul, and a float32
-    one is not exact at K = 3072 (|sum| <= 127*128*K ~ 5e7 > 2**24), so the
-    card sums in float64, exact below 2**53."""
-    if x.is_cuda:
-        acc = torch.matmul(x.to(torch.float64), w.to(torch.float64))
-    else:
-        acc = torch.matmul(x.to(torch.int32), w.to(torch.int32))
+    """Plain PyTorch version.  The integer sum is exact: a float32 matmul is
+    not at K = 3072 (|sum| <= 128*128*K ~ 5e7 > 2**24), so both devices sum
+    in float64, exact below 2**53 (every K up to ``MAX_CONTRACTION``), and
+    round the exact sum to float32 as an int32 sum would round (CUDA has no
+    integer matmul; the CPU's int32 one is about 10x slower than its
+    float64 one at a Yi-6B linear)."""
+    acc = torch.matmul(x.to(torch.float64), w.to(torch.float64))
     acc = acc.to(torch.float32)
     return ((acc * scale_guard(row_scale).reshape(-1, 1))
             * scale_guard(col_scale).reshape(1, -1)).to(out_dtype)

@@ -31,6 +31,13 @@ shared by every slot):
   whole max_seq buffer instead; the causal mask hides its never-written
   rows.
 
+Under RoPE (``cfg.pos == "rope"``) q and k are rotated before any of
+this, k before it is written: ``rope`` carries the rotary tables of the
+call's positions (``common.rope_tables``, built once per forward), a
+prefill's ``arange(S)`` (restarting per packed prompt) or a decode step's
+per-slot positions.  Grouped KV heads are KV-major everywhere: query head
+h reads KV head ``h // (H // K)``, as the reference's reshape and repeat.
+
 The kernel wrappers pick kernel or plain version from the tensors' device.
 The reference's dequantize-on-read branch has no counterpart: an int8 cache
 here is always consumed by the kernels, which keep the dequantized K/V in
@@ -45,6 +52,7 @@ import torch
 
 from repro_torch.core.qpolicy import INT8_BACKEND, LinearCtx, QuantPolicy
 from repro_torch.core.quantizer import quantize_int, storage_dtype
+from repro_torch.models.common import apply_rope
 from repro_torch.kernels.decode_attn import (paged_logical_view, decode_attention,
                                              decode_attention_paged)
 from repro_torch.kernels.flash_attn import (flash_attention,
@@ -115,6 +123,7 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                cache_offset: Union[int, torch.Tensor, None] = None,
                page_table: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None,
+               rope=None,
                layer: Optional[int] = None, n_layers: int = 0
                ) -> torch.Tensor:
     """One self-attention call.  ``cache=None``: causal attention over the
@@ -122,7 +131,9 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     place); ``cache_offset``: int for a prefill, (B,) int32 tensor of
     per-slot positions for a decode step (s == 1); ``page_table`` (B, maxp)
     int32 makes the cache page pools (decode only); ``mask`` (B, S,
-    max_seq) boolean replaces a prefill's causal mask (packed prompts)."""
+    max_seq) boolean replaces a prefill's causal mask (packed prompts);
+    ``rope`` the (cos, sin) tables of the call's positions, which rotate q
+    and k (RoPE configs; None under learned positions)."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx_qkv = LinearCtx("attn_qkv", layer, n_layers)
@@ -135,6 +146,9 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                       ).reshape(b, s, kh, hd)
     v = policy.linear(ctx_qkv, x, params["wv"], params.get("bv")
                       ).reshape(b, s, kh, hd)
+    if rope is not None:
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
     if cache is None:
         if flash:
             ctx = _flash(q, k, v)

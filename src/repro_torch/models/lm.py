@@ -1,7 +1,14 @@
-"""Decoder-only language model, dense family: embed with learned positions,
-a Python loop over the layers in place of the reference's scan, final norm
-and tied head (port of ``repro/models/lm.py``): the training loss with a
-chunked cross entropy, prefill and decode.
+"""Decoder-only language model, dense family: GPT-2 (learned positions,
+LayerNorm, tied head) and llama (RoPE, RMSNorm, gated MLP, grouped KV
+heads, untied head); embed, a Python loop over the layers in place of the
+reference's scan, final norm and head (port of ``repro/models/lm.py``):
+the training loss with a chunked cross entropy, prefill and decode.
+
+Positions: a prefill's rows sit at ``arange(S)`` (packed prompts restart
+at 0, ``segment_positions_and_mask``), a decode step's at each slot's own
+``pos``.  Under learned positions they index the position table; under
+RoPE the rotary tables are built from them once per forward
+(``common.rope_tables``) and every layer rotates its q and k by them.
 
 The caches are stacked (L, B, S, ...) buffers, as in the JAX package; each
 layer works on its view and writes its rows in place, so ``lm_decode``
@@ -27,7 +34,8 @@ from repro_torch.core.qadam import QState
 from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.models.attention import Cache, init_caches
 from repro_torch.models.blocks import block_apply
-from repro_torch.models.common import Params, cast_params, layernorm, tree_map
+from repro_torch.models.common import (Params, apply_norm, cast_params,
+                                       rope_tables, tree_map)
 
 _NEG = -1e30
 
@@ -39,14 +47,24 @@ def carrier_dtype(cfg) -> torch.dtype:
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
                  positions: torch.Tensor, dtype: torch.dtype,
                  policy: QuantPolicy) -> torch.Tensor:
-    """Token + learned-position embedding.  Positions are clamped to the
-    table: a freed slot rides the batched decode step with its stale
-    position, which can reach the table size; its row is discarded."""
+    """Token embedding, plus the learned-position one under ``cfg.pos ==
+    "learned"``.  Positions are clamped to that table: a freed slot rides
+    the batched decode step with its stale position, which can reach the
+    table size; its row is discarded."""
     table = policy.quantize_weight("embed", params["embed"])
     e = table[tokens.long()].to(dtype)
+    if cfg.pos != "learned":
+        return e
     pos_table = params["pos_embed"]
     pe = pos_table[positions.clamp(0, pos_table.shape[0] - 1)].to(dtype)
     return e + pe
+
+
+def rope_for(cfg, positions: torch.Tensor):
+    """The rotary tables of ``positions`` under RoPE, else None."""
+    if cfg.pos != "rope":
+        return None
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def unstack_layers(blocks: Params, n_layers: int):
@@ -123,24 +141,24 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     # whose order (and last bits) vary from run to run
     positions = torch.arange(inp.shape[1], device=inp.device)
     h = embed_tokens(params, inp, cfg, positions, dtype, policy)
+    rope = rope_for(cfg, positions)
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
-        h = block_apply(lp, h, cfg, policy=policy, layer=i)
-    fn = params["final_norm"]
-    h = layernorm(h, fn["scale"], fn["bias"])
+        h = block_apply(lp, h, cfg, policy=policy, layer=i, rope=rope)
+    h = apply_norm(h, params["final_norm"], cfg.norm)
     ce = chunked_ce(params, h, labels, batch.get("loss_mask"), cfg, policy)
     return ce, {"ce": ce, "loss": ce}
 
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
-               caches: Cache, cache_offset, page_table=None,
-               mask=None) -> torch.Tensor:
+               caches: Cache, cache_offset, positions: torch.Tensor,
+               page_table=None, mask=None) -> torch.Tensor:
+    rope = rope_for(cfg, positions)
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h = block_apply(lp, h, cfg, policy=policy, layer=i,
                         cache={k: c[i] for k, c in caches.items()},
                         cache_offset=cache_offset, page_table=page_table,
-                        mask=mask)
-    fn = params["final_norm"]
-    return layernorm(h, fn["scale"], fn["bias"])
+                        mask=mask, rope=rope)
+    return apply_norm(h, params["final_norm"], cfg.norm)
 
 
 def segment_positions_and_mask(segments: torch.Tensor, max_seq: int):
@@ -188,7 +206,7 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
     h = embed_tokens(params, tokens, cfg, positions, dtype, policy)
     caches = init_caches(cfg, b, max_seq, dtype,
                          kv_spec=policy.kv_spec(), device=device)
-    h = _run_stack(params, h, cfg, policy, caches, 0, mask=mask)
+    h = _run_stack(params, h, cfg, policy, caches, 0, positions, mask=mask)
     if last_pos is None:
         hc = h[:, -1:, :]
     else:
@@ -215,6 +233,7 @@ def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
     pos = pos.to(device=token.device, dtype=torch.int32)
     if page_table is not None:
         page_table = page_table.to(device=token.device, dtype=torch.int32)
-    h = embed_tokens(params, token, cfg, pos[:, None].long(), dtype, policy)
-    h = _run_stack(params, h, cfg, policy, caches, pos, page_table)
+    positions = pos[:, None].long()
+    h = embed_tokens(params, token, cfg, positions, dtype, policy)
+    h = _run_stack(params, h, cfg, policy, caches, pos, positions, page_table)
     return logits_chunk(params, h, cfg, policy)[:, 0, :], caches

@@ -1,15 +1,19 @@
 """Model facade of the port (counterpart of ``repro/models/model_api.py``):
 ``build_model(cfg)`` gives ``init_params``, ``train_loss``, ``prefill``,
-``decode`` and ``init_decode_state`` for the dense GPT-2 family;
+``decode`` and ``init_decode_state`` for the dense decoder families: GPT-2
+(learned positions, LayerNorm, classic MLP) and llama (RoPE, RMSNorm,
+gated MLP, grouped KV heads, untied head);
 :func:`params_from_jax` carries a JAX parameter tree across, and
 :func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
 state (params, step, Adam moments) both ways.
 
 Parameters are nested dicts of tensors in the JAX tree layout: ``embed``
-(V_padded, d), ``pos_embed`` (max_seq, d), ``blocks`` with every leaf
-stacked (L, ...) -- ``ln1``/``ln2`` {scale, bias}, ``attn`` {wq, wk, wv,
-wo, bq, bk, bv, bo}, ``mlp`` {w_fc1, w_fc2, b_fc1, b_fc2} -- and
-``final_norm`` {scale, bias}.
+(V_padded, d), ``pos_embed`` (max_seq, d; learned positions only),
+``blocks`` with every leaf stacked (L, ...) -- ``ln1``/``ln2`` {scale,
+bias} (RMSNorm: {scale}), ``attn`` {wq, wk, wv, wo[, bq, bk, bv, bo]},
+``mlp`` {w_fc1, w_fc2[, b_fc1, b_fc2]} (gated: {w_gate, w_up, w_down}) --
+``final_norm`` as ``ln1``, and ``lm_head`` (d, V_padded) when the head is
+untied.
 """
 from __future__ import annotations
 
@@ -29,16 +33,24 @@ from repro_torch.models.common import Params
 DeviceLike = Union[str, torch.device, None]
 
 
+#: what the port's dense decoder takes: each field's ported values (GPT-2's
+#: and llama's)
+SUPPORTED = {"family": ("dense",), "pos": ("learned", "rope"),
+             "norm": ("layernorm", "rmsnorm"),
+             "mlp_kind": ("classic", "gated"), "qk_norm": (False,),
+             "embed_scale": (False,), "n_experts": (0,)}
+
+
 def _check_supported(cfg: ArchConfig) -> None:
-    """This slice ports the dense GPT-2 family only."""
-    want = {"family": "dense", "pos": "learned", "norm": "layernorm",
-            "mlp_kind": "classic", "qk_norm": False, "embed_scale": False,
-            "n_experts": 0}
-    bad = {k: getattr(cfg, k) for k, v in want.items() if getattr(cfg, k) != v}
+    """The dense GPT-2 and llama families only: qk-norm (qwen3), gemma's
+    embedding scale and plus-one RMSNorm, experts and the other families
+    raise."""
+    bad = {k: getattr(cfg, k) for k, v in SUPPORTED.items()
+           if getattr(cfg, k) not in v}
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port trains and serves the dense "
-            f"GPT-2 family ({want}) so far (ROADMAP section 1, item 6)")
+            f"{cfg.name}: {bad} -- the port takes the dense GPT-2 and llama "
+            f"families ({SUPPORTED}) so far (ROADMAP section 1, item 6)")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -48,22 +60,33 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def norm(n):
+        if cfg.norm == "rmsnorm":
+            return {"scale": ((n,), "ones")}
         return {"scale": ((n,), "ones"), "bias": ((n,), "zeros")}
 
     attn = {"wq": ((d, h * hd), "fan_in"), "wk": ((d, k * hd), "fan_in"),
             "wv": ((d, k * hd), "fan_in"), "wo": ((h * hd, d), "fan_in")}
-    mlp = {"w_fc1": ((d, ff), "fan_in"), "w_fc2": ((ff, d), "fan_in")}
+    if cfg.mlp_kind == "gated":
+        mlp = {"w_gate": ((d, ff), "fan_in"), "w_up": ((d, ff), "fan_in"),
+               "w_down": ((ff, d), "fan_in")}
+        mlp_bias = {"b_gate": ((ff,), "zeros"), "b_up": ((ff,), "zeros"),
+                    "b_down": ((d,), "zeros")}
+    else:
+        mlp = {"w_fc1": ((d, ff), "fan_in"), "w_fc2": ((ff, d), "fan_in")}
+        mlp_bias = {"b_fc1": ((ff,), "zeros"), "b_fc2": ((d,), "zeros")}
     if cfg.use_bias:
         attn.update({"bq": ((h * hd,), "zeros"), "bk": ((k * hd,), "zeros"),
                      "bv": ((k * hd,), "zeros"), "bo": ((d,), "zeros")})
-        mlp.update({"b_fc1": ((ff,), "zeros"), "b_fc2": ((d,), "zeros")})
+        mlp.update(mlp_bias)
     blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d), "mlp": mlp}
     # block leaves carry the stacked layer dim, as in the reference
     blocks = {mod: {n: ((L,) + shape, init) for n, (shape, init) in leaves.items()}
               for mod, leaves in blocks.items()}
-    spec = {"embed": ((cfg.vocab_padded, d), "normal", 0.02),
-            "pos_embed": ((cfg.max_seq, d), "normal", 0.01),
-            "blocks": blocks, "final_norm": norm(d)}
+    # init_params draws the leaves in this order
+    spec = {"embed": ((cfg.vocab_padded, d), "normal", 0.02)}
+    if cfg.pos == "learned":
+        spec["pos_embed"] = ((cfg.max_seq, d), "normal", 0.01)
+    spec.update(blocks=blocks, final_norm=norm(d))
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab_padded), "fan_in")
     return spec

@@ -464,6 +464,85 @@ def test_flash_q8_kernel(cuda, dtype, b, sq, skv, h, kh, hd, q_offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", chip_smoke.YI_INT8_KN)
+def test_int8_matmul_yi_shapes(cuda, k, n):
+    """#3 at a Yi-6B layer's four (K, N) (contractions up to 11,008):
+    the wrapper and both routes at the decode step's 16 rows, the wrapper at
+    a 2048-row prefill, and the fused decode entry at 16 bf16 rows, bit for
+    bit against the plain versions."""
+    for m in (16, 2048):
+        x, w, rs, cs = _mm_case(cuda, m, k, n)
+        want = int8_matmul_plain(x, w, rs, cs, torch.bfloat16)
+        assert torch.equal(int8_matmul(x, w, rs, cs), want), m
+        if m <= im.FWD_GEMV_MAX_M:
+            for route in (im.int8_matmul_gemv, im.int8_matmul_wgmma):
+                assert torch.equal(route(x, w, rs, cs, torch.bfloat16),
+                                   want), route
+    rng = np.random.RandomState(k + n)
+    xf = torch.from_numpy((rng.standard_normal((16, k)) * 3).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    cs = cs.abs() + 1e-3
+    assert torch.equal(im.int8_quant_matmul(xf, w, cs, SPEC, torch.bfloat16),
+                       im.int8_quant_matmul_plain(xf, w, cs, SPEC,
+                                                  torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [None, 16, 64, 256])
+def test_decode_attention_yi_shape(cuda, dtype, page):
+    """#12 (``page`` None) and #13 at Yi-6B's decode step: 4 KV heads of
+    128, 8 query rows each, a 4096-row logical cache, positions on the
+    chunk edges: against the plain version (the written rows bit for bit),
+    #13 bit for bit against #12 on the same logical cache."""
+    _, s, kh, g, hd = chip_smoke.YI_DECODE_SHAPE
+    pos_l = _decode_pos(s)
+    b = len(pos_l)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda)
+    cache = _cache(cuda, b, s, kh, hd, pos_l, seed=7)
+    q, nk, nv = _decode_rows(cuda, dtype, b, kh, g, hd, seed=5)
+    dc = [t.clone() for t in cache]
+    pc = [t.clone() for t in cache]
+    dense = decode_attention(q, *dc, nk, nv, pos)
+    assert_attention_close(dense, decode_attention_plain(q, *pc, nk, nv, pos))
+    for a, c in zip(dc, pc):
+        assert torch.equal(a, c)
+    if page is None:
+        return
+    pools, table = _paged(cache, pos_l, page, seed=page)
+    kc = [t.clone() for t in pools]
+    pc = [t.clone() for t in pools]
+    got = decode_attention_paged(q, *kc, nk, nv, pos, table)
+    want = decode_attention_paged_plain(q, *pc, nk, nv, pos, table)
+    assert_attention_close(got, want)
+    for a, c in zip(kc, pc):
+        assert torch.equal(a[1:], c[1:])
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_q8_yi_shape(cuda, dtype):
+    """#11 at Yi-6B's prefill, one 2048-token prompt over a 4096-row
+    buffer, 32 query heads over 4 KV heads of 128: within 1e-5 at float32
+    and one bf16 step at bfloat16, the bf16 kernel before its cast within
+    1e-3 of the float32 plain version."""
+    _, sq, skv, h, kh, hd = chip_smoke.YI_Q8_SHAPE
+    kq, ks, vq, vs = _cache(cuda, 1, skv, kh, hd, [sq], seed=11)
+    q = torch.randn((1, sq, h, hd), generator=torch.Generator().manual_seed(4)
+                    ).to(cuda, dtype)
+    got = flash_attention_fwd_q8(q, kq, ks, vq, vs, causal=True)
+    assert_attention_close(got, flash_attention_fwd_q8_plain(
+        q, kq, ks, vq, vs, causal=True))
+    if dtype == torch.bfloat16:
+        f32 = fa.launch_q8("flash_q8_sm90", q, kq, ks, vq, vs, causal=True,
+                           out_dtype=torch.float32)
+        want32 = flash_attention_fwd_q8_plain(q.float(), kq, ks, vq, vs,
+                                              causal=True)
+        assert (f32 - want32).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
 def test_flash_q8_routes_bf16_to_the_tensor_cores(cuda, monkeypatch):
     """A CUDA call of #11 loads the library ``q8_library`` names: at bf16
     ``flash_q8_sm90``, at float32 ``flash_attn_q8``; the tensor-core
