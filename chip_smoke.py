@@ -147,7 +147,28 @@ Phases, in order; any failure exits non-zero:
     through the paged engine (pages of 64 rows): 16b's tokens, 32
     ``decode_attention_paged`` a step, every page back
     (``serve_yi_paged``); 16d. phase 5's checks at Yi's width and 2 layers,
-    its limits but B's, which is ``YI_B_LIMIT`` there (``yi_card_vs_cpu``).
+    its limits but B's, which is ``YI_B_LIMIT`` there (``yi_card_vs_cpu``);
+17. the serving degradation ladder on GPT-2 small (phase 4's weights):
+    17a. an engine whose rung 0 is dequantize-on-read (``DEQUANT_POLICY``,
+    a per-tensor KV spec no kernel takes), dense and paged, 32 requests of
+    one prefill bucket (``ladder_prompts``): ``kv=int8-dequant`` /
+    ``kv=int8-paged-gather(p64)``, exactly 72 ``int8_matmul`` a decode
+    step and a prefill launch and no other kernel, paged tokens bit-equal
+    to dense for every request (``serve_dequant``); 17b. the
+    dequant path card against CPU (phase 5's A limit), and an a8t model's
+    dequant path against its fused path on the card within
+    ``DEQUANT_FUSED_LIMIT``, a bf16-carrier control outside it
+    (``dequant_card_vs_cpu``); 17c. ``SERVE_LADDER_PLAN`` on ``POLICY``
+    dense and paged: the walk equals ``SERVE_LADDER_EXPECT``, two kernel
+    errors, two ``numerics``, #12/#13 12 times a fused-rung step, #11 12
+    times a prefill launch, paged tokens and finish reasons equal to
+    dense for every request, each rung's decode ms/step (``serve_ladder``);
+    17d.
+    ``SERVE_OOM_PLAN`` on the paged engine: a preemption, never a
+    ``CapacityError``, every request to length and every page back
+    (``serve_oom``).  Every healthy serving phase (4, 4b,
+    4c, 14b, 16b, 16c, 17a, 17d) fails unless it ends with no kernel error,
+    no demotion and rung 0 (``healthy``).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -220,6 +241,49 @@ LADDER_EXPECT = {
     "fallback_rows": [4, 5, 6, 7, 8, 9, 10],
     "spike_reasons": {"nonfinite-grad": 2},
 }
+#: phase 17: the serving degradation ladder.  17a serves under a KV spec
+#: no kernel takes (per tensor), so rung 0 is dequantize-on-read; 17c walks
+#: the ladder of ``POLICY`` under ``SERVE_LADDER_PLAN`` with the monitor's
+#: re-probe after ``SERVE_LADDER_REPROBE`` healthy steps, on the first
+#: ``SERVE_LADDER_REQUESTS`` of 17a's prompts; 17d drains the paged pool
+#: under ``SERVE_OOM_PLAN``.  17a's and 17c's prompts all lie in the
+#: prefill bucket of ``LADDER_PROMPT_LENS`` (one page multiple), so a
+#: request's prefill write block and its slot are the same in the dense and
+#: the paged engine, and their tokens must be equal for every request
+DEQUANT_POLICY = "kv_cache=a8n,*=w8c+a8t@int8_cuda"
+SERVE_LADDER_PLAN = ("kernel_error@4;kernel_error@6;nan_logit@26:slot=0;"
+                     "nan_logit@27:slot=1;slow_step@40:ms=20")
+SERVE_LADDER_REPROBE = 8
+SERVE_LADDER_REQUESTS = 16
+LADDER_PROMPT_LENS = (257, 512)
+SERVE_OOM_PLAN = "oom_pages@10:hold=2"
+#: the walk that plan takes, (decode step, from rung, to rung) in step
+#: order: the two kernel errors demote twice, 8 healthy steps promote
+#: twice, the second quarantine inside the numeric window demotes once
+#: more and 8 healthy steps promote again.
+#: tests/test_torch_serve_ladder.py holds it equal to the JAX engine's walk
+#: on the same plan and monitor settings.
+SERVE_LADDER_EXPECT = [[4, "fused", "dequant"], [6, "dequant", "fp"],
+                       [13, "fp", "dequant"], [21, "dequant", "fused"],
+                       [27, "fused", "dequant"], [35, "dequant", "fused"]]
+#: phase 17b: limit on max |d logit| of the dequantize-on-read rung against
+#: the fused rung on the card (an a8t model, float32 carrier,
+#: ``true_fan_in`` weights), set from readings at seeds 0-3
+#: (``tools/dequant_readings.py``, PERF.md): 6.0e-4 to 2.07e-3, the
+#: bf16-carrier control 2.91e-2 to 3.20e-2; the limit sits 3.9x above the
+#: largest reading and 3.6x below the smallest control, which must exceed it
+DEQUANT_FUSED_LIMIT = 8e-3
+
+
+def serve_walk(summary):
+    """A serving engine's ladder transitions from its
+    ``resilience_summary()``, as ``SERVE_LADDER_EXPECT`` lists them; the
+    same for the port's engine and the JAX package's."""
+    moves = summary["demotions"] + summary["promotions"]
+    return [[d["step"], d["from"], d["to"]]
+            for d in sorted(moves, key=lambda d: d["step"])]
+
+
 #: phase 13: the flash kernels at the training shape (BH = 8 x 12 heads,
 #: S = 1024, hd = 64, causal), then this sweep: (label, BH, Sq, Skv, hd,
 #: causal, q_offset) -- every other head dim of the repo's configs, Sq !=
@@ -336,6 +400,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def healthy(eng, label: str) -> None:
+    """A serving phase on the healthy path: no decode step failed, the
+    ladder never moved and rung 0 ran to the end (the ladder must not hide
+    a failing kernel)."""
+    s = eng.resilience_summary()
+    if s["kernel_errors"] or s["demotions"] or s["rung_index"]:
+        fail(f"{label}: the healthy path degraded: kernel_errors "
+             f"{s['kernel_errors']}, demotions {s['demotions']}, rung "
+             f"{s['rung']} ({s['rung_index']})")
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
 
 
 #: phase 3: the forward's shapes -- the decode step's 16 slots, M = 17, 32
@@ -1034,6 +1118,16 @@ def serve_model(torch, dev, seed):
     return cfg, model, params
 
 
+def ladder_prompts(cfg, seed):
+    """The 32 prompts of phases 17a and 17c: lengths in
+    ``LADDER_PROMPT_LENS`` (one prefill bucket), drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 5)
+    lo, hi = LADDER_PROMPT_LENS
+    lens = rng.randint(lo, hi + 1, size=SERVE_REQUESTS)
+    return [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
 def serve_prompts(cfg, seed):
     """The 32 prompts of phases 4 and 4b (32-512 tokens), drawn from
     ``seed``."""
@@ -1098,6 +1192,7 @@ def serve(torch, dev, seed):
                  f"expected {n}")
     if counts["decode_attention_paged"]:
         fail("the dense engine launched decode_attention_paged")
+    healthy(eng, "phase 4")
     tokens = {r.request_id: r.tokens for r in out}
     dense_bytes, stats = eng.kv_cache_nbytes(), dict(st)
     profile_decode(torch, eng, cfg, rng)
@@ -1261,6 +1356,7 @@ def serve_paged(torch, dev, seed, dense_tokens, dense_bytes, dense_stats):
     if eng.pool.free_pages != eng.n_pages - 1 or eng.pool.live_pages:
         fail(f"paged engine kept pages after stop(): {eng.pool.free_pages} "
              f"free of {eng.n_pages - 1}")
+    healthy(eng, "phase 4b")
     profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
     sched.stop()
     return counts
@@ -1311,6 +1407,7 @@ def serve_paged_pressure(torch, dev, seed):
         fail("paged pressure: no preemption under a 24-page pool")
     if eng.pool.free_pages != 24:
         fail(f"paged pressure: {24 - eng.pool.free_pages} pages not returned")
+    healthy(eng, "phase 4c (i)")
 
     prefix = rng.randint(0, cfg.vocab_size, 256).tolist()
     prompts = [prefix + rng.randint(0, cfg.vocab_size,
@@ -1329,6 +1426,7 @@ def serve_paged_pressure(torch, dev, seed):
             shared = int(eng.pool.refcount[pids].min())
         by_id = {r.request_id: r.tokens for r in eng.run()}
         eng.scheduler.stop()
+        healthy(eng, "phase 4c (ii)")
         runs.append([by_id[i] for i in ids])
         engines.append(eng)
     torch.cuda.synchronize()
@@ -1348,20 +1446,22 @@ def serve_paged_pressure(torch, dev, seed):
              f"each (live pages {engines[0].pool.live_pages})")
 
 
-def _teacher_forced(torch, model, cfg, params, toks, policy, device):
+def _teacher_forced(torch, model, cfg, params, toks, policy, device,
+                    kv_path=None):
     """Logits of a 64-token prefill and 8 teacher-forced decode steps,
-    (9, B, vocab), on ``device``; the KV caches as the last step left them."""
+    (9, B, vocab), on ``device``; the KV caches as the last step left them.
+    ``kv_path`` picks how an int8 cache is read (phase 17b)."""
     from repro_torch.infer.prepare import prepare_params
     from repro_torch.models.common import tree_map
     p = prepare_params(cfg, tree_map(lambda t: t.to(device), params), policy)
     lg, st = model.prefill(p, toks[:, :64].to(device), policy=policy,
-                           max_seq=80)
+                           max_seq=80, kv_path=kv_path)
     out = [lg.cpu()]
     for i in range(8):
         pos = torch.full((toks.shape[0],), 64 + i, dtype=torch.int32,
                          device=device)
         lg, st = model.decode(p, st, toks[:, 64 + i:65 + i].to(device), pos,
-                              policy=policy)
+                              policy=policy, kv_path=kv_path)
         out.append(lg.cpu())
     return torch.stack(out)[..., :cfg.vocab_size], st["caches"]
 
@@ -3102,6 +3202,7 @@ def serve_flash(torch, dev, seed):
     counts = kernels.launch_counts()
     st = eng.stats
     eng.scheduler.stop()
+    healthy(eng, "phase 14b")
     if sorted(r.request_id for r in out) != sorted(ids):
         fail("phase 14b: the flash engine did not answer every request")
     for r in out:
@@ -3476,6 +3577,7 @@ def serve_yi(torch, dev, seed):
     prompts = yi_prompts(cfg, seed)
     counts, tokens, st = _yi_serve_run(torch, eng, cfg, prompts,
                                        "phase 16b engine")
+    healthy(eng, "phase 16b")
     profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
     head = _head_ms(torch, eng, cfg)
     print(f"phase 16b: the untied head on 16 rows, queued: logits_chunk "
@@ -3503,6 +3605,7 @@ def serve_yi_paged(torch, dev, seed, params, dense_tokens, dense_stats):
                  page_size=PAGE)
     counts, tokens, st = _yi_serve_run(torch, eng, cfg, yi_prompts(cfg, seed),
                                        "phase 16c paged engine")
+    healthy(eng, "phase 16c")
     for i, (got, want) in enumerate(zip(tokens, dense_tokens)):
         if got != want:
             at = next(j for j, (a, c) in enumerate(zip(got, want)) if a != c)
@@ -3536,6 +3639,264 @@ def yi_card_vs_cpu(torch, dev, seed):
         b_limit=YI_B_LIMIT)
 
 
+def _serve_ladder_engine(dev, seed, model, params, policy, paged, **kw):
+    from repro_torch.infer import Engine
+    if paged:
+        kw.update(paged=True, page_size=PAGE)
+    return Engine(model, params, policy, max_slots=SERVE_SLOTS,
+                  max_seq=SERVE_SEQ, device=dev, seed=seed, **kw)
+
+
+def _serve_counted(torch, eng, prompts, label):
+    """Serve ``prompts`` (64 new tokens each) through ``eng``'s queue with
+    the launch counts reset before; -> (responses in submit order, counts,
+    wall seconds)."""
+    from repro_torch import kernels
+    from repro_torch.infer import Request
+    ids = [eng.submit(Request(tokens=p, max_new_tokens=SERVE_NEW))
+           for p in prompts]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {r.request_id: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    eng.scheduler.stop()
+    if sorted(out) != sorted(ids):
+        fail(f"{label}: not every request answered")
+    return [out[i] for i in ids], counts, wall
+
+
+def serve_dequant(torch, dev, seed):
+    """Phase 17a: an engine whose rung 0 is dequantize-on-read
+    (``DEQUANT_POLICY``: a per-tensor KV spec, which no kernel takes), dense
+    and paged (pages of 64), on phase 4's weights and the 32 requests of
+    ``ladder_prompts``.  Every request answered to length; ``path_summary``
+    reads ``kv=int8-dequant`` and ``kv=int8-paged-gather(p64)``; exactly
+    72 ``int8_matmul`` a decode step and a prefill launch and no other
+    kernel; the healthy path never degrades; every page comes back; the
+    paged tokens equal the dense ones bit for bit for every request.  (A
+    per-tensor scale covers a prompt's whole prefill write block, pad rows
+    included: the bucket in the dense engine, the launch's row in the
+    paged one.  The prompts share one bucket, a whole number of pages, so
+    the two blocks are the same; where they are not, the two engines
+    differ in both packages, which
+    ``tests/test_torch_serve_ladder.py::test_a8n_paged_differs_from_dense_where_blocks_differ``
+    shows on the CPU.)  Returns the launch counts of the two runs."""
+    cfg, model, params = serve_model(torch, dev, seed)
+    prompts = ladder_prompts(cfg, seed)
+    total, tokens = {}, {}
+    for paged in (False, True):
+        label = f"phase 17a {'paged' if paged else 'dense'}"
+        eng = _serve_ladder_engine(dev, seed, model, params,
+                                   DEQUANT_POLICY, paged)
+        want_kv = "int8-paged-gather(p64)" if paged else "int8-dequant"
+        if eng.path_summary().split(" kv=")[1] != want_kv:
+            fail(f"{label}: {eng.path_summary()}, expected kv={want_kv}")
+        if eng._rungs != ["dequant", "fp"]:
+            fail(f"{label}: rungs {eng._rungs}")
+        out, counts, wall = _serve_counted(torch, eng, prompts, label)
+        st = eng.stats
+        for r in out:
+            if len(r.tokens) != SERVE_NEW or r.finish_reason != "length":
+                fail(f"{label}: request {r.request_id}: {len(r.tokens)} "
+                     f"tokens, {r.finish_reason}")
+        want = _expect(int8_matmul=6 * cfg.n_layers * (st["prefill_calls"]
+                                                       + st["decode_steps"]))
+        healthy(eng, label)
+        if paged and (eng.pool.free_pages != eng.n_pages - 1
+                      or eng.pool.live_pages):
+            fail(f"{label}: pages kept after the run: {eng.pool.free_pages} "
+                 f"free of {eng.n_pages - 1}")
+        print(f"{label}: {eng.path_summary()}, {len(out)} requests of "
+              f"{SERVE_NEW} tokens in {wall:.3f} s; prefill "
+              f"{st['prefill_calls']} launches {st['prefill_s'] * 1e3:.1f} "
+              f"ms, decode {st['decode_steps']} steps "
+              f"{st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.2f} "
+              f"ms/step; launch counts {counts}")
+        if counts != want or not counts["int8_matmul"]:
+            fail(f"{label}: launches {counts}, expected {want}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        tokens[paged] = [r.tokens for r in out]
+    bad = [i for i, (a, b) in enumerate(zip(tokens[True], tokens[False]))
+           if a != b]
+    if bad:
+        fail(f"phase 17a: paged tokens differ from dense in requests {bad}")
+    print(f"phase 17a: paged tokens bit-equal to dense for all "
+          f"{len(prompts)} requests")
+    return total
+
+
+def dequant_card_vs_cpu(torch, dev, seed, quiet=False):
+    """Phase 17b, teacher-forced as phase 5 (float32 carrier,
+    ``true_fan_in`` weights of seed + 1, 2 prompts of 64 tokens + 8
+    decode steps).  (i) ``kv_cache=a8n,*=w8c``, dequantize-on-read on the
+    card against the CPU: max |d logit| within phase 5's A limit 1e-2,
+    top-1 equal wherever the CPU's margin exceeds it.  (ii) an a8t model
+    (``kv_cache=a8t,*=w8c``) on its dequant path against its fused path
+    (#11, #12), both on the card: max |d logit| within
+    ``DEQUANT_FUSED_LIMIT``; the same at the bfloat16 carrier, the control,
+    must exceed it.  Returns the three readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("gpt2-small"), dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(seed + 1)
+    params = true_fan_in(model.init_params(gen, device="cpu"), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64 + 8), generator=gen)
+    policy = "kv_cache=a8n,*=w8c"
+    cpu, _ = _teacher_forced(torch, model, cfg, params, toks, policy, "cpu")
+    card, _ = _teacher_forced(torch, model, cfg, params, toks, policy, dev)
+    err, n_agree, n_bad = _agreement(torch, card, cpu, 1e-2)
+    a8t = "kv_cache=a8t,*=w8c"
+    rungs = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        m = build_model(c)
+        for path in ("fused", "dequant"):
+            rungs[dtype, path], _ = _teacher_forced(
+                torch, m, c, params, toks, a8t, dev, kv_path=path)
+    d32 = (rungs["float32", "dequant"] - rungs["float32", "fused"]
+           ).abs().max().item()
+    d16 = (rungs["bfloat16", "dequant"] - rungs["bfloat16", "fused"]
+           ).abs().max().item()
+    if quiet:
+        return err, d32, d16
+    limit = DEQUANT_FUSED_LIMIT
+    print(f"phase 17b (i) {policy} card vs cpu (float32 carrier): max "
+          f"|dlogit| {err:.3e} (limit 1.0e-02), top-1 agree {n_agree}/"
+          f"{cpu.shape[0] * cpu.shape[1]} ({n_bad} disagreements where the "
+          f"CPU's top-2 margin > limit)")
+    print(f"phase 17b (ii) {a8t} on the card, the dequant rung against the "
+          f"fused rung: max |dlogit| {d32:.3e} at float32 (limit "
+          f"{limit:.1e}), the bfloat16-carrier control {d16:.3e} (must "
+          f"exceed the limit)")
+    if not (err <= 1e-2 and n_bad == 0 and bool(torch.isfinite(card).all())):
+        fail("phase 17b: the dequant path's card and CPU logits disagree")
+    if not d32 <= limit:
+        fail(f"phase 17b: dequant rung vs fused rung {d32:.3e} > {limit:.1e}")
+    if not d16 > limit:
+        fail(f"phase 17b: the bf16 control {d16:.3e} lies within "
+             f"{limit:.1e}")
+    return err, d32, d16
+
+
+def serve_ladder(torch, dev, seed):
+    """Phase 17c: the walk.  ``POLICY`` dense and paged (pages of 64), the
+    first ``SERVE_LADDER_REQUESTS`` of 17a's prompts, 64 new tokens each,
+    ``MonitorConfig(reprobe_after=SERVE_LADDER_REPROBE)`` and
+    ``SERVE_LADDER_PLAN``.  The transitions equal ``SERVE_LADDER_EXPECT``;
+    two kernel errors; exactly two requests end ``numerics`` and the rest
+    ``length``; #12 (dense) or #13 (paged) launches 12 times for each
+    decode step the engine completed on the fused rung, #11 12 times a
+    prefill launch, #3 72 times a decode step and a prefill launch; the
+    paged tokens and finish reasons equal the dense ones for every request
+    (the prompts share one bucket, so both engines seat request i in slot
+    i and the slot-keyed NaN faults hit the same requests) and every page
+    comes back.  Each rung's decode ms/step is printed (readings, not
+    gates).  Returns the launch counts of the two runs."""
+    from repro_torch.infer import MonitorConfig
+    from repro_torch.train import FaultPlan
+    cfg, model, params = serve_model(torch, dev, seed)
+    prompts = ladder_prompts(cfg, seed)[:SERVE_LADDER_REQUESTS]
+    total, tokens = {}, {}
+    for paged in (False, True):
+        label = f"phase 17c {'paged' if paged else 'dense'}"
+        eng = _serve_ladder_engine(
+            dev, seed, model, params, POLICY, paged,
+            monitor=MonitorConfig(reprobe_after=SERVE_LADDER_REPROBE))
+        plan = FaultPlan.parse(SERVE_LADDER_PLAN)
+        eng.fault_hooks = plan.engine_hooks()
+        out, counts, wall = _serve_counted(torch, eng, prompts, label)
+        s = eng.resilience_summary()
+        st = eng.stats
+        walk = serve_walk(s)
+        by_rung = st["rung_steps"]
+        attn = "decode_attention_paged" if paged else "decode_attention"
+        want = _expect(int8_matmul=6 * cfg.n_layers * (st["prefill_calls"]
+                                                       + st["decode_steps"]),
+                       flash_attention_fwd_q8=cfg.n_layers
+                       * st["prefill_calls"],
+                       **{attn: cfg.n_layers * by_rung["fused"]})
+        reasons = sorted(r.finish_reason for r in out)
+        quarantined = [r.request_id for r in out
+                       if r.finish_reason == "numerics"]
+        print(f"{label}: {len(out)} requests, plan {plan.describe()}, fired "
+              f"{plan.fired}; walk {walk}; kernel_errors "
+              f"{s['kernel_errors']}, quarantined requests {quarantined}, "
+              f"finish reasons {reasons}; decode steps {s['decode_steps']} "
+              f"(by rung {by_rung}); in {wall:.3f} s; launch counts "
+              f"{counts}")
+        print(f"{label}: decode ms/step by rung on {card_line()}: "
+              + ", ".join(f"{r} {1e3 * st['rung_s'][r] / max(n, 1):.2f} "
+                          f"({n} steps)" for r, n in by_rung.items()))
+        if walk != SERVE_LADDER_EXPECT:
+            fail(f"{label}: walk {walk} != SERVE_LADDER_EXPECT "
+                 f"{SERVE_LADDER_EXPECT}")
+        if s["kernel_errors"] != 2 or reasons != (
+                ["length"] * (len(out) - 2) + ["numerics"] * 2):
+            fail(f"{label}: kernel_errors {s['kernel_errors']}, finish "
+                 f"reasons {reasons}")
+        for r in out:
+            if r.finish_reason == "length" and len(r.tokens) != SERVE_NEW:
+                fail(f"{label}: request {r.request_id}: {len(r.tokens)} "
+                     f"tokens")
+        if sum(by_rung.values()) != s["decode_steps"] or not all(
+                by_rung.values()):
+            fail(f"{label}: decode steps by rung {by_rung} of "
+                 f"{s['decode_steps']}")
+        if counts != want or not counts["flash_attention_fwd_q8"]:
+            fail(f"{label}: launches {counts}, expected {want}")
+        if paged and (eng.pool.free_pages != eng.n_pages - 1
+                      or eng.pool.live_pages):
+            fail(f"{label}: pages kept after the run: {eng.pool.free_pages} "
+                 f"free of {eng.n_pages - 1}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        tokens[paged] = [(r.finish_reason, r.tokens) for r in out]
+    bad = [i for i, (a, b) in enumerate(zip(tokens[True], tokens[False]))
+           if a != b]
+    if bad:
+        fail(f"phase 17c: paged tokens or finish reasons differ from dense "
+             f"in requests {bad}")
+    print(f"phase 17c: paged tokens and finish reasons equal to dense for "
+          f"all {len(prompts)} requests")
+    return total
+
+
+def serve_oom(torch, dev, seed):
+    """Phase 17d: ``SERVE_OOM_PLAN`` on the paged engine (``POLICY``,
+    pages of 64, the default pool): 16 requests whose prompts of 246 and
+    245 tokens need their fifth page at decode steps 10 and 11, while the
+    plan holds every free page (steps 10-12).  At least one preemption,
+    never a ``CapacityError``; every request to length, every page back."""
+    import numpy as np
+    from repro_torch.train import FaultPlan
+    cfg, model, params = serve_model(torch, dev, seed)
+    rng = np.random.RandomState(seed + 4)
+    prompts = [rng.randint(0, cfg.vocab_size, 246 - i % 2).tolist()
+               for i in range(16)]
+    eng = _serve_ladder_engine(dev, seed, model, params, POLICY, True)
+    plan = FaultPlan.parse(SERVE_OOM_PLAN)
+    eng.fault_hooks = plan.engine_hooks()
+    out, _, wall = _serve_counted(torch, eng, prompts, "phase 17d")
+    bad = [(r.request_id, len(r.tokens), r.finish_reason) for r in out
+           if len(r.tokens) != SERVE_NEW or r.finish_reason != "length"]
+    print(f"phase 17d: {plan.describe()} on the paged engine, 16 requests "
+          f"of 245-246 prompt tokens: {len(out)} served in {wall:.3f} s, "
+          f"fired {plan.fired}, preemptions {eng.preemptions}, pages free "
+          f"after {eng.pool.free_pages}/{eng.n_pages - 1}")
+    if bad or plan.fired != [SERVE_OOM_PLAN]:
+        fail(f"phase 17d: requests not served to length {bad}, fired "
+             f"{plan.fired}")
+    if eng.preemptions < 1:
+        fail("phase 17d: the drained pool preempted nothing")
+    if eng.pool.free_pages != eng.n_pages - 1 or eng.pool.live_pages:
+        fail(f"phase 17d: pages kept after the run: {eng.pool.free_pages} "
+             f"free of {eng.n_pages - 1}")
+    healthy(eng, "phase 17d")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3566,11 +3927,7 @@ def main() -> int:
             log = _build.lib_path(name).with_suffix(".log")
             if log.exists():
                 f.write(f"== {name}\n{log.read_text()}\n")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}")
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -3606,13 +3963,18 @@ def main() -> int:
                                      yi_tokens, yi_stats)
     del yi_params
     yi_card_vs_cpu(torch, dev, args.seed)
+    dequant_counts = serve_dequant(torch, dev, args.seed)
+    dequant_card_vs_cpu(torch, dev, args.seed)
+    ladder_counts = serve_ladder(torch, dev, args.seed)
+    serve_oom(torch, dev, args.seed)
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
     # fake-quant training (phase 10), the guarded path (phase 11), flash
-    # training (phase 14), flash-prefill serving (phase 14b) and Yi-6B
-    # served dense and paged (phases 16b and 16c), each path's counts read
-    # right after its run
+    # training (phase 14), flash-prefill serving (phase 14b), Yi-6B
+    # served dense and paged (phases 16b and 16c), the dequantize-on-read
+    # engines (phase 17a) and the ladder's walk (phase 17c), each path's
+    # counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -3625,7 +3987,9 @@ def main() -> int:
                    "train_flash": flash_counts[name],
                    "serve_flash": serve_flash_counts[name],
                    "serve_yi": yi_counts[name],
-                   "serve_yi_paged": yi_paged_counts[name]}
+                   "serve_yi_paged": yi_paged_counts[name],
+                   "serve_dequant": dequant_counts[name],
+                   "serve_ladder": ladder_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

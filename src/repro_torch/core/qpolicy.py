@@ -250,7 +250,9 @@ class QuantPolicy:
         ``('fp', ())`` when the cache is stored fp; ``('int8_cuda',
         ('decode', 'prefill'))`` when the attention kernels consume the
         stored payload directly; ``('dequant', ())`` when the cache is
-        quantized but no kernel fits the spec (that path is not ported).
+        quantized but no kernel fits the spec (per tensor, 4-bit): the
+        model then dequantizes the cache on read
+        (``models/attention.py``).
         A capability scan: the resolved rule backend is preferred, and a
         plain ``kv_cache=a8t`` rule still finds the int8 kernels."""
         spec = self.kv_spec()

@@ -17,10 +17,12 @@ The quantization story is the policy's:
   encoded once into an int8 payload + fp32 scales (``infer.prepare``);
   under ``...@int8_cuda`` (alias ``int8_pallas``) with the W8A8 recipe the
   block linears run the int8 matmul kernel;
-* **int8 KV cache** -- a ``kv_cache=a8t`` rule stores K/V as int8 payloads
-  with per-(position, head) scales; prefill attends through the int8-KV
-  flash kernel and decode through the fused decode kernel, which writes
-  the step's row in place.
+* **int8 KV cache** -- a ``kv_cache`` rule stores K/V as int8 payloads
+  with fp32 scales.  Where the kernels take the spec (``a8t``: per
+  position x head) prefill attends through the int8-KV flash kernel and
+  decode through the fused decode kernel, which writes the step's row in
+  place; any other int8 spec (``a8n`` per tensor, ``a4t`` 4-bit) is read
+  by dequantize-on-read (``models/attention.py``).
 
 **Dense mode** (the default) keeps one ``max_seq``-row cache strip per
 slot.  **Paged mode** (``paged=True``) keeps K/V in a pool of fixed-size
@@ -28,11 +30,14 @@ pages (``infer/pages.py``) indexed through per-slot page tables, so decode
 memory scales with live tokens:
 
 * decode runs the paged twin of the fused kernel (``decode_attention_paged``)
-  on int8 pools, or scatters and gathers fp pools;
-* one prefill launch takes every admitted prompt; with fp KV short prompts
-  pack into shared rows (segment masks keep them apart), with int8 KV each
-  prompt has its own row (the flash kernel is causal-only); each prompt's
-  rows are then *paged in* from the prefill buffer to fresh pages;
+  on int8 pools, or scatters and gathers the pools (the dequantize-on-read
+  and fp paths);
+* one prefill launch takes every admitted prompt; where the KV codec is
+  row-local (fp, or one scale per position x head) and the prefill is not
+  the int8-KV flash kernel (causal-only), short prompts pack into shared
+  rows (segment masks keep them apart), otherwise each prompt has its own
+  row; each prompt's rows are then *paged in* from the prefill buffer to
+  fresh pages;
 * admission is by free-page count, head-of-line fair with a starvation
   bound (``_admit``); a slot that needs a page when the pool is dry
   preempts the youngest running request, whose prompt + generated tokens
@@ -46,10 +51,29 @@ Every decode step also reduces a per-slot "logits finite" flag on the
 device; a request whose row is not finite is quarantined (finish reason
 ``"numerics"``) and the rest of the batch goes on.
 
+**The degradation ladder** (the reference's): rung 0 is the configured
+path; the rungs are ``["fused", "dequant", "fp"]`` for a spec the kernels
+take, ``["dequant", "fp"]`` for any other int8 spec and ``["fp"]`` for an
+fp cache.  A decode step that raises :class:`FaultInjected` (the
+``kernel_error`` fault, or a failure injected inside the step) is
+absorbed: the engine steps one rung down and retries the step
+(``_absorb_step_failure``); on the bottom rung it propagates.  Any other
+exception from the step propagates at once, so a kernel that fails to
+launch is never served around by the plain path.  ``numeric_limit`` quarantines within
+``numeric_window`` steps also demote; ``reprobe_after`` healthy steps
+promote one rung (``infer/resilience.py``).  Stepping onto the fp rung
+dequantizes the live caches, leaving it requantizes them (per position x
+head); fused <-> dequant changes only the path that reads the same
+buffers.  Prefill always runs rung 0's path; on the fp rung its int8
+caches are dequantized before they are copied in.  ``fault_hooks``
+(``FaultPlan.engine_hooks()``) injects the serving faults at the step's
+hook points.  On a card the constructor loads (building if needed) every
+kernel library rung 0 launches, so a build or load failure raises there
+and is never absorbed as a step failure.
+
 The tensors' device decides kernel or plain version; :meth:`path_summary`
-reports which path runs.  A kernel's exception propagates: the
-reference's fused -> dequant -> fp degradation ladder, meshes and AOT
-compilation are not ported (see ROADMAP).
+reports which path runs.  Meshes and AOT compilation are not ported (see
+ROADMAP).
 """
 from __future__ import annotations
 
@@ -63,8 +87,10 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.qadam import QState
+from repro_torch.core.qconfig import Granularity
 from repro_torch.core.qpolicy import (INT8_BACKEND, as_policy,
                                       int8_backend_supported)
+from repro_torch.core.quantizer import _div, storage_dtype
 from repro_torch.infer.pages import (CapacityError, PagePool,
                                      init_paged_caches, page_nbytes,
                                      pages_for)
@@ -72,10 +98,15 @@ from repro_torch.infer.prepare import prepare_params
 from repro_torch.infer.resilience import EngineMonitor, MonitorConfig
 from repro_torch.infer.sampling import SamplingParams, sample
 from repro_torch.infer.scheduler import Scheduler
+from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import (decode_kv_read_bytes,
                                              effective_block_k)
+from repro_torch.kernels.flash_attn import q8_library
+from repro_torch.kernels.int8_matmul import scale_guard
+from repro_torch.models.attention import dequant_kv
 from repro_torch.models.common import cast_params, tree_map
 from repro_torch.models.lm import carrier_dtype
+from repro_torch.train.faults import FaultInjected
 
 #: shortest prefill length; prompts are padded to doubling buckets from it
 PREFILL_BUCKET = 16
@@ -157,12 +188,16 @@ class Engine:
         self.max_seq = int(max_seq)
         self.detokenizer = detokenizer
         self._dtype = carrier_dtype(cfg)
-        kv_path = self.policy.decode_attn_backend()[0]
-        if kv_path not in ("fp", INT8_BACKEND):
-            raise NotImplementedError(
-                f"KV cache path {kv_path!r} (dequantize-on-read) is not "
-                "ported; use a per-token int8 kv_cache spec (a8t) or fp")
-        self._kv_int8 = kv_path == INT8_BACKEND
+        kv_backend = self.policy.decode_attn_backend()[0]
+        kv_spec = self.policy.kv_spec()
+        # the ladder's rungs, fastest first (see the module docstring)
+        if kv_backend == "fp":
+            self._rungs = ["fp"]
+        elif kv_backend == INT8_BACKEND:
+            self._rungs = ["fused", "dequant", "fp"]
+        else:
+            self._rungs = ["dequant", "fp"]
+        self._rung = 0
         # the carrier cast happens once here (the embedding and an untied
         # head included): the model's per-call cast then finds every leaf
         # in the carrier and copies nothing
@@ -183,11 +218,14 @@ class Engine:
                                  max_pages_per_slot=maxp)
             self._state = {"caches": init_paged_caches(
                 cfg, self.n_pages, self.page_size, self._dtype,
-                kv_spec=self.policy.kv_spec(), device=self.device)}
-            # packed rows need a row-local KV codec and a masked prefill:
-            # the int8-KV flash kernel is causal-only, so int8 prompts
-            # prefill one per row
-            self._pack_ok = not self._kv_int8
+                kv_spec=kv_spec, device=self.device)}
+            # packed rows need a row-local KV codec (fp, or one scale per
+            # position x head: a per-write-block scale would couple packed
+            # neighbours) and a masked prefill (the int8-KV flash kernel is
+            # causal-only, so the fused path prefills one prompt per row)
+            packable = (kv_spec is None
+                        or kv_spec.granularity is Granularity.PER_TOKEN)
+            self._pack_ok = packable and self._rungs[0] != "fused"
         else:
             self.page_size = self.n_pages = self.pool = None
             self._pack_ok = False
@@ -197,6 +235,9 @@ class Engine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self.monitor = EngineMonitor(monitor)
+        #: set to ``FaultPlan.engine_hooks()`` to inject serving faults at
+        #: the decode step's hook points
+        self.fault_hooks = None
         self.preemptions = 0
         self._decode_steps = 0
         self._queue: deque = deque()
@@ -214,11 +255,44 @@ class Engine:
         #: host-clock seconds and counts of the prefill and decode launches
         #: (each ends in a device -> host copy of the sampled tokens, so the
         #: clock covers the device work; a paged admission's page-in copy
-        #: is enqueued after that point and lands in the next step)
+        #: is enqueued after that point and lands in the next step); a
+        #: decode step counts on the rung it completed on
         self.stats = {"prefill_s": 0.0, "prefill_calls": 0,
                       "prefill_tokens": 0, "decode_s": 0.0,
-                      "decode_steps": 0, "decode_tokens": 0}
+                      "decode_steps": 0, "decode_tokens": 0,
+                      "rung_steps": dict.fromkeys(self._rungs, 0),
+                      "rung_s": dict.fromkeys(self._rungs, 0.0)}
         self.scheduler = Scheduler(self, max_queue=max_queue)
+        if self.device.type == "cuda":
+            # a library that does not build or load fails here, never as a
+            # decode step the ladder would absorb
+            for name in self._rung0_libraries():
+                _build.load(name)
+
+    def _weights_route(self) -> Optional[str]:
+        """How the prepared block linears run: ``cuda`` (the int8 matmul
+        kernel), ``plain`` (its plain version, CPU tensors) or ``dequant``
+        (dequant-read matmul); None for raw weights."""
+        if not any(isinstance(v, QState)
+                   for sub in self.params["blocks"].values()
+                   for v in sub.values()):
+            return None
+        res = self.policy.resolve("attn_qkv", 0, self.cfg.n_layers)
+        if res.backend == INT8_BACKEND and int8_backend_supported(res.recipe):
+            return "cuda" if self.device.type == "cuda" else "plain"
+        return "dequant"
+
+    def _rung0_libraries(self) -> List[str]:
+        """The kernel libraries the configured path (rung 0) launches."""
+        names = []
+        if self._weights_route() == "cuda":
+            names.append("int8_matmul")
+        if self._rungs[0] == "fused":
+            names += ["decode_attn", q8_library(self._dtype)]
+        elif self.cfg.attention_impl == "flash_pallas":
+            names.append("flash_fwd_sm90" if self._dtype == torch.bfloat16
+                         else "flash_attn")
+        return names
 
     # -- public API --------------------------------------------------------
 
@@ -370,12 +444,17 @@ class Engine:
         return self.pool.live_pages * page_nbytes(self._state["caches"])
 
     def _kv_mode(self) -> str:
-        return "fused" if self._kv_int8 else "fp"
+        """Which path reads the KV cache in the rung that runs: ``fused``
+        (the int8-KV kernels), ``dequant`` (int8 storage, dequantize on
+        read) or ``fp``."""
+        if "k_scale" not in self._state["caches"]:
+            return "fp"
+        return "fused" if self._rungs[self._rung] == "fused" else "dequant"
 
     def kv_decode_read_bytes(self) -> int:
-        """Bytes of KV a decode step reads across the stack
-        (``kernels.decode_attn.decode_kv_read_bytes``); paged mode counts
-        the live pages only."""
+        """Bytes of KV a decode step reads across the stack in the rung that
+        runs (``kernels.decode_attn.decode_kv_read_bytes``); paged mode
+        counts the live pages only."""
         k = self._state["caches"]["k"]
         n_layers, kh, hd = k.shape[0], k.shape[-2], k.shape[-1]
         fp_bytes = torch.empty((), dtype=self._dtype).element_size()
@@ -390,32 +469,34 @@ class Engine:
         """Which path serving runs: ``weights=prepared-int8(<route>)`` with
         route ``cuda`` (the int8 matmul kernel), ``plain`` (its plain version,
         CPU tensors) or ``dequant`` (dequant-read matmul), or
-        ``weights=raw``; ``kv=int8-fused`` (int8-KV kernels) or ``kv=fp``,
-        paged ``kv=int8-paged-fused(p<page>)`` or ``kv=fp-paged(p<page>)``."""
-        prepared = any(isinstance(v, QState)
-                       for sub in self.params["blocks"].values()
-                       for v in sub.values())
-        if prepared:
-            res = self.policy.resolve("attn_qkv", 0, self.cfg.n_layers)
-            if res.backend == INT8_BACKEND and int8_backend_supported(res.recipe):
-                route = "cuda" if self.device.type == "cuda" else "plain"
-            else:
-                route = "dequant"
-            weights = f"prepared-int8({route})"
-        else:
-            weights = "raw"
-        kv = "int8-fused" if self._kv_int8 else "fp"
+        ``weights=raw``; ``kv=int8-fused``, ``int8-dequant`` or ``fp``
+        (paged: ``int8-paged-fused(p<page>)``,
+        ``int8-paged-gather(p<page>)`` or ``fp-paged(p<page>)``) for the
+        rung that runs, and ``degraded=<rung>(rung i/n)`` below rung 0."""
+        route = self._weights_route()
+        weights = f"prepared-int8({route})" if route else "raw"
+        mode = self._kv_mode()
         if self.paged:
-            kv = ("int8-paged-fused" if self._kv_int8
-                  else "fp-paged") + f"(p{self.page_size})"
-        return f"weights={weights} kv={kv}"
+            kv = {"fused": "int8-paged-fused", "dequant": "int8-paged-gather",
+                  "fp": "fp-paged"}[mode] + f"(p{self.page_size})"
+        else:
+            kv = {"fused": "int8-fused", "dequant": "int8-dequant",
+                  "fp": "fp"}[mode]
+        s = f"weights={weights} kv={kv}"
+        if self._rung > 0:
+            s += (f" degraded={self._rungs[self._rung]}"
+                  f"(rung {self._rung}/{len(self._rungs) - 1})")
+        return s
 
     def resilience_summary(self) -> Dict[str, object]:
-        """The monitor's summary (quarantines, step latency) with the one
-        path that runs (no degradation ladder in the port), preemptions and
-        decode steps."""
+        """The monitor's summary (quarantines, kernel errors, slow steps,
+        the healthy streak, every demotion and promotion with its step and
+        reason, step latency) with the ladder's rung, rung index and rungs,
+        the preemptions and the decode steps."""
         s = self.monitor.summary()
-        s.update({"rung": self._kv_mode(), "rungs": [self._kv_mode()],
+        s.update({"rung": self._rungs[self._rung],
+                  "rung_index": self._rung,
+                  "rungs": list(self._rungs),
                   "preemptions": self.preemptions,
                   "decode_steps": self._decode_steps})
         return s
@@ -449,13 +530,15 @@ class Engine:
 
     def _prefill_call(self, toks: np.ndarray, last: np.ndarray, segs=None):
         """One prefill launch into max_seq-row buffers (so attention's
-        reduction length is the dense engine's) -> (logits, caches)."""
+        reduction length is the dense engine's) on rung 0's path, whatever
+        the rung -> (logits, caches in the structure of the engine's)."""
         dev = self.device
         logits, state = self.model.prefill(
             self.params, torch.from_numpy(toks).to(dev), policy=self.policy,
             max_seq=self.max_seq, last_pos=torch.from_numpy(last).to(dev),
-            segments=None if segs is None else torch.from_numpy(segs).to(dev))
-        return logits, state["caches"]
+            segments=None if segs is None else torch.from_numpy(segs).to(dev),
+            kv_path=self._kv_path(self._rungs[0]))
+        return logits, self._match_prefill_state(state["caches"])
 
     def _admit(self) -> None:
         """Admit queued requests into free slots.  The queue is scanned in
@@ -660,7 +743,102 @@ class Engine:
         self._queue.appendleft(dataclasses.replace(
             st.req, tokens=orig + gen, max_new_tokens=remaining))
 
+    # -- degradation ladder ------------------------------------------------
+
+    @staticmethod
+    def _kv_path(rung: str) -> Optional[str]:
+        """The model's ``kv_path`` on ``rung`` (the fp rung's caches are
+        fp, read one way)."""
+        return None if rung == "fp" else rung
+
+    def _decode_call(self, tok, pos, table) -> np.ndarray:
+        """One decode step on the current rung: the model, the per-slot
+        finite flag reduced on the device (a non-finite row is zeroed before
+        sampling; its token is discarded), the sampled tokens -> host (2, B)
+        int64 array of (token, finite)."""
+        logits, self._state = self.model.decode(
+            self.params, self._state, tok, pos, policy=self.policy,
+            page_table=table, kv_path=self._kv_path(self._rungs[self._rung]))
+        finite = torch.isfinite(logits).all(dim=-1)
+        nxt = sample(torch.where(finite[:, None], logits, 0.0),
+                     self.sampling, self._generator)
+        return torch.stack([nxt.long(), finite.long()]).cpu().numpy()
+
+    def _dequant_caches(self, caches):
+        """int8 strips or pools -> K/V in the carrier (payload x guarded
+        scale: never-written rows stay exactly 0).  Pinned prefix pages
+        convert with their pool, so aliased tables stay valid."""
+        return {name: dequant_kv(caches[name], caches[name + "_scale"],
+                                 self._dtype) for name in ("k", "v")}
+
+    def _requant_caches(self, caches):
+        """K/V in the carrier -> int8 payloads and per-(position, head) fp32
+        scales (all-zero rows keep scale 0, the padding convention), as the
+        reference: near-exact, each live row re-enters the codec with a
+        fresh scale.  Both divisions are by tensors, so the bits are the
+        same on every device."""
+        spec = self.policy.kv_spec()
+        out = {}
+        for name in ("k", "v"):
+            xf = caches[name].to(torch.float32)
+            scale = _div(xf.abs().amax(dim=-1, keepdim=True), spec.qmax)
+            q = torch.clamp(torch.round(xf / scale_guard(scale)), spec.qmin,
+                            spec.qmax)
+            out[name] = q.to(storage_dtype(spec.bits))
+            out[name + "_scale"] = scale
+        return out
+
+    def _match_prefill_state(self, caches):
+        """Prefill runs rung 0's path and writes int8 caches; on the fp rung
+        they are dequantized to match the engine's before the copy."""
+        if "k_scale" in caches and "k_scale" not in self._state["caches"]:
+            return self._dequant_caches(caches)
+        return caches
+
+    def _demote(self, why: str, step: int) -> bool:
+        """One rung down; False on the bottom rung.  Stepping onto the fp
+        rung dequantizes the live caches (strips and pools alike), so the
+        running requests go on with their history."""
+        if self._rung + 1 >= len(self._rungs):
+            return False
+        frm, to = self._rungs[self._rung], self._rungs[self._rung + 1]
+        caches = self._state["caches"]
+        if to == "fp" and "k_scale" in caches:
+            self._state = {"caches": self._dequant_caches(caches)}
+        self._rung += 1
+        self.monitor.record_demotion(step, frm, to, why)
+        return True
+
+    def _try_promote(self, step: int) -> bool:
+        """One rung up after a healthy streak; False on rung 0.  Leaving the
+        fp rung requantizes the live caches; dequant -> fused reads the same
+        buffers another way."""
+        if self._rung == 0:
+            return False
+        frm, to = self._rungs[self._rung], self._rungs[self._rung - 1]
+        caches = self._state["caches"]
+        if frm == "fp" and "k_scale" not in caches:
+            self._state = {"caches": self._requant_caches(caches)}
+        self._rung -= 1
+        self.monitor.record_promotion(step, frm, to)
+        return True
+
+    def _absorb_step_failure(self, e: FaultInjected, step: int) -> bool:
+        """True when the engine demoted a rung and the caller should retry
+        the step; False (the bottom rung) re-raises.  The reference also
+        refuses when its donated buffers were consumed; the port donates
+        nothing (its caches are written in place), and a retry is sound:
+        every rung writes row ``pos`` of every layer before it reads it, so
+        the retry overwrites whatever the failed attempt wrote."""
+        self.monitor.record_kernel_error(step)
+        return self._demote(f"decode step failed: {type(e).__name__}: {e}",
+                            step=step)
+
     def _step(self) -> None:
+        hooks = self.fault_hooks
+        n = self._decode_steps
+        if hooks is not None:
+            hooks.pre_step(self, n)
         if self.paged:
             self._ensure_write_pages()
             if not self._running:
@@ -670,34 +848,51 @@ class Engine:
         tok = torch.from_numpy(self._last_tok[:, None].copy()).to(dev)
         pos = torch.from_numpy(self._pos.copy()).to(dev)
         table = self.pool.table_array(dev) if self.paged else None
-        logits, self._state = self.model.decode(
-            self.params, self._state, tok, pos, policy=self.policy,
-            page_table=table)
-        # the per-slot finiteness flag, reduced on the device; a non-finite
-        # row is zeroed before sampling (its token is discarded), finite
-        # rows are sampled as they are
-        finite = torch.isfinite(logits).all(dim=-1)
-        nxt = sample(torch.where(finite[:, None], logits, 0.0),
-                     self.sampling, self._generator)
-        host = torch.stack([nxt.long(), finite.long()]).cpu().numpy()
+        try:
+            if hooks is not None:
+                hooks.kernel(n)
+            host = self._decode_call(tok, pos, table)
+        except FaultInjected as e:
+            # the ladder's guarded dispatch: an injected failure demotes one
+            # rung and retries; on the bottom rung it re-raises into the
+            # scheduler's dead-loop watchdog.  The reference absorbs every
+            # exception; here any other one (a kernel that does not launch,
+            # a shape error) propagates, so the plain path never serves
+            # around a failing kernel (ROADMAP section 3)
+            if not self._absorb_step_failure(e, n):
+                raise
+            host = self._decode_call(tok, pos, table)
         dt = time.perf_counter() - t0
         self.monitor.record_step(dt * 1e3)
+        rung = self._rungs[self._rung]
+        self.stats["rung_steps"][rung] += 1
+        self.stats["rung_s"][rung] += dt
         self.stats["decode_s"] += dt
         self.stats["decode_steps"] += 1
         self.stats["decode_tokens"] += len(self._running)
-        self._decode_steps += 1
+        self._decode_steps = n + 1
+        finite = host[1].astype(bool)
+        if hooks is not None:
+            finite = hooks.mangle_finite(n, finite)
+            hooks.post_step(self, n)
         for slot in list(self._running):
             st = self._running[slot]
             self._pos[slot] += 1
-            if not host[1, slot]:
+            if not finite[slot]:
                 # quarantine this request only: its token is not recorded
-                self.monitor.record_quarantine()
+                self.monitor.record_quarantine(n)
                 self._finish(st, "numerics")
                 continue
             self._last_tok[slot] = int(host[0, slot])
             self._record(st, int(host[0, slot]))
             if slot in self._running and self._pos[slot] >= self.max_seq:
                 self._finish(st, "length")       # cache rows exhausted
+        if self.monitor.should_demote(n):
+            cfg = self.monitor.cfg
+            self._demote(f"{cfg.numeric_limit}+ numeric quarantines within "
+                         f"{cfg.numeric_window} steps", step=n)
+        elif self._rung > 0 and self.monitor.should_reprobe():
+            self._try_promote(step=n)
 
     def _record(self, st: _Running, tok: int) -> None:
         if st.req.eos_id is not None and tok == st.req.eos_id:

@@ -10,19 +10,27 @@ where the reference's ``_flash_path_ok`` takes it: more than one query
 row and a causal (or no) mask -- training, and the unpacked prefill of an
 fp cache -- and nowhere else (decode steps, int8 caches, packed prefills).
 
-With a cache, the branch follows how the cache is stored and whether the
-call is a prefill (``cache_offset`` an int: the prompt's rows are written
-at that offset into a dense (B, max_seq) buffer) or a decode step
-(``cache_offset`` a (B,) tensor of per-slot positions; with a
-``page_table`` the cache is a set of page pools, ``(P, page, K, hd)``
-shared by every slot):
+With a cache, the branch follows how the cache is stored, the ``kv_path``
+an int8 cache is read by, and whether the call is a prefill
+(``cache_offset`` an int: the prompt's rows are written at that offset
+into a dense (B, max_seq) buffer) or a decode step (``cache_offset`` a
+(B,) tensor of per-slot positions; with a ``page_table`` the cache is a
+set of page pools, ``(P, page, K, hd)`` shared by every slot):
 
-* int8 cache, prefill -- quantize the new K/V rows (per position x head),
-  write them, then the int8-KV flash kernel attends over the whole stored
-  buffer; the causal mask hides the never-written tail;
-* int8 cache, decode -- the fused decode kernel (dense strips) or its paged
-  twin (pools) attends on the stored payload, quantizes the step's row and
-  writes it in place;
+* int8 cache, ``kv_path="fused"`` (the default where the kernels take the
+  policy's KV spec, ``policy.decode_attn_backend()``), prefill -- quantize
+  the new K/V rows (per position x head), write them, then the int8-KV
+  flash kernel attends over the whole stored buffer; the causal mask hides
+  the never-written tail;
+* int8 cache, ``kv_path="fused"``, decode -- the fused decode kernel
+  (dense strips) or its paged twin (pools) attends on the stored payload,
+  quantizes the step's row and writes it in place;
+* int8 cache, ``kv_path="dequant"`` (the default for any other spec: per
+  tensor, 4-bit) -- dequantize on read, the reference's bit-compared
+  branch: quantize the new rows (``_kv_quant``: per token, or one scale per
+  slot's write block), write them as the fp cache's rows are written, then
+  dequantize the buffer (payload x guarded scale, cast to the carrier; a
+  paged step gathers each slot's logical view first) and attend as below;
 * fp cache -- write the rows (paged: at ``(table[b, pc // page], pc %
   page)``, ``pc = min(pos, maxp * page - 1)``, then gather each slot's
   logical view), then plain torch matmul + fp32 softmax.  A packed prefill
@@ -39,9 +47,10 @@ per-slot positions.  Grouped KV heads are KV-major everywhere: query head
 h reads KV head ``h // (H // K)``, as the reference's reshape and repeat.
 
 The kernel wrappers pick kernel or plain version from the tensors' device.
-The reference's dequantize-on-read branch has no counterpart: an int8 cache
-here is always consumed by the kernels, which keep the dequantized K/V in
-fp32 (see ROADMAP, the carrier-precision finding).
+The two int8 paths differ by carrier rounding: the kernels keep the
+dequantized K/V in fp32, the dequantize-on-read path rounds them to the
+carrier (see ROADMAP, the carrier-precision finding).  The serving
+engine's degradation ladder picks the path per step (``infer/engine.py``).
 """
 from __future__ import annotations
 
@@ -50,15 +59,22 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from repro_torch.core.qconfig import Granularity
 from repro_torch.core.qpolicy import INT8_BACKEND, LinearCtx, QuantPolicy
-from repro_torch.core.quantizer import quantize_int, storage_dtype
+from repro_torch.core.quantizer import (compute_scale_zero, quantize_int,
+                                        storage_dtype)
 from repro_torch.models.common import apply_rope
 from repro_torch.kernels.decode_attn import (paged_logical_view, decode_attention,
                                              decode_attention_paged)
 from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_fwd_q8)
+from repro_torch.kernels.int8_matmul import scale_guard
 
 Cache = Dict[str, torch.Tensor]
+
+#: the two ways an int8 KV cache is read: the int8-KV kernels, or
+#: dequantize-on-read
+KV_PATHS = ("fused", "dequant")
 
 
 def init_caches(cfg, batch: int, max_seq: int, dtype: torch.dtype,
@@ -77,6 +93,38 @@ def init_caches(cfg, batch: int, max_seq: int, dtype: torch.dtype,
             "v": torch.zeros(shape, dtype=qdt, device=device),
             "k_scale": torch.zeros(side, dtype=torch.float32, device=device),
             "v_scale": torch.zeros(side, dtype=torch.float32, device=device)}
+
+
+def default_kv_path(policy: QuantPolicy) -> str:
+    """``"fused"`` where the int8-KV kernels take the policy's KV spec,
+    else ``"dequant"``."""
+    return ("fused" if policy.decode_attn_backend()[0] == INT8_BACKEND
+            else "dequant")
+
+
+def dequant_kv(payload: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Payload x guarded scale in float32, cast to ``dtype``: the scale of
+    a never-written row is 0 (every written row's is > 0) and its payload
+    0, so the guard (0 -> 1) keeps it exactly 0."""
+    return (payload.to(torch.float32) * scale_guard(scale)).to(dtype)
+
+
+def kv_quant(t: torch.Tensor, spec):
+    """Quantize new K/V rows (B, s, K, hd) for the cache -> (payload, fp32
+    scale (B, s, K, 1)).  Per-token specs give one scale per (slot,
+    position, head); per-tensor specs one per slot's write block, never
+    reduced over the batch (the reference's ``_kv_quant``).  Every division
+    is by a tensor (``quantizer._div``), so the bits are the same on every
+    device."""
+    if spec.granularity is Granularity.PER_TENSOR:
+        xf = t.to(torch.float32)
+        scale, _ = compute_scale_zero(xf, spec, axes=(1, 2, 3))
+        q = torch.clamp(torch.round(xf / scale), spec.qmin,
+                        spec.qmax).to(storage_dtype(spec.bits))
+    else:
+        q, scale, _ = quantize_int(t, spec)
+    return q, scale.to(torch.float32).expand(t.shape[:-1] + (1,))
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,7 +171,7 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                cache_offset: Union[int, torch.Tensor, None] = None,
                page_table: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None,
-               rope=None,
+               rope=None, kv_path: Optional[str] = None,
                layer: Optional[int] = None, n_layers: int = 0
                ) -> torch.Tensor:
     """One self-attention call.  ``cache=None``: causal attention over the
@@ -133,7 +181,10 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     int32 makes the cache page pools (decode only); ``mask`` (B, S,
     max_seq) boolean replaces a prefill's causal mask (packed prompts);
     ``rope`` the (cos, sin) tables of the call's positions, which rotate q
-    and k (RoPE configs; None under learned positions)."""
+    and k (RoPE configs; None under learned positions); ``kv_path`` how an
+    int8 cache is read, one of :data:`KV_PATHS` (None:
+    :func:`default_kv_path`; "fused" only where the kernels take the
+    spec)."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx_qkv = LinearCtx("attn_qkv", layer, n_layers)
@@ -160,13 +211,19 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     if page_table is not None and not decode:
         raise ValueError("page_table is a decode-step argument: a prefill "
                          "fills a dense buffer that the engine pages in")
-
-    if "k_scale" in cache:
-        if policy.decode_attn_backend()[0] != INT8_BACKEND:
-            raise NotImplementedError(
-                "int8 KV cache whose spec no attention kernel takes (the "
-                "dequantize-on-read path is not ported)")
+    quantized = "k_scale" in cache
+    if quantized:
         kv_spec = policy.kv_spec()
+        default = default_kv_path(policy)
+        kv_path = kv_path or default
+        if kv_path not in KV_PATHS or (kv_path == "fused"
+                                       and default != "fused"):
+            raise ValueError(f"kv_path {kv_path!r}: one of {KV_PATHS}, "
+                             f"'fused' only where the int8-KV kernels take "
+                             f"the KV spec ({kv_spec.describe()} takes "
+                             f"{default!r})")
+
+    if quantized and kv_path == "fused":
         if decode:
             qg = q[:, 0].reshape(b, kh, h // kh, hd)
             args = (qg, cache["k"], cache["k_scale"], cache["v"],
@@ -182,10 +239,10 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
             ctx = ctx.reshape(b, 1, h * hd)
         else:
             if mask is not None:
-                raise NotImplementedError(
-                    "a masked (packed) prefill on an int8 cache: the int8-KV "
-                    "flash kernel takes the causal mask only, so the engine "
-                    "prefills one prompt per row there")
+                raise ValueError(
+                    "a masked (packed) prefill on the fused int8 path: the "
+                    "int8-KV flash kernel takes the causal mask only, so "
+                    "the engine prefills one prompt per row there")
             rows = slice(cache_offset, cache_offset + s)
             kq, ks, _ = quantize_int(k, kv_spec)
             vq, vs, _ = quantize_int(v, kv_spec)
@@ -197,40 +254,60 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                 q.contiguous(), cache["k"], cache["k_scale"], cache["v"],
                 cache["v_scale"], causal=True, q_offset=cache_offset)
             ctx = ctx.reshape(b, s, h * hd)
-    elif decode:
+        return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))
+
+    # an fp cache, or an int8 one read by dequantize-on-read: write the new
+    # rows (quantized first for an int8 cache), read the buffer back in the
+    # carrier, attend
+    use_flash = flash and not decode and mask is None
+    if quantized:
+        kq, ks = kv_quant(k, kv_spec)
+        vq, vs = kv_quant(v, kv_spec)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k, "v": v}
+    if decode:
         slots = torch.arange(b, device=x.device)
         if page_table is None:
             kv_len = cache["k"].shape[1]
             at = cache_offset.long().clamp(0, kv_len - 1)
-            cache["k"][slots, at] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][slots, at] = v[:, 0].to(cache["v"].dtype)
-            kf, vf = cache["k"], cache["v"]
+            for name, rows in new.items():
+                cache[name][slots, at] = rows[:, 0].to(cache[name].dtype)
+
+            def read(name):
+                return cache[name]
         else:
             page = cache["k"].shape[1]
             kv_len = page_table.shape[1] * page
             pc = cache_offset.long().clamp(0, kv_len - 1)
             pid = page_table.long()[slots, pc // page]
-            cache["k"][pid, pc % page] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][pid, pc % page] = v[:, 0].to(cache["v"].dtype)
-            kf = paged_logical_view(cache["k"], page_table)
-            vf = paged_logical_view(cache["v"], page_table)
+            for name, rows in new.items():
+                cache[name][pid, pc % page] = rows[:, 0].to(cache[name].dtype)
+
+            def read(name):
+                return paged_logical_view(cache[name], page_table)
         kpos = torch.arange(kv_len, device=x.device)
-        dmask = (kpos[None, :] <= cache_offset.long()[:, None]
-                 )[:, None, None, None, :]
-        ctx = _attend(q, kf.to(x.dtype), vf.to(x.dtype), dmask)
+        mask = (kpos[None, :] <= cache_offset.long()[:, None]
+                )[:, None, None, None, :]
     else:
         smax = cache["k"].shape[1]
-        cache["k"][:, cache_offset:cache_offset + s] = k.to(cache["k"].dtype)
-        cache["v"][:, cache_offset:cache_offset + s] = v.to(cache["v"].dtype)
-        kf, vf = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
-        if flash and mask is None:
-            ctx = _flash(q, kf, vf, cache_offset)
+        for name, rows in new.items():
+            cache[name][:, cache_offset:cache_offset + s] = rows.to(
+                cache[name].dtype)
+
+        def read(name):
+            return cache[name]
+        if mask is None:
+            qpos = torch.arange(s, device=x.device) + cache_offset
+            mask = (torch.arange(smax, device=x.device)[None, :]
+                    <= qpos[:, None])
         else:
-            if mask is None:
-                qpos = torch.arange(s, device=x.device) + cache_offset
-                mask = (torch.arange(smax, device=x.device)[None, :]
-                        <= qpos[:, None])
-            else:
-                mask = mask[:, None, None]
-            ctx = _attend(q, kf, vf, mask)
+            mask = mask[:, None, None]
+    if quantized:
+        kf = dequant_kv(read("k"), read("k_scale"), x.dtype)
+        vf = dequant_kv(read("v"), read("v_scale"), x.dtype)
+    else:
+        kf, vf = read("k").to(x.dtype), read("v").to(x.dtype)
+    ctx = (_flash(q, kf, vf, cache_offset) if use_flash
+           else _attend(q, kf, vf, mask))
     return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))

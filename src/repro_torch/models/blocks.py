@@ -18,15 +18,17 @@ def block_apply(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
                 cache_offset: Union[int, torch.Tensor, None] = None,
                 page_table: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                rope=None) -> torch.Tensor:
+                rope=None, kv_path: Optional[str] = None) -> torch.Tensor:
     """h + attn(norm1(h)), then + mlp(norm2(h)); writes this layer's cache
-    when one is given (serving; ``page_table``, ``mask`` and ``rope`` as
-    in ``attn_apply``), attends causally over h without one (training)."""
+    when one is given (serving; ``page_table``, ``mask``, ``rope`` and
+    ``kv_path`` as in ``attn_apply``), attends causally over h without one
+    (training)."""
     nl = cfg.n_layers
     x = apply_norm(h, params["ln1"], cfg.norm)
     h = h + attn_apply(params["attn"], x, cfg, policy=policy, cache=cache,
                        cache_offset=cache_offset, page_table=page_table,
-                       mask=mask, rope=rope, layer=layer, n_layers=nl)
+                       mask=mask, rope=rope, kv_path=kv_path, layer=layer,
+                       n_layers=nl)
     x = apply_norm(h, params["ln2"], cfg.norm)
     return h + mlp_apply(params["mlp"], x, cfg, policy=policy, layer=layer,
                          n_layers=nl)

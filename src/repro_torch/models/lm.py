@@ -17,8 +17,9 @@ mutates the caches it is given (the JAX step returns new ones).
 Attention follows ``cfg.attention_impl``: under ``"flash_pallas"`` the loss
 and the unpacked fp-KV prefill attend through the flash kernels (#8
 forward, #9/#10 backward; ``models/attention.py``), as the reference's
-``_gqa_attend`` does; decode steps, int8 caches and packed prefills keep
-their own paths.
+``_gqa_attend`` does; decode steps, int8 caches on the fused path and
+packed prefills keep their own paths.  ``kv_path`` picks how an int8
+cache is read (the kernels, or dequantize-on-read; ``models/attention.py``).
 
 The loss keeps every activation for the backward: the reference's
 recomputation (``cfg.remat``, and the checkpointed CE chunks) changes no
@@ -151,13 +152,13 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
                caches: Cache, cache_offset, positions: torch.Tensor,
-               page_table=None, mask=None) -> torch.Tensor:
+               page_table=None, mask=None, kv_path=None) -> torch.Tensor:
     rope = rope_for(cfg, positions)
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         h = block_apply(lp, h, cfg, policy=policy, layer=i,
                         cache={k: c[i] for k, c in caches.items()},
                         cache_offset=cache_offset, page_table=page_table,
-                        mask=mask, rope=rope)
+                        mask=mask, rope=rope, kv_path=kv_path)
     return apply_norm(h, params["final_norm"], cfg.norm)
 
 
@@ -183,14 +184,17 @@ def segment_positions_and_mask(segments: torch.Tensor, max_seq: int):
 def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
                max_seq: Optional[int] = None,
                last_pos: Optional[torch.Tensor] = None,
-               segments: Optional[torch.Tensor] = None):
+               segments: Optional[torch.Tensor] = None,
+               kv_path: Optional[str] = None):
     """Process right-padded prompts (B, S); returns (logits, caches sized
     to ``max_seq`` (default S)).  ``last_pos`` picks the logits' rows: None
     the last column, (B,) per-row indices (B logits), or (M, 2) ``(row,
     col)`` pairs (M logits, one per packed prompt).  ``segments`` (B, S)
     packs several prompts into a row: equal ids one prompt, -1 padding;
     positions restart per prompt and each attends only to itself (fp KV
-    caches only: the int8-KV flash kernel is causal-only)."""
+    caches and ``kv_path="dequant"`` only: the int8-KV flash kernel is
+    causal-only).  ``kv_path`` how an int8 cache is read
+    (``attention.KV_PATHS``; None: the kernels where they take the spec)."""
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
@@ -206,7 +210,8 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
     h = embed_tokens(params, tokens, cfg, positions, dtype, policy)
     caches = init_caches(cfg, b, max_seq, dtype,
                          kv_spec=policy.kv_spec(), device=device)
-    h = _run_stack(params, h, cfg, policy, caches, 0, positions, mask=mask)
+    h = _run_stack(params, h, cfg, policy, caches, 0, positions, mask=mask,
+                   kv_path=kv_path)
     if last_pos is None:
         hc = h[:, -1:, :]
     else:
@@ -220,13 +225,14 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
 
 def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
               pos: torch.Tensor, cfg, *, policy=None,
-              page_table: Optional[torch.Tensor] = None):
+              page_table: Optional[torch.Tensor] = None,
+              kv_path: Optional[str] = None):
     """One-token decode.  token: (B, 1); pos: (B,) int32 per-slot count of
     tokens already in the cache (each slot writes its own row and masks its
     own history); ``page_table`` (B, maxp) int32 makes the caches page
-    pools (L, P, page, K, hd), a slot's logical cache ``maxp * page`` rows.
-    Returns (logits (B, V_padded), caches) -- the caches are updated in
-    place."""
+    pools (L, P, page, K, hd), a slot's logical cache ``maxp * page`` rows;
+    ``kv_path`` as in :func:`lm_prefill`.  Returns (logits (B, V_padded),
+    caches) -- the caches are updated in place."""
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
@@ -235,5 +241,6 @@ def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
         page_table = page_table.to(device=token.device, dtype=torch.int32)
     positions = pos[:, None].long()
     h = embed_tokens(params, token, cfg, positions, dtype, policy)
-    h = _run_stack(params, h, cfg, policy, caches, pos, positions, page_table)
+    h = _run_stack(params, h, cfg, policy, caches, pos, positions, page_table,
+                   kv_path=kv_path)
     return logits_chunk(params, h, cfg, policy)[:, 0, :], caches

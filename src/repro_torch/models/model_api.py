@@ -135,22 +135,26 @@ class Model:
     def prefill(self, params: Params, tokens: torch.Tensor, *, policy=None,
                 max_seq: Optional[int] = None,
                 last_pos: Optional[torch.Tensor] = None,
-                segments: Optional[torch.Tensor] = None):
-        """-> (logits, state ``{"caches": ...}``); ``last_pos`` and
-        ``segments`` as in ``lm.lm_prefill``."""
+                segments: Optional[torch.Tensor] = None,
+                kv_path: Optional[str] = None):
+        """-> (logits, state ``{"caches": ...}``); ``last_pos``,
+        ``segments`` and ``kv_path`` as in ``lm.lm_prefill``."""
         logits, caches = lm.lm_prefill(params, tokens, self.cfg,
                                        policy=policy, max_seq=max_seq,
-                                       last_pos=last_pos, segments=segments)
+                                       last_pos=last_pos, segments=segments,
+                                       kv_path=kv_path)
         return logits, {"caches": caches}
 
     def decode(self, params: Params, state, token: torch.Tensor,
                pos: torch.Tensor, *, policy=None,
-               page_table: Optional[torch.Tensor] = None):
+               page_table: Optional[torch.Tensor] = None,
+               kv_path: Optional[str] = None):
         """-> (logits (B, V_padded), state); the state's caches (dense
-        strips, or page pools with ``page_table``) are updated in place."""
+        strips, or page pools with ``page_table``) are updated in place;
+        ``kv_path`` as in ``lm.lm_decode``."""
         logits, caches = lm.lm_decode(params, state["caches"], token, pos,
                                       self.cfg, policy=policy,
-                                      page_table=page_table)
+                                      page_table=page_table, kv_path=kv_path)
         return logits, {"caches": caches}
 
     def init_decode_state(self, batch: int, max_seq: int,

@@ -1,11 +1,11 @@
-"""Deterministic fault injection for the guarded training path (port of
-``repro.train.faults``; the same grammar, so one spec parses the same in
-both packages).
+"""Deterministic fault injection for the guarded training path and the
+serving engine (port of ``repro.train.faults``; the same grammar, so one
+spec parses the same in both packages).
 
 A :class:`FaultPlan` is parsed from a compact spec (the ``REPRO_FAULT``
 environment variable, or passed explicitly) and injects one of the
-failure modes the stability sentinel and the checkpoint manager must
-survive:
+failure modes the stability sentinel, the checkpoint manager and the
+serving engine's degradation ladder must survive:
 
 =====================  =====================================================
 ``nan_grad@K``         every gradient leaf becomes NaN on train step K
@@ -23,26 +23,38 @@ survive:
 ``sigterm_run@K``      SIGTERM right after train step K (preemption-resume)
 ``dead_sched@N``       the serving scheduler's step thread raises on its
                        N-th tick (``Scheduler.fault_hook``)
-``nan_logit@N``,       the serving engine's faults; they drive its
-``oom_pages@N``,       fused -> dequant -> fp degradation ladder, which is
-``slow_step@N``,       not ported (ROADMAP section 1, item 2): they parse,
-``kernel_error@N``     and :meth:`FaultPlan.engine_hooks` raises
+``nan_logit@N``        the serving engine's decode step N reports slot
+                       ``slot`` (default 0) as non-finite: the engine
+                       quarantines that request (finish reason
+                       ``"numerics"``), not the batch
+``oom_pages@N``        every free page is taken from the engine's pool just
+                       before decode step N and held ``hold`` steps
+                       (default 2): mid-decode preemption under a dry pool
+``slow_step@N``        decode step N is delayed ``ms`` milliseconds
+                       (default 50) on the host
+``kernel_error@N``     the decode step raises just before dispatch on step
+                       N, as a failing kernel would: the engine steps down
+                       its fused -> dequant -> fp ladder and retries
 =====================  =====================================================
 
 Entries are ``;``-separated; key=val args follow the step after ``:`` and
 are ``,``-separated, e.g. ``sat_grad@6:factor=1e7;corrupt_ckpt@1:mode=
 truncate``.  Steps are the 0-based train-loop step for ``*_grad`` /
 ``sigterm_run`` (the value of ``state.opt.step`` entering the step),
-1-based completed-save ordinals for the checkpoint faults and 0-based
-scheduler ticks for ``dead_sched``.
+1-based completed-save ordinals for the checkpoint faults, 0-based
+scheduler ticks for ``dead_sched``, and 0-based engine decode steps for
+the serving kinds (``Engine._decode_steps``; admissions and prefills do
+not advance it).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import signal
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.common import tree_map
@@ -59,8 +71,11 @@ _CORRUPT_MODES = ("flip", "truncate", "manifest")
 
 
 class FaultInjected(RuntimeError):
-    """Raised by host-side faults that simulate a hard crash (the
-    scheduler's dead step thread)."""
+    """Raised by host-side faults that simulate a hard crash.  The
+    scheduler's dead step thread is not absorbed by any guard (the
+    dead-loop watchdog must see it); ``kernel_error`` is raised inside the
+    engine's guarded decode step, where the ladder absorbs it and retries
+    one rung down."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,17 +257,74 @@ class FaultPlan:
 
     # -- serving (engine) faults -------------------------------------------
 
-    def engine_hooks(self):
-        """None when the plan carries no serving faults; otherwise raises:
-        the engine's fault hooks drive its degradation ladder, which is not
-        ported yet."""
+    def engine_hooks(self) -> Optional["EngineFaultHooks"]:
+        """Hooks for ``Engine.fault_hooks``: deliver the serving fault kinds
+        at the engine's decode-step hook points.  None when the plan carries
+        no serving faults (the healthy path stays hook-free)."""
         faults = self._of(*ENGINE_KINDS)
         if not faults:
             return None
-        raise NotImplementedError(
-            f"serving faults {[f.describe() for f in faults]} need the "
-            "engine's fused -> dequant -> fp degradation ladder, not ported "
-            "yet (ROADMAP section 1, item 2)")
+        return EngineFaultHooks(self, faults)
+
+
+class EngineFaultHooks:
+    """Serving faults keyed on the engine's 0-based decode-step counter,
+    each one-shot (marked in the plan's ``fired`` list the step it lands).
+    Hook points, in the order ``Engine._step`` calls them:
+
+    * :meth:`pre_step` -- before the dispatch: ``slow_step`` sleeps ``ms``
+      on the host; ``oom_pages`` takes every free page from the pool (held
+      ``hold`` steps), so the next page a slot needs forces a preemption;
+    * :meth:`kernel` -- inside the guarded dispatch: ``kernel_error``
+      raises :class:`FaultInjected` where a failing kernel would;
+    * :meth:`mangle_finite` -- on the step's per-slot finite flags on the
+      host: ``nan_logit`` marks slot ``slot`` (default 0) non-finite, in a
+      copy;
+    * :meth:`post_step` -- after the bookkeeping: releases held pages whose
+      hold ran out.
+    """
+
+    def __init__(self, plan: FaultPlan, faults: List[Fault]):
+        self._plan = plan
+        self._faults = list(faults)
+        self._held: List[Tuple[int, List[int]]] = []   # (release_step, pids)
+
+    def _due(self, kind: str, step: int) -> List[Fault]:
+        return [f for f in self._faults
+                if f.kind == kind and f.at == step
+                and f.describe() not in self._plan._fired]
+
+    def pre_step(self, engine, step: int) -> None:
+        for f in self._due("slow_step", step):
+            self._plan._mark(f)
+            time.sleep(float(f.arg("ms", "50")) / 1e3)
+        for f in self._due("oom_pages", step):
+            self._plan._mark(f)
+            if engine.pool is not None and engine.pool.free_pages > 0:
+                pids = engine.pool.alloc(engine.pool.free_pages)
+                self._held.append((step + int(f.arg("hold", "2")), pids))
+
+    def kernel(self, step: int) -> None:
+        for f in self._due("kernel_error", step):
+            self._plan._mark(f)
+            raise FaultInjected(
+                f"injected fused-kernel failure at decode step {step}")
+
+    def mangle_finite(self, step: int, finite: np.ndarray) -> np.ndarray:
+        for f in self._due("nan_logit", step):
+            self._plan._mark(f)
+            finite = np.array(finite, copy=True)
+            finite[int(f.arg("slot", "0")) % len(finite)] = False
+        return finite
+
+    def post_step(self, engine, step: int) -> None:
+        keep = []
+        for rel, pids in self._held:
+            if step >= rel and engine.pool is not None:
+                engine.pool.release(pids)
+            else:
+                keep.append((rel, pids))
+        self._held = keep
 
 
 def corrupt_checkpoint(path: str, mode: str = "flip") -> str:

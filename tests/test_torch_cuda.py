@@ -1124,3 +1124,95 @@ def test_flash_kernels_reject_what_they_cannot_take(cuda):
         fa.flash_attention_fwd(q, q.transpose(1, 2), q)
     with pytest.raises(ValueError, match="on cuda"):
         fa.flash_attention_fwd(q, q.cpu(), q)
+
+
+# ---------------------------------------------------------------------------
+# the serving degradation ladder on the card
+# ---------------------------------------------------------------------------
+
+def _ladder_engine(cuda, policy="kv_cache=a8t,*=w8c+a8t@int8_cuda", **kw):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.infer import Engine
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("gpt2-small")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device=cuda)
+    return Engine(model, params, policy, max_slots=2, max_seq=64,
+                  device=cuda, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy, libs", [
+    ("kv_cache=a8t,*=w8c+a8t@int8_cuda",
+     ["int8_matmul", "decode_attn", "flash_q8_sm90"]),
+    ("kv_cache=a8n,*=w8c+a8t@int8_cuda", ["int8_matmul"])])
+def test_engine_loads_rung0_libraries(cuda, monkeypatch, policy, libs):
+    """The constructor loads (building if needed) every library rung 0
+    launches, so a library that fails to load raises there and is never
+    absorbed by the ladder as a failing decode step."""
+    from repro_torch.kernels import _build
+    loaded = []
+    real = _build.load
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loaded.append(name) or real(name))
+    eng = _ladder_engine(cuda, policy)
+    assert loaded == libs and eng.resilience_summary()["rung_index"] == 0
+
+    def broken(name):
+        raise RuntimeError(f"cannot load {name}")
+    monkeypatch.setattr(_build, "load", broken)
+    with pytest.raises(RuntimeError, match="cannot load int8_matmul"):
+        _ladder_engine(cuda, policy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_dequant_and_fused_rungs_serve(cuda, paged):
+    """An a8t engine serves a short request on its fused rung (the decode
+    kernel launches once a layer a step), forced onto the dequant rung it
+    serves one without the decode kernel, and promoted back the kernel's
+    launch count rises again."""
+    from repro_torch import kernels
+    from repro_torch.infer import Request
+    kw = dict(paged=True, page_size=16) if paged else {}
+    eng = _ladder_engine(cuda, **kw)
+    name = "decode_attention_paged" if paged else "decode_attention"
+    layers = eng.cfg.n_layers
+
+    def serve():
+        kernels.reset_launch_counts()
+        eng.submit(Request(tokens=[1, 2, 3, 4], max_new_tokens=5))
+        [r] = eng.run()
+        assert r.finish_reason == "length" and len(r.tokens) == 5
+        return kernels.launch_counts()
+    counts = serve()
+    assert counts[name] == 4 * layers
+    assert counts["flash_attention_fwd_q8"] == layers
+    assert eng._demote("test-forced", step=0)
+    assert eng.path_summary().endswith("degraded=dequant(rung 1/2)")
+    counts = serve()
+    assert counts[name] == 0 and counts["flash_attention_fwd_q8"] == layers
+    assert eng._try_promote(step=0) and eng._rung == 0
+    counts = serve()
+    assert counts[name] == 4 * layers
+
+
+@pytest.mark.cuda
+def test_engine_launch_failure_propagates(cuda, monkeypatch):
+    """A decode kernel that fails on the card (any exception other than an
+    injected ``FaultInjected``) propagates out of the step: no kernel
+    error is recorded, no rung is left, and the plain rungs never serve
+    around it."""
+    import repro_torch.models.attention as attention
+    from repro_torch.infer import Request
+
+    def failing(*args, **kwargs):
+        raise RuntimeError("decode_attention: launch failed")
+    monkeypatch.setattr(attention, "decode_attention", failing)
+    eng = _ladder_engine(cuda)
+    eng.submit(Request(tokens=[1, 2, 3, 4], max_new_tokens=5))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eng.run()
+    s = eng.resilience_summary()
+    assert (s["kernel_errors"], s["demotions"], s["rung_index"]) == (0, [], 0)

@@ -239,8 +239,14 @@ def test_scheduler_hook_and_engine_faults():
     assert plan.fired == ["dead_sched@2"]
     assert FaultPlan.parse("nan_grad@1").scheduler_hook() is None
     assert FaultPlan.parse("nan_grad@1").engine_hooks() is None
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 2"):
-        FaultPlan.parse("kernel_error@3").engine_hooks()
+    # the serving kinds give the engine's hooks (their cases are in
+    # tests/test_torch_serve_ladder.py)
+    from repro_torch.train.faults import EngineFaultHooks
+    hooks = FaultPlan.parse("kernel_error@3").engine_hooks()
+    assert isinstance(hooks, EngineFaultHooks)
+    hooks.kernel(2)
+    with pytest.raises(FaultInjected):
+        hooks.kernel(3)
 
 
 # ---------------------------------------------------------------------------
