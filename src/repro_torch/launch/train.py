@@ -12,6 +12,9 @@ stability sentinel's recovery ladder and deterministic fault plans.
         --steps 60 --batch 8 --seq 1024 --state-storage int \\
         --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda' \\
         --sentinel --ckpt build/ckpt --fault nan_grad@52
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
+        --layers 16 --steps 10 --batch 2 --seq 4096 --state-storage int \\
+        --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda'
 
 Prints the reference's ``arch=... policy=[...]``, ``train-path:`` and
 ``fault-plan:`` lines, then ``step N ce=... ms/step`` rows (``valid=`` on
@@ -22,12 +25,17 @@ the steps run so far (replays included), each ending in a device sync.
 As in the reference, a row is logged on the first step and every 10th,
 checkpoints are written every ``max(steps // 3, 50)`` steps and
 validation runs every ``max(steps // 5, 20)``.  Without ``--smoke`` the
-batch defaults to 8 sequences of the config's context length.  Model
+batch defaults to 8 sequences of the config's context length.
+``--layers N`` trains the config's width at N layers (a depth cut: Yi-6B's
+32 layers need more than one 80 GB card, ROADMAP section 1, item 8); the
+loss recomputes as the config's ``remat`` says (``models/lm.py``), and
+the ``train-path:`` line names it (``remat=`` and ``attend=``).  Model
 parallelism is not ported: its flag raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -53,6 +61,9 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--seq", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="depth cut: the config's width at this many layers "
+                         "(0: the config's depth)")
     ap.add_argument("--lr", type=float, default=6e-4)
     ap.add_argument("--recipe", default="paper",
                     help="preset name or compact spec ('w8c,a8t,m1:4c')")
@@ -92,6 +103,8 @@ def main(argv=None) -> None:
     else:
         cfg = get_config(args.arch)
         batch, seq = args.batch or 8, args.seq or cfg.max_seq
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     recipe = (parse_policy(args.policy) if args.policy
               else get_recipe(args.recipe))
@@ -100,7 +113,8 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} devices=1 device={dev} "
           f"policy=[{recipe.describe()}] batch={batch} seq={seq}")
     summary = train_path_summary(recipe, cfg.n_layers, opt_cfg=opt,
-                                 device=dev)
+                                 device=dev, cfg=cfg,
+                                 batch=batch // args.accum, seq=seq)
     print(f"train-path: {summary}")
     faults = FaultPlan.from_env(args.fault or None)
     if faults:

@@ -3,9 +3,12 @@
 
 Training (``cache=None``): causal self-attention over the sequence.  Under
 ``attention_impl="xla"`` plain torch matmuls with an fp32 softmax
-(``_attend``); under ``"flash_pallas"`` the flash kernels (``_flash``:
-#8 forward, #9/#10 backward, through ``kernels.flash_attn.flash_attention``),
-which never materialize the (S, S) scores.  The flash branch is taken
+(``_attend``, in checkpointed q-chunks of ``_pick_chunk``'s length, which
+keeps each fp32 score slab under ``SCORE_BUDGET_BYTES``, as the
+reference's ``_gqa_attend``); under ``"flash_pallas"`` the flash kernels
+(``_flash``: #8 forward, #9/#10 backward, through
+``kernels.flash_attn.flash_attention``), which never materialize the (S,
+S) scores.  The flash branch is taken
 where the reference's ``_flash_path_ok`` takes it: more than one query
 row and a causal (or no) mask -- training, and the unpacked prefill of an
 fp cache -- and nowhere else (decode steps, int8 caches, packed prefills).
@@ -63,7 +66,7 @@ from repro_torch.core.qconfig import Granularity
 from repro_torch.core.qpolicy import INT8_BACKEND, LinearCtx, QuantPolicy
 from repro_torch.core.quantizer import (compute_scale_zero, quantize_int,
                                         storage_dtype)
-from repro_torch.models.common import apply_rope
+from repro_torch.models.common import apply_rope, checkpointed
 from repro_torch.kernels.decode_attn import (paged_logical_view, decode_attention,
                                              decode_attention_paged)
 from repro_torch.kernels.flash_attn import (flash_attention,
@@ -127,22 +130,85 @@ def kv_quant(t: torch.Tensor, spec):
     return q, scale.to(torch.float32).expand(t.shape[:-1] + (1,))
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
-    """Grouped attention on fp K/V.  q: (B, Sq, H, hd); k, v: (B, Skv, K,
-    hd); mask: boolean, broadcastable to (B, 1, 1, Sq, Skv), True = attend.
+#: the largest q-chunk of :func:`_attend` (the reference's ``MAX_DENSE_Q``)
+MAX_DENSE_Q = 1024
+#: the fp32 score slab one q-chunk may take: the reference's 768 MB,
+#: read at each call (a caller lifts it to run ``_attend`` in one block)
+SCORE_BUDGET_BYTES = 768e6
+
+
+def _pick_chunk(sq: int, skv: int, b: int, h: int,
+                budget_bytes: Optional[float] = None) -> int:
+    """Largest power-of-two q-chunk (<= ``MAX_DENSE_Q``, dividing sq) whose
+    fp32 score slab (b, h, chunk, skv) stays under ``budget_bytes``
+    (default :data:`SCORE_BUDGET_BYTES`; the reference's ``_pick_chunk``
+    on one card: no data or tensor axes)."""
+    if budget_bytes is None:
+        budget_bytes = SCORE_BUDGET_BYTES
+    chunk = MAX_DENSE_Q
+    while chunk > 128 and b * h * chunk * skv * 4 > budget_bytes:
+        chunk //= 2
+    while sq % chunk:
+        chunk //= 2
+    return max(chunk, 1)
+
+
+def _mask_chunk(mask, qpos: torch.Tensor, s_kv: int):
+    """The mask of the query rows ``qpos``: None (full), ``"causal"`` (key
+    position <= query position, as a (len(qpos), s_kv) boolean), or a
+    materialized boolean mask, returned as it is."""
+    if isinstance(mask, str):
+        if mask != "causal":
+            raise ValueError(mask)
+        kpos = torch.arange(s_kv, device=qpos.device)
+        return kpos[None, :] <= qpos[:, None]
+    return mask
+
+
+def _attend_block(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask_b) -> torch.Tensor:
+    """qg: (B, c, K, G, hd); k, v: (B, Skv, K, hd); mask_b boolean,
+    broadcastable to (B, K, G, c, Skv), or None -> ctx (B, c, K, G, hd).
     Scores and softmax in fp32, probabilities cast to v's dtype for the
     context product (the reference's ``_attend_block``)."""
-    b, sq, h, hd = q.shape
-    kh = k.shape[2]
-    qg = q.reshape(b, sq, kh, h // kh, hd)
+    hd = qg.shape[-1]
     s = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                      k.to(torch.float32))
     # a 0-d tensor divisor: an IEEE division on every device, as in JAX
     s = s / torch.full((), math.sqrt(hd), dtype=s.dtype, device=s.device)
-    s = s.masked_fill(~mask, -1e30)
+    if mask_b is not None:
+        s = s.masked_fill(~mask_b, -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    ctx = torch.einsum("bkgst,btkh->bskgh", p, v)
+    return torch.einsum("bkgst,btkh->bskgh", p, v)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
+            q_offset: int = 0) -> torch.Tensor:
+    """Grouped attention on fp K/V.  q: (B, Sq, H, hd); k, v: (B, Skv, K,
+    hd) -> ctx (B, Sq, H * hd).  ``mask``: ``"causal"`` (query row i at
+    position ``q_offset + i``), None, or a materialized boolean mask
+    broadcastable to (B, 1, 1, Sq, Skv), True = attend.
+
+    As the reference's ``_gqa_attend``: more than one query row under a
+    ``"causal"`` or no mask runs in q-chunks of :func:`_pick_chunk`, each
+    chunk's body checkpointed (its backward recomputes the chunk's scores
+    and probabilities instead of keeping a slab a chunk), so at most one
+    (B, H, chunk, Skv) fp32 slab exists at a time; a decode step (one row)
+    and a materialized mask (packed prefill) run in one block."""
+    b, sq, h, hd = q.shape
+    kh, skv = k.shape[2], k.shape[1]
+    qg = q.reshape(b, sq, kh, h // kh, hd)
+    chunk = sq
+    if sq > 1 and not isinstance(mask, torch.Tensor):
+        chunk = _pick_chunk(sq, skv, b, h)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    if chunk == sq:
+        ctx = _attend_block(qg, k, v, _mask_chunk(mask, qpos, skv))
+    else:
+        ctx = torch.cat([
+            checkpointed(_attend_block, qg[:, i:i + chunk], k, v,
+                         _mask_chunk(mask, qpos[i:i + chunk], skv))
+            for i in range(0, sq, chunk)], dim=1)
     return ctx.reshape(b, sq, h * hd)
 
 
@@ -166,15 +232,24 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, h, sq, hd).transpose(1, 2).reshape(b, sq, h * hd)
 
 
-def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
-               cache: Optional[Cache] = None,
-               cache_offset: Union[int, torch.Tensor, None] = None,
-               page_table: Optional[torch.Tensor] = None,
-               mask: Optional[torch.Tensor] = None,
-               rope=None, kv_path: Optional[str] = None,
-               layer: Optional[int] = None, n_layers: int = 0
-               ) -> torch.Tensor:
-    """One self-attention call.  ``cache=None``: causal attention over the
+def attn_out(params, ctx: torch.Tensor, *, policy: QuantPolicy,
+             layer: Optional[int] = None, n_layers: int = 0) -> torch.Tensor:
+    """The output projection (role ``attn_out``) of the attention context."""
+    return policy.linear(LinearCtx("attn_out", layer, n_layers), ctx,
+                         params["wo"], params.get("bo"))
+
+
+def attn_context(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
+                 cache: Optional[Cache] = None,
+                 cache_offset: Union[int, torch.Tensor, None] = None,
+                 page_table: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None,
+                 rope=None, kv_path: Optional[str] = None,
+                 layer: Optional[int] = None, n_layers: int = 0
+                 ) -> torch.Tensor:
+    """The attention context (B, s, H * hd), the input of ``attn_out``,
+    which the reference names ``attn_ctx`` for its recomputation policy
+    (``models/lm.py`` keeps it).  ``cache=None``: causal attention over the
     sequence (training).  Otherwise against one layer's cache (written in
     place); ``cache_offset``: int for a prefill, (B,) int32 tensor of
     per-slot positions for a decode step (s == 1); ``page_table`` (B, maxp)
@@ -188,7 +263,6 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx_qkv = LinearCtx("attn_qkv", layer, n_layers)
-    ctx_out = LinearCtx("attn_out", layer, n_layers)
     # the reference's _flash_path_ok: flash_pallas, more than one query row
     flash = cfg.attention_impl == "flash_pallas" and s > 1
     q = policy.linear(ctx_qkv, x, params["wq"], params.get("bq")
@@ -201,12 +275,7 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
     if cache is None:
-        if flash:
-            ctx = _flash(q, k, v)
-        else:
-            pos = torch.arange(s, device=x.device)
-            ctx = _attend(q, k, v, pos[None, :] <= pos[:, None])
-        return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))
+        return _flash(q, k, v) if flash else _attend(q, k, v, "causal")
     decode = isinstance(cache_offset, torch.Tensor)
     if page_table is not None and not decode:
         raise ValueError("page_table is a decode-step argument: a prefill "
@@ -254,7 +323,7 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                 q.contiguous(), cache["k"], cache["k_scale"], cache["v"],
                 cache["v_scale"], causal=True, q_offset=cache_offset)
             ctx = ctx.reshape(b, s, h * hd)
-        return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))
+        return ctx
 
     # an fp cache, or an int8 one read by dequantize-on-read: write the new
     # rows (quantized first for an int8 cache), read the buffer back in the
@@ -290,24 +359,18 @@ def attn_apply(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
         mask = (kpos[None, :] <= cache_offset.long()[:, None]
                 )[:, None, None, None, :]
     else:
-        smax = cache["k"].shape[1]
         for name, rows in new.items():
             cache[name][:, cache_offset:cache_offset + s] = rows.to(
                 cache[name].dtype)
 
         def read(name):
             return cache[name]
-        if mask is None:
-            qpos = torch.arange(s, device=x.device) + cache_offset
-            mask = (torch.arange(smax, device=x.device)[None, :]
-                    <= qpos[:, None])
-        else:
-            mask = mask[:, None, None]
+        mask = "causal" if mask is None else mask[:, None, None]
     if quantized:
         kf = dequant_kv(read("k"), read("k_scale"), x.dtype)
         vf = dequant_kv(read("v"), read("v_scale"), x.dtype)
     else:
         kf, vf = read("k").to(x.dtype), read("v").to(x.dtype)
-    ctx = (_flash(q, kf, vf, cache_offset) if use_flash
-           else _attend(q, kf, vf, mask))
-    return policy.linear(ctx_out, ctx, params["wo"], params.get("bo"))
+    if use_flash:
+        return _flash(q, kf, vf, cache_offset)
+    return _attend(q, kf, vf, mask, q_offset=0 if decode else cache_offset)

@@ -1,6 +1,7 @@
-"""Shared model machinery: the carrier cast, the norms, activations and the
+"""Shared model machinery: the carrier cast, the norms, activations, the
 rotary embedding (port of the parts of ``repro/models/common.py`` the
-dense GPT-2 and llama families use).
+dense GPT-2 and llama families use) and :func:`checkpointed`, the port's
+``jax.checkpoint``.
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 layout (block leaves stacked on a leading layer dim), so a JAX parameter
@@ -12,6 +13,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qadam import QState
 
@@ -48,6 +50,19 @@ def tree_unflatten(structure, leaves):
             return {k: walk(v) for k, v in node.items()}
         return next(it)
     return walk(structure)
+
+
+def checkpointed(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` whose backward recomputes it, the
+    reference's ``jax.checkpoint``: nothing ``fn`` computes inside is kept
+    for the backward, only its arguments (non-reentrant
+    ``torch.utils.checkpoint``, so the backward runs the same autograd
+    graph, and the recomputed values are the first forward's bits wherever
+    its ops repeat theirs).  Under ``no_grad`` (serving, eval) it is a plain
+    call."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:

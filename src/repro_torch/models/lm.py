@@ -21,9 +21,21 @@ forward, #9/#10 backward; ``models/attention.py``), as the reference's
 packed prefills keep their own paths.  ``kv_path`` picks how an int8
 cache is read (the kernels, or dequantize-on-read; ``models/attention.py``).
 
-The loss keeps every activation for the backward: the reference's
-recomputation (``cfg.remat``, and the checkpointed CE chunks) changes no
-number and is not needed at GPT-2 small's size on an 80 GB card.
+The loss recomputes as the reference does.  Under ``cfg.remat`` (on by
+default) each layer runs as two checkpointed halves split at the attention
+context (``blocks.block_context``, ``blocks.block_finish``): the backward
+keeps a layer's input and its context -- the reference's
+``save_only_these_names("attn_ctx")`` -- and recomputes the rest, so every
+block linear's forward kernel runs twice a step and the attention forward
+twice.  Two segments rather than selective checkpointing, because
+``create_selective_checkpoint_contexts`` sees aten ops and not the
+``autograd.Function`` around the flash and int8 kernels.  The CE chunks
+are always checkpointed (``chunked_ce``), whatever ``cfg.remat`` says, and
+``_attend`` runs in checkpointed q-chunks (``models/attention.py``).  The
+checkpoints are non-reentrant, so the backward runs the same autograd
+graph on recomputed values: loss and gradients are bit-identical with
+``remat`` on and off wherever the recomputed ops repeat their bits (the
+kernels use no float atomics).  Prefill and decode never recompute.
 """
 from __future__ import annotations
 
@@ -34,9 +46,9 @@ import torch
 from repro_torch.core.qadam import QState
 from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.models.attention import Cache, init_caches
-from repro_torch.models.blocks import block_apply
+from repro_torch.models.blocks import block_apply, block_context, block_finish
 from repro_torch.models.common import (Params, apply_norm, cast_params,
-                                       rope_tables, tree_map)
+                                       checkpointed, rope_tables, tree_map)
 
 _NEG = -1e30
 
@@ -106,24 +118,31 @@ def _chunk_len(s: int, target: int) -> int:
     return s
 
 
+def _ce_chunk(params: Params, hc: torch.Tensor, lc: torch.Tensor,
+              mc: torch.Tensor, cfg, policy: QuantPolicy) -> torch.Tensor:
+    """Summed cross entropy of one chunk, weighted by ``mc`` (float32)."""
+    logits = logits_chunk(params, hc, cfg, policy)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
 def chunked_ce(params: Params, h: torch.Tensor, labels: torch.Tensor,
                mask: Optional[torch.Tensor], cfg,
                policy: QuantPolicy) -> torch.Tensor:
     """Mean cross entropy over the sequence in chunks of ``cfg.logit_chunk``
-    positions, so the fp32 logits of only one chunk exist at a time in the
-    forward."""
+    positions, each chunk checkpointed (the reference's ``jax.checkpoint``
+    of the chunk body): the fp32 logits of one chunk exist at a time, in
+    the forward and again in the backward, which recomputes them."""
     b, s, _ = h.shape
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
     chunk = _chunk_len(s, cfg.logit_chunk or s)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
-        logits = logits_chunk(params, h[:, i:i + chunk], cfg, policy)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, i:i + chunk, None].long())[..., 0]
         mc = mask[:, i:i + chunk].to(torch.float32)
-        tot = tot + torch.sum((logz - gold) * mc)
+        tot = tot + checkpointed(_ce_chunk, params, h[:, i:i + chunk],
+                                 labels[:, i:i + chunk], mc, cfg, policy)
         cnt = cnt + torch.sum(mc)
     return tot / torch.clamp_min(cnt, 1.0)
 
@@ -144,7 +163,15 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     h = embed_tokens(params, inp, cfg, positions, dtype, policy)
     rope = rope_for(cfg, positions)
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
-        h = block_apply(lp, h, cfg, policy=policy, layer=i, rope=rope)
+        if cfg.remat:
+            # the reference's save_only_these_names("attn_ctx"): the
+            # backward keeps h and ctx and recomputes each half
+            ctx = checkpointed(block_context, lp, h, cfg, policy=policy,
+                               layer=i, rope=rope)
+            h = checkpointed(block_finish, lp, h, ctx, cfg, policy=policy,
+                             layer=i)
+        else:
+            h = block_apply(lp, h, cfg, policy=policy, layer=i, rope=rope)
     h = apply_norm(h, params["final_norm"], cfg.norm)
     ce = chunked_ce(params, h, labels, batch.get("loss_mask"), cfg, policy)
     return ce, {"ce": ce, "loss": ce}

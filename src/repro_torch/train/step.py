@@ -25,6 +25,7 @@ from repro_torch.core.diagnostics import grad_quant_health
 from repro_torch.core.qlinear import residual_compressible
 from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.core.quantizer import _div
+from repro_torch.models.attention import _pick_chunk
 from repro_torch.models.common import (cast_params, tree_flatten,
                                        tree_unflatten)
 from repro_torch.models.model_api import Model
@@ -56,15 +57,33 @@ def _path_desc(backend: str, caps, recipe=None) -> str:
     return f"{backend}(fwd=int8,bwd={bwd},res=int8)"
 
 
+def recompute_desc(cfg, batch: int, seq: int) -> str:
+    """The ``remat=`` and ``attend=`` segments of
+    :func:`train_path_summary`: what the loss recomputes (``layer+ce``
+    under ``cfg.remat``, else the CE chunks alone) and how its attention
+    runs on a (batch, seq) micro-batch (``flash``, ``dense``, or ``q<n>``:
+    ``_attend`` in q-chunks of n rows)."""
+    remat = "layer+ce" if cfg.remat else "ce"
+    if cfg.attention_impl == "flash_pallas":
+        attend = "flash"
+    else:
+        chunk = _pick_chunk(seq, seq, batch, cfg.n_heads)
+        attend = "dense" if chunk == seq else f"q{chunk}"
+    return f"remat={remat} attend={attend}"
+
+
 def train_path_summary(recipe, n_layers: int = 0,
                        opt_cfg: Optional[OptConfig] = None,
-                       device="cuda") -> str:
+                       device="cuda", cfg=None, batch: int = 0,
+                       seq: int = 0) -> str:
     """One line naming the path each block-linear role's train step runs
     (effective backend after fallback, which passes run quantized kernels,
     the residual codec) and, with ``opt_cfg``, the optimizer's update path
     that ``adamw_update`` takes by default for params on ``device``.  The
     reference's format, so the two packages print the same line for the
-    same policy (with ``int8_cuda`` for ``int8_pallas``)."""
+    same policy (with ``int8_cuda`` for ``int8_pallas``); with ``cfg`` and
+    a micro-batch of (``batch``, ``seq``) the port adds
+    :func:`recompute_desc`."""
     policy = as_policy(recipe)
     groups: Dict[str, list] = {}
     for role in _SUMMARY_ROLES:
@@ -84,6 +103,8 @@ def train_path_summary(recipe, n_layers: int = 0,
                        for desc, roles in groups.items())
     if opt_cfg is not None:
         summary += f" opt={opt_path_desc(policy, opt_cfg, device)}"
+    if cfg is not None:
+        summary += " " + recompute_desc(cfg, batch, seq)
     return summary
 
 

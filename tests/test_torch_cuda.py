@@ -50,7 +50,8 @@ delta summed in float64, ``chip_smoke._flash_all``; the rule and the
 exported head-dim limit are checked too); the bf16 forward's key tile
 equal to ``kv_tile`` at every head dim, and every flash wrapper refusing a
 CUDA tensor that does not start on a 16-byte boundary (the bf16 kernels
-read by TMA).
+read by TMA); a small llama config's loss and gradients bit for bit with
+recomputation on and off.
 """
 import importlib
 import pathlib
@@ -1216,3 +1217,32 @@ def test_engine_launch_failure_propagates(cuda, monkeypatch):
         eng.run()
     s = eng.resilience_summary()
     assert (s["kernel_errors"], s["demotions"], s["rung_index"]) == (0, [], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash_pallas", "xla"])
+def test_remat_on_and_off_on_the_card(cuda, impl):
+    """A small llama config (yi-smoke's widths at 8 layers, 4 x 1024
+    tokens, ``chip_smoke.TRAIN_POLICY``): recomputation on and off give
+    bit-identical ce and gradients (the kernels use no float atomics), the
+    peak above the weights is lower with it, and the launch counters count
+    the recomputed launches (``chip_smoke.train_launches``)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config("yi-6b"), n_layers=8,
+                              attention_impl=impl)
+    params = build_model(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = chip_smoke._yi_tokens(torch, cuda, cfg, 4, 1024)
+    # a first step allocates what stays (cuBLAS's workspace, the
+    # libraries' buffers): keep it out of both peaks
+    chip_smoke._loss_and_grads(torch, cfg, params, toks)
+    on = chip_smoke._loss_and_grads(torch, cfg, params, toks)
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    off = chip_smoke._loss_and_grads(torch, off_cfg, params, toks)
+    assert chip_smoke._grads_distance(torch, on, off)[2]
+    assert on[3] < off[3], (on[3], off[3])
+    for got, c in ((on[2], cfg), (off[2], off_cfg)):
+        assert got == dict(chip_smoke.train_launches(c),
+                           fused_adamw_leaves=0)

@@ -333,9 +333,11 @@ class _Recorder:
 @pytest.mark.parametrize("impl", ["flash_pallas", "xla"])
 def test_flash_branch_taken_where_the_reference_takes_it(impl, monkeypatch):
     """Training and the unpacked fp-cache prefill run the flash kernels
-    (one forward per layer, one #9 and one #10 per layer in the backward);
-    decode steps, int8 caches and packed prefills never do -- the
-    reference's ``_flash_path_ok`` decides the same for each."""
+    (one forward per layer; in the backward one #9 and one #10 per layer,
+    and the forward again, which the layer's recomputation runs under the
+    config's default ``remat``); decode steps, int8 caches and packed
+    prefills never do -- the reference's ``_flash_path_ok`` decides the
+    same for each."""
     assert _flash_path_ok("flash_pallas", 64, {"kind": "causal"})
     assert not _flash_path_ok("flash_pallas", 1, {"kind": "causal"})
     assert not _flash_path_ok("flash_pallas", 64, jnp.ones((1, 64, 64), bool))
@@ -351,7 +353,9 @@ def test_flash_branch_taken_where_the_reference_takes_it(impl, monkeypatch):
                                 {"tokens": toks}, policy="*=fp")
     assert rec.take() == ({"flash_attention_fwd_lse_plain": n} if n else {})
     torch.autograd.grad(loss, leaves)
-    assert rec.take() == ({"flash_attention_bwd_dkdv_plain": n,
+    assert tcfg.remat
+    assert rec.take() == ({"flash_attention_fwd_lse_plain": n,
+                           "flash_attention_bwd_dkdv_plain": n,
                            "flash_attention_bwd_dq_plain": n} if n else {})
     # fp cache: the unpacked prefill takes the flash forward, decode not
     _, st = tmodel.prefill(tparams, toks[:, :8], policy="*=fp", max_seq=16)

@@ -433,7 +433,8 @@ def test_launcher_trains_on_cpu(args, monkeypatch):
     """``--device cpu --smoke --steps 10`` in a fresh interpreter: the
     reference's rows (the first step and every 10th) with finite ce, no JAX
     or ``repro`` module loaded, and the ``train-path:`` line the JAX
-    launcher prints for the same policy."""
+    launcher prints for the same policy, then the port's recomputation
+    segments (the smoke config's ``remat``, 8 x 64 tokens: no q-chunks)."""
     lines = _launch(["--arch", "gpt2-small", "--device", "cpu", "--smoke",
                      "--steps", "10", *args])
     steps = [l for l in lines if l.startswith("step ")]
@@ -446,7 +447,8 @@ def test_launcher_trains_on_cpu(args, monkeypatch):
     storage = "int" if "int" in args else "fake"
     want = j_summary(jrec, 4, JOpt(state_storage=storage))
     path = [l for l in lines if l.startswith("train-path: ")]
-    assert path == ["train-path: " + want.replace("int8_pallas", "int8_cuda")]
+    assert path == ["train-path: " + want.replace("int8_pallas", "int8_cuda")
+                    + " remat=layer+ce attend=dense"]
 
 
 def _resilience(lines):
