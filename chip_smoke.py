@@ -136,18 +136,18 @@ Phases, in order; any failure exits non-zero:
     ``YI_Q8_SHAPE``; ``decode_attention`` and ``decode_attention_paged`` at
     ``YI_DECODE_SHAPE`` (pages of 16, 64, 256 bit for bit against the dense
     kernel), each timed beside its bound and SDPA on dequantized K/V with
-    the KV heads expanded (``yi_kernels``); 16b. serve Yi-6B (random
+    the KV heads expanded (``cell_kernels``); 16b. serve Yi-6B (random
     float32 weights from ``--seed``, freed once prepared; bf16 carrier,
     ``POLICY``) through the dense engine, 16 slots of 4096 rows, 32
     requests of 128-2048 prompt tokens, 64 new tokens each: every request
     to length, exactly 224 ``int8_matmul`` and 32 ``decode_attention`` a
     decode step and 224 and 32 ``flash_attention_fwd_q8`` a prefill launch;
     decode ms/step, tokens/s, prefill ms, peak memory, one profiled decode
-    step and the untied head's share (``serve_yi``); 16c. the same requests
+    step and the untied head's share (``serve_cell``); 16c. the same requests
     through the paged engine (pages of 64 rows): 16b's tokens, 32
     ``decode_attention_paged`` a step, every page back
-    (``serve_yi_paged``); 16d. phase 5's checks at Yi's width and 2 layers,
-    its limits but B's, which is ``YI_B_LIMIT`` there (``yi_card_vs_cpu``);
+    (``serve_cell_paged``); 16d. phase 5's checks at Yi's width and 2 layers,
+    its limits but B's, which is ``YI_B_LIMIT`` there (``cell_card_vs_cpu``);
 17. the serving degradation ladder on GPT-2 small (phase 4's weights):
     17a. an engine whose rung 0 is dequantize-on-read (``DEQUANT_POLICY``,
     a per-tensor KV spec no kernel takes), dense and paged, 32 requests of
@@ -167,8 +167,8 @@ Phases, in order; any failure exits non-zero:
     ``SERVE_OOM_PLAN`` on the paged engine: a preemption, never a
     ``CapacityError``, every request to length and every page back
     (``serve_oom``).  Every healthy serving phase (4, 4b,
-    4c, 14b, 16b, 16c, 17a, 17d) fails unless it ends with no kernel error,
-    no demotion and rung 0 (``healthy``);
+    4c, 14b, 16b, 16c, 17a, 17d, 19b, 19c, 20a) fails unless it ends with
+    no kernel error, no demotion and rung 0 (``healthy``);
 18. llama pre-training at Yi-6B's published widths (random weights from
     ``--seed``, bf16 carrier, ``TRAIN_POLICY`` with int moments, the
     synthetic corpus), the loss recomputing as the reference's
@@ -186,7 +186,28 @@ Phases, in order; any failure exits non-zero:
     for 2 finite steps (``yi_attend_chunks``); 18d. phase 8's checks at
     Yi's width and 2 layers within ``YI_TRAIN_LIMITS`` (C's asymmetric
     moments dequantized where their zero points differ), and phase 12's
-    bf16-carrier control (``yi_train_card_vs_cpu``).
+    bf16-carrier control (``yi_train_card_vs_cpu``);
+19. Gemma-2B at full width and depth (``configs/gemma_2b.py``: 18 layers,
+    d_model 2048, 8 query heads over one KV head of 256, GeGLU 16,384, a
+    tied head of 256,000 rows, the embedding scaled by sqrt(d_model),
+    RMSNorm with (1 + w)): 19a. phase 16a at ``GEMMA_INT8_KN``,
+    ``GEMMA_Q8_SHAPE`` and ``GEMMA_DECODE_SHAPE`` (#11, #12 and #13 at head
+    dim 256); 19b. the dense engine (random float32 weights from
+    ``--seed``, freed once prepared; bf16 carrier, ``POLICY``), 16 slots of
+    8192 rows, 32 requests of 256-6144 prompt tokens, 64 new each: exactly
+    126 #3 and 18 #12 a decode step, 126 #3 and 18 #11 a prefill launch,
+    rung 0 throughout; 19c. the same requests paged (pages of 64 rows):
+    19b's tokens, 18 #13 a step, every page back; 19d. phase 16d at
+    Gemma's width and 2 layers with ``GEMMA_B_LIMIT`` and a bf16-carrier
+    control that must exceed each limit (``cell_card_vs_cpu``);
+20. Qwen3-32B at full width (``configs/qwen3_32b.py``: d_model 5120, 64
+    query heads over 8 KV heads of 128, SwiGLU 25,600, qk-norm, RoPE
+    theta 1e6, an untied head of 151,936), cut to ``QWEN3_LAYERS`` of its
+    64 layers: 20a. #3 bit for bit at ``QWEN3_INT8_KN``, then the dense
+    engine, 16 slots of 4096 rows, 16 requests of 128-2048 prompt tokens,
+    32 new each: exactly 112 #3 and 16 #12 a decode step, rung 0
+    throughout; 20b. phase 19d at Qwen3's width and 2 layers with
+    ``QWEN3_B_LIMIT``.
 
 Phases 7, 10, 11 and 14 pin ``remat=False`` (``gpt2_train_cfg``), so
 their launch gates (72 #3 a step) and their numbers keep their meaning;
@@ -1090,7 +1111,7 @@ def check_flash_q8(torch, dev, gen, results, shapes=Q8_SHAPES, tag=None):
         # elsewhere) and p.v (three terms), 2 * hd FLOPs each
         visible = min(skv, sq)
         nbytes = 2 * q.numel() * 2 + 2 * b * visible * kh * (hd + 4)
-        q_terms = 1 if hd == 64 else 3
+        q_terms = 1 if hd in (64, 256) else 3
         ops = (q_terms + 3) * 2.0 * hd * b * h * (sq * (sq + 1) / 2)
         bd, by = bound_ms(nbytes, ops, BF16_FLOPS)
         rows.append(dict(shape=f"B={b},Sq={sq},Skv={skv},H={h},K={kh},"
@@ -1556,7 +1577,8 @@ def true_fan_in(params, cfg):
     return dict(params, blocks=blocks)
 
 
-def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
+def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
+                strict=True):
     """Phase 5: teacher-forced logits of the card against the CPU, float32
     carrier, the weights of ``init_params`` (seed + 1) at the true fan-in
     scale (``true_fan_in``), 2 prompts of 64 tokens + 8 decode steps, on
@@ -1577,7 +1599,13 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
        it.  Card against card: with the plain ``int8_matmul`` in the
        kernel's place (both entries, the decode linears' fused one too)
        every logit must be bit-identical -- every one of the forward's int8
-       matmuls equals its plain version."""
+       matmuls equals its plain version.
+
+    ``control`` (phases 19d and 20b) also runs each policy on the card at
+    the bf16 carrier: its max |d logit| against the CPU's float32 logits
+    must exceed the policy's limit, which shows the limit tells a carrier
+    apart.  Returns each policy's readings; ``strict=False`` prints them
+    and fails nothing (``tools/dense_readings.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = cfg or dataclasses.replace(get_config("gpt2-small"),
@@ -1587,10 +1615,12 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
     params = true_fan_in(model.init_params(gen, device="cpu"), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 64 + 8), generator=gen)
 
-    def run(policy, device):
-        return _teacher_forced(torch, model, cfg, params, toks, policy,
-                               device)
+    def run(policy, device, carrier=None):
+        c = dataclasses.replace(cfg, dtype=carrier) if carrier else cfg
+        m = build_model(c) if carrier else model
+        return _teacher_forced(torch, m, c, params, toks, policy, device)
     ok = True
+    readings = {}
     for label, policy, limit in (("A", "kv_cache=a8t,*=w8c", 1e-2),
                                  ("B", POLICY, b_limit)):
         cpu, cpu_kv = run(policy, "cpu")
@@ -1599,6 +1629,7 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
             card_plain, _ = run(policy, dev)
         err, n_agree, n_bad = _agreement(torch, card, cpu, limit)
         spread = (card_plain - cpu).abs().max().item()
+        readings[label] = dict(err=err, plain=spread, disagree=n_bad)
         flips = [float((card_kv["k"][i].cpu() != cpu_kv["k"][i]).float()
                        .mean()) for i in range(cfg.n_layers)]
         print(f"card vs cpu {label} {cfg.name} {cfg.n_layers}L d="
@@ -1610,6 +1641,14 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
               f"{spread:.3e}; share of K-cache payloads that differ, by "
               f"layer: {' '.join(f'{x:.1e}' for x in flips)}")
         ok &= err <= limit and n_bad == 0 and bool(torch.isfinite(card).all())
+        if control:
+            ctl, _ = run(policy, dev, carrier="bfloat16")
+            ctl_err = (ctl - cpu).abs().max().item()
+            readings[label]["control"] = ctl_err
+            print(f"card vs cpu {label} {cfg.name} control: the card at the "
+                  f"bf16 carrier vs the cpu at float32: max |dlogit| "
+                  f"{ctl_err:.3e} (must exceed the limit {limit:.1e})")
+            ok &= ctl_err > limit
         if policy == POLICY:
             with plain_versions(["int8_matmul"]):
                 card_mm_plain, _ = run(policy, dev)
@@ -1619,9 +1658,11 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT):
                   f"place: logits {'bit-identical' if same else 'DIFFER'} "
                   f"(tol 0; max |dlogit| "
                   f"{(card_mm_plain - card).abs().max().item():.3e})")
+            readings[label]["mm_plain_same"] = same
             ok &= same
-    if not ok:
+    if strict and not ok:
         fail(f"card and CPU logits disagree ({cfg.name})")
+    return readings
 
 
 def _grad_scale(torch, g, fold, dim):
@@ -3417,12 +3458,13 @@ def flash_card_vs_cpu(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: the llama family at Yi-6B's full width
+# Phases 16, 19 and 20: the dense family served at its published widths
 # ---------------------------------------------------------------------------
 
 #: phase 16a: #3's (K, N) pairs in a Yi-6B layer -- wq and wo (4096, 4096),
 #: wk and wv (4096, 512), w_gate and w_up (4096, 11008), w_down (11008,
-#: 4096) -- at the decode step's 16 slots and a 2048-row prefill
+#: 4096) -- at the decode step's 16 slots and a 2048-row prefill (the rows
+#: of every serving cell)
 YI_INT8_KN = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096))
 YI_INT8_ROWS = (16, 2048)
 #: the decode step's seven linears of one layer, in call order
@@ -3435,7 +3477,7 @@ YI_Q8_SHAPE = (2, 2048, 4096, 32, 4, 128)
 #: prompt tokens, 64 new tokens each; the paged engine's pages hold 64 rows
 YI_REQUESTS, YI_NEW, YI_SLOTS, YI_SEQ = 32, 64, 16, 4096
 YI_PROMPT = (128, 2048)
-#: the block linears of a llama layer
+#: the block linears of a gated (llama, gemma, qwen3) layer
 YI_LINEARS = 7
 #: phase 16d, policy B at Yi-6B's width and 2 layers: phase 5's B_LIMIT
 #: (0.1) cannot hold there.  Readings at seeds 0-3 (``tools/yi_readings.py``,
@@ -3448,26 +3490,110 @@ YI_LINEARS = 7
 #: place, bit-identical at every seed.
 YI_B_LIMIT = 0.3
 
+#: phase 19: Gemma-2B -- wq and wo (2048, 2048), wk and wv (2048, 256),
+#: w_gate and w_up (2048, 16384), w_down (16384, 2048); #11 at 2 prompts of
+#: 2048 over 8192-row buffers, 8 query heads over one KV head of 256; #12
+#: and #13 at 16 slots of 8192 rows, 8 query rows a KV head of 256
+GEMMA_INT8_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+GEMMA_DECODE_KN = ((2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
+                   (2048, 16384), (2048, 16384), (16384, 2048))
+GEMMA_Q8_SHAPE = (2, 2048, 8192, 8, 1, 256)
+GEMMA_DECODE_SHAPE = (16, 8192, 1, 8, 256)
+#: phase 20: Qwen3-32B's (K, N) -- wq (5120, 8192), wk and wv (5120, 1024),
+#: wo (8192, 5120), w_gate and w_up (5120, 25600), w_down (25600, 5120);
+#: its attention shapes are Yi's (8 query rows a KV head of 128), held in
+#: phase 16a
+QWEN3_INT8_KN = ((5120, 8192), (5120, 1024), (8192, 5120), (5120, 25600),
+                 (25600, 5120))
+QWEN3_DECODE_KN = ((5120, 8192), (5120, 1024), (5120, 1024), (8192, 5120),
+                   (5120, 25600), (5120, 25600), (25600, 5120))
+#: phase 20: 16 of Qwen3-32B's 64 layers: an fp32 init of all 32.8 B
+#: parameters is about 131 GB, more than one card; at 16 layers it is
+#: about 37 GB, about 11 GB once prepared
+QWEN3_LAYERS = 16
+#: phases 19d and 20b, policy B at 2 layers of Gemma-2B's and Qwen3-32B's
+#: widths, each the geometric mean, to two digits, of the card-vs-CPU
+#: readings' largest and the bf16-carrier control's smallest at seeds 0-3
+#: (``tools/dense_readings.py``, PERF.md; H100 80GB HBM3, 700 W): Gemma
+#: 0.047-0.092 against controls 0.140-0.176, Qwen3 0.118-0.231 against
+#: 0.351-0.389.  The plain versions on the card read 0.056-0.077 and
+#: 0.114-0.221: PyTorch's own fp32 ops on the two devices, carried by the
+#: per-token codec; the card with the plain int8_matmul in the kernel's
+#: place is bit-identical at every seed.  Policy A reads 2.1e-4 to 1.0e-3
+#: (Gemma) and 2.9e-3 to 4.2e-3 (Qwen3) under phase 5's 1e-2, its
+#: controls 0.065-0.066 and 0.183-0.207.
+GEMMA_B_LIMIT = 0.11
+QWEN3_B_LIMIT = 0.28
 
-def check_int8_yi(torch, dev, gen, results):
-    """Phase 16a, #3 at ``YI_INT8_KN`` x ``YI_INT8_ROWS``, bf16 output: the
-    wrapper (and at M = 16 the cluster route twice, a repeat bit-identical)
-    bit for bit against the plain version, timed queued and call by call
-    beside the bound, the plain version and ``torch._int_mm`` (queued; at M
-    = 16 on x zero-padded to 17 rows); the fused decode entry
-    ``int8_quant_matmul`` bit for bit at M = 16 on bf16 rows (an all-zero
-    row among them), a repeat bit-identical, and on rows holding a NaN or
-    an infinity; the weight transpose that the tensor-core route runs on
-    every call, timed alone; and the decode step's seven linears of a layer
-    through the fused entry over four layers' distinct weights (700 MB, the
-    L2 cold), ms per call beside the round's byte bound."""
+
+@dataclasses.dataclass(frozen=True)
+class ServeCell:
+    """A dense model served at its published width (phases 16, 19, 20):
+    its config and depth (``layers``, None: the config's), #3's distinct
+    (K, N) and the decode step's seven linears of a layer in call order,
+    #11's and #12/#13's shapes (None: an earlier phase holds the same
+    shape), the serving run -- slots x rows, the requests, their prompt
+    lengths (drawn from ``--seed``) and new tokens each -- and the card
+    against the CPU at 2 layers: policy B's limit and whether the
+    bf16-carrier control runs."""
+    phase: str
+    tag: str
+    arch: str
+    int8_kn: tuple
+    decode_kn: tuple
+    q8_shape: tuple | None
+    decode_shape: tuple | None
+    slots: int
+    seq: int
+    requests: int
+    prompt: tuple
+    new: int
+    b_limit: float
+    control: bool = False
+    layers: int | None = None
+
+    def config(self, **kw):
+        from repro_torch.configs import get_config
+        if self.layers:
+            kw = {"n_layers": self.layers, **kw}
+        return dataclasses.replace(get_config(self.arch), **kw)
+
+
+YI = ServeCell("16", "yi", "yi-6b", YI_INT8_KN, YI_DECODE_KN, YI_Q8_SHAPE,
+               YI_DECODE_SHAPE, YI_SLOTS, YI_SEQ, YI_REQUESTS, YI_PROMPT,
+               YI_NEW, YI_B_LIMIT)
+GEMMA = ServeCell("19", "gemma", "gemma-2b", GEMMA_INT8_KN, GEMMA_DECODE_KN,
+                  GEMMA_Q8_SHAPE, GEMMA_DECODE_SHAPE, slots=16, seq=8192,
+                  requests=32, prompt=(256, 6144), new=64,
+                  b_limit=GEMMA_B_LIMIT, control=True)
+QWEN3 = ServeCell("20", "qwen3", "qwen3-32b", QWEN3_INT8_KN, QWEN3_DECODE_KN,
+                  None, None, slots=16, seq=4096, requests=16,
+                  prompt=(128, 2048), new=32, b_limit=QWEN3_B_LIMIT,
+                  control=True, layers=QWEN3_LAYERS)
+
+
+def check_int8_cell(torch, dev, gen, results, cell=YI):
+    """Phase 16a (19a, 20a: ``cell``), #3 at ``cell.int8_kn`` x
+    ``YI_INT8_ROWS``, bf16 output: the wrapper (and at M = 16 the cluster
+    route twice, a repeat bit-identical) bit for bit against the plain
+    version, timed queued and call by call beside the bound, the plain
+    version and ``torch._int_mm`` (queued; at M = 16 on x zero-padded to 17
+    rows); the fused decode entry ``int8_quant_matmul`` bit for bit at M =
+    16 on bf16 rows (an all-zero row among them), a repeat bit-identical,
+    and on rows holding a NaN or an infinity; the weight transpose that the
+    tensor-core route runs on every call, timed alone; and the decode
+    step's seven linears of a layer through the fused entry over four
+    layers' distinct weights (the L2 cold), ms per call beside the round's
+    byte bound."""
     import importlib
     im = importlib.import_module("repro_torch.kernels.int8_matmul")
     from repro_torch.core.qconfig import Granularity, QuantSpec
     spec = QuantSpec(8, Granularity.PER_TOKEN)
     dt = torch.bfloat16
+    label = f"phase {cell.phase}a"
+    n_layers = cell.config().n_layers
     rows = []
-    for k, n in YI_INT8_KN:
+    for k, n in cell.int8_kn:
         for m in YI_INT8_ROWS:
             x, w, rs, cs = _int8_case(torch, dev, gen, m, k, n)
             want = im.int8_matmul_plain(x, w, rs, cs, out_dtype=dt)
@@ -3478,7 +3604,7 @@ def check_int8_yi(torch, dev, gen, results):
             torch.cuda.synchronize()
             for name, g in got.items():
                 if not torch.equal(g, want):
-                    fail(f"phase 16a int8_matmul ({name}) M={m} K={k} N={n}: "
+                    fail(f"{label} int8_matmul ({name}) M={m} K={k} N={n}: "
                          f"not bit-exact (max err "
                          f"{(g.float() - want.float()).abs().max().item()})")
             fn = (lambda: im.int8_matmul(x, w, rs, cs, dt))
@@ -3512,7 +3638,7 @@ def check_int8_yi(torch, dev, gen, results):
                 if not (torch.equal(fgot, fwant) and torch.equal(again, fgot)
                         and bool(same.all())
                         and bool(bgot[[3, 11]].isnan().all())):
-                    fail(f"phase 16a int8_quant_matmul M={m} K={k} N={n}: not "
+                    fail(f"{label} int8_quant_matmul M={m} K={k} N={n}: not "
                          f"bit-exact, a repeat differs, or rows holding a NaN "
                          f"or an infinity differ from the plain version")
                 ffn = (lambda: im.int8_quant_matmul(xf, w, cs, spec, dt))
@@ -3524,7 +3650,7 @@ def check_int8_yi(torch, dev, gen, results):
                      f"queued {row['fused_ms']:.4f} (call by call "
                      f"{row['fused_ms_call']:.4f})" if "fused_ms" in row else
                      f"; its weight transpose alone {row['transpose_ms']:.4f}")
-            print(f"phase 16a int8_matmul M={m:5d} K={k:5d} N={n:5d} bf16: "
+            print(f"{label} int8_matmul M={m:5d} K={k:5d} N={n:5d} bf16: "
                   f"bit-exact (tol 0), route {row['fwd_route']}; queued ms "
                   f"{row['ms']:.4f} (call by call {row['ms_call']:.4f}), "
                   f"plain_ms {row['plain_ms']:.4f}, bound_ms "
@@ -3532,16 +3658,16 @@ def check_int8_yi(torch, dev, gen, results):
                   f"{'' if m > 16 else ' on 17 rows'}, queued) "
                   f"{row['library_ms']:.4f}{extra}")
             del x, w, rs, cs, want, got
-    # the transposes a prefill launch runs: 32 layers x 7 linears
+    # the transposes a prefill launch runs: every layer's seven linears
     per_layer = sum(next(r["transpose_ms"] for r in rows
                          if r["shape"].startswith(f"M=2048,K={k},N={n},"))
-                    for k, n in YI_DECODE_KN)
-    print(f"phase 16a int8_matmul: the tensor-core route's weight transposes "
-          f"of one prefill launch (32 layers x {YI_LINEARS} linears, queued): "
-          f"{32 * per_layer:.3f} ms")
+                    for k, n in cell.decode_kn)
+    print(f"{label} int8_matmul: the tensor-core route's weight transposes "
+          f"of one prefill launch ({n_layers} layers x {YI_LINEARS} linears, "
+          f"queued): {n_layers * per_layer:.3f} ms")
     args = []
     for _ in range(4):
-        for k, n in YI_DECODE_KN:
+        for k, n in cell.decode_kn:
             _, w, _, cs = _int8_case(torch, dev, gen, 16, k, n)
             xf = torch.randn((16, k), generator=gen, device=dev).to(dt)
             args.append((xf, w, cs, spec, dt))
@@ -3554,45 +3680,53 @@ def check_int8_yi(torch, dev, gen, results):
                                 len(args), queued=True),
                 ms_call=time_cold_ms(im.int8_quant_matmul, args,
                                      2 * len(args), len(args)))
-    print(f"phase 16a int8_quant_matmul L2 cold, a round over a Yi layer's "
-          f"7 linears x 4 ({cold['weight_bytes'] / 1e6:.1f} MB) at M = 16: "
-          f"ms per call queued {cold['ms']:.4f}, call by call "
+    per_step = YI_LINEARS * n_layers
+    print(f"{label} int8_quant_matmul L2 cold, a round over a layer's "
+          f"{YI_LINEARS} linears x 4 ({cold['weight_bytes'] / 1e6:.1f} MB) at "
+          f"M = 16: ms per call queued {cold['ms']:.4f}, call by call "
           f"{cold['ms_call']:.4f}; bound {cold['bound_ms']:.5f} (bytes); a "
-          f"decode step's 224: {224 * cold['ms']:.3f} ms queued")
+          f"decode step's {per_step}: {per_step * cold['ms']:.3f} ms queued")
     del args
-    results["int8_matmul"]["yi"] = dict(shapes=rows, l2_cold=cold)
+    results["int8_matmul"][cell.tag] = dict(shapes=rows, l2_cold=cold)
 
 
-def yi_kernels(torch, dev, gen, results):
-    """Phase 16a: #3, #11, #12 and #13 at Yi-6B's shapes against their
-    plain versions with phase 3's gates (#12 and #13 with the positions on
-    the chunk edges, #13 at pages of 16, 64 and 256 bit for bit against
-    #12 on the same logical cache)."""
-    check_int8_yi(torch, dev, gen, results)
-    check_flash_q8(torch, dev, gen, results, shapes=(YI_Q8_SHAPE,), tag="yi")
-    check_decode_attention(torch, dev, gen, results, shape=YI_DECODE_SHAPE,
-                           tag="yi")
-    check_decode_attention_paged(torch, dev, gen, results,
-                                 shape=YI_DECODE_SHAPE, tag="yi")
+def cell_kernels(torch, dev, gen, results, cell=YI):
+    """Phase 16a (19a, 20a: ``cell``): #3, #11, #12 and #13 at the cell's
+    shapes against their plain versions with phase 3's gates (#12 and #13
+    with the positions on the chunk edges, #13 at pages of 16, 64 and 256
+    bit for bit against #12 on the same logical cache); a shape of None is
+    left to the phase that holds it."""
+    check_int8_cell(torch, dev, gen, results, cell)
+    if cell.q8_shape:
+        check_flash_q8(torch, dev, gen, results, shapes=(cell.q8_shape,),
+                       tag=cell.tag)
+    if cell.decode_shape:
+        check_decode_attention(torch, dev, gen, results,
+                               shape=cell.decode_shape, tag=cell.tag)
+        check_decode_attention_paged(torch, dev, gen, results,
+                                     shape=cell.decode_shape, tag=cell.tag)
 
 
-def yi_prompts(cfg, seed):
-    """The 32 prompts of phases 16b and 16c (128-2048 tokens), drawn from
-    ``seed``."""
+def cell_prompts(cell, cfg, seed):
+    """The cell's prompts (``cell.prompt`` tokens, lengths and tokens drawn
+    from ``seed``)."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    lens = rng.randint(YI_PROMPT[0], YI_PROMPT[1] + 1, size=YI_REQUESTS)
+    lens = rng.randint(cell.prompt[0], cell.prompt[1] + 1,
+                       size=cell.requests)
     return [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
 
 
-def _yi_serve_run(torch, eng, cfg, prompts, label):
+def _cell_serve_run(torch, eng, cfg, cell, prompts, label):
     """Serve ``prompts`` to length through ``eng``'s queue with the counts
-    and the peak memory reset before; checks every request's 64 tokens and
-    the launch counts against the engine's own prefill and decode counts.
-    Returns (counts, tokens by request in submit order, stats)."""
+    and the peak memory reset before; checks every request's new tokens and
+    the launch counts against the engine's own prefill and decode counts
+    (every layer's seven linears and one attention kernel a decode step
+    and a prefill launch).  Returns (counts, tokens by request in submit
+    order, stats)."""
     from repro_torch import kernels
     from repro_torch.infer import Request
-    ids = [eng.submit(Request(tokens=p, max_new_tokens=YI_NEW))
+    ids = [eng.submit(Request(tokens=p, max_new_tokens=cell.new))
            for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3606,7 +3740,7 @@ def _yi_serve_run(torch, eng, cfg, prompts, label):
     if sorted(r.request_id for r in out) != sorted(ids):
         fail(f"{label}: not every request answered")
     for r in out:
-        if (len(r.tokens) != YI_NEW or r.finish_reason != "length"
+        if (len(r.tokens) != cell.new or r.finish_reason != "length"
                 or not all(0 <= t < cfg.vocab_size for t in r.tokens)):
             fail(f"{label}: request {r.request_id}: {len(r.tokens)} tokens, "
                  f"{r.finish_reason}")
@@ -3615,9 +3749,9 @@ def _yi_serve_run(torch, eng, cfg, prompts, label):
     dec_ms = st["decode_s"] * 1e3 / max(st["decode_steps"], 1)
     print(f"{label}: {eng.path_summary()}, {cfg.name} {cfg.n_layers}L d="
           f"{cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} hd="
-          f"{cfg.head_dim} carrier {cfg.dtype}, {YI_SLOTS} slots x {YI_SEQ} "
-          f"rows, {len(out)} requests of {min(map(len, prompts))}-"
-          f"{max(map(len, prompts))} prompt tokens, {YI_NEW} new each: "
+          f"{cfg.head_dim} carrier {cfg.dtype}, {cell.slots} slots x "
+          f"{cell.seq} rows, {len(out)} requests of {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} prompt tokens, {cell.new} new each: "
           f"{gen_tok} tokens in {wall:.3f} s ({gen_tok / wall:.1f} tok/s end "
           f"to end); prefill {st['prefill_calls']} launches "
           f"{st['prefill_s'] * 1e3:.1f} ms ({st['prefill_tokens']} prompt "
@@ -3643,13 +3777,15 @@ def _yi_serve_run(torch, eng, cfg, prompts, label):
     return counts, [tokens[i] for i in ids], st
 
 
-def _head_ms(torch, eng, cfg):
-    """Device ms of the decode step's untied head on 16 rows, queued: the
+def _head_ms(torch, eng, cfg, rows):
+    """Device ms of the decode step's head on ``rows`` rows, queued: the
     whole ``logits_chunk``, and apart its fp32 upcast of the (d, V) head
-    and the fp32 product."""
+    (the tied embedding table under ``tie_embeddings``) and the fp32
+    product."""
     from repro_torch.models.lm import logits_chunk
-    h = torch.randn((YI_SLOTS, 1, cfg.d_model), device="cuda").bfloat16()
-    head = eng.params["lm_head"]
+    h = torch.randn((rows, 1, cfg.d_model), device="cuda").bfloat16()
+    head = (eng.params["embed"].t() if cfg.tie_embeddings
+            else eng.params["lm_head"])
     hf = head.to(torch.float32)
     return dict(head_ms=queued_ms(lambda: logits_chunk(eng.params, h, cfg,
                                                        eng.policy)),
@@ -3658,103 +3794,112 @@ def _head_ms(torch, eng, cfg):
                     h.to(torch.float32), hf)))
 
 
-def serve_yi(torch, dev, seed):
-    """Phase 16b: Yi-6B at full width and depth (``configs/yi_6b.py``),
-    random float32 weights from ``seed`` on the card's generator, freed once
-    the engine has prepared them: the dense engine under ``POLICY`` (bf16
-    carrier, W8A8 prepared weights, int8 KV), 16 slots of 4096 rows, the 32
-    requests of ``yi_prompts`` to 64 tokens each.  Each kernel launches as
-    often as the engine's counts say (224 #3 and 32 #12 a decode step, 224
-    #3 and 32 #11 a prefill launch); then one profiled decode step and the
-    untied head's share.  Returns (counts, tokens, stats, the engine's
-    prepared parameters for 16c)."""
+def serve_cell(torch, dev, seed, cell=YI):
+    """Phase 16b (19b, 20a: ``cell``): the cell's model at its published
+    width and ``cell.layers`` deep, random float32 weights from ``seed``
+    on the card's generator, freed once the engine has prepared them: the
+    dense engine under ``POLICY`` (bf16 carrier, W8A8 prepared weights,
+    int8 KV), ``cell.slots`` slots of ``cell.seq`` rows, the requests of
+    ``cell_prompts``.  Each kernel launches as often as the engine's
+    counts say (7 #3 a layer and one #12 a decode step, 7 #3 and one #11 a
+    layer a prefill launch), and the run ends on rung 0 with no demotion;
+    then one profiled decode step and the head's share.  Returns (counts,
+    tokens, stats, the engine's prepared parameters for the paged run)."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.infer import Engine
     from repro_torch.infer.prepare import params_nbytes
     from repro_torch.models import build_model
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("yi-6b")
+    cfg = cell.config()
     model = build_model(cfg)
+    label = f"phase {cell.phase}{'a' if cell.phase == '20' else 'b'}"
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
                                device=dev)
     fp32_bytes = params_nbytes(params)
-    eng = Engine(model, params, POLICY, max_slots=YI_SLOTS, max_seq=YI_SEQ,
-                 device=dev, seed=seed)
+    eng = Engine(model, params, POLICY, max_slots=cell.slots,
+                 max_seq=cell.seq, device=dev, seed=seed)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print(f"phase 16b: {cfg.name} float32 weights {fp32_bytes / 1e9:.2f} GB "
-          f"drawn and prepared in {time.perf_counter() - t0:.1f} s, freed; "
-          f"the engine holds {params_nbytes(eng.params) / 1e9:.2f} GB of "
-          f"parameters (int8 block weights, bf16 embedding and head) and "
-          f"{eng.kv_cache_nbytes() / 1e9:.2f} GB of int8 KV cache")
-    prompts = yi_prompts(cfg, seed)
-    counts, tokens, st = _yi_serve_run(torch, eng, cfg, prompts,
-                                       "phase 16b engine")
-    healthy(eng, "phase 16b")
+    print(f"{label}: {cfg.name} ({cfg.n_layers} layers) float32 weights "
+          f"{fp32_bytes / 1e9:.2f} GB drawn and prepared in "
+          f"{time.perf_counter() - t0:.1f} s, freed; the engine holds "
+          f"{params_nbytes(eng.params) / 1e9:.2f} GB of parameters (int8 "
+          f"block weights, bf16 "
+          f"{'tied embedding' if cfg.tie_embeddings else 'embedding and head'}"
+          f") and {eng.kv_cache_nbytes() / 1e9:.2f} GB of int8 KV cache")
+    prompts = cell_prompts(cell, cfg, seed)
+    counts, tokens, st = _cell_serve_run(torch, eng, cfg, cell, prompts,
+                                         f"{label} engine")
+    healthy(eng, label)
     profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
-    head = _head_ms(torch, eng, cfg)
-    print(f"phase 16b: the untied head on 16 rows, queued: logits_chunk "
-          f"{head['head_ms']:.4f} ms a decode step, of which its fp32 upcast "
-          f"of the (4096, 64000) head alone {head['upcast_ms']:.4f} ms and "
-          f"the fp32 product alone {head['product_ms']:.4f} ms")
+    head = _head_ms(torch, eng, cfg, cell.slots)
+    v, d = cfg.vocab_padded, cfg.d_model
+    print(f"{label}: the {'tied' if cfg.tie_embeddings else 'untied'} head "
+          f"on {cell.slots} rows, queued: logits_chunk {head['head_ms']:.4f} "
+          f"ms a decode step, of which its fp32 upcast of the ({d}, {v}) "
+          f"head alone {head['upcast_ms']:.4f} ms and the fp32 product "
+          f"alone {head['product_ms']:.4f} ms")
     eng.scheduler.stop()
     return counts, tokens, st, eng.params
 
 
-def serve_yi_paged(torch, dev, seed, params, dense_tokens, dense_stats):
-    """Phase 16c: phase 16b's requests through the paged engine (pages of
-    64 rows, the default pool) on the same prepared parameters: the tokens
-    equal 16b's, 224 #3 and 32 #13 a decode step (no #12), every page back
-    after the run."""
+def serve_cell_paged(torch, dev, seed, params, dense_tokens, dense_stats,
+                     cell=YI):
+    """Phase 16c (19c: ``cell``): the dense run's requests through the
+    paged engine (pages of 64 rows, the default pool) on the same prepared
+    parameters: the tokens equal the dense run's, one #13 a layer a decode
+    step (no #12), rung 0 to the end, every page back after the run."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.infer import Engine
     from repro_torch.models import build_model
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("yi-6b")
-    eng = Engine(build_model(cfg), params, POLICY, max_slots=YI_SLOTS,
-                 max_seq=YI_SEQ, device=dev, seed=seed, paged=True,
+    cfg = cell.config()
+    label = f"phase {cell.phase}c"
+    eng = Engine(build_model(cfg), params, POLICY, max_slots=cell.slots,
+                 max_seq=cell.seq, device=dev, seed=seed, paged=True,
                  page_size=PAGE)
-    counts, tokens, st = _yi_serve_run(torch, eng, cfg, yi_prompts(cfg, seed),
-                                       "phase 16c paged engine")
-    healthy(eng, "phase 16c")
+    counts, tokens, st = _cell_serve_run(
+        torch, eng, cfg, cell, cell_prompts(cell, cfg, seed),
+        f"{label} paged engine")
+    healthy(eng, label)
     for i, (got, want) in enumerate(zip(tokens, dense_tokens)):
         if got != want:
             at = next(j for j, (a, c) in enumerate(zip(got, want)) if a != c)
-            fail(f"phase 16c: request {i} differs from the dense engine's at "
+            fail(f"{label}: request {i} differs from the dense engine's at "
                  f"token {at} ({got[at]} vs {want[at]})")
     if eng.pool.free_pages != eng.n_pages - 1 or eng.pool.live_pages:
-        fail(f"phase 16c: pages kept after the run: {eng.pool.free_pages} "
+        fail(f"{label}: pages kept after the run: {eng.pool.free_pages} "
              f"free of {eng.n_pages - 1}")
     dense_ms = dense_stats["decode_s"] * 1e3 / max(dense_stats["decode_steps"],
                                                    1)
-    print(f"phase 16c: tokens equal to phase 16b's for all {len(tokens)}; "
-          f"{eng.n_pages} pages of {PAGE} rows, every page back; peak live "
-          f"KV {eng.scheduler.peak_live_bytes / 1e9:.3f} GB of the dense "
-          f"cache's {eng.kv_cache_nbytes() / 1e9:.3f} GB pool; decode "
-          f"{st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.2f} ms/step "
-          f"against the dense engine's {dense_ms:.2f}")
+    print(f"{label}: tokens equal to the dense engine's for all "
+          f"{len(tokens)}; {eng.n_pages} pages of {PAGE} rows, every page "
+          f"back; peak live KV {eng.scheduler.peak_live_bytes / 1e9:.3f} GB "
+          f"of the dense cache's {eng.kv_cache_nbytes() / 1e9:.3f} GB pool; "
+          f"decode {st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.2f} "
+          f"ms/step against the dense engine's {dense_ms:.2f}")
     profile_decode(torch, eng, cfg, np.random.RandomState(seed + 3))
     eng.scheduler.stop()
     return counts
 
 
-def yi_card_vs_cpu(torch, dev, seed):
-    """Phase 16d: phase 5 at Yi-6B's full width and 2 layers (float32
-    carrier, ``true_fan_in`` weights, the gated leaves included), with
-    phase 5's A check and limit, and its B check with ``YI_B_LIMIT``."""
-    from repro_torch.configs import get_config
+def cell_card_vs_cpu(torch, dev, seed, cell=YI, strict=True):
+    """Phase 16d (19d, 20b: ``cell``): phase 5 at the cell's full width and
+    2 layers (float32 carrier, ``true_fan_in`` weights, the gated leaves and
+    the norms included), with phase 5's A check and limit, and its B check
+    with ``cell.b_limit``; under ``cell.control`` also the card at the bf16
+    carrier, which must exceed each limit.  Returns the readings;
+    ``strict=False`` (``tools/dense_readings.py``) fails nothing."""
     gc.collect()
     torch.cuda.empty_cache()
-    card_vs_cpu(torch, dev, seed, cfg=dataclasses.replace(
-        get_config("yi-6b"), n_layers=2, dtype="float32"),
-        b_limit=YI_B_LIMIT)
+    return card_vs_cpu(torch, dev, seed, cfg=cell.config(
+        n_layers=2, dtype="float32"), b_limit=cell.b_limit,
+        control=cell.control, strict=strict)
 
 
 def _serve_ladder_engine(dev, seed, model, params, policy, paged, **kw):
@@ -4286,13 +4431,13 @@ def main() -> int:
     flash_counts = train(torch, dev, args.seed, impl="flash_pallas")
     serve_flash_counts = serve_flash(torch, dev, args.seed)
     flash_card_vs_cpu(torch, dev, args.seed)
-    yi_kernels(torch, dev, gen, results)
-    yi_counts, yi_tokens, yi_stats, yi_params = serve_yi(torch, dev,
-                                                         args.seed)
-    yi_paged_counts = serve_yi_paged(torch, dev, args.seed, yi_params,
-                                     yi_tokens, yi_stats)
+    cell_kernels(torch, dev, gen, results, YI)
+    yi_counts, yi_tokens, yi_stats, yi_params = serve_cell(torch, dev,
+                                                           args.seed, YI)
+    yi_paged_counts = serve_cell_paged(torch, dev, args.seed, yi_params,
+                                       yi_tokens, yi_stats, YI)
     del yi_params
-    yi_card_vs_cpu(torch, dev, args.seed)
+    cell_card_vs_cpu(torch, dev, args.seed, YI)
     dequant_counts = serve_dequant(torch, dev, args.seed)
     dequant_card_vs_cpu(torch, dev, args.seed)
     ladder_counts = serve_ladder(torch, dev, args.seed)
@@ -4301,6 +4446,19 @@ def main() -> int:
     yi_remat(torch, dev, args.seed)
     yi_xla_counts = yi_attend_chunks(torch, dev, args.seed)
     yi_train_card_vs_cpu(torch, dev, args.seed)
+    cell_kernels(torch, dev, gen, results, GEMMA)
+    gemma_counts, gemma_tokens, gemma_stats, gemma_params = serve_cell(
+        torch, dev, args.seed, GEMMA)
+    gemma_paged_counts = serve_cell_paged(torch, dev, args.seed,
+                                          gemma_params, gemma_tokens,
+                                          gemma_stats, GEMMA)
+    del gemma_params
+    cell_card_vs_cpu(torch, dev, args.seed, GEMMA)
+    check_int8_cell(torch, dev, gen, results, QWEN3)
+    qwen3_counts, _, _, qwen3_params = serve_cell(torch, dev, args.seed,
+                                                  QWEN3)
+    del qwen3_params
+    cell_card_vs_cpu(torch, dev, args.seed, QWEN3)
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
@@ -4308,8 +4466,9 @@ def main() -> int:
     # training (phase 14), flash-prefill serving (phase 14b), Yi-6B
     # served dense and paged (phases 16b and 16c), the dequantize-on-read
     # engines (phase 17a), the ladder's walk (phase 17c) and Yi-6B trained
-    # under flash_pallas (phase 18a) and _attend (phase 18c), each path's
-    # counts read right after its run
+    # under flash_pallas (phase 18a) and _attend (phase 18c), Gemma-2B
+    # served dense and paged (phases 19b and 19c) and Qwen3-32B at 16
+    # layers (phase 20a), each path's counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -4326,7 +4485,10 @@ def main() -> int:
                    "serve_dequant": dequant_counts[name],
                    "serve_ladder": ladder_counts[name],
                    "train_yi": yi_train_counts[name],
-                   "train_yi_xla": yi_xla_counts[name]}
+                   "train_yi_xla": yi_xla_counts[name],
+                   "serve_gemma": gemma_counts[name],
+                   "serve_gemma_paged": gemma_paged_counts[name],
+                   "serve_qwen3": qwen3_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

@@ -1,13 +1,14 @@
 """Architecture configs of the port (its own copy: the port imports nothing
-from the JAX package): GPT-2 small, which the port trains and serves,
-and the llama family's Llama 3 8B and Yi-6B, which it serves."""
+from the JAX package): the dense family -- GPT-2 small, the llama
+family's Llama 3 8B and Yi-6B, Gemma-2B and Qwen3-32B."""
 from __future__ import annotations
 
-from repro_torch.configs import gpt2_small, llama3_8b, yi_6b
+from repro_torch.configs import (gemma_2b, gpt2_small, llama3_8b,
+                                 qwen3_32b, yi_6b)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {"gpt2-small": gpt2_small, "llama3-8b": llama3_8b,
-            "yi-6b": yi_6b}
+            "yi-6b": yi_6b, "gemma-2b": gemma_2b, "qwen3-32b": qwen3_32b}
 
 
 def _module(name: str):

@@ -42,11 +42,14 @@
 //     against 192 blocks that each walked a whole slot before.
 //  2. Loads: each thread resolves its row's address once per sub-tile and
 //     starts one 16-byte cp.async of K and one of V (a sub-tile is 128 x 16
-//     bytes of each: 32 rows at hd 64, 16 at hd 128) and, on the row's first
-//     thread, the two fp32 scales.  The chunk fits in shared memory (about
-//     17 KB at hd 64), so every sub-tile's loads start up front, one
+//     bytes of each: 32 rows at hd 64, 16 at hd 128, 8 at hd 256) and, on
+//     the row's first thread, the two fp32 scales.  The chunk fits in
+//     shared memory (about 17 KB at hd 64, 77-89 KB at hd 256 and G = 8-16,
+//     over the opt-in), so every sub-tile's loads start up front, one
 //     commit group each, and sub-tile j's scores are computed while j + 1...
-//     still land; several blocks an SM keep the rest of the bytes in flight.
+//     still land (at hd 256's 16 sub-tiles the wait counts at most 7
+//     groups in flight, so the first waits take more than they need);
+//     several blocks an SM keep the rest of the bytes in flight.
 //     TMA is not used: a pool row's 64 bytes sit at a stride of K * hd, and
 //     a page can be shorter than a box.
 //  3. Scores: the hd / 16 threads of a row each dot their 16 K bytes with
@@ -57,7 +60,9 @@
 //     (max m, sum l, p * g(vs)) runs one warp per query row.  P.V: thread
 //     (16-column slice, query row, row phase r) accumulates its slice over
 //     rows r, r + R, ... (R = 128 / (G * hd / 16)), so every thread works at
-//     G = 1 as at G = 16; the R partials add in shared memory in r order.
+//     G = 1 as at G = 16 -- at hd 256 and G = 16 (16 slices x 16 rows =
+//     256 items) R is 1 and a thread takes two items; the R partials add
+//     in shared memory in r order.
 //     The chunk writes (m, l, acc[G][hd]) in fp32 to the workspace.
 //  4. decode_combine_kernel, one block per (kv head, slot), a
 //     programmatic dependent launch (the card may start it while the chunk
@@ -264,11 +269,13 @@ decode_chunk_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   }
   __syncthreads();
 
-  // P.V: thread (slice sl, query row gg, row phase r) over rows r, r + R, ...
+  // P.V: work item w = (slice sl, query row gg, row phase r) over rows r,
+  // r + R, ...; at most one item a thread while NS * G <= THREADS, and
+  // NS * G / THREADS items (R = 1) above it (hd 256 at G > 8)
   const int combos = NS * G;
-  const int R = THREADS / combos;
-  const int sl = tid % NS, gg = (tid / NS) % G, r = tid / combos;
-  if (r < R) {
+  const int R = max(1, THREADS / combos);
+  for (int w = tid; w < combos * R; w += THREADS) {
+    const int sl = w % NS, gg = (w / NS) % G, r = w / combos;
     float acc[16];
 #pragma unroll
     for (int u = 0; u < 16; ++u) acc[u] = 0.0f;
@@ -447,12 +454,14 @@ int dispatch(int HD, int dtype, int S, const Args& a, Rows rows) {
       case 32: return launch<32, float>(a, rows);
       case 64: return launch<64, float>(a, rows);
       case 128: return launch<128, float>(a, rows);
+      case 256: return launch<256, float>(a, rows);
     }
   } else if (dtype == kBFloat16) {
     switch (HD) {
       case 32: return launch<32, __nv_bfloat16>(a, rows);
       case 64: return launch<64, __nv_bfloat16>(a, rows);
       case 128: return launch<128, __nv_bfloat16>(a, rows);
+      case 256: return launch<256, __nv_bfloat16>(a, rows);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -468,7 +477,7 @@ extern "C" int repro_decode_chunk() { return CHUNK; }
 // ks/vs (B, S, KH, 1) float32, updated in place; pos (B,) int32; ws a
 // float32 workspace of B * KH * NC * G * (HD + 2) elements, NC = ceil(S /
 // CHUNK) (refused otherwise).  All contiguous, the int8 caches 16-byte
-// aligned; HD in {32, 64, 128}, G <= 16.
+// aligned; HD in {32, 64, 128, 256}, G <= 16.
 extern "C" int repro_decode_attn(const void* q, void* kq, void* ks, void* vq,
                                  void* vs, const void* new_k,
                                  const void* new_v, const void* pos, void* out,

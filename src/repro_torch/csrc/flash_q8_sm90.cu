@@ -7,8 +7,8 @@
 // CUDA-core body: TF32 drops 13 bits of every operand.
 // q (B, Sq, H, hd) bf16; kq/vq (B, Skv, KH, hd) int8 payloads with ks/vs
 // (B, Skv, KH, 1) fp32 per-(position, head) scales; GQA through kv head
-// h / (H / KH), no repeat; hd in {32, 64, 128}; every tensor contiguous, q,
-// kq and vq 16-byte aligned.
+// h / (H / KH), no repeat; hd in {32, 64, 128, 256}; every tensor
+// contiguous, q, kq and vq 16-byte aligned.
 //
 // What is computed, in the reference's rounding order (summed in another
 // order): s = ((q * 1/sqrt(hd)) . kq) * g(ks) -- x = fl(q * scale) in fp32,
@@ -23,11 +23,11 @@
 // left in fp32 by the test-only entry, repro_flash_q8_sm90 with out_dtype
 // 0).  Every product is exact in fp32: the int8 payloads are exact in bf16
 // (|v| <= 128), x goes to the tensor cores as one bf16 term where it is
-// exact (hd 64: a scale of 1/8 and bf16 q) and as three terms hi + mid + lo
-// == x otherwise (sm90.cuh:split_q), and fl(p * g(vs)) is split on the
-// accumulator fragment into three bf16 terms that sum to it exactly
-// (sm90.cuh:bf16_terms), each fed to its own wgmma.  So the tensor cores
-// change only the order of the fp32 sums.
+// exact (hd 64 and 256: a scale of 1/8 or 1/16 and bf16 q) and as three
+// terms hi + mid + lo == x otherwise (sm90.cuh:split_q), and fl(p * g(vs))
+// is split on the accumulator fragment into three bf16 terms that sum to
+// it exactly (sm90.cuh:bf16_terms), each fed to its own wgmma.  So the
+// tensor cores change only the order of the fp32 sums.
 //
 // Bound (the serving gate, B 4, Sq 256, Skv 1024, H = KH = 12, hd 64,
 // causal): q and out (3.1 MB), the visible K/V rows once (0.8 MB of int8
@@ -63,6 +63,10 @@
 //    ragged half-tiles only), fl(p * g(vs)) split into three bf16 A
 //    fragments two values at a time on packed conversions, and O += the
 //    three products by wgmma m64n64k16 (A from registers);
+//  - at hd 256 (Gemma) the block holds one Q term (32 KB), two bf16 K/V
+//    half-tile pairs (64 KB) and two int8 rings (96 KB): 198,272 bytes,
+//    one block an SM; each warpgroup's O accumulator is 64 x 256 fp32
+//    (128 registers a thread), and P V runs as four m64n64 chunks;
 //  - key tiles past q_offset + a warpgroup's last query are skipped, so the
 //    engine's 1024-row buffers are never read past the prompt; the combine
 //    goes through shared memory, each output row is written once, no
@@ -537,6 +541,10 @@ int by_hd(const void* q, const void* kq, const void* ks, const void* vq,
     case 32: return REPRO_LAUNCH(64, 3);
     case 64: return pow2 ? REPRO_LAUNCH(64, 1) : REPRO_LAUNCH(64, 3);
     case 128: return REPRO_LAUNCH(128, 3);
+    // three Q terms would need 263,808 bytes of shared memory at hd 256,
+    // over the block's limit; its scale of 1/16 takes one
+    case 256: return pow2 ? REPRO_LAUNCH(256, 1)
+                          : static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
@@ -547,7 +555,8 @@ int by_hd(const void* q, const void* kq, const void* ks, const void* vq,
 // q (B, Sq, H, HD) bf16, kq/vq (B, Skv, KH, HD) int8, ks/vs (B, Skv, KH, 1)
 // f32, all contiguous (q, kq, vq 16-byte aligned) -> out (B, Sq, H, HD):
 // bf16 (out_dtype 1, the kernel of the serving path) or f32 before the
-// cast (out_dtype 0, for the tests).  HD in {32, 64, 128}, H % KH == 0.
+// cast (out_dtype 0, for the tests).  HD in {32, 64, 128, 256} (256 with a
+// power-of-two scale only), H % KH == 0.
 extern "C" int repro_flash_q8_sm90(const void* q, const void* kq,
                                    const void* ks, const void* vq,
                                    const void* vs, void* out, int B, int Sq,

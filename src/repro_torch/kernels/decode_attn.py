@@ -34,7 +34,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.int8_matmul import scale_guard
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 16
 #: logical cache rows per chunk block of the kernel (``csrc/decode_attn.cu``
 #: CHUNK, which the library reports as ``repro_decode_chunk``)

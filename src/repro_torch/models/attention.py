@@ -42,8 +42,10 @@ set of page pools, ``(P, page, K, hd)`` shared by every slot):
   whole max_seq buffer instead; the causal mask hides its never-written
   rows.
 
-Under RoPE (``cfg.pos == "rope"``) q and k are rotated before any of
-this, k before it is written: ``rope`` carries the rotary tables of the
+Under qk-norm (``cfg.qk_norm``, qwen3) q and k are RMS-normed per head
+(``q_norm``, ``k_norm``) right after their projections, and under RoPE
+(``cfg.pos == "rope"``) then rotated, before any of this, k before it is
+written: ``rope`` carries the rotary tables of the
 call's positions (``common.rope_tables``, built once per forward), a
 prefill's ``arange(S)`` (restarting per packed prompt) or a decode step's
 per-slot positions.  Grouped KV heads are KV-major everywhere: query head
@@ -66,7 +68,7 @@ from repro_torch.core.qconfig import Granularity
 from repro_torch.core.qpolicy import INT8_BACKEND, LinearCtx, QuantPolicy
 from repro_torch.core.quantizer import (compute_scale_zero, quantize_int,
                                         storage_dtype)
-from repro_torch.models.common import apply_rope, checkpointed
+from repro_torch.models.common import apply_rope, checkpointed, rmsnorm
 from repro_torch.kernels.decode_attn import (paged_logical_view, decode_attention,
                                              decode_attention_paged)
 from repro_torch.kernels.flash_attn import (flash_attention,
@@ -271,6 +273,11 @@ def attn_context(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                       ).reshape(b, s, kh, hd)
     v = policy.linear(ctx_qkv, x, params["wv"], params.get("bv")
                       ).reshape(b, s, kh, hd)
+    if cfg.qk_norm:
+        # qwen3: RMSNorm of every head's q and k, before RoPE and before k
+        # is written to any cache
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
     if rope is not None:
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)

@@ -1,6 +1,6 @@
 """Shared model machinery: the carrier cast, the norms, activations, the
 rotary embedding (port of the parts of ``repro/models/common.py`` the
-dense GPT-2 and llama families use) and :func:`checkpointed`, the port's
+dense family uses: GPT-2, llama, gemma and qwen3) and :func:`checkpointed`, the port's
 ``jax.checkpoint``.
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
@@ -89,25 +89,31 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             + bias.to(torch.float32)).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
     """RMSNorm in fp32, cast back to the input's dtype (the reference's
-    formula, op for op; its ``plus_one`` variant is gemma's and is not
-    ported)."""
+    formula, op for op).  ``plus_one`` is gemma's convention, the weight
+    stored as w - 1: ``w + 1.0`` in fp32, then the product, then the
+    cast."""
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * weight.to(torch.float32)).to(x.dtype)
+    w = weight.to(torch.float32)
+    if plus_one:
+        w = w + 1.0
+    return (y * w).to(x.dtype)
 
 
 def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
-    """The block's norm by ``cfg.norm``: ``rmsnorm`` ({scale}) or
-    ``layernorm`` ({scale, bias})."""
+    """The block's norm by ``cfg.norm``: ``rmsnorm`` or ``rmsnorm_p1``
+    ({scale}), or ``layernorm`` ({scale, bias})."""
     if kind == "rmsnorm":
         return rmsnorm(x, params["scale"])
+    if kind == "rmsnorm_p1":
+        return rmsnorm(x, params["scale"], plus_one=True)
     if kind == "layernorm":
         return layernorm(x, params["scale"], params["bias"])
-    raise ValueError(f"norm {kind!r} is not ported (rmsnorm | layernorm)")
+    raise ValueError(f"norm {kind!r} (rmsnorm | rmsnorm_p1 | layernorm)")
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,

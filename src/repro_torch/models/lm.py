@@ -1,6 +1,7 @@
 """Decoder-only language model, dense family: GPT-2 (learned positions,
-LayerNorm, tied head) and llama (RoPE, RMSNorm, gated MLP, grouped KV
-heads, untied head); embed, a Python loop over the layers in place of the
+LayerNorm, tied head), llama (RoPE, RMSNorm, gated MLP, grouped KV heads,
+untied head), gemma (scaled embedding, (1 + w) RMSNorm, GeGLU, tied head)
+and qwen3 (qk-norm); embed, a Python loop over the layers in place of the
 reference's scan, final norm and head (port of ``repro/models/lm.py``):
 the training loss with a chunked cross entropy, prefill and decode.
 
@@ -39,6 +40,7 @@ kernels use no float atomics).  Prefill and decode never recompute.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -60,12 +62,18 @@ def carrier_dtype(cfg) -> torch.dtype:
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg,
                  positions: torch.Tensor, dtype: torch.dtype,
                  policy: QuantPolicy) -> torch.Tensor:
-    """Token embedding, plus the learned-position one under ``cfg.pos ==
-    "learned"``.  Positions are clamped to that table: a freed slot rides
-    the batched decode step with its stale position, which can reach the
-    table size; its row is discarded."""
+    """Token embedding, times ``sqrt(d_model)`` under ``cfg.embed_scale``
+    (gemma; the factor rounded to the carrier first, as the reference's
+    ``jnp.asarray(math.sqrt(d), dtype)``: 45.25 at bf16 for d = 2048),
+    plus the learned-position one under ``cfg.pos == "learned"``.
+    Positions are clamped to that table: a freed slot rides the batched
+    decode step with its stale position, which can reach the table size;
+    its row is discarded."""
     table = policy.quantize_weight("embed", params["embed"])
     e = table[tokens.long()].to(dtype)
+    if cfg.embed_scale:
+        e = e * torch.full((), math.sqrt(cfg.d_model), dtype=dtype,
+                           device=e.device)
     if cfg.pos != "learned":
         return e
     pos_table = params["pos_embed"]

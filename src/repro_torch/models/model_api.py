@@ -1,8 +1,10 @@
 """Model facade of the port (counterpart of ``repro/models/model_api.py``):
 ``build_model(cfg)`` gives ``init_params``, ``train_loss``, ``prefill``,
-``decode`` and ``init_decode_state`` for the dense decoder families: GPT-2
-(learned positions, LayerNorm, classic MLP) and llama (RoPE, RMSNorm,
-gated MLP, grouped KV heads, untied head);
+``decode`` and ``init_decode_state`` for the dense decoder family: GPT-2
+(learned positions, LayerNorm, classic MLP), llama (RoPE, RMSNorm, gated
+MLP, grouped KV heads, untied head), gemma (the embedding scaled by
+sqrt(d_model), RMSNorm with (1 + w), GeGLU, tied head) and qwen3 (RMSNorm
+on q and k per head, qk-norm);
 :func:`params_from_jax` carries a JAX parameter tree across, and
 :func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
 state (params, step, Adam moments) both ways.
@@ -10,7 +12,8 @@ state (params, step, Adam moments) both ways.
 Parameters are nested dicts of tensors in the JAX tree layout: ``embed``
 (V_padded, d), ``pos_embed`` (max_seq, d; learned positions only),
 ``blocks`` with every leaf stacked (L, ...) -- ``ln1``/``ln2`` {scale,
-bias} (RMSNorm: {scale}), ``attn`` {wq, wk, wv, wo[, bq, bk, bv, bo]},
+bias} (RMSNorm: {scale}), ``attn`` {wq, wk, wv, wo[, bq, bk, bv, bo][,
+q_norm, k_norm (L, hd)]},
 ``mlp`` {w_fc1, w_fc2[, b_fc1, b_fc2]} (gated: {w_gate, w_up, w_down}) --
 ``final_norm`` as ``ln1``, and ``lm_head`` (d, V_padded) when the head is
 untied.
@@ -33,24 +36,24 @@ from repro_torch.models.common import Params
 DeviceLike = Union[str, torch.device, None]
 
 
-#: what the port's dense decoder takes: each field's ported values (GPT-2's
-#: and llama's)
+#: what the port's dense decoder takes: each field's ported values (GPT-2's,
+#: llama's, gemma's and qwen3's)
 SUPPORTED = {"family": ("dense",), "pos": ("learned", "rope"),
-             "norm": ("layernorm", "rmsnorm"),
-             "mlp_kind": ("classic", "gated"), "qk_norm": (False,),
-             "embed_scale": (False,), "n_experts": (0,)}
+             "norm": ("layernorm", "rmsnorm", "rmsnorm_p1"),
+             "mlp_kind": ("classic", "gated"), "qk_norm": (False, True),
+             "embed_scale": (False, True), "n_experts": (0,)}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The dense GPT-2 and llama families only: qk-norm (qwen3), gemma's
-    embedding scale and plus-one RMSNorm, experts and the other families
-    raise."""
+    """The dense family only: experts and the other families (MoE, SSM,
+    hybrid, encdec, VLM) raise."""
     bad = {k: getattr(cfg, k) for k, v in SUPPORTED.items()
            if getattr(cfg, k) not in v}
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port takes the dense GPT-2 and llama "
-            f"families ({SUPPORTED}) so far (ROADMAP section 1, item 6)")
+            f"{cfg.name}: {bad} -- the port takes the dense family "
+            f"({SUPPORTED}) so far; MoE, SSM, hybrid, encdec and VLM wait "
+            f"for ROADMAP section 1, item 6")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -62,10 +65,14 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
     def norm(n):
         if cfg.norm == "rmsnorm":
             return {"scale": ((n,), "ones")}
+        if cfg.norm == "rmsnorm_p1":       # stored as w - 1
+            return {"scale": ((n,), "zeros")}
         return {"scale": ((n,), "ones"), "bias": ((n,), "zeros")}
 
     attn = {"wq": ((d, h * hd), "fan_in"), "wk": ((d, k * hd), "fan_in"),
             "wv": ((d, k * hd), "fan_in"), "wo": ((h * hd, d), "fan_in")}
+    if cfg.qk_norm:
+        attn.update({"q_norm": ((hd,), "ones"), "k_norm": ((hd,), "ones")})
     if cfg.mlp_kind == "gated":
         mlp = {"w_gate": ((d, ff), "fan_in"), "w_up": ((d, ff), "fan_in"),
                "w_down": ((ff, d), "fan_in")}

@@ -300,9 +300,11 @@ def test_int8_matmul_routes_by_rows(cuda, monkeypatch):
 
 
 #: decode kernel cases (kv heads, group, head dim): G in {1, 3, 8, 16} at
-#: every head dim the kernel takes
+#: every head dim the kernel takes (256: gemma's G = 8, and G = 16, where a
+#: thread takes two P.V items)
 DECODE_CASES = [(4, 1, 32), (2, 3, 64), (1, 8, 128), (2, 16, 64),
-                (1, 16, 128), (1, 16, 32), (12, 1, 64)]
+                (1, 16, 128), (1, 16, 32), (12, 1, 64), (1, 8, 256),
+                (1, 16, 256), (2, 3, 256)]
 
 
 def _decode_pos(s):
@@ -372,7 +374,7 @@ def _paged(cache, lengths, page, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("page", [8, 16, 64, 256])
 @pytest.mark.parametrize("kh,g,hd", [(2, 3, 64), (1, 8, 128), (4, 1, 32),
-                                     (2, 16, 64)])
+                                     (2, 16, 64), (1, 8, 256), (1, 16, 256)])
 def test_decode_attention_paged_kernel(cuda, dtype, page, kh, g, hd):
     """Pos 0 on the freed slot, the chunk edges, pos == maxp * page on a
     full one over a 1024-row logical cache; pages smaller than the
@@ -431,11 +433,13 @@ def test_decode_attention_paged_rejects_what_it_cannot_take(cuda):
                                    sc, rows, rows, args["pos"], args["table"])
 
 #: (B, Sq, Skv, H, KH, hd, q_offset): GQA 6/2 and MQA 2/1, hd 32 / 64 /
-#: 128, an offset of 7, ragged Sq and Skv, and the engine's shapes (16
-#: slots at the 512 bucket, one prompt at 32, over 1024-row buffers)
+#: 128 / 256 (gemma's 8 heads over one, and GQA 4/2 at an offset), an
+#: offset of 7, ragged Sq and Skv, and the engine's shapes (16 slots at the
+#: 512 bucket, one prompt at 32, over 1024-row buffers)
 Q8_CUDA_SHAPES = [(2, 130, 200, 6, 2, 64, 0), (2, 130, 200, 4, 4, 32, 7),
                   (2, 130, 200, 2, 1, 128, 0), (16, 512, 1024, 12, 12, 64, 0),
-                  (1, 32, 1024, 12, 12, 64, 0)]
+                  (1, 32, 1024, 12, 12, 64, 0), (2, 130, 200, 8, 1, 256, 0),
+                  (2, 130, 200, 4, 2, 256, 7)]
 
 
 @pytest.mark.cuda

@@ -147,7 +147,7 @@ def test_q8_library_routes_by_dtype():
     assert fa.q8_library(torch.float32) == "flash_attn_q8"
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("h,kh,q_offset", [(6, 2, 0), (4, 4, 7), (2, 1, 7)])
 def test_plain_matches_pallas(hd, h, kh, q_offset):
     """The plain version against the Pallas kernel in interpret mode: GQA
@@ -166,7 +166,7 @@ def test_plain_matches_pallas(hd, h, kh, q_offset):
 
 
 @pytest.mark.parametrize("hd,h,kh,q_offset", [(32, 4, 4, 7), (64, 6, 2, 0),
-                                              (128, 2, 1, 7)])
+                                              (128, 2, 1, 7), (256, 4, 1, 7)])
 def test_kernel_order_matches_plain(hd, h, kh, q_offset):
     """The tensor-core kernel's order of operations over three key tiles
     (one ragged, a tail never written; both streams) equals the plain

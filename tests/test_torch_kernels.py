@@ -100,14 +100,15 @@ def _decode_inputs(b, s, kh, g, hd, lengths, seed):
     return q, kq, ks, vq, vs, nk, nv, pos
 
 
+@pytest.mark.parametrize("hd", [16, 256])                     # 256: gemma
 @pytest.mark.parametrize("h,kh", [(4, 4), (8, 2), (3, 1)])   # MHA/GQA/MQA
 @pytest.mark.parametrize("lengths", [[1, 5, 11], [0, 12, 7]])  # 12 == S
-def test_decode_attention_matches_pallas(h, kh, lengths):
+def test_decode_attention_matches_pallas(h, kh, lengths, hd):
     """Context within 1e-5 of the Pallas kernel; the in-place write lands
     the same payload and scale bits at row min(pos, S - 1) and touches no
     other row (pos 0: only the new row is attended; pos == S: the freed
     slot's write clamps to the last row)."""
-    q, kq, ks, vq, vs, nk, nv, pos = _decode_inputs(3, 12, kh, h // kh, 16,
+    q, kq, ks, vq, vs, nk, nv, pos = _decode_inputs(3, 12, kh, h // kh, hd,
                                                     lengths, seed=h + kh)
     jout = j_decode(*(jnp.asarray(a) for a in (q, kq, ks, vq, vs, nk, nv, pos)),
                     block_k=4, interpret=True)

@@ -303,17 +303,20 @@ def test_lm_loss_and_grads_match_jax():
         assert rel <= 1e-4, (k, rel)
 
 
-@pytest.mark.parametrize("name", ["qwen3-32b", "gemma-2b",
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "mamba2-130m",
                                   "granite-moe-3b-a800m"])
 def test_check_supported_still_raises(name):
-    """qk-norm (qwen3), gemma's embedding scale and plus-one RMSNorm, and
-    experts stay out, naming ROADMAP section 1, item 6; the port's config
-    of each is the JAX one field for field."""
-    jcfg = get_smoke_config(name)
-    cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
-                        for f in dataclasses.fields(ArchConfig)})
+    """Experts and the SSM family stay out, naming ROADMAP section 1, item
+    6; the port's config of each is the JAX one field for field.  The rest
+    of the dense family (qwen3's qk-norm, gemma's embedding scale and
+    plus-one RMSNorm) builds."""
+    def port_cfg(jcfg):
+        return ArchConfig(**{f.name: getattr(jcfg, f.name)
+                             for f in dataclasses.fields(ArchConfig)})
     with pytest.raises(NotImplementedError, match="section 1, item 6"):
-        build_model(cfg)
+        build_model(port_cfg(get_smoke_config(name)))
+    for dense in ("qwen3-32b", "gemma-2b"):
+        assert build_model(port_cfg(get_smoke_config(dense))).cfg.name
 
 
 def test_engine_bounds_rope_configs_by_their_context():

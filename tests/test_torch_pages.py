@@ -147,13 +147,13 @@ def test_tile_rule_and_read_bytes_match_the_reference():
                 == j_bytes(mode, 3, 40, 4, 32, n_layers=2, fp_bytes=4))
 
 
-def _paged_case(page, g, seed):
-    """Ragged logical caches of 32 rows (B = 4, K = 2, hd = 32) re-laid as
-    shuffled pools with a spare page; slot 0 is a freed slot (pos 0, a
-    table row of trash-page entries), slot 3 is full (pos == maxp * page,
-    the clamped write).  Returns numpy (q, kq, ks, vq, vs, new_k, new_v,
+def _paged_case(page, g, seed, hd=32):
+    """Ragged logical caches of 32 rows (B = 4, K = 2, hd = 32 unless
+    given) re-laid as shuffled pools with a spare page; slot 0 is a freed
+    slot (pos 0, a table row of trash-page entries), slot 3 is full (pos
+    == maxp * page, the clamped write).  Returns numpy (q, kq, ks, vq, vs, new_k, new_v,
     pos, pools..., table)."""
-    b, s, kh, hd = 4, 32, 2, 32
+    b, s, kh = 4, 32, 2
     lengths = [0, 5, 17, 32]
     (q, kq, ks, vq, vs, _, _, nk, nv, pos) = decode_attn_inputs(
         b, s, kh, g, hd, lengths, seed=seed)
@@ -168,11 +168,12 @@ def _t(xs):
     return [torch.from_numpy(np.array(x)) for x in xs]
 
 
+@pytest.mark.parametrize("hd", [32, 256])                     # 256: gemma
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("g", [1, 2])
-def test_paged_plain_matches_jax(page, g):
-    (q, kq, ks, vq, vs, nk, nv, pos), pools, table = _paged_case(page, g,
-                                                                 seed=page + g)
+def test_paged_plain_matches_jax(page, g, hd):
+    (q, kq, ks, vq, vs, nk, nv, pos), pools, table = _paged_case(
+        page, g, seed=page + g, hd=hd)
     jout = j_paged(*(jnp.asarray(x) for x in (q, *pools, nk, nv, pos,
                                               table)), interpret=True)
     tpools = _t(pools)

@@ -4,7 +4,7 @@
     python3 tools/yi_readings.py [--seeds 0 1 2 3] [--no-splits]
 
 * Phase 16d at each of ``--seeds``: the card against the CPU at Yi-6B's
-  width and 2 layers (``chip_smoke.yi_card_vs_cpu``), both policies'
+  width and 2 layers (``chip_smoke.cell_card_vs_cpu``), both policies'
   readings printed.  A seed out of its limits is reported and the next
   one run; the exit code is 1 if any seed failed.  These readings set
   ``chip_smoke.YI_B_LIMIT``.
@@ -77,7 +77,7 @@ def main() -> int:
     for seed in args.seeds:
         t0 = time.perf_counter()
         try:
-            cs.yi_card_vs_cpu(torch, dev, seed)
+            cs.cell_card_vs_cpu(torch, dev, seed, cs.YI)
         except SystemExit as e:            # chip_smoke.fail: report, go on
             failed.append(seed)
             print(f"seed {seed}: {e}", flush=True)
