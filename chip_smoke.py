@@ -167,7 +167,7 @@ Phases, in order; any failure exits non-zero:
     ``SERVE_OOM_PLAN`` on the paged engine: a preemption, never a
     ``CapacityError``, every request to length and every page back
     (``serve_oom``).  Every healthy serving phase (4, 4b,
-    4c, 14b, 16b, 16c, 17a, 17d, 19b, 19c, 20a) fails unless it ends with
+    4c, 14b, 16b, 16c, 17a, 17d, 19b, 19c, 20a, 21b, 21c) fails unless it ends with
     no kernel error, no demotion and rung 0 (``healthy``);
 18. llama pre-training at Yi-6B's published widths (random weights from
     ``--seed``, bf16 carrier, ``TRAIN_POLICY`` with int moments, the
@@ -207,7 +207,33 @@ Phases, in order; any failure exits non-zero:
     engine, 16 slots of 4096 rows, 16 requests of 128-2048 prompt tokens,
     32 new each: exactly 112 #3 and 16 #12 a decode step, rung 0
     throughout; 20b. phase 19d at Qwen3's width and 2 layers with
-    ``QWEN3_B_LIMIT``.
+    ``QWEN3_B_LIMIT``;
+21. Granite-3.0-MoE 3B-A800M at full width and depth
+    (``configs/granite_moe_3b_a800m.py``: 32 layers, d_model 1536, 24
+    query heads over 8 KV heads of 64 (G = 3), 40 experts of 512 with
+    top-8 routing, a tied head of 49,155): 21a. phase 16a at
+    ``GRANITE_INT8_KN``, ``GRANITE_Q8_SHAPE`` and ``GRANITE_DECODE_SHAPE``,
+    then #3's expert-batched instance ``int8_matmul_experts`` at
+    ``EXPERT_CASES`` (Granite's and Phi-3.5-MoE's experts at their decode
+    and prefill-chunk rows) bit for bit against its plain version, against
+    per-expert launches of the 2-D entry and against a repeat, its fused
+    entry too, each timed beside its bound, its plain version and E
+    ``torch._int_mm`` calls (``check_int8_experts``); 21b. the dense engine
+    (random float32 weights from ``--seed``, freed once prepared; bf16
+    carrier, ``POLICY``), 16 slots of 4096 rows, 32 requests in two waves
+    of one prefill bucket each (``GRANITE.waves``: 16 of 1025-2048 prompt
+    tokens, then 16 of 129-256), 64 new each: exactly 128 #3, 96
+    ``int8_matmul_experts`` and 32 #12 a decode step, 128 #3 and 32 #11 a
+    prefill launch and 96 ``int8_matmul_experts`` a dispatch chunk of it
+    (``serve_launches``), rung 0 throughout; 21c. the same requests paged
+    (pages of 64 rows): 21b's tokens -- both engines prefill each wave in
+    one launch, so every expert's capacity is taken by the same rows in
+    the same order -- 32 #13 a step, every page back; 21d. phase 16d at
+    Granite's width and 2 layers, the CPU, the plain versions and the
+    bf16-carrier control on the card's routes (``routes_replayed``), B
+    within ``GRANITE_B_LIMIT``; each device routing on its own, the share
+    of (token, k) routing choices that differ and the distance, reported
+    (``cell_card_vs_cpu``).
 
 Phases 7, 10, 11 and 14 pin ``remat=False`` (``gpt2_train_cfg``), so
 their launch gates (72 #3 a step) and their numbers keep their meaning;
@@ -240,7 +266,8 @@ HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
-SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention")
+SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention",
+                 "int8_matmul_experts")
 TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_leaves")
 QDQ_KERNELS = ("qdq_row", "qdq_scaled")
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
@@ -1515,21 +1542,26 @@ def plain_versions(names):
     place, on whatever device its tensors are: the card-against-card
     comparisons of phases 5, 8, 12 and 15.  ``int8_matmul`` swaps both of
     its entries on the ``ops`` module: the int8 one and the fused decode
-    entry ``int8_quant_matmul``.  Nothing in the port does this."""
+    entry ``int8_quant_matmul``, and ``int8_matmul_experts`` both of its
+    expert-batched instance's.  Nothing in the port does this."""
     import repro_torch.kernels.flash_attn as flash_attn
     import repro_torch.kernels.ops as ops
     import repro_torch.kernels.opt_update as opt_update
     import repro_torch.models.attention as attention
     from repro_torch.kernels.decode_attn import decode_attention_plain
     from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
-    from repro_torch.kernels.int8_matmul import (int8_matmul_nt_plain,
-                                                 int8_matmul_plain,
-                                                 int8_matmul_tn_plain,
-                                                 int8_quant_matmul_plain)
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_experts_plain, int8_matmul_nt_plain, int8_matmul_plain,
+        int8_matmul_tn_plain, int8_quant_matmul_experts_plain,
+        int8_quant_matmul_plain)
     from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
     sites = {"int8_matmul": [(ops, "int8_matmul", int8_matmul_plain),
                              (ops, "int8_quant_matmul",
                               int8_quant_matmul_plain)],
+             "int8_matmul_experts": [
+                 (ops, "int8_matmul_experts", int8_matmul_experts_plain),
+                 (ops, "int8_quant_matmul_experts",
+                  int8_quant_matmul_experts_plain)],
              "qdq_row": [(ops, "qdq_row", qdq_row_plain)],
              "qdq_scaled": [(ops, "qdq_scaled", qdq_scaled_plain)],
              "flash_attention_fwd_q8": [(attention, "flash_attention_fwd_q8",
@@ -1577,6 +1609,57 @@ def true_fan_in(params, cfg):
     return dict(params, blocks=blocks)
 
 
+@contextlib.contextmanager
+def routes_recorded(log):
+    """Inside, every MoE router call appends its (T, k) top experts, on the
+    CPU, to ``log`` (the calls come in the same order on any device)."""
+    import repro_torch.models.moe as moe
+    route = moe._route
+
+    def recorded(*args, **kwargs):
+        out = route(*args, **kwargs)
+        log.append(out[1].cpu())
+        return out
+    moe._route = recorded
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+@contextlib.contextmanager
+def routes_replayed(log):
+    """Inside, every MoE router call takes its top experts from ``log``
+    (a ``routes_recorded`` log of another run, in call order) in place of
+    its own, and its gates from its own logits at those experts: two
+    devices then dispatch every token alike, whatever near-tied logits
+    would have flipped."""
+    import torch
+    import repro_torch.models.moe as moe
+    route = moe._route
+    it = iter(log)
+
+    def replayed(x2, w_router, cfg, policy, ctx):
+        _, _, aux, z = route(x2, w_router, cfg, policy, ctx)
+        top_e = next(it).to(x2.device)
+        logits = policy.linear(ctx, x2.to(torch.float32),
+                               w_router.to(torch.float32))
+        gates = torch.softmax(torch.gather(logits, 1, top_e), dim=-1)
+        return gates, top_e, aux, z
+    moe._route = replayed
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def route_flips(torch, a, b) -> float:
+    """The share of (token, k) routing choices that differ between two
+    runs' ``routes_recorded`` logs."""
+    n = sum(x.numel() for x in a)
+    return sum(int((x != y).sum()) for x, y in zip(a, b)) / max(n, 1)
+
+
 def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
                 strict=True):
     """Phase 5: teacher-forced logits of the card against the CPU, float32
@@ -1601,11 +1684,20 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
        every logit must be bit-identical -- every one of the forward's int8
        matmuls equals its plain version.
 
-    ``control`` (phases 19d and 20b) also runs each policy on the card at
-    the bf16 carrier: its max |d logit| against the CPU's float32 logits
-    must exceed the policy's limit, which shows the limit tells a carrier
-    apart.  Returns each policy's readings; ``strict=False`` prints them
-    and fails nothing (``tools/dense_readings.py``)."""
+    ``control`` (phases 19d, 20b and 21d) also runs each policy on the card
+    at the bf16 carrier: its max |d logit| against the CPU's float32
+    logits must exceed the policy's limit, which shows the limit tells a
+    carrier apart.
+
+    With experts (phase 21d) a last-bit difference of two near-tied router
+    logits sends a token to another expert, which moves the logits by as
+    much as the carrier does (PERF.md).  So the CPU, the plain
+    versions and the control replay the card's own routes
+    (``routes_replayed``) for the checks above, and the free-routing run's
+    distance and its share of (token, k) choices that differ are reported
+    beside them, ungated.  Returns each policy's readings; ``strict=False``
+    prints them and fails nothing (``tools/dense_readings.py``,
+    ``tools/moe_readings.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = cfg or dataclasses.replace(get_config("gpt2-small"),
@@ -1615,21 +1707,37 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
     params = true_fan_in(model.init_params(gen, device="cpu"), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 64 + 8), generator=gen)
 
-    def run(policy, device, carrier=None):
+    def run(policy, device, carrier=None, record=None, replay=None):
         c = dataclasses.replace(cfg, dtype=carrier) if carrier else cfg
         m = build_model(c) if carrier else model
-        return _teacher_forced(torch, m, c, params, toks, policy, device)
+        with (routes_recorded(record) if record is not None
+              else routes_replayed(replay) if replay is not None
+              else contextlib.nullcontext()):
+            return _teacher_forced(torch, m, c, params, toks, policy, device)
     ok = True
     readings = {}
     for label, policy, limit in (("A", "kv_cache=a8t,*=w8c", 1e-2),
                                  ("B", POLICY, b_limit)):
-        cpu, cpu_kv = run(policy, "cpu")
-        card, card_kv = run(policy, dev)
+        card_routes = [] if cfg.n_experts else None
+        card, card_kv = run(policy, dev, record=card_routes)
+        cpu, cpu_kv = run(policy, "cpu", replay=card_routes)
         with plain_versions(SERVE_KERNELS):
-            card_plain, _ = run(policy, dev)
+            card_plain, _ = run(policy, dev, replay=card_routes)
         err, n_agree, n_bad = _agreement(torch, card, cpu, limit)
         spread = (card_plain - cpu).abs().max().item()
         readings[label] = dict(err=err, plain=spread, disagree=n_bad)
+        if cfg.n_experts:
+            cpu_routes = []
+            free, _ = run(policy, "cpu", record=cpu_routes)
+            readings[label].update(
+                route_flips=route_flips(torch, card_routes, cpu_routes),
+                free_err=(card - free).abs().max().item())
+            print(f"card vs cpu {label} {cfg.name}, each routing on its own "
+                  f"(not gated): share of (token, k) routing choices that "
+                  f"differ over {len(cpu_routes)} router calls "
+                  f"{readings[label]['route_flips']:.3e}, max |dlogit| "
+                  f"{readings[label]['free_err']:.3e}; below, the cpu, the "
+                  f"plain versions and the control on the card's routes")
         flips = [float((card_kv["k"][i].cpu() != cpu_kv["k"][i]).float()
                        .mean()) for i in range(cfg.n_layers)]
         print(f"card vs cpu {label} {cfg.name} {cfg.n_layers}L d="
@@ -1642,7 +1750,7 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
               f"layer: {' '.join(f'{x:.1e}' for x in flips)}")
         ok &= err <= limit and n_bad == 0 and bool(torch.isfinite(card).all())
         if control:
-            ctl, _ = run(policy, dev, carrier="bfloat16")
+            ctl, _ = run(policy, dev, carrier="bfloat16", replay=card_routes)
             ctl_err = (ctl - cpu).abs().max().item()
             readings[label]["control"] = ctl_err
             print(f"card vs cpu {label} {cfg.name} control: the card at the "
@@ -1650,11 +1758,11 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
                   f"{ctl_err:.3e} (must exceed the limit {limit:.1e})")
             ok &= ctl_err > limit
         if policy == POLICY:
-            with plain_versions(["int8_matmul"]):
+            with plain_versions(["int8_matmul", "int8_matmul_experts"]):
                 card_mm_plain, _ = run(policy, dev)
             same = torch.equal(card_mm_plain, card)
-            print(f"card vs card {label} {cfg.name}: plain int8_matmul in the "
-                  f"kernel's "
+            print(f"card vs card {label} {cfg.name}: plain int8_matmul "
+                  f"(and int8_matmul_experts) in the kernels' "
                   f"place: logits {'bit-identical' if same else 'DIFFER'} "
                   f"(tol 0; max |dlogit| "
                   f"{(card_mm_plain - card).abs().max().item():.3e})")
@@ -3458,7 +3566,8 @@ def flash_card_vs_cpu(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
-# Phases 16, 19 and 20: the dense family served at its published widths
+# Phases 16, 19, 20 and 21: the dense and MoE families served at their
+# published widths
 # ---------------------------------------------------------------------------
 
 #: phase 16a: #3's (K, N) pairs in a Yi-6B layer -- wq and wo (4096, 4096),
@@ -3525,12 +3634,42 @@ QWEN3_LAYERS = 16
 GEMMA_B_LIMIT = 0.11
 QWEN3_B_LIMIT = 0.28
 
+#: phase 21: Granite-3.0-MoE 3B-A800M -- the attention linears on the 2-D
+#: #3, wq and wo (1536, 1536), wk and wv (1536, 512); #11 at 2 prompts of
+#: 2048 over 4096-row buffers, 24 query heads over 8 KV heads of 64 (G =
+#: 3); #12 and #13 at 16 slots of 4096 rows
+GRANITE_INT8_KN = ((1536, 1536), (1536, 512))
+GRANITE_DECODE_KN = ((1536, 1536), (1536, 512), (1536, 512), (1536, 1536))
+GRANITE_Q8_SHAPE = (2, 2048, 4096, 24, 8, 64)
+GRANITE_DECODE_SHAPE = (16, 4096, 8, 3, 64)
+#: phase 21a: #3's expert-batched instance at each MoE model's experts --
+#: (tag, E, the (K, N) of w_gate and w_up, then w_down, the rows an
+#: expert): Granite's 40 experts at the decode step's C = 8 (16 slots,
+#: ``_capacity(16)``) and a 16,384-token prefill chunk's 4,097 (an odd row
+#: count); Phi-3.5-MoE's 16 at its decode step's 3 and its chunk's 2,561
+EXPERT_CASES = (("granite", 40, ((1536, 512), (512, 1536)), (8, 4097)),
+                ("phi3.5-moe", 16, ((4096, 6400), (6400, 4096)), (3, 2561)))
+#: the projections an MoE layer runs on the expert-batched #3 (gate, up,
+#: down), and the 2-D ones of its attention
+EXPERT_PROJECTIONS, MOE_ATTN_LINEARS = 3, 4
+#: phase 21d, policy B at Granite's width and 2 layers, the CPU on the
+#: card's routes (``routes_replayed``): the geometric mean, to two digits,
+#: of the readings' largest and the bf16-carrier control's smallest at
+#: seeds 0-3 (``tools/moe_readings.py``, PERF.md; H100 80GB HBM3, 700 W):
+#: 0.034-0.079 against controls 0.183-0.193.  Each device routing on its
+#: own, 0.09-3.8% of the (token, k) choices differ and the logits move by
+#: up to 0.68, as far as the control's: a flipped near-tie sends a token
+#: to another expert.  Policy A reads 5.3e-4 to 4.5e-3 under phase 5's
+#: 1e-2, its controls 0.105-0.125.
+GRANITE_B_LIMIT = 0.12
+
 
 @dataclasses.dataclass(frozen=True)
 class ServeCell:
-    """A dense model served at its published width (phases 16, 19, 20):
+    """A model served at its published width (phases 16, 19, 20, 21):
     its config and depth (``layers``, None: the config's), #3's distinct
-    (K, N) and the decode step's seven linears of a layer in call order,
+    (K, N) and the decode step's 2-D linears of a layer in call order
+    (seven a dense gated layer, an MoE layer's four attention ones),
     #11's and #12/#13's shapes (None: an earlier phase holds the same
     shape), the serving run -- slots x rows, the requests, their prompt
     lengths (drawn from ``--seed``) and new tokens each -- and the card
@@ -3551,6 +3690,11 @@ class ServeCell:
     b_limit: float
     control: bool = False
     layers: int | None = None
+    #: prompt lengths by admission wave, ``slots`` requests a wave, each
+    #: wave of one prefill bucket (None: ``requests`` drawn from
+    #: ``prompt``): the dense engine then prefills each wave in one launch,
+    #: as the paged engine does (phase 21c)
+    waves: tuple | None = None
 
     def config(self, **kw):
         from repro_torch.configs import get_config
@@ -3570,6 +3714,11 @@ QWEN3 = ServeCell("20", "qwen3", "qwen3-32b", QWEN3_INT8_KN, QWEN3_DECODE_KN,
                   None, None, slots=16, seq=4096, requests=16,
                   prompt=(128, 2048), new=32, b_limit=QWEN3_B_LIMIT,
                   control=True, layers=QWEN3_LAYERS)
+GRANITE = ServeCell("21", "granite", "granite-moe-3b-a800m", GRANITE_INT8_KN,
+                    GRANITE_DECODE_KN, GRANITE_Q8_SHAPE,
+                    GRANITE_DECODE_SHAPE, slots=16, seq=4096, requests=32,
+                    prompt=(129, 2048), new=64, b_limit=GRANITE_B_LIMIT,
+                    control=True, waves=((1025, 2048), (129, 256)))
 
 
 def check_int8_cell(torch, dev, gen, results, cell=YI):
@@ -3658,12 +3807,13 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
                   f"{'' if m > 16 else ' on 17 rows'}, queued) "
                   f"{row['library_ms']:.4f}{extra}")
             del x, w, rs, cs, want, got
-    # the transposes a prefill launch runs: every layer's seven linears
+    # the transposes a prefill launch runs: every layer's 2-D linears
+    linears = len(cell.decode_kn)
     per_layer = sum(next(r["transpose_ms"] for r in rows
                          if r["shape"].startswith(f"M=2048,K={k},N={n},"))
                     for k, n in cell.decode_kn)
     print(f"{label} int8_matmul: the tensor-core route's weight transposes "
-          f"of one prefill launch ({n_layers} layers x {YI_LINEARS} linears, "
+          f"of one prefill launch ({n_layers} layers x {linears} linears, "
           f"queued): {n_layers * per_layer:.3f} ms")
     args = []
     for _ in range(4):
@@ -3680,14 +3830,127 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
                                 len(args), queued=True),
                 ms_call=time_cold_ms(im.int8_quant_matmul, args,
                                      2 * len(args), len(args)))
-    per_step = YI_LINEARS * n_layers
+    per_step = linears * n_layers
     print(f"{label} int8_quant_matmul L2 cold, a round over a layer's "
-          f"{YI_LINEARS} linears x 4 ({cold['weight_bytes'] / 1e6:.1f} MB) at "
+          f"{linears} linears x 4 ({cold['weight_bytes'] / 1e6:.1f} MB) at "
           f"M = 16: ms per call queued {cold['ms']:.4f}, call by call "
           f"{cold['ms_call']:.4f}; bound {cold['bound_ms']:.5f} (bytes); a "
           f"decode step's {per_step}: {per_step * cold['ms']:.3f} ms queued")
     del args
     results["int8_matmul"][cell.tag] = dict(shapes=rows, l2_cold=cold)
+
+
+def _experts_case(torch, dev, gen, e, c, k, n):
+    """E experts' int8 payloads x (E, c, k), w (E, k, n) and scales rs (E,
+    c, 1), cs (E, 1, n), every 7th row scale 0 (the guard maps it to 1)."""
+    x = torch.randint(-128, 128, (e, c, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (e, k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    rs = torch.rand((e, c, 1), generator=gen, device=dev) * 0.05
+    cs = torch.rand((e, 1, n), generator=gen, device=dev) * 0.01
+    rs[:, ::7] = 0.0
+    return x, w, rs, cs
+
+
+def check_int8_experts(torch, dev, gen, results):
+    """Phase 21a, #3's expert-batched instance (``int8_matmul_experts``) at
+    ``EXPERT_CASES``, bf16 output: one launch bit for bit against its plain
+    version (the 2-D plain version expert by expert), against E launches of
+    the 2-D entry, and against a second launch of itself; at the decode
+    step's rows also the fused entry ``int8_quant_matmul_experts`` on bf16
+    rows (an all-zero row among them) the same three ways.  Each timed
+    queued and call by call beside its bound (bytes at the decode rows,
+    operations at the prefill chunk's), its plain version and a library
+    yardstick: E ``torch._int_mm`` calls, queued (x zero-padded to 17 rows
+    where it has fewer)."""
+    import importlib
+    im = importlib.import_module("repro_torch.kernels.int8_matmul")
+    from repro_torch.core.qconfig import Granularity, QuantSpec
+    spec = QuantSpec(8, Granularity.PER_TOKEN)
+    dt = torch.bfloat16
+    rows = []
+    for tag, e, kns, cs_rows in EXPERT_CASES:
+        for k, n in kns:
+            for c in cs_rows:
+                x, w, rs, cs = _experts_case(torch, dev, gen, e, c, k, n)
+                want = im.int8_matmul_experts_plain(x, w, rs, cs, dt)
+                got = im.int8_matmul_experts(x, w, rs, cs, dt)
+                again = im.int8_matmul_experts(x, w, rs, cs, dt)
+                per = torch.stack([im.int8_matmul(x[i], w[i], rs[i], cs[i],
+                                                  dt) for i in range(e)])
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not (torch.equal(got, want) and torch.equal(again, got)
+                        and torch.equal(per, got)):
+                    fail(f"phase 21a int8_matmul_experts {tag} E={e} C={c} "
+                         f"K={k} N={n}: not bit-exact against the plain "
+                         f"version (max err {err}), a repeat or {e} 2-D "
+                         f"launches")
+                fn = (lambda: im.int8_matmul_experts(x, w, rs, cs, dt))
+                xl = x if c > 16 else torch.nn.functional.pad(
+                    x, (0, 0, 0, 17 - c))
+                b, by = bound_ms(e * (c * k + k * n + 4 * (c + n)
+                                      + 2 * c * n),
+                                 2.0 * e * c * n * k, INT8_OPS)
+                row = dict(
+                    shape=f"E={e},C={c},K={k},N={n},bfloat16", model=tag,
+                    fwd_route=im.fwd_route(c, n, k), max_abs_err=err,
+                    ms=queued_ms(fn), ms_call=time_ms(fn),
+                    plain_ms=time_ms(lambda: im.int8_matmul_experts_plain(
+                        x, w, rs, cs, dt), iters=3),
+                    bound_ms=b, bound_by=by,
+                    library_ms=queued_ms(lambda: [torch._int_mm(xl[i], w[i])
+                                                  for i in range(e)]),
+                    library=f"{e} x torch._int_mm" + (
+                        "" if c > 16 else " on x zero-padded to 17 rows"))
+                if c <= im.FWD_GEMV_MAX_M:
+                    xf = (torch.randn((e, c, k), generator=gen, device=dev)
+                          * 3).to(dt)
+                    xf[0, c // 2] = 0.0
+                    fwant = im.int8_quant_matmul_experts_plain(xf, w, cs,
+                                                               spec, dt)
+                    fgot = im.int8_quant_matmul_experts(xf, w, cs, spec, dt)
+                    fagain = im.int8_quant_matmul_experts(xf, w, cs, spec,
+                                                          dt)
+                    fper = torch.stack([im.int8_quant_matmul(
+                        xf[i], w[i], cs[i], spec, dt) for i in range(e)])
+                    torch.cuda.synchronize()
+                    if not (torch.equal(fgot, fwant)
+                            and torch.equal(fagain, fgot)
+                            and torch.equal(fper, fgot)):
+                        fail(f"phase 21a int8_quant_matmul_experts {tag} "
+                             f"E={e} C={c} K={k} N={n}: not bit-exact "
+                             f"against the plain version, a repeat or {e} "
+                             f"2-D launches")
+                    ffn = (lambda: im.int8_quant_matmul_experts(
+                        xf, w, cs, spec, dt))
+                    fb, _ = bound_ms(e * (2 * c * k + k * n + 4 * n
+                                          + 2 * c * n),
+                                     2.0 * e * c * n * k, INT8_OPS)
+                    row.update(fused_ms=queued_ms(ffn),
+                               fused_ms_call=time_ms(ffn), fused_bound_ms=fb)
+                rows.append(row)
+                extra = (f"; fused entry bit-exact (plain, repeat, {e} 2-D "
+                         f"launches), queued {row['fused_ms']:.4f} (call by "
+                         f"call {row['fused_ms_call']:.4f}), bound "
+                         f"{row['fused_bound_ms']:.5f}"
+                         if "fused_ms" in row else "")
+                print(f"phase 21a int8_matmul_experts {tag} E={e} C={c:5d} "
+                      f"K={k:5d} N={n:5d} bf16: bit-exact (tol 0) against "
+                      f"the plain version, a repeat and {e} 2-D launches, "
+                      f"route {row['fwd_route']}; queued ms {row['ms']:.4f} "
+                      f"(call by call {row['ms_call']:.4f}), plain_ms "
+                      f"{row['plain_ms']:.4f}, bound_ms {b:.5f} ({by}), "
+                      f"library_ms ({row['library']}, queued) "
+                      f"{row['library_ms']:.4f}{extra}")
+                del x, w, rs, cs, want, got, again, per
+    # the JSON entry reports Granite's w_gate / w_up at the decode step's 8
+    # rows an expert (two of every three launches); kernels.json keeps all
+    results["int8_matmul_experts"] = dict(
+        route="cuda", source="src/repro_torch/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul.py:84", tol=0.0,
+        shapes=rows, **rows[0])
 
 
 def cell_kernels(torch, dev, gen, results, cell=YI):
@@ -3705,29 +3968,62 @@ def cell_kernels(torch, dev, gen, results, cell=YI):
                                shape=cell.decode_shape, tag=cell.tag)
         check_decode_attention_paged(torch, dev, gen, results,
                                      shape=cell.decode_shape, tag=cell.tag)
+    if cell.config().n_experts:
+        check_int8_experts(torch, dev, gen, results)
 
 
 def cell_prompts(cell, cfg, seed):
-    """The cell's prompts (``cell.prompt`` tokens, lengths and tokens drawn
-    from ``seed``)."""
+    """The cell's prompts (``cell.prompt`` tokens, or ``cell.slots`` a
+    wave in each of ``cell.waves``; lengths and tokens drawn from
+    ``seed``)."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    lens = rng.randint(cell.prompt[0], cell.prompt[1] + 1,
-                       size=cell.requests)
+    if cell.waves:
+        lens = np.concatenate([rng.randint(lo, hi + 1, size=cell.slots)
+                               for lo, hi in cell.waves])
+    else:
+        lens = rng.randint(cell.prompt[0], cell.prompt[1] + 1,
+                           size=cell.requests)
     return [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def serve_launches(cfg, prefills, decode_steps, attn):
+    """The launches a serving run must count: every layer's 2-D block
+    linears (7 a dense gated layer, 4 an MoE one's attention) and one #11 a
+    prefill launch, those linears and one ``attn`` (#12 or #13) a decode
+    step; an MoE layer's three expert projections once a decode step and
+    once a dispatch chunk of each prefill launch of ``prefills`` (its (B,
+    S) token shapes; ``models/moe.dispatch_chunk``)."""
+    from repro_torch.models.moe import dispatch_chunk
+    L = cfg.n_layers
+    linears = MOE_ATTN_LINEARS if cfg.n_experts else YI_LINEARS
+    want = {"int8_matmul": linears * L * (len(prefills) + decode_steps),
+            "flash_attention_fwd_q8": L * len(prefills),
+            attn: L * decode_steps}
+    if cfg.n_experts:
+        chunks = sum(b * s // dispatch_chunk(b * s) for b, s in prefills)
+        want["int8_matmul_experts"] = (EXPERT_PROJECTIONS * L
+                                       * (decode_steps + chunks))
+    return want
 
 
 def _cell_serve_run(torch, eng, cfg, cell, prompts, label):
     """Serve ``prompts`` to length through ``eng``'s queue with the counts
     and the peak memory reset before; checks every request's new tokens and
     the launch counts against the engine's own prefill and decode counts
-    (every layer's seven linears and one attention kernel a decode step
-    and a prefill launch).  Returns (counts, tokens by request in submit
-    order, stats)."""
+    and the logged shapes of its prefill launches (``serve_launches``).
+    Returns (counts, tokens by request in submit order, stats)."""
     from repro_torch import kernels
     from repro_torch.infer import Request
     ids = [eng.submit(Request(tokens=p, max_new_tokens=cell.new))
            for p in prompts]
+    prefills = []                # (B, S) of every prefill launch
+    call = eng._prefill_call
+
+    def logged(toks, last, segs=None):
+        prefills.append(toks.shape)
+        return call(toks, last, segs)
+    eng._prefill_call = logged
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -3736,6 +4032,7 @@ def _cell_serve_run(torch, eng, cfg, cell, prompts, label):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    del eng._prefill_call
     st = dict(eng.stats)
     if sorted(r.request_id for r in out) != sorted(ids):
         fail(f"{label}: not every request answered")
@@ -3763,12 +4060,13 @@ def _cell_serve_run(torch, eng, cfg, cell, prompts, label):
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(allocated at rest {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB)")
-    print(f"{label}: launch counts {counts}")
+    print(f"{label}: launch counts {counts}; prefill launches (B, S) "
+          f"{prefills}")
     attn = "decode_attention_paged" if eng.paged else "decode_attention"
-    want = {"int8_matmul": YI_LINEARS * cfg.n_layers
-            * (st["prefill_calls"] + st["decode_steps"]),
-            "flash_attention_fwd_q8": cfg.n_layers * st["prefill_calls"],
-            attn: cfg.n_layers * st["decode_steps"]}
+    want = serve_launches(cfg, prefills, st["decode_steps"], attn)
+    if len(prefills) != st["prefill_calls"]:
+        fail(f"{label}: {len(prefills)} prefill launches logged, the engine "
+             f"counts {st['prefill_calls']}")
     for name, n in counts.items():
         if n != want.get(name, 0) or (name in want and n <= 0):
             fail(f"{label}: {name} launched {n} times, expected "
@@ -4408,6 +4706,12 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     results = {}
+
+    def lap(phases):
+        # host seconds since the build started, so a later slice sees
+        # where the time limit goes
+        print(f"chip_smoke: phases {phases} done at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     check_int8_matmul(torch, dev, gen, results)
     check_decode_attention(torch, dev, gen, results)
     check_decode_attention_paged(torch, dev, gen, results)
@@ -4418,6 +4722,7 @@ def main() -> int:
                                dense_bytes, dense_stats)
     serve_paged_pressure(torch, dev, args.seed)
     card_vs_cpu(torch, dev, args.seed)
+    lap("1-5")
     check_int8_bwd(torch, dev, gen, results)
     check_fused_adamw(torch, dev, gen, results)
     train_counts = train(torch, dev, args.seed)
@@ -4427,10 +4732,12 @@ def main() -> int:
     guarded_counts = train_guarded(torch, dev, args.seed)
     train_resume(torch, dev, args.seed)
     train_fake_card_vs_cpu(torch, dev, args.seed)
+    lap("6-12")
     check_flash(torch, dev, gen, results)
     flash_counts = train(torch, dev, args.seed, impl="flash_pallas")
     serve_flash_counts = serve_flash(torch, dev, args.seed)
     flash_card_vs_cpu(torch, dev, args.seed)
+    lap("13-15")
     cell_kernels(torch, dev, gen, results, YI)
     yi_counts, yi_tokens, yi_stats, yi_params = serve_cell(torch, dev,
                                                            args.seed, YI)
@@ -4438,14 +4745,17 @@ def main() -> int:
                                        yi_tokens, yi_stats, YI)
     del yi_params
     cell_card_vs_cpu(torch, dev, args.seed, YI)
+    lap("16")
     dequant_counts = serve_dequant(torch, dev, args.seed)
     dequant_card_vs_cpu(torch, dev, args.seed)
     ladder_counts = serve_ladder(torch, dev, args.seed)
     serve_oom(torch, dev, args.seed)
+    lap("17")
     yi_train_counts = train_yi(torch, dev, args.seed)
     yi_remat(torch, dev, args.seed)
     yi_xla_counts = yi_attend_chunks(torch, dev, args.seed)
     yi_train_card_vs_cpu(torch, dev, args.seed)
+    lap("18")
     cell_kernels(torch, dev, gen, results, GEMMA)
     gemma_counts, gemma_tokens, gemma_stats, gemma_params = serve_cell(
         torch, dev, args.seed, GEMMA)
@@ -4454,11 +4764,22 @@ def main() -> int:
                                           gemma_stats, GEMMA)
     del gemma_params
     cell_card_vs_cpu(torch, dev, args.seed, GEMMA)
+    lap("19")
     check_int8_cell(torch, dev, gen, results, QWEN3)
     qwen3_counts, _, _, qwen3_params = serve_cell(torch, dev, args.seed,
                                                   QWEN3)
     del qwen3_params
     cell_card_vs_cpu(torch, dev, args.seed, QWEN3)
+    lap("20")
+    cell_kernels(torch, dev, gen, results, GRANITE)
+    granite_counts, granite_tokens, granite_stats, granite_params = \
+        serve_cell(torch, dev, args.seed, GRANITE)
+    granite_paged_counts = serve_cell_paged(torch, dev, args.seed,
+                                            granite_params, granite_tokens,
+                                            granite_stats, GRANITE)
+    del granite_params
+    cell_card_vs_cpu(torch, dev, args.seed, GRANITE)
+    lap("21")
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
@@ -4467,8 +4788,9 @@ def main() -> int:
     # served dense and paged (phases 16b and 16c), the dequantize-on-read
     # engines (phase 17a), the ladder's walk (phase 17c) and Yi-6B trained
     # under flash_pallas (phase 18a) and _attend (phase 18c), Gemma-2B
-    # served dense and paged (phases 19b and 19c) and Qwen3-32B at 16
-    # layers (phase 20a), each path's counts read right after its run
+    # served dense and paged (phases 19b and 19c), Qwen3-32B at 16 layers
+    # (phase 20a) and Granite-3.0-MoE served dense and paged (phases 21b
+    # and 21c), each path's counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -4488,7 +4810,9 @@ def main() -> int:
                    "train_yi_xla": yi_xla_counts[name],
                    "serve_gemma": gemma_counts[name],
                    "serve_gemma_paged": gemma_paged_counts[name],
-                   "serve_qwen3": qwen3_counts[name]}
+                   "serve_qwen3": qwen3_counts[name],
+                   "serve_granite": granite_counts[name],
+                   "serve_granite_paged": granite_paged_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

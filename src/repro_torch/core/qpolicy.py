@@ -20,6 +20,14 @@ A weight reaches :meth:`QuantPolicy.linear` in one of two forms:
 * prepared as a :class:`QState` (serving, ``repro_torch.infer.prepare``):
   the int8 matmul kernel when the backend is ``int8_cuda`` and the recipe
   fits the W8A8 contract, else the dequant-read matmul.
+
+An expert weight (E, d_in, d_out) with activations (E, C, d_in) is the
+reference's ``jax.vmap`` of ``policy.linear`` over the experts, so every
+scale stays per expert: a prepared int8 one runs #3's expert-batched
+instance in one call (``kernels.ops.int8_prepared_linear_experts``), an fp
+one a batched matmul, and any other quantized one (fake quant, raw weights
+under the int8 backend, the dequant-read matmul) the 2-D path expert by
+expert.
 """
 from __future__ import annotations
 
@@ -110,12 +118,33 @@ def _prepared_matmul(resolved: "Resolved", x: torch.Tensor,
     return torch.matmul(xq, wd)
 
 
+def _prepared_experts(resolved: "Resolved", x: torch.Tensor,
+                      w: QState) -> torch.Tensor:
+    """x (E, C, d_in) against a prepared expert weight (E, d_in, d_out):
+    #3's expert-batched instance where the 2-D weight would take #3, else
+    the dequant-read matmul expert by expert."""
+    recipe = resolved.recipe
+    a_spec = recipe.acts if recipe is not None else None
+    if (resolved.backend == INT8_BACKEND and a_spec is not None
+            and int8_backend_supported(recipe) and w.q.dtype == torch.int8):
+        from repro_torch.kernels.ops import int8_prepared_linear_experts
+        return int8_prepared_linear_experts(x, w.q, w.scale, a_spec,
+                                            out_dtype=x.dtype)
+    return torch.stack([_prepared_matmul(resolved, x[e], QState(*(
+        t[e] for t in w))) for e in range(w.q.shape[0])])
+
+
 def _dispatch(resolved: "Resolved", x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QState):
+        if w.q.ndim == 3:
+            return _prepared_experts(resolved, x, w)
         return _prepared_matmul(resolved, x, w)
     recipe = resolved.recipe
     if recipe is None or not recipe.any_linear_quant:
         return torch.matmul(x, w)
+    if w.ndim == 3:          # experts: the 2-D path on each slice
+        return torch.stack([_dispatch(resolved, x[e], w[e])
+                            for e in range(w.shape[0])])
     be = KERNEL_BACKENDS[resolved.backend]
     if not be.supports(recipe):
         be = KERNEL_BACKENDS["fake_quant"]       # automatic fallback

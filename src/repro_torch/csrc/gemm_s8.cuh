@@ -30,7 +30,18 @@
 // after run; there are no atomics.  Every kernel waits on the one before it
 // (griddepcontrol.wait), so a call's kernels chain by programmatic dependent
 // launch.
+//
+// Expert-batched instance (the MoE's vmap): E independent products of the
+// same shape in one launch, A (E * R, lda) and B (E * C, ldb) stacked by
+// expert, the scales rs (E, R) and cs (E, C), the output (E, R, C).  The
+// grid's z runs over (expert, split) pairs; a block's tiles start at row
+// e * R + i0 of A and e * C + j0 of B, so the TMA boxes of an expert's
+// ragged last tile read the next expert's rows (or zeros past the last),
+// whose products land in rows and columns the epilogue never stores.  Each
+// expert's body and bits are the 2-D call's; E = 1 is the 2-D call.
 #pragma once
+
+#include <climits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -204,17 +215,20 @@ __device__ __forceinline__ float dequant(int acc, float r_s, float c_s) {
   return v;
 }
 
-// grid (C tiles, R tiles, splits): block z sums contraction steps [z * kps,
-// min((z + 1) * kps, n_kb)) of 128 bytes.  ws == nullptr: the dequantized
-// output; else split z's int32 partial sums into ws[z] (R, C).  rs (R) is
-// read in the row and both modes, cs (C) in the column and both modes.
+// grid (C tiles, R tiles, experts * splits): block z is split z % splits of
+// expert z / splits, and sums contraction steps [s * kps, min((s + 1) *
+// kps, n_kb)) of 128 bytes (s = z % splits).  ws == nullptr: the
+// dequantized output; else split s's int32 partial sums into ws[s][e] (R,
+// C) of a (splits, E, R, C) workspace.  rs (E, R) is read in the row and
+// both modes, cs (E, C) in the column and both modes; R and C are an
+// expert's.
 template <int MODE, typename OutT>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb,
                const float* __restrict__ rs, const float* __restrict__ cs,
                OutT* __restrict__ out, int* __restrict__ ws, int R, int C,
-               int kps, int n_kb) {
+               int kps, int n_kb, int splits) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms repeat every 1024 bytes: align the tiles to it
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -225,7 +239,9 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
   auto bar_empty = [&](int s) { return smem_u32(bars + kStages + s); };
 
   const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
-  const int kb0 = blockIdx.z * kps;
+  const int e = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int experts = gridDim.z / splits;
+  const int kb0 = split * kps;
   const int nk = min(n_kb, kb0 + kps) - kb0;
   const int warp = threadIdx.x / 32;
   if (threadIdx.x == 0) {
@@ -247,8 +263,10 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
         if (t >= kStages) mbar_wait(bar_empty(s), ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(bar_full(s), kTileA + kTileB);
         const int k = (kb0 + t) * kBK;
-        tma_load_2d(smem_u32(as + s * kTileA), &ta, bar_full(s), k, i0);
-        tma_load_2d(smem_u32(bs + s * kTileB), &tb, bar_full(s), k, j0);
+        tma_load_2d(smem_u32(as + s * kTileA), &ta, bar_full(s), k,
+                    e * R + i0);
+        tma_load_2d(smem_u32(bs + s * kTileB), &tb, bar_full(s), k,
+                    e * C + j0);
       }
     }
     return;
@@ -284,8 +302,13 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
   // acc[4j + 2i + e] holds row 16 (warp % 4) + lane / 4 + 8i of this
   // warpgroup's 64, column 8j + 2 (lane % 4) + e
   const bool pair = C % 2 == 0;
-  int* part = ws != nullptr ? ws + static_cast<size_t>(blockIdx.z) * R * C
-                            : nullptr;
+  const size_t rc = static_cast<size_t>(R) * C;
+  int* part = ws != nullptr
+                  ? ws + (static_cast<size_t>(split) * experts + e) * rc
+                  : nullptr;
+  if (part == nullptr) out += e * rc;
+  if (rs != nullptr) rs += static_cast<size_t>(e) * R;
+  if (cs != nullptr) cs += static_cast<size_t>(e) * C;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = i0 + 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * i;
@@ -314,12 +337,14 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
 
 // out[r, c] = cast(dequant(sum_z ws[z, r, c])), the splits added in order
 // z = 0, 1, ... (exact int32); four outputs a thread, read as one vector of
-// each split where R * C % 4 == 0
+// each split where R * C % 4 == 0.  R counts every expert's rows; row r is
+// expert r / Re's, whose column scales start at cs + (r / Re) * C (Re = R
+// for one expert)
 template <int MODE, typename OutT>
 __global__ void __launch_bounds__(256)
 split_reduce_kernel(const int* __restrict__ ws, const float* __restrict__ rs,
                     const float* __restrict__ cs, OutT* __restrict__ out,
-                    int R, int C, int S) {
+                    int R, int C, int S, int Re) {
   const size_t n = static_cast<size_t>(R) * C;
   const size_t i0 = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
   if (i0 >= n) return;
@@ -342,7 +367,9 @@ split_reduce_kernel(const int* __restrict__ ws, const float* __restrict__ rs,
     if (idx >= n) break;
     const int r = static_cast<int>(idx / C), c = static_cast<int>(idx % C);
     const float r_s = MODE != kColScale ? scale_guard(rs[r]) : 1.0f;
-    const float c_s = MODE != kRowScale ? scale_guard(cs[c]) : 1.0f;
+    const float c_s =
+        MODE != kRowScale ? scale_guard(cs[static_cast<size_t>(r / Re) * C + c])
+                          : 1.0f;
     out[idx] = from_f32<OutT>(dequant<MODE>(sum[e], r_s, c_s));
   }
 }
@@ -373,12 +400,14 @@ inline bool make_map(CUtensorMap* map, const void* base, int inner, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// splits of the contraction for an (R, C) output over Kc: the count that
-// minimises a cost model -- the busiest SM's 128-byte steps (two blocks
-// share an SM) plus the workspace's bytes -- at least two steps a split
-inline int gemm_splits(int R, int C, int Kc) {
+// splits of the contraction for an (R, C) output over Kc, for each of
+// `experts` such products in one launch: the count that minimises a cost
+// model -- the busiest SM's 128-byte steps (two blocks share an SM) plus
+// the workspace's bytes -- at least two steps a split
+inline int gemm_splits(int R, int C, int Kc, int experts = 1) {
   const int n_sm = sm_count() > 0 ? sm_count() : 132;
-  const long tiles = static_cast<long>(ceil_div(R, kBM)) * ceil_div(C, kBN);
+  const long tiles = static_cast<long>(ceil_div(R, kBM)) * ceil_div(C, kBN) *
+                     experts;
   const int n_kb = ceil_div(Kc, kBK);
   // one step of one 128 x 128 tile on an SM, and the workspace's rate, in
   // microseconds and bytes per microsecond (H100 readings, rounded)
@@ -390,7 +419,7 @@ inline int gemm_splits(int R, int C, int Kc) {
     if (ceil_div(n_kb, kps) != s || (s > 1 && kps < 2)) continue;
     const double waves = static_cast<double>((tiles * s + n_sm - 1) / n_sm);
     double cost = waves * kps * t_step;
-    if (s > 1) cost += (2.0 * s + 1.0) * 4.0 * R * C / bw;
+    if (s > 1) cost += (2.0 * s + 1.0) * 4.0 * R * C * experts / bw;
     if (cost < best_cost) {
       best_cost = cost;
       best = s;
@@ -418,60 +447,72 @@ int prepare_gemm(K kern) {
 }
 
 // one GEMM launch: the dequantized output (splits == 1) or the int32
-// partials of each split into ws
+// partials of each split into ws; `experts` products of (R, C) stacked by
+// expert (see the top of this file)
 template <int MODE, typename OutT>
 int launch_gemm(const void* a, const void* b, const float* rs,
                 const float* cs, void* out, void* ws, int R, int C, int Kc,
-                int lda, int ldb, int splits, cudaStream_t st) {
+                int lda, int ldb, int splits, cudaStream_t st,
+                int experts = 1) {
   int kps = 0;
-  if (R < 1 || C < 1 || Kc < 1 || Kc > kMaxContraction ||
+  if (R < 1 || C < 1 || Kc < 1 || Kc > kMaxContraction || experts < 1 ||
+      static_cast<long>(R) * experts > INT_MAX ||
+      static_cast<long>(C) * experts > INT_MAX ||
+      static_cast<long>(splits) * experts > 65535 ||
       !split_steps(Kc, splits, &kps) || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
-  if (!make_map(&ta, a, Kc, R, lda, kBM) || !make_map(&tb, b, Kc, C, ldb, kBN))
+  if (!make_map(&ta, a, Kc, R * experts, lda, kBM) ||
+      !make_map(&tb, b, Kc, C * experts, ldb, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = gemm_s8_kernel<MODE, OutT>;
   static const int prepared = prepare_gemm(kern);  // once per instance
   if (prepared) return prepared;
-  return launch_pdl(kern, dim3(ceil_div(C, kBN), ceil_div(R, kBM), splits),
+  return launch_pdl(kern,
+                    dim3(ceil_div(C, kBN), ceil_div(R, kBM), splits * experts),
                     dim3(kGemmThreads), kGemmSmem, st, ta, tb, rs, cs,
                     static_cast<OutT*>(out),
                     splits > 1 ? static_cast<int*>(ws) : nullptr, R, C, kps,
-                    ceil_div(Kc, kBK));
+                    ceil_div(Kc, kBK), splits);
 }
 
 template <int MODE, typename OutT>
 int launch_reduce(const void* ws, const float* rs, const float* cs, void* out,
-                  int R, int C, int S, cudaStream_t st) {
-  if (R < 1 || C < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(R) * C;
+                  int R, int C, int S, cudaStream_t st, int experts = 1) {
+  if (R < 1 || C < 1 || S < 1 || experts < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(R) * C * experts;
   return launch_pdl(split_reduce_kernel<MODE, OutT>,
                     dim3(static_cast<unsigned>((n + 1023) / 1024)), dim3(256),
                     0, st, static_cast<const int*>(ws), rs, cs,
-                    static_cast<OutT*>(out), R, C, S);
+                    static_cast<OutT*>(out), R * experts, C, S, R);
 }
 
 // the GEMM of a call, then the split reduction where it splits
 template <int MODE, typename OutT>
 int gemm_and_reduce(const void* a, const void* b, const float* rs,
                     const float* cs, void* out, void* ws, int R, int C,
-                    int Kc, int lda, int ldb, int splits, cudaStream_t st) {
+                    int Kc, int lda, int ldb, int splits, cudaStream_t st,
+                    int experts) {
   int e = launch_gemm<MODE, OutT>(a, b, rs, cs, out, ws, R, C, Kc, lda, ldb,
-                                  splits, st);
+                                  splits, st, experts);
   if (e || splits == 1) return e;
-  return launch_reduce<MODE, OutT>(ws, rs, cs, out, R, C, splits, st);
+  return launch_reduce<MODE, OutT>(ws, rs, cs, out, R, C, splits, st,
+                                   experts);
 }
 
 template <int MODE>
 int gemm_out(int out_dtype, const void* a, const void* b, const float* rs,
              const float* cs, void* out, void* ws, int R, int C, int Kc,
-             int lda, int ldb, int splits, cudaStream_t st) {
+             int lda, int ldb, int splits, cudaStream_t st,
+             int experts = 1) {
   if (out_dtype == kFloat32)
     return gemm_and_reduce<MODE, float>(a, b, rs, cs, out, ws, R, C, Kc, lda,
-                                        ldb, splits, st);
+                                        ldb, splits, st, experts);
   if (out_dtype == kBFloat16)
     return gemm_and_reduce<MODE, __nv_bfloat16>(a, b, rs, cs, out, ws, R, C,
-                                                Kc, lda, ldb, splits, st);
+                                                Kc, lda, ldb, splits, st,
+                                                experts);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -65,6 +65,17 @@
 // the yardstick the two routes are timed against.
 // Edges masked, any N, K up to 131,071 (|sum| <= 128 * 128 * K < 2^31);
 // the cluster route takes M <= 16 (one 16-row mma tile).
+//
+// Expert-batched instance (the MoE's experts: the reference's jax.vmap of
+// policy.linear, which reaches this Pallas kernel through its batching
+// rule): E products of one shape, x (E, M, K), w (E, K, N), rs (E, M), cs
+// (E, N), out (E, M, N), in one launch of either route.  A grid dimension
+// runs over the experts and each block offsets its pointers by its
+// expert's; the transpose pass turns every expert's w in the same launch,
+// and the GEMM reads the stacked operands through one TMA map each
+// (gemm_s8.cuh).  Every expert's body and bits are the 2-D call's, and E =
+// 1 is the 2-D call.  A first instance, not a redesign: routed by rows per
+// expert as the 2-D call is by rows.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -164,20 +175,26 @@ void dispatch_dp4a(const int8_t* x, const int8_t* w, const float* rs,
 }
 
 // ----------------------------------------------------------- wgmma route
-// src (R, Cn) int8 -> dst (Cn, pad16(R)), zeros past R: one 64 x 64 tile a
-// block (gemm_s8.cuh:pack_t_tile)
+// src (E, R, Cn) int8 -> dst (E, Cn, pad16(R)), zeros past R: one 64 x 64
+// tile of expert blockIdx.z a block (gemm_s8.cuh:pack_t_tile)
 __global__ void __launch_bounds__(256)
 transpose_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
                  int R, int Cn, int ldd, bool vec) {
   __shared__ uint32_t tile[64][17];
-  pack_t_tile<int8_t, false>(src, nullptr, nullptr, dst, R, Cn, ldd, vec,
+  const size_t e = blockIdx.z;
+  pack_t_tile<int8_t, false>(src + e * R * Cn, nullptr, nullptr,
+                             dst + e * Cn * ldd, R, Cn, ldd, vec,
                              blockIdx.y * 64, blockIdx.x * 64, tile);
 }
 
-int transpose(const void* src, void* dst, int R, int Cn, cudaStream_t st) {
-  if (R < 1 || Cn < 1) return static_cast<int>(cudaErrorInvalidValue);
+int transpose(const void* src, void* dst, int R, int Cn, cudaStream_t st,
+              int experts = 1) {
+  if (R < 1 || Cn < 1 || experts < 1 || experts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // vec (4-byte loads): every row of every expert 4-byte aligned
   const bool vec = Cn % 4 == 0 && aligned16(src);
-  return launch_pdl(transpose_kernel, dim3(ceil_div(Cn, 64), ceil_div(R, 64)),
+  return launch_pdl(transpose_kernel,
+                    dim3(ceil_div(Cn, 64), ceil_div(R, 64), experts),
                     dim3(256), 0, st, static_cast<const int8_t*>(src),
                     static_cast<int8_t*>(dst), R, Cn, pad_to16(R), vec);
 }
@@ -283,7 +300,9 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0,
 }
 
 // y (M, N) for M <= kGvRows, one cluster of gridDim.x blocks per 32 output
-// columns (blockIdx.y); ks: contraction rows per block, a multiple of 32.
+// columns (blockIdx.y) of expert blockIdx.z (x, w, rs, cs and out hold
+// gridDim.z experts' (M, K), (K, ldw), (M), (N) and (M, N) back to back);
+// ks: contraction rows per block, a multiple of 32.
 // XT int8_t: x is the int8 payload and rs its row scales; XT float or
 // bf16: x is quantized per row here (qmin, qmax) and rs is unused.  vec:
 // K % 8 == 0 and x 16-byte aligned, so x loads as vectors.
@@ -295,6 +314,14 @@ gemv_s8_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                float qmin, float qmax, bool vec) {
   constexpr bool kQuant = !std::is_same<XT, int8_t>::value;
   __shared__ GemvSmem s;
+  {
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    w += e * K * ldw;
+    if (!kQuant) rs += e * M;
+    cs += e * N;
+    out += e * M * N;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -419,10 +446,11 @@ gemv_s8_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 template <typename XT, typename OutT>
 int launch_gemv(const void* x, const void* w, const float* rs,
                 const float* cs, void* out, int M, int N, int K, int ldw,
-                int splits, float qmin, float qmax, cudaStream_t st) {
+                int splits, float qmin, float qmax, int experts,
+                cudaStream_t st) {
   const int ks = ceil_div(ceil_div(K, splits), kGvStep) * kGvStep;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, ceil_div(N, kGvBN));
+  cfg.gridDim = dim3(splits, ceil_div(N, kGvBN), experts);
   cfg.blockDim = dim3(kGvThreads);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -441,13 +469,13 @@ int launch_gemv(const void* x, const void* w, const float* rs,
 template <typename XT>
 int gemv_out(const void* x, const void* w, const float* rs, const float* cs,
              void* out, int M, int N, int K, int ldw, int splits, float qmin,
-             float qmax, int out_dtype, cudaStream_t st) {
+             float qmax, int out_dtype, int experts, cudaStream_t st) {
   if (out_dtype == kFloat32)
     return launch_gemv<XT, float>(x, w, rs, cs, out, M, N, K, ldw, splits,
-                                  qmin, qmax, st);
+                                  qmin, qmax, experts, st);
   if (out_dtype == kBFloat16)
     return launch_gemv<XT, __nv_bfloat16>(x, w, rs, cs, out, M, N, K, ldw,
-                                          splits, qmin, qmax, st);
+                                          splits, qmin, qmax, experts, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -459,14 +487,18 @@ int gemv_out(const void* x, const void* w, const float* rs, const float* cs,
 // quantized per row to `bits` bits here; rs unused); w (K, N) int8 with rows
 // ldw bytes apart (ldw a multiple of 16 and >= N, w 16-byte aligned); cs
 // (N) f32; out (M, N) in out_dtype.  M <= 16, splits in [1, 8]: the
-// cluster size.
+// cluster size.  experts > 1: that many such products back to back in
+// every operand (x (E, M, K), w (E, K, ldw), rs (E, M), cs (E, N), out (E,
+// M, N)), one launch.
 extern "C" int repro_int8_gemv(const void* x, const void* w, const void* rs,
                                const void* cs, void* out, int M, int N, int K,
                                int ldw, int splits, int x_dtype,
-                               int out_dtype, int bits, void* stream) {
+                               int out_dtype, int bits, int experts,
+                               void* stream) {
   if (M < 1 || M > kGvRows || N < 1 || K < 1 || K > kMaxContraction ||
       splits < 1 || splits > kGvMaxSplits || ldw % 16 || ldw < N ||
-      !aligned16(w) || bits < 2 || bits > 8)
+      !aligned16(w) || bits < 2 || bits > 8 || experts < 1 ||
+      experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto rp = static_cast<const float*>(rs);
@@ -476,13 +508,13 @@ extern "C" int repro_int8_gemv(const void* x, const void* w, const void* rs,
   int rc;
   if (x_dtype == 2)
     rc = gemv_out<int8_t>(x, w, rp, cp, out, M, N, K, ldw, splits, qmin,
-                          qmax, out_dtype, st);
+                          qmax, out_dtype, experts, st);
   else if (x_dtype == kFloat32)
     rc = gemv_out<float>(x, w, rp, cp, out, M, N, K, ldw, splits, qmin, qmax,
-                         out_dtype, st);
+                         out_dtype, experts, st);
   else if (x_dtype == kBFloat16)
     rc = gemv_out<__nv_bfloat16>(x, w, rp, cp, out, M, N, K, ldw, splits,
-                                 qmin, qmax, out_dtype, st);
+                                 qmin, qmax, out_dtype, experts, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return rc ? rc : static_cast<int>(cudaGetLastError());
@@ -516,18 +548,21 @@ extern "C" int repro_int8_matmul_dp4a(const void* x, const void* w,
 // contiguous, rs (M) and cs (N) f32; wt (N, pad16(K)) int8 and ws (splits,
 // M, N) int32 (splits > 1 only) the wrapper's buffers; out (M, N) in
 // out_dtype.  The transpose pass, the GEMM, and the split reduction where
-// it splits.
+// it splits.  experts > 1: that many such products back to back in every
+// operand and buffer (x (E, M, ldx), w (E, K, N), rs (E, M), cs (E, N), wt
+// (E, N, pad16(K)), ws (splits, E, M, N), out (E, M, N)).
 extern "C" int repro_int8_matmul_wgmma(const void* x, const void* w,
                                        const void* rs, const void* cs,
                                        void* out, void* wt, void* ws, int M,
                                        int N, int K, int ldx, int splits,
-                                       int out_dtype, void* stream) {
+                                       int out_dtype, int experts,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int e = transpose(w, wt, K, N, st)) return e;
+  if (int e = transpose(w, wt, K, N, st, experts)) return e;
   return gemm_out<kBothScales>(out_dtype, x, wt,
                                static_cast<const float*>(rs),
                                static_cast<const float*>(cs), out, ws, M, N,
-                               K, ldx, pad_to16(K), splits, st);
+                               K, ldx, pad_to16(K), splits, st, experts);
 }
 
 // ------------------------------------------------------------- the stages
@@ -568,7 +603,8 @@ extern "C" int repro_int8_split_reduce_fwd(const void* ws, const void* rs,
 }
 
 // the split count the tensor-core route expects for an (R, C) output over a
-// contraction of Kc (the wrapper sizes the workspace by it)
-extern "C" int repro_int8_gemm_splits(int R, int C, int Kc) {
-  return gemm_splits(R, C, Kc);
+// contraction of Kc, for each of `experts` such products in one launch (the
+// wrapper sizes the workspace by it)
+extern "C" int repro_int8_gemm_splits(int R, int C, int Kc, int experts) {
+  return gemm_splits(R, C, Kc, experts);
 }

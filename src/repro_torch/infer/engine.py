@@ -71,6 +71,12 @@ hook points.  On a card the constructor loads (building if needed) every
 kernel library rung 0 launches, so a build or load failure raises there
 and is never absorbed as a step failure.
 
+The dense and MoE families serve alike (the reference's
+``ENGINE_FAMILIES`` and ``PAGED_FAMILIES``): the experts' capacity is
+taken by every routed row, a decode step's empty slots and a prefill's
+pad rows included, so which rows share a launch is part of a token's
+route, as in the reference.
+
 The tensors' device decides kernel or plain version; :meth:`path_summary`
 reports which path runs.  Meshes and AOT compilation are not ported (see
 ROADMAP).

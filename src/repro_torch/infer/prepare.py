@@ -1,6 +1,6 @@
 """Prepared weights: resolve the QuantPolicy once and quantize each block
 weight into a stored int8 payload + scales (port of
-``repro/infer/prepare.py`` for the dense family).
+``repro/infer/prepare.py`` for the dense and MoE families).
 
 At inference the weights never change, so the engine quantizes them once
 into :class:`QState` containers; ``QuantPolicy.linear`` recognizes a QState
@@ -8,7 +8,9 @@ and runs the int8 matmul kernel (backend ``int8_cuda``, W8A8 recipe) or the
 dequant-read matmul.  The carrier-cast weight is quantized -- what the
 model would have quantized in-trace -- and per-channel scales reduce over
 the input axis (-2), so a stacked (L, d_in, d_out) weight gets (L, 1,
-d_out) scales that the layer loop slices with the payload.  Scales stay
+d_out) scales that the layer loop slices with the payload, and a stacked
+expert weight (L, E, d_in, d_out) gets (L, E, 1, d_out): one scale grid
+per expert, the reference's ``vmap`` slices.  Scales stay
 fp32, never cast to the carrier.
 
 Weights stay raw when the role resolves to fp, when a depth-banded policy
@@ -31,7 +33,9 @@ _ATTN_ROLES = {"wq": "attn_qkv", "wk": "attn_qkv", "wv": "attn_qkv",
                "wo": "attn_out"}
 _MLP_ROLES = {"w_gate": "mlp_up", "w_up": "mlp_up", "w_fc1": "mlp_up",
               "w_down": "mlp_down", "w_fc2": "mlp_down"}
-_MODULE_TABLES = {"attn": _ATTN_ROLES, "mlp": _MLP_ROLES}
+# the router is skipped: its call site casts the weight (fp by default)
+_MOE_ROLES = {"w_gate": "mlp_up", "w_up": "mlp_up", "w_down": "mlp_down"}
+_MODULE_TABLES = {"attn": _ATTN_ROLES, "mlp": _MLP_ROLES, "moe": _MOE_ROLES}
 
 
 def quantize_weight(w: torch.Tensor, spec: QuantSpec) -> QState:

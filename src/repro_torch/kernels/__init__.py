@@ -10,8 +10,9 @@ from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_fwd,
                                             flash_attention_fwd_lse,
                                             flash_attention_fwd_q8)
-from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
-                                             int8_matmul_tn)
+from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                             int8_matmul_experts,
+                                             int8_matmul_nt, int8_matmul_tn)
 from repro_torch.kernels.opt_update import (fused_adamw_blocks,
                                             fused_adamw_leaves)
 from repro_torch.kernels.qdq import qdq_row, qdq_scaled
@@ -21,7 +22,7 @@ KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention,
            int8_matmul_nt, int8_matmul_tn, fused_adamw_blocks,
            fused_adamw_leaves, decode_attention_paged, qdq_row, qdq_scaled, flash_attention_fwd,
            flash_attention_fwd_lse, flash_attention_bwd_dkdv,
-           flash_attention_bwd_dq)
+           flash_attention_bwd_dq, int8_matmul_experts)
 
 
 def reset_launch_counts() -> None:
@@ -37,6 +38,7 @@ __all__ = ["KERNELS", "decode_attention", "decode_attention_paged",
            "flash_attention", "flash_attention_bwd_dkdv",
            "flash_attention_bwd_dq", "flash_attention_fwd",
            "flash_attention_fwd_lse", "flash_attention_fwd_q8",
-           "fused_adamw_blocks", "fused_adamw_leaves", "int8_matmul", "int8_matmul_nt",
+           "fused_adamw_blocks", "fused_adamw_leaves", "int8_matmul",
+           "int8_matmul_experts", "int8_matmul_nt",
            "int8_matmul_tn", "launch_counts", "qdq_row", "qdq_scaled",
            "reset_launch_counts"]

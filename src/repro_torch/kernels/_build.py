@@ -34,12 +34,12 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "int8_matmul": {
         "repro_int8_matmul_dp4a": [_P] * 5 + [_I] * 4 + [_P],
-        "repro_int8_gemv": [_P] * 5 + [_I] * 8 + [_P],
-        "repro_int8_matmul_wgmma": [_P] * 7 + [_I] * 6 + [_P],
+        "repro_int8_gemv": [_P] * 5 + [_I] * 9 + [_P],
+        "repro_int8_matmul_wgmma": [_P] * 7 + [_I] * 7 + [_P],
         "repro_int8_transpose": [_P] * 2 + [_I] * 2 + [_P],
         "repro_int8_gemm_fwd": [_P] * 6 + [_I] * 7 + [_P],
         "repro_int8_split_reduce_fwd": [_P] * 4 + [_I] * 4 + [_P],
-        "repro_int8_gemm_splits": [_I] * 3},
+        "repro_int8_gemm_splits": [_I] * 4},
     "int8_matmul_bwd": {
         "repro_int8_matmul_nt": [_P] * 7 + [_I] * 7 + [_P],
         "repro_int8_matmul_tn": [_P] * 8 + [_I] * 6 + [_P],

@@ -19,7 +19,11 @@ weight stream reduced in a thread-block cluster; :func:`int8_quant_matmul`
 is the same kernel taking the fp activations and quantizing them per token
 in its prologue, bit for bit ``quantize_int``.  Above, it transposes the
 weight into a K-major payload and multiplies on the int8 tensor cores
-(:func:`fwd_route`).  The transposed layouts take the
+(:func:`fwd_route`).  :func:`int8_matmul_experts` and
+:func:`int8_quant_matmul_experts` are the expert-batched instance of both
+(the MoE's experts, the reference's ``vmap`` over this kernel): E products
+of one shape in one launch, routed by rows per expert.  The transposed
+layouts take the
 fp gradient, quantize it once into K-major int8 payloads and multiply those
 on the int8 tensor cores (see their docstrings and the stages below); the
 wrappers in ``kernels/ops.py`` reduce its scales.  The forward and the
@@ -145,9 +149,11 @@ _X_INT8 = 2          # the kernel's code for int8 activations
 def _gemv(x, w, row_scale, col_scale, out_dtype, splits, bits):
     """Launch the cluster kernel on CUDA tensors already checked: x int8
     with ``row_scale`` (the int8 entry) or fp with ``row_scale`` None,
-    quantized to ``bits`` in the kernel (the fused entry)."""
-    m, k = x.shape
-    n = w.shape[1]
+    quantized to ``bits`` in the kernel (the fused entry); x (E, M, K) and
+    w (E, K, N) are E experts' products in one launch."""
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    experts = x.shape[0] if x.dim() == 3 else 1
     if not 0 < m <= FWD_GEMV_MAX_M:
         raise ValueError(f"int8 gemv: {m} rows outside [1, {FWD_GEMV_MAX_M}]")
     if k > MAX_CONTRACTION:
@@ -158,11 +164,12 @@ def _gemv(x, w, row_scale, col_scale, out_dtype, splits, bits):
         raise ValueError(f"int8 gemv: {splits} splits outside "
                          f"[1, {GEMV_MAX_SPLITS}]")
     wk = kmajor_weight(w)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
     x_code = _X_INT8 if x.dtype == torch.int8 else _DTYPE_CODES[x.dtype]
     _run("repro_int8_gemv", _build.ptr(x), _build.ptr(wk), _p(row_scale),
-         _build.ptr(col_scale), _build.ptr(out), m, n, k, wk.stride(0),
-         splits, x_code, _DTYPE_CODES[out_dtype], bits, _build.stream_of(x))
+         _build.ptr(col_scale), _build.ptr(out), m, n, k, wk.stride(-2),
+         splits, x_code, _DTYPE_CODES[out_dtype], bits, experts,
+         _build.stream_of(x))
     return out
 
 
@@ -192,19 +199,30 @@ def int8_matmul_wgmma(x: torch.Tensor, w: torch.Tensor,
     m, n, k = _check_fwd(x, w, row_scale, col_scale, out_dtype)
     if not x.is_cuda:
         return int8_matmul_plain(x, w, row_scale, col_scale, out_dtype)
+    return _wgmma(x, w, row_scale, col_scale, out_dtype, splits)
+
+
+def _wgmma(x, w, row_scale, col_scale, out_dtype, splits):
+    """Launch the tensor-core route on CUDA tensors already checked; x (E,
+    M, K) and w (E, K, N) are E experts' products in one launch."""
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    experts = x.shape[0] if x.dim() == 3 else 1
     if k > MAX_CONTRACTION:
         raise ValueError(f"int8_matmul: contraction {k} > {MAX_CONTRACTION} "
                          f"(int32 sums)")
-    splits = splits or gemm_splits(m, n, k)
+    splits = splits or gemm_splits(m, n, k, experts)
     _split_bounds(k, splits)
     xk = kmajor_weight(x)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    wt = torch.empty((n, _pad16(k)), dtype=torch.int8, device=x.device)
-    ws = _workspace(splits, m, n, x.device)
+    out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
+    wt = torch.empty((*w.shape[:-2], n, _pad16(k)), dtype=torch.int8,
+                     device=x.device)
+    ws = (torch.empty((splits, experts, m, n), dtype=torch.int32,
+                      device=x.device) if splits > 1 else None)
     _run("repro_int8_matmul_wgmma", _build.ptr(xk), _build.ptr(w),
          _build.ptr(row_scale), _build.ptr(col_scale), _build.ptr(out),
-         _build.ptr(wt), _p(ws), m, n, k, xk.stride(0), splits,
-         _DTYPE_CODES[out_dtype], _build.stream_of(x))
+         _build.ptr(wt), _p(ws), m, n, k, xk.stride(-2), splits,
+         _DTYPE_CODES[out_dtype], experts, _build.stream_of(x))
     return out
 
 
@@ -307,6 +325,136 @@ def int8_quant_matmul(x: torch.Tensor, wq: torch.Tensor,
                          f"{out_dtype}")
     out = _gemv(x, wq, None, cs, out_dtype, None, a_spec.bits)
     int8_matmul.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The expert-batched instance: E products of one shape in one launch (the
+# MoE's experts; the reference reaches its Pallas kernel through jax.vmap,
+# whose batching rule adds a grid dimension over the experts).  Routed by
+# rows per expert (fwd_route), each expert's bits the 2-D call's.
+# ---------------------------------------------------------------------------
+
+def _expert_scales(scale: torch.Tensor, e: int, n: int) -> torch.Tensor:
+    """A per-expert scale -- (E, n), (E, n, 1), (E, 1, n), or one a expert
+    ((E, 1, 1), broadcast over n) -- as the (E, n) contiguous float32 the
+    kernels read: the tensor itself where it already is that."""
+    if (scale.dtype == torch.float32 and scale.numel() == e * n
+            and scale.is_contiguous()):
+        return scale
+    return (scale.to(torch.float32).reshape(e, -1).expand(e, n)
+            .contiguous())
+
+
+def _check_experts(what, x, w, e_scale):
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"{what}: x {tuple(x.shape)} vs w "
+                         f"{tuple(w.shape)} (want (E, M, K) and (E, K, N))")
+    e, m, k = x.shape
+    n = w.shape[2]
+    if e_scale.numel() not in (e, e * n):
+        raise ValueError(f"{what}: weight scales {tuple(e_scale.shape)} for "
+                         f"{e} experts of {n} columns")
+    return e, m, n, k
+
+
+def int8_matmul_experts_plain(x: torch.Tensor, w: torch.Tensor,
+                              row_scale: torch.Tensor,
+                              col_scale: torch.Tensor,
+                              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`int8_matmul_experts`: :func:`int8_matmul_plain`
+    expert by expert."""
+    e, m, n, _ = _check_experts("int8_matmul_experts", x, w, col_scale)
+    rs = row_scale.reshape(e, m)
+    cs = col_scale.reshape(e, -1)
+    return torch.stack([int8_matmul_plain(x[i], w[i], rs[i], cs[i].expand(n),
+                                          out_dtype) for i in range(e)])
+
+
+def int8_matmul_experts(x: torch.Tensor, w: torch.Tensor,
+                        row_scale: torch.Tensor, col_scale: torch.Tensor,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """#3's expert-batched instance: x int8 (E, M, K); w int8 (E, K, N);
+    row_scale fp32 (E, M) or (E, M, 1); col_scale fp32 (E, N), (E, 1, N)
+    or one an expert (E, 1, 1) -> (E, M, N) ``out_dtype``, expert e's slice
+    equal bit for bit to ``int8_matmul(x[e], w[e], row_scale[e],
+    col_scale[e])``.
+
+    CPU tensors take :func:`int8_matmul_experts_plain`; CUDA tensors launch
+    one call of the route :func:`fwd_route` names for M rows -- the cluster
+    kernel with a grid dimension over the experts, or the transpose pass
+    and the GEMM over the stacked operands -- or raise.  A call adds one to
+    ``int8_matmul_experts.launches``, whatever kernels its route runs."""
+    e, m, n, k = _check_experts("int8_matmul_experts", x, w, col_scale)
+    if row_scale.numel() != e * m:
+        raise ValueError(f"int8_matmul_experts: row scales "
+                         f"{tuple(row_scale.shape)} for ({e}, {m}) rows")
+    if not _on_card("int8_matmul_experts", x):
+        return int8_matmul_experts_plain(x, w, row_scale, col_scale,
+                                         out_dtype)
+    rs = row_scale.to(torch.float32).reshape(e, m).contiguous()
+    cs = _expert_scales(col_scale, e, n)
+    _check_cuda("int8_matmul_experts", x.device, (
+        ("x", x, (torch.int8,)), ("w", w, (torch.int8,)),
+        ("row_scale", rs, (torch.float32,)),
+        ("col_scale", cs, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_experts: unsupported out_dtype "
+                         f"{out_dtype}")
+    if fwd_route(m, n, k) == "gemv":
+        out = _gemv(x, w, rs, cs, out_dtype, None, 8)
+    else:
+        out = _wgmma(x, w, rs, cs, out_dtype, None)
+    int8_matmul_experts.launches += 1
+    return out
+
+
+int8_matmul_experts.launches = 0
+
+
+def int8_quant_matmul_experts_plain(x: torch.Tensor, wq: torch.Tensor,
+                                    w_scale: torch.Tensor,
+                                    a_spec: "QuantSpec",
+                                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`int8_quant_matmul_experts`:
+    :func:`int8_quant_matmul_plain` expert by expert."""
+    e = _check_experts("int8_quant_matmul_experts", x, wq, w_scale)[0]
+    ws = w_scale.reshape(e, 1, -1)
+    return torch.stack([int8_quant_matmul_plain(x[i], wq[i], ws[i], a_spec,
+                                                out_dtype)
+                        for i in range(e)])
+
+
+def int8_quant_matmul_experts(x: torch.Tensor, wq: torch.Tensor,
+                              w_scale: torch.Tensor, a_spec: "QuantSpec",
+                              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The fused decode entry's expert-batched instance: x fp32 / bf16 (E,
+    M, K), M <= :data:`FWD_GEMV_MAX_M`; wq int8 (E, K, N); w_scale fp32
+    (E, 1, N) or (E, 1, 1) -> (E, M, N) ``out_dtype``, expert e's slice
+    equal bit for bit to ``int8_quant_matmul(x[e], wq[e], w_scale[e],
+    a_spec)``: the cluster kernel quantizing each row per token in its
+    prologue, a grid dimension over the experts.  ``a_spec`` must satisfy
+    :func:`quant_fwd_eligible`, or this raises.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise.  A call adds one to
+    ``int8_matmul_experts.launches``."""
+    if not quant_fwd_eligible(a_spec):
+        raise ValueError(f"int8_quant_matmul_experts: [{a_spec.describe()}] "
+                         f"is not per-token, symmetric, nearest, unblocked "
+                         f"<= 8 bits")
+    e, m, n, _ = _check_experts("int8_quant_matmul_experts", x, wq, w_scale)
+    if not _on_card("int8_quant_matmul_experts", x):
+        return int8_quant_matmul_experts_plain(x, wq, w_scale, a_spec,
+                                               out_dtype)
+    cs = _expert_scales(w_scale, e, n)
+    _check_cuda("int8_quant_matmul_experts", x.device, (
+        ("x", x, _CARRIERS), ("wq", wq, (torch.int8,)),
+        ("w_scale", cs, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_quant_matmul_experts: unsupported out_dtype "
+                         f"{out_dtype}")
+    out = _gemv(x, wq, None, cs, out_dtype, None, a_spec.bits)
+    int8_matmul_experts.launches += 1
     return out
 
 
@@ -489,12 +637,13 @@ def _p(t: Optional[torch.Tensor]):
 
 
 @functools.lru_cache(maxsize=None)
-def gemm_splits(r: int, c: int, kc: int) -> int:
+def gemm_splits(r: int, c: int, kc: int, experts: int = 1) -> int:
     """The split count the card's GEMM takes for an (r, c) output over a
-    contraction of ``kc`` (a function of the shapes and the SM count; the
-    forward's and the backward's libraries share it, ``csrc/gemm_s8.cuh``)."""
+    contraction of ``kc``, for each of ``experts`` such products in one
+    launch (a function of the shapes and the SM count; the forward's and
+    the backward's libraries share it, ``csrc/gemm_s8.cuh``)."""
     lib = _build.load("int8_matmul")
-    return int(lib.repro_int8_gemm_splits(r, c, kc))
+    return int(lib.repro_int8_gemm_splits(r, c, kc, experts))
 
 
 def _on_card(what: str, t: torch.Tensor) -> bool:
@@ -703,10 +852,11 @@ def _workspace(splits: int, r: int, c: int, dev) -> Optional[torch.Tensor]:
 
 def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
     """A K-major int8 operand as the GEMM reads it (nt's weight w (K, N),
-    the forward's activation x (M, K)): the tensor itself when its rows are
-    a multiple of 16 bytes long and it starts 16-byte aligned (GPT-2's 768
-    and 3072), else one zero-padded copy (rows, pad16(inner))."""
-    k, n = w.shape
+    the forward's activation x (M, K); with a leading expert dim, each
+    expert's): the tensor itself when its rows are a multiple of 16 bytes
+    long and it starts 16-byte aligned (GPT-2's 768 and 3072), else one
+    zero-padded copy (..., rows, pad16(inner))."""
+    n = w.shape[-1]
     if n % 16 == 0 and w.data_ptr() % 16 == 0:
         return w
     return torch.nn.functional.pad(w, (0, _pad16(n) - n))

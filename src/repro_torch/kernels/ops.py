@@ -3,7 +3,8 @@ the fused fake quantization of the training path (``fused_fake_quant``
 over the qdq kernels) and the composite linears around the int8 matmul
 kernels -- the quantize -> int8-matmul -> dequant path that realizes the
 paper's W8A8 recipe with real integer compute, forward and backward
-(``int8_payload_linear``, ``int8_linear``, ``int8_prepared_linear``,
+(``int8_payload_linear``, ``int8_linear``, ``int8_prepared_linear`` and
+its expert-batched instance ``int8_prepared_linear_experts``,
 ``int8_bwd_dx``, ``int8_bwd_dw``).  The activation quantization and the
 column / tensor / gradient absmax reduces stay plain torch, as they stay
 in XLA in the JAX package, except at the decode step: there a prepared
@@ -18,8 +19,11 @@ import torch
 
 from repro_torch.core.qconfig import Granularity, QuantSpec, RoundMode
 from repro_torch.core.quantizer import _EPS, _div, quantize_int
-from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_nt,
-                                             int8_matmul_tn, int8_quant_matmul,
+from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                             int8_matmul_experts,
+                                             int8_matmul_nt, int8_matmul_tn,
+                                             int8_quant_matmul,
+                                             int8_quant_matmul_experts,
                                              takes_quant_fwd)
 from repro_torch.kernels.qdq import qdq_row, qdq_scaled
 
@@ -112,6 +116,36 @@ def int8_prepared_linear(x: torch.Tensor, wq: torch.Tensor,
         out = int8_payload_linear(xq, row_scale, wq, w_scale,
                                   out_dtype=out_dtype)
     return out.reshape(*shape[:-1], wq.shape[1])
+
+
+def int8_prepared_linear_experts(x: torch.Tensor, wq: torch.Tensor,
+                                 w_scale: torch.Tensor, a_spec: QuantSpec,
+                                 out_dtype: Optional[torch.dtype] = None
+                                 ) -> torch.Tensor:
+    """:func:`int8_prepared_linear` for every expert in one call (the
+    reference's ``vmap`` of it): x (E, C, K), wq (E, K, N) int8 payloads,
+    w_scale (E, 1, N) or (E, 1, 1) fp32 -> (E, C, N), expert e's slice that
+    of ``int8_prepared_linear(x[e], wq[e], w_scale[e], a_spec)``.  On the
+    card at the decode step's few rows an expert, one launch of the fused
+    entry's expert-batched instance; else the activations quantized here
+    -- per token over all the experts' rows at once (a token's scale is its
+    row's, whichever expert holds it), any other spec expert by expert --
+    then one launch of ``int8_matmul_experts``."""
+    out_dtype = out_dtype or x.dtype
+    e, c, _ = x.shape
+    if takes_quant_fwd(x[0], a_spec, out_dtype):
+        return int8_quant_matmul_experts(x.contiguous(), wq.contiguous(),
+                                         w_scale, a_spec, out_dtype=out_dtype)
+    if a_spec.granularity is Granularity.PER_TOKEN:
+        xq, row_scale, _ = quantize_int(x.reshape(e * c, -1), a_spec)
+        xq = xq.reshape(x.shape)
+    else:
+        parts = [quantize_int(x[i], a_spec)[:2] for i in range(e)]
+        xq = torch.stack([q for q, _ in parts])
+        row_scale = torch.stack([s.reshape(1, 1).expand(c, 1)
+                                 for _, s in parts])
+    return int8_matmul_experts(xq.contiguous(), wq.contiguous(),
+                               row_scale, w_scale, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------

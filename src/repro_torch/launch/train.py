@@ -48,9 +48,9 @@ from repro_torch.data import Loader, SyntheticCorpus
 from repro_torch.models import build_model
 from repro_torch.optim import OptConfig
 from repro_torch.train import (FaultPlan, LoopConfig, SentinelConfig,
-                               StabilitySentinel, Trainer, init_train_state,
-                               make_eval_step, make_train_step,
-                               train_path_summary)
+                               StabilitySentinel, Trainer, check_trainable,
+                               init_train_state, make_eval_step,
+                               make_train_step, train_path_summary)
 
 
 def main(argv=None) -> None:
@@ -105,6 +105,7 @@ def main(argv=None) -> None:
         batch, seq = args.batch or 8, args.seq or cfg.max_seq
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    check_trainable(cfg)
     model = build_model(cfg)
     recipe = (parse_policy(args.policy) if args.policy
               else get_recipe(args.recipe))

@@ -1,6 +1,9 @@
-"""Pre-norm residual decoder block of the dense family (port of the dense
-branch of ``repro/models/blocks.py``): GPT-2's LayerNorm or llama's
-RMSNorm by ``cfg.norm``.
+"""Pre-norm residual decoder block of the dense and MoE families (port of
+the attention branch of ``repro/models/blocks.py``): GPT-2's LayerNorm or
+llama's RMSNorm by ``cfg.norm``, then the dense MLP or, under
+``cfg.n_experts``, the mixture of experts (``models/moe.py``), whose
+load-balance and z losses the block hands back (None on the dense branch,
+the reference's zeros).
 
 The block is two halves split at the attention context, the tensor the
 reference's recomputation keeps (``attn_ctx``): :func:`block_context`
@@ -9,7 +12,7 @@ the residual, norm, MLP).  ``lm.lm_loss`` checkpoints each half on its own
 under ``cfg.remat``; :func:`block_apply` runs both."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -17,6 +20,11 @@ from repro_torch.core.qpolicy import QuantPolicy
 from repro_torch.models.attention import Cache, attn_context, attn_out
 from repro_torch.models.common import apply_norm
 from repro_torch.models.mlp import mlp_apply
+from repro_torch.models.moe import moe_apply
+
+#: what a block returns: (h, aux, z_loss), the MoE losses None when dense
+BlockOut = Tuple[torch.Tensor, Optional[torch.Tensor],
+                 Optional[torch.Tensor]]
 
 
 def block_context(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
@@ -30,14 +38,19 @@ def block_context(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
 
 
 def block_finish(params, h: torch.Tensor, ctx: torch.Tensor, cfg, *,
-                 policy: QuantPolicy, layer: int) -> torch.Tensor:
-    """h + attn_out(ctx), then + mlp(norm2(h))."""
+                 policy: QuantPolicy, layer: int) -> BlockOut:
+    """h + attn_out(ctx), then + mlp(norm2(h)) (or the experts' output)
+    -> (h, aux, z_loss)."""
     nl = cfg.n_layers
     h = h + attn_out(params["attn"], ctx, policy=policy, layer=layer,
                      n_layers=nl)
     x = apply_norm(h, params["ln2"], cfg.norm)
+    if cfg.n_experts:
+        y, aux, z = moe_apply(params["moe"], x, cfg, policy=policy,
+                              layer=layer, n_layers=nl)
+        return h + y, aux, z
     return h + mlp_apply(params["mlp"], x, cfg, policy=policy, layer=layer,
-                         n_layers=nl)
+                         n_layers=nl), None, None
 
 
 def block_apply(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
@@ -45,8 +58,8 @@ def block_apply(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
                 cache_offset: Union[int, torch.Tensor, None] = None,
                 page_table: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                rope=None, kv_path: Optional[str] = None) -> torch.Tensor:
-    """h + attn(norm1(h)), then + mlp(norm2(h)); writes this layer's cache
+                rope=None, kv_path: Optional[str] = None) -> BlockOut:
+    """h + attn(norm1(h)), then + mlp(norm2(h)) -> (h, aux, z_loss); writes this layer's cache
     when one is given (serving; ``page_table``, ``mask``, ``rope`` and
     ``kv_path`` as in ``attn_context``), attends causally over h without
     one (training)."""

@@ -1,7 +1,9 @@
 """Decoder-only language model, dense family: GPT-2 (learned positions,
 LayerNorm, tied head), llama (RoPE, RMSNorm, gated MLP, grouped KV heads,
 untied head), gemma (scaled embedding, (1 + w) RMSNorm, GeGLU, tied head)
-and qwen3 (qk-norm); embed, a Python loop over the layers in place of the
+and qwen3 (qk-norm); and the MoE family (granite, phi-3.5-moe: the MLP
+replaced by ``models/moe.py``, whose load-balance and z losses the stack
+sums and the loss adds, as the reference's ``lm_loss``); embed, a Python loop over the layers in place of the
 reference's scan, final norm and head (port of ``repro/models/lm.py``):
 the training loss with a chunked cross entropy, prefill and decode.
 
@@ -47,12 +49,16 @@ import torch
 
 from repro_torch.core.qadam import QState
 from repro_torch.core.qpolicy import QuantPolicy, as_policy
+from repro_torch.core.quantizer import _div
 from repro_torch.models.attention import Cache, init_caches
 from repro_torch.models.blocks import block_apply, block_context, block_finish
 from repro_torch.models.common import (Params, apply_norm, cast_params,
                                        checkpointed, rope_tables, tree_map)
 
 _NEG = -1e30
+#: the MoE losses' weights in the training loss (the reference's)
+AUX_COEF = 0.01
+ZLOSS_COEF = 1e-3
 
 
 def carrier_dtype(cfg) -> torch.dtype:
@@ -170,19 +176,31 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     positions = torch.arange(inp.shape[1], device=inp.device)
     h = embed_tokens(params, inp, cfg, positions, dtype, policy)
     rope = rope_for(cfg, positions)
+    if cfg.n_experts:
+        aux = z = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         if cfg.remat:
             # the reference's save_only_these_names("attn_ctx"): the
             # backward keeps h and ctx and recomputes each half
             ctx = checkpointed(block_context, lp, h, cfg, policy=policy,
                                layer=i, rope=rope)
-            h = checkpointed(block_finish, lp, h, ctx, cfg, policy=policy,
-                             layer=i)
+            h, a, zz = checkpointed(block_finish, lp, h, ctx, cfg,
+                                    policy=policy, layer=i)
         else:
-            h = block_apply(lp, h, cfg, policy=policy, layer=i, rope=rope)
+            h, a, zz = block_apply(lp, h, cfg, policy=policy, layer=i,
+                                   rope=rope)
+        if cfg.n_experts:
+            aux, z = aux + a, z + zz
     h = apply_norm(h, params["final_norm"], cfg.norm)
     ce = chunked_ce(params, h, labels, batch.get("loss_mask"), cfg, policy)
-    return ce, {"ce": ce, "loss": ce}
+    metrics = {"ce": ce}
+    total = ce
+    if cfg.n_experts:
+        nl = float(cfg.n_layers)
+        total = total + _div(AUX_COEF * aux, nl) + _div(ZLOSS_COEF * z, nl)
+        metrics.update(moe_aux=_div(aux, nl), moe_z=_div(z, nl))
+    metrics["loss"] = total
+    return total, metrics
 
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
@@ -190,10 +208,11 @@ def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
                page_table=None, mask=None, kv_path=None) -> torch.Tensor:
     rope = rope_for(cfg, positions)
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
-        h = block_apply(lp, h, cfg, policy=policy, layer=i,
-                        cache={k: c[i] for k, c in caches.items()},
-                        cache_offset=cache_offset, page_table=page_table,
-                        mask=mask, rope=rope, kv_path=kv_path)
+        h, _, _ = block_apply(lp, h, cfg, policy=policy, layer=i,
+                              cache={k: c[i] for k, c in caches.items()},
+                              cache_offset=cache_offset,
+                              page_table=page_table, mask=mask, rope=rope,
+                              kv_path=kv_path)
     return apply_norm(h, params["final_norm"], cfg.norm)
 
 

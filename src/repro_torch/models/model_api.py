@@ -4,7 +4,9 @@
 (learned positions, LayerNorm, classic MLP), llama (RoPE, RMSNorm, gated
 MLP, grouped KV heads, untied head), gemma (the embedding scaled by
 sqrt(d_model), RMSNorm with (1 + w), GeGLU, tied head) and qwen3 (RMSNorm
-on q and k per head, qk-norm);
+on q and k per head, qk-norm) -- and for the MoE family (granite,
+phi-3.5-moe: the gated MLP replaced by top-k routed experts,
+``models/moe.py``, in the reference's ``local`` mode);
 :func:`params_from_jax` carries a JAX parameter tree across, and
 :func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
 state (params, step, Adam moments) both ways.
@@ -14,7 +16,9 @@ Parameters are nested dicts of tensors in the JAX tree layout: ``embed``
 ``blocks`` with every leaf stacked (L, ...) -- ``ln1``/``ln2`` {scale,
 bias} (RMSNorm: {scale}), ``attn`` {wq, wk, wv, wo[, bq, bk, bv, bo][,
 q_norm, k_norm (L, hd)]},
-``mlp`` {w_fc1, w_fc2[, b_fc1, b_fc2]} (gated: {w_gate, w_up, w_down}) --
+``mlp`` {w_fc1, w_fc2[, b_fc1, b_fc2]} (gated: {w_gate, w_up, w_down}) or,
+under experts, ``moe`` {w_router (L, d, E), w_gate and w_up (L, E, d, ff),
+w_down (L, E, ff, d)} --
 ``final_norm`` as ``ln1``, and ``lm_head`` (d, V_padded) when the head is
 untied.
 """
@@ -32,33 +36,39 @@ from repro_torch.core.qpolicy import as_policy
 from repro_torch.models import lm
 from repro_torch.models.attention import init_caches
 from repro_torch.models.common import Params
+from repro_torch.models.moe import moe_spec
 
 DeviceLike = Union[str, torch.device, None]
 
 
-#: what the port's dense decoder takes: each field's ported values (GPT-2's,
-#: llama's, gemma's and qwen3's)
-SUPPORTED = {"family": ("dense",), "pos": ("learned", "rope"),
+#: what the port's decoder takes: each field's ported values (GPT-2's,
+#: llama's, gemma's and qwen3's; granite's and phi-3.5-moe's experts)
+SUPPORTED = {"family": ("dense", "moe"), "pos": ("learned", "rope"),
              "norm": ("layernorm", "rmsnorm", "rmsnorm_p1"),
              "mlp_kind": ("classic", "gated"), "qk_norm": (False, True),
-             "embed_scale": (False, True), "n_experts": (0,)}
+             "embed_scale": (False, True)}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The dense family only: experts and the other families (MoE, SSM,
-    hybrid, encdec, VLM) raise."""
+    """The dense and MoE families only (experts exactly when the family is
+    ``moe``, gated): SSM, hybrid, encdec and VLM raise."""
     bad = {k: getattr(cfg, k) for k, v in SUPPORTED.items()
            if getattr(cfg, k) not in v}
+    moe = cfg.family == "moe"
+    if moe != (cfg.n_experts > 0) or (moe and cfg.mlp_kind != "gated"):
+        bad.update(n_experts=cfg.n_experts, mlp_kind=cfg.mlp_kind)
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port takes the dense family "
-            f"({SUPPORTED}) so far; MoE, SSM, hybrid, encdec and VLM wait "
-            f"for ROADMAP section 1, item 6")
+            f"{cfg.name}: {bad} -- the port takes the dense and MoE "
+            f"families ({SUPPORTED}; experts gated, and only under "
+            f"family='moe') so far; SSM, hybrid, encdec and VLM wait for "
+            f"ROADMAP section 1, item 6")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
     """name -> (shape, init, std) in the JAX tree layout; the init kinds and
-    scales of ``repro.models`` (lm_spec, attn_spec, mlp_spec, norm_spec)."""
+    scales of ``repro.models`` (lm_spec, attn_spec, mlp_spec, moe_spec,
+    norm_spec)."""
     d, ff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -85,7 +95,11 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
         attn.update({"bq": ((h * hd,), "zeros"), "bk": ((k * hd,), "zeros"),
                      "bv": ((k * hd,), "zeros"), "bo": ((d,), "zeros")})
         mlp.update(mlp_bias)
-    blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d), "mlp": mlp}
+    blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
+    if cfg.n_experts:
+        blocks["moe"] = moe_spec(cfg)
+    else:
+        blocks["mlp"] = mlp
     # block leaves carry the stacked layer dim, as in the reference
     blocks = {mod: {n: ((L,) + shape, init) for n, (shape, init) in leaves.items()}
               for mod, leaves in blocks.items()}
@@ -115,7 +129,7 @@ def _init_leaf(shape, init, std=0.02, *, generator, device):
 
 
 class Model:
-    """The dense decoder's entry points (see module docstring)."""
+    """The decoder's entry points (see module docstring)."""
 
     def __init__(self, cfg: ArchConfig):
         _check_supported(cfg)

@@ -108,6 +108,18 @@ def train_path_summary(recipe, n_layers: int = 0,
     return summary
 
 
+def check_trainable(cfg) -> None:
+    """Training takes the dense family: the MoE family's loss forward runs
+    (``Model.train_loss``), but its training -- the expert-batched int8
+    backward and the load-balance and z losses' gradients -- is not ported
+    yet, so a train step for experts raises."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE family (n_experts="
+            f"{cfg.n_experts}) is not ported yet (ROADMAP section 1, item "
+            f"6); its loss forward runs, and it serves")
+
+
 def init_train_state(model: Model, generator: Optional[torch.Generator],
                      recipe, opt_cfg: OptConfig,
                      device="cuda") -> TrainState:
@@ -155,7 +167,8 @@ def make_train_step(model: Model, recipe, opt_cfg: OptConfig,
     ``health=True`` adds the sentinel's quantization-health counters to
     the metrics (``grad_sat``, ``grad_qerr``: see
     ``core.diagnostics.grad_quant_health``) -- one more pass over the
-    gradient leaves."""
+    gradient leaves.  MoE configs raise (:func:`check_trainable`)."""
+    check_trainable(model.cfg)
     policy = as_policy(recipe)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]

@@ -51,7 +51,11 @@ exported head-dim limit are checked too); the bf16 forward's key tile
 equal to ``kv_tile`` at every head dim, and every flash wrapper refusing a
 CUDA tensor that does not start on a 16-byte boundary (the bf16 kernels
 read by TMA); a small llama config's loss and gradients bit for bit with
-recomputation on and off.
+recomputation on and off; #3's expert-batched instance (the MoE's
+experts) bit for bit against its plain version, against per-expert
+launches of the 2-D entry and against a repeat, at both MoE models'
+expert shapes; #11-#13 at Granite's G = 3; and a 2-layer Granite's paged
+engine giving the dense engine's tokens.
 """
 import importlib
 import pathlib
@@ -1250,3 +1254,181 @@ def test_remat_on_and_off_on_the_card(cuda, impl):
     for got, c in ((on[2], cfg), (off[2], off_cfg)):
         assert got == dict(chip_smoke.train_launches(c),
                            fused_adamw_leaves=0)
+
+
+#: #3's expert-batched instance: (E, (K, N)) of each MoE model's experts --
+#: Granite's 40 (w_gate / w_up (1536, 512), w_down (512, 1536)) and
+#: Phi-3.5-MoE's 16 ((4096, 6400), (6400, 4096)) -- and a ragged small case
+EXPERT_CUDA_SHAPES = [(40, 1536, 512), (40, 512, 1536), (16, 4096, 6400),
+                      (16, 6400, 4096), (5, 90, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k,n", EXPERT_CUDA_SHAPES)
+@pytest.mark.parametrize("c", [1, 8, 17, 4097])
+def test_int8_matmul_experts_kernel(cuda, e, k, n, c):
+    """#3's expert-batched instance at C rows an expert (the cluster route
+    up to 16, the tensor cores above; 4,097 is a 16,384-token chunk's odd
+    capacity at Granite): bit for bit against its plain version, against E
+    launches of the 2-D entry and against a repeat, and one launch on the
+    counter; at C <= 16 the fused entry on bf16 rows the same three ways."""
+    rng = np.random.RandomState(e + k + n + c)
+    x = torch.from_numpy(rng.randint(-128, 128, (e, c, k)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-128, 128, (e, k, n)).astype(np.int8))
+    rs = torch.from_numpy(rng.uniform(1e-3, 0.1, (e, c, 1)).astype(
+        np.float32))
+    cs = torch.from_numpy(rng.uniform(1e-3, 0.1, (e, 1, n)).astype(
+        np.float32))
+    rs[:, ::3] = 0.0
+    x, w, rs, cs = (t.to(cuda) for t in (x, w, rs, cs))
+    want = im.int8_matmul_experts_plain(x, w, rs, cs, torch.bfloat16)
+    before = im.int8_matmul_experts.launches
+    got = im.int8_matmul_experts(x, w, rs, cs)
+    assert im.int8_matmul_experts.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(im.int8_matmul_experts(x, w, rs, cs), got)
+    per = torch.stack([int8_matmul(x[i], w[i], rs[i], cs[i])
+                       for i in range(e)])
+    assert torch.equal(per, got)
+    if c <= im.FWD_GEMV_MAX_M:
+        xf = torch.from_numpy((rng.standard_normal((e, c, k)) * 3).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        xf[0, c // 2] = 0.0
+        fwant = im.int8_quant_matmul_experts_plain(xf, w, cs, SPEC)
+        fgot = im.int8_quant_matmul_experts(xf, w, cs, SPEC)
+        assert torch.equal(fgot, fwant)
+        assert torch.equal(im.int8_quant_matmul_experts(xf, w, cs, SPEC),
+                           fgot)
+        fper = torch.stack([im.int8_quant_matmul(xf[i], w[i], cs[i], SPEC)
+                            for i in range(e)])
+        assert torch.equal(fper, fgot)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_experts_split_and_scales(cuda):
+    """The tensor-core route split over the contraction (a few rows an
+    expert over a long contraction: the (splits, E, M, N) workspace and the
+    per-expert column scales of the reduction), float32 output, and one
+    weight scale an expert (E, 1, 1), bit for bit against the plain
+    version; the wrapper refuses a 2-D x."""
+    e, c, k, n = 6, 40, 8192, 96
+    assert im.gemm_splits(c, n, k, e) > 1
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randint(-128, 128, (e, c, k)).astype(
+        np.int8)).to(cuda)
+    w = torch.from_numpy(rng.randint(-128, 128, (e, k, n)).astype(
+        np.int8)).to(cuda)
+    rs = torch.rand((e, c, 1), device=cuda) * 0.05
+    for cs in (torch.rand((e, 1, n), device=cuda) * 0.01,
+               torch.rand((e, 1, 1), device=cuda) * 0.01):
+        for out in (torch.float32, torch.bfloat16):
+            want = im.int8_matmul_experts_plain(x, w, rs, cs, out)
+            assert torch.equal(im.int8_matmul_experts(x, w, rs, cs, out),
+                               want)
+    with pytest.raises(ValueError, match="int8_matmul_experts"):
+        im.int8_matmul_experts(x[0], w[0], rs[0], cs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [None, 16, 64, 256])
+def test_decode_attention_granite_shape(cuda, dtype, page):
+    """#12 (``page`` None) and #13 at Granite-3.0-MoE's decode step: 8 KV
+    heads of 64, 3 query rows each (G = 3, the serving path's first odd
+    group), a 4096-row logical cache, positions on the chunk edges: against
+    the plain version (the written rows bit for bit), #13 bit for bit
+    against #12."""
+    _, s, kh, g, hd = chip_smoke.GRANITE_DECODE_SHAPE
+    pos_l = _decode_pos(s)
+    b = len(pos_l)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda)
+    cache = _cache(cuda, b, s, kh, hd, pos_l, seed=9)
+    q, nk, nv = _decode_rows(cuda, dtype, b, kh, g, hd, seed=6)
+    dc = [t.clone() for t in cache]
+    pc = [t.clone() for t in cache]
+    dense = decode_attention(q, *dc, nk, nv, pos)
+    assert_attention_close(dense, decode_attention_plain(q, *pc, nk, nv, pos))
+    for a, c in zip(dc, pc):
+        assert torch.equal(a, c)
+    assert torch.equal(decode_attention(q, *[t.clone() for t in cache], nk,
+                                        nv, pos), dense)
+    if page is None:
+        return
+    pools, table = _paged(cache, pos_l, page, seed=page)
+    kc = [t.clone() for t in pools]
+    pc = [t.clone() for t in pools]
+    got = decode_attention_paged(q, *kc, nk, nv, pos, table)
+    want = decode_attention_paged_plain(q, *pc, nk, nv, pos, table)
+    assert_attention_close(got, want)
+    for a, c in zip(kc, pc):
+        assert torch.equal(a[1:], c[1:])
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_q8_granite_shape(cuda, dtype):
+    """#11 at Granite's prefill, one 2048-token prompt over a 4096-row
+    buffer, 24 query heads over 8 KV heads of 64 (G = 3): within 1e-5 at
+    float32 and one bf16 step at bfloat16, the bf16 kernel before its cast
+    within 1e-3 of the float32 plain version, a repeat bit-identical."""
+    _, sq, skv, h, kh, hd = chip_smoke.GRANITE_Q8_SHAPE
+    kq, ks, vq, vs = _cache(cuda, 1, skv, kh, hd, [sq], seed=12)
+    q = torch.randn((1, sq, h, hd), generator=torch.Generator().manual_seed(8)
+                    ).to(cuda, dtype)
+    got = flash_attention_fwd_q8(q, kq, ks, vq, vs, causal=True)
+    assert_attention_close(got, flash_attention_fwd_q8_plain(
+        q, kq, ks, vq, vs, causal=True))
+    assert torch.equal(flash_attention_fwd_q8(q, kq, ks, vq, vs, causal=True),
+                       got)
+    if dtype == torch.bfloat16:
+        f32 = fa.launch_q8("flash_q8_sm90", q, kq, ks, vq, vs, causal=True,
+                           out_dtype=torch.float32)
+        want32 = flash_attention_fwd_q8_plain(q.float(), kq, ks, vq, vs,
+                                              causal=True)
+        assert (f32 - want32).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_granite_engine_paged_equals_dense(cuda):
+    """Granite-3.0-MoE at its full width and 2 layers (random weights,
+    bf16 carrier, ``chip_smoke.POLICY``): 8 prompts of one prefill bucket
+    (257-512 tokens, so both engines prefill the same rows in one launch)
+    through the dense and the paged engine (pages of 64 rows), 16 new
+    tokens each: the same tokens, the experts on the expert-batched #3
+    (three launches a layer a decode step and a dispatch chunk), rung 0."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.infer import Engine, Request
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), n_layers=2)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(257, 513, size=8)]
+    out = {}
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=64) if paged else {}
+        eng = Engine(model, params, chip_smoke.POLICY, max_slots=8,
+                     max_seq=1024, device=cuda, **kw)
+        params = eng.params
+        kernels.reset_launch_counts()
+        ids = [eng.submit(Request(tokens=p, max_new_tokens=16))
+               for p in prompts]
+        got = {r.request_id: r.tokens for r in eng.run()}
+        counts = kernels.launch_counts()
+        st = eng.stats
+        assert st["prefill_calls"] == 1
+        assert counts["int8_matmul_experts"] == 3 * 2 * (
+            st["decode_steps"] + 1)
+        assert counts["int8_matmul"] == 4 * 2 * (st["decode_steps"] + 1)
+        s = eng.resilience_summary()
+        assert (s["kernel_errors"], s["demotions"], s["rung_index"]) == (
+            0, [], 0)
+        out[paged] = [got[i] for i in ids]
+        eng.scheduler.stop()
+    assert out[True] == out[False]
+    assert all(len(t) == 16 for t in out[False])
