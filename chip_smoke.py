@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero:
    ``flash_bwd_sm90.cu`` the bf16 flash forward and backward on the tensor
    cores; ``flash_q8_sm90.cu`` the bf16 int8-KV prefill on the tensor
    cores, ``flash_attn_q8.cu`` its float32 instance; ``int8_matmul_bwd.cu``
-   the int8 backward's quantize passes) and print the build time;
+   the int8 backward's quantize passes, 2-D and expert-batched) and print
+   the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's shapes, and time kernel, plain version and a
@@ -233,7 +234,28 @@ Phases, in order; any failure exits non-zero:
     bf16-carrier control on the card's routes (``routes_replayed``), B
     within ``GRANITE_B_LIMIT``; each device routing on its own, the share
     of (token, k) routing choices that differ and the distance, reported
-    (``cell_card_vs_cpu``).
+    (``cell_card_vs_cpu``);
+22. Granite-3.0-MoE pre-training (the reference's ``local`` mode: the
+    router, the capacity dispatch and its transpose, the experts' Fig-1
+    linears on the expert-batched #3, #4 and #5, the combine, the aux and
+    z losses): 22a. the expert-batched #4 ``int8_matmul_nt_experts`` and
+    #5 ``int8_matmul_tn_experts`` at ``EXPERT_BWD_CASES`` (Granite's 40
+    experts at training's C = 2,049, at 17 and at a ragged 1,001;
+    Phi-3.5-MoE's 16 at 2,561) bit for bit against their plain versions,
+    E launches of the 2-D entries and a repeat, each timed beside its
+    bound, its plain version and E ``torch._int_mm`` calls, every GEMM
+    kernel holding ``IGMMA`` (``check_int8_bwd_experts``); 22b. 32 layers
+    at full width (random weights from ``--seed``, bf16 carrier,
+    ``TRAIN_POLICY`` with int moments, ``flash_pallas``, recomputation),
+    2 x 4096 tokens a step for ``GRANITE_TRAIN_STEPS`` finite steps, each
+    launching exactly ``train_launches``: 256 #3, 192 expert-batched #3,
+    128 #4 and #5, 96 expert-batched #4 and #5, one #6, 64 #8, 32 #9 and
+    #10 (``train_granite``); 22c. at 4 layers, recomputation on against
+    off and a repeat: ce and every gradient bit-identical, the peak lower
+    (``granite_remat``); 22d. phase 8's checks at Granite's width and 2
+    layers on the card's routes within ``GRANITE_TRAIN_LIMITS``, the
+    bf16-carrier control above them, every kernel's plain version on the
+    card within them (``granite_train_card_vs_cpu``).
 
 Phases 7, 10, 11 and 14 pin ``remat=False`` (``gpt2_train_cfg``), so
 their launch gates (72 #3 a step) and their numbers keep their meaning;
@@ -268,7 +290,8 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 SERVE_KERNELS = ("int8_matmul", "flash_attention_fwd_q8", "decode_attention",
                  "int8_matmul_experts")
-TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_leaves")
+TRAIN_KERNELS = ("int8_matmul_nt", "int8_matmul_tn", "fused_adamw_leaves",
+                 "int8_matmul_nt_experts", "int8_matmul_tn_experts")
 QDQ_KERNELS = ("qdq_row", "qdq_scaled")
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
@@ -1551,9 +1574,10 @@ def plain_versions(names):
     from repro_torch.kernels.decode_attn import decode_attention_plain
     from repro_torch.kernels.flash_attn import flash_attention_fwd_q8_plain
     from repro_torch.kernels.int8_matmul import (
-        int8_matmul_experts_plain, int8_matmul_nt_plain, int8_matmul_plain,
-        int8_matmul_tn_plain, int8_quant_matmul_experts_plain,
-        int8_quant_matmul_plain)
+        int8_matmul_experts_plain, int8_matmul_nt_experts_plain,
+        int8_matmul_nt_plain, int8_matmul_plain,
+        int8_matmul_tn_experts_plain, int8_matmul_tn_plain,
+        int8_quant_matmul_experts_plain, int8_quant_matmul_plain)
     from repro_torch.kernels.qdq import qdq_row_plain, qdq_scaled_plain
     sites = {"int8_matmul": [(ops, "int8_matmul", int8_matmul_plain),
                              (ops, "int8_quant_matmul",
@@ -1570,6 +1594,10 @@ def plain_versions(names):
                                    decode_attention_plain)],
              "int8_matmul_nt": [(ops, "int8_matmul_nt", int8_matmul_nt_plain)],
              "int8_matmul_tn": [(ops, "int8_matmul_tn", int8_matmul_tn_plain)],
+             "int8_matmul_nt_experts": [(ops, "int8_matmul_nt_experts",
+                                         int8_matmul_nt_experts_plain)],
+             "int8_matmul_tn_experts": [(ops, "int8_matmul_tn_experts",
+                                         int8_matmul_tn_experts_plain)],
              "fused_adamw_blocks": [(opt_update, "fused_adamw_blocks",
                                      opt_update.fused_adamw_blocks_plain)],
              "fused_adamw_leaves": [(opt_update, "fused_adamw_leaves",
@@ -1631,21 +1659,17 @@ def routes_recorded(log):
 def routes_replayed(log):
     """Inside, every MoE router call takes its top experts from ``log``
     (a ``routes_recorded`` log of another run, in call order) in place of
-    its own, and its gates from its own logits at those experts: two
-    devices then dispatch every token alike, whatever near-tied logits
+    its own, and its gates from its own logits at those experts
+    (``moe._route``'s ``top_e``; the load-balance loss counts them too):
+    two devices then dispatch every token alike, whatever near-tied logits
     would have flipped."""
-    import torch
     import repro_torch.models.moe as moe
     route = moe._route
     it = iter(log)
 
     def replayed(x2, w_router, cfg, policy, ctx):
-        _, _, aux, z = route(x2, w_router, cfg, policy, ctx)
-        top_e = next(it).to(x2.device)
-        logits = policy.linear(ctx, x2.to(torch.float32),
-                               w_router.to(torch.float32))
-        gates = torch.softmax(torch.gather(logits, 1, top_e), dim=-1)
-        return gates, top_e, aux, z
+        return route(x2, w_router, cfg, policy, ctx,
+                     top_e=next(it).to(x2.device))
     moe._route = replayed
     try:
         yield
@@ -2189,21 +2213,31 @@ def adamw_update_time(torch, dev, gen):
 
 
 def train_launches(cfg):
-    """The launches of one train step on the int8 kernels: each block
+    """The launches of one train step on the int8 kernels: each 2-D block
     linear's forward (#3) once, and once more in the backward under
     ``cfg.remat`` (the layer's recomputation); its backward (#4, #5) once;
-    one ``fused_adamw_leaves`` (#6); under ``flash_pallas`` the flash
-    forward (#8) once a layer, again under ``remat``, and its backward
-    (#9, #10) once a layer."""
-    per_layer = 7 if cfg.mlp_kind == "gated" else 6
+    with experts, the three expert projections likewise on the
+    expert-batched #3, #4 and #5 (the attention's four linears on the 2-D
+    ones); one ``fused_adamw_leaves`` (#6); under ``flash_pallas`` the
+    flash forward (#8) once a layer, again under ``remat``, and its
+    backward (#9, #10) once a layer."""
+    if cfg.n_experts:
+        per_layer = MOE_ATTN_LINEARS
+    else:
+        per_layer = 7 if cfg.mlp_kind == "gated" else 6
     linears, again = per_layer * cfg.n_layers, 2 if cfg.remat else 1
-    flash = {}
+    extra = {}
     if cfg.attention_impl == "flash_pallas":
-        flash = dict(flash_attention_fwd_lse=again * cfg.n_layers,
+        extra = dict(flash_attention_fwd_lse=again * cfg.n_layers,
                      flash_attention_bwd_dkdv=cfg.n_layers,
                      flash_attention_bwd_dq=cfg.n_layers)
+    if cfg.n_experts:
+        experts = EXPERT_PROJECTIONS * cfg.n_layers
+        extra.update(int8_matmul_experts=again * experts,
+                     int8_matmul_nt_experts=experts,
+                     int8_matmul_tn_experts=experts)
     return _expect(int8_matmul=again * linears, int8_matmul_nt=linears,
-                   int8_matmul_tn=linears, fused_adamw_leaves=1, **flash)
+                   int8_matmul_tn=linears, fused_adamw_leaves=1, **extra)
 
 
 def train(torch, dev, seed, impl="xla", cfg=None, batch=TRAIN_BATCH,
@@ -2387,7 +2421,8 @@ def one_train_step(torch, model, policy, params, toks, opt, device,
 
 def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
                       limits=TRAIN_LIMITS, label="phase 8", control=(),
-                      zero_points=True, strict=True):
+                      zero_points=True, strict=True, plain_check=False,
+                      extra=None):
     """Phase 8: one train step of gpt2-mini (float32 carrier, batch 4 x 128
     from the synthetic corpus, the slice's policy, int moments), weights of
     ``init_params`` (seed + 2) at the true fan-in scale (``true_fan_in``,
@@ -2422,7 +2457,17 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
     With ``control`` (a tuple of A's distances), D: the same step on the
     card at the bf16 carrier against the same CPU step, each of those
     distances above its limit (as phase 12's control), so A would see a
-    step that lost the float32 carrier's precision."""
+    step that lost the float32 carrier's precision.
+
+    With experts (phase 22d) the card's first run records its routes
+    (``routes_recorded``) and every other run replays them
+    (``routes_replayed``): a near-tied router logit flipped by a last bit
+    would send a token to another expert and move the step by as much as
+    the carrier does (phase 21d).  B then swaps the expert-batched #4 and
+    #5 too.  ``plain_check`` adds E: the step on the card with every
+    kernel of the path in its plain version, against the CPU, within A's
+    limits.  ``extra`` (a dict) receives E's and D's distances as
+    ``"plain"`` and ``"control"``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.qadam import QState
     from repro_torch.core.qpolicy import as_policy
@@ -2444,11 +2489,18 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
     what = (f"{cfg.name} {cfg.n_layers}L d={cfg.d_model}, float32 carrier, "
             f"{batch} x {seq} tokens, remat {cfg.remat}")
 
-    def run(device, fused=True, swap=(), m=model):
-        return one_train_step(torch, m, policy, params, toks, opt,
-                              device, fused=fused, swap=swap)
+    card_routes = [] if cfg.n_experts else None
 
-    cpu, card = run("cpu"), run(dev)
+    def run(device, fused=True, swap=(), m=model, record=False):
+        routes = (routes_recorded(card_routes) if record
+                  else routes_replayed(card_routes) if card_routes is not None
+                  else contextlib.nullcontext())
+        with routes:
+            return one_train_step(torch, m, policy, params, toks, opt,
+                                  device, fused=fused, swap=swap)
+
+    card = run(dev, record=True)
+    cpu = run("cpu")
     dist = _step_distance(torch, card, cpu)
     d_ce, g_rel, u_rel, flips, u_sign, pays = (dist[k] for k in (
         "ce", "grads", "updates", "sign_flips", "updates_sign", "payloads"))
@@ -2472,10 +2524,14 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
     same = lambda a, b: all(torch.equal(x, y) for x, y in
                             zip(a["grads"], b["grads"]))
     ctrl_same = same(card, run(dev))
-    swapped = run(dev, swap=("int8_matmul_nt", "int8_matmul_tn"))
+    bwd = ("int8_matmul_nt", "int8_matmul_tn")
+    if cfg.n_experts:
+        bwd += ("int8_matmul_nt_experts", "int8_matmul_tn_experts")
+    swapped = run(dev, swap=bwd)
     swap_same = same(card, swapped)
-    print(f"{label} train card vs card B: grads with plain nt/tn in the "
-          f"kernels' place {'bit-identical' if swap_same else 'DIFFER'} "
+    print(f"{label} train card vs card B: grads with plain "
+          f"{', '.join(bwd)} in the kernels' place "
+          f"{'bit-identical' if swap_same else 'DIFFER'} "
           f"(control, the card twice: "
           f"{'bit-identical' if ctrl_same else 'DIFFER'}; tol 0; grads rel "
           f"L2 {_rel_l2(torch, swapped['grads'], card['grads']):.3e})")
@@ -2518,13 +2574,33 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
     ok &= dq <= 1 if zero_points else steps <= 1.001
     del loop_p, loop_st, lp, lm1, lm2
     bad = []
+    names = {"ce": "|d ce|", "grads": "grads rel L2",
+             "sign_flips": "sign flips", "updates": "updates rel L2",
+             "updates_sign": "updates rel L2 where the sign agrees"}
+    if plain_check:
+        kinds = TRAIN_KERNELS + ("int8_matmul", "int8_matmul_experts")
+        if cfg.attention_impl == "flash_pallas":
+            kinds += FLASH_KERNELS
+        plain = run(dev, swap=kinds)
+        plain_dist = _step_distance(torch, plain, cpu)
+        plain_ok = all(plain_dist[k] <= lim[k] for k in names)
+        print(f"{label} train E, every kernel of the path in its plain "
+              f"version on the card vs cpu: "
+              + ", ".join(f"{names[k]} {plain_dist[k]:.3e} (limit "
+                          f"{lim[k]:.1e})" for k in names)
+              + f": within {'yes' if plain_ok else 'NO'}")
+        if extra is not None:
+            extra["plain"] = plain_dist
+        del plain
+        if not plain_ok:
+            bad.append("the plain versions on the card lie outside the "
+                       "limits")
     if control:
-        names = {"ce": "|d ce|", "grads": "grads rel L2",
-                 "sign_flips": "sign flips", "updates": "updates rel L2",
-                 "updates_sign": "updates rel L2 where the sign agrees"}
         low = run(dev, m=build_model(dataclasses.replace(cfg,
                                                          dtype="bfloat16")))
         low_dist = _step_distance(torch, low, cpu)
+        if extra is not None:
+            extra["control"] = low_dist
         low_ok = all(low_dist[k] > lim[k] for k in control)
         print(f"{label} train control D, the card at the bf16 carrier vs "
               f"cpu: ce {low['loss']:.6f}, "
@@ -4670,6 +4746,246 @@ def yi_train_card_vs_cpu(torch, dev, seed, strict=True):
                              zero_points=False, strict=strict)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: pre-training the MoE family (Granite-3.0-MoE at full width and
+# depth), with the expert-batched #4 and #5
+# ---------------------------------------------------------------------------
+
+#: phase 22a: the expert-batched #4 and #5 at each MoE model's experts --
+#: (tag, E, the (K, N) of w_gate and w_up, then w_down, the rows an expert):
+#: Granite's 40 experts at training's C = 2,049 (8,192 tokens x 8 / 40 x
+#: 1.25, + 1), at 17 and at a ragged 1,001; Phi-3.5-MoE's 16 at 2,561 (a
+#: 16,384-token chunk's capacity)
+EXPERT_BWD_CASES = (("granite", 40, ((1536, 512), (512, 1536)),
+                     (2049, 17, 1001)),
+                    ("phi3.5-moe", 16, ((4096, 6400), (6400, 4096)), (2561,)))
+#: phase 22b: Granite-3.0-MoE pre-training at full width and depth, 2 x
+#: 4096 tokens a step; 22c at 4 layers; 22d card vs CPU at 2 layers, 1 x
+#: 128 tokens
+GRANITE_TRAIN_BATCH, GRANITE_TRAIN_SEQ, GRANITE_TRAIN_STEPS = 2, 4096, 6
+GRANITE_REMAT_LAYERS = 4
+GRANITE_CHECK_LAYERS, GRANITE_CHECK_BATCH, GRANITE_CHECK_SEQ = 2, 1, 128
+#: phase 22d: the card against the CPU for one train step at Granite's
+#: width and 2 layers on the card's routes, set from the readings at seeds
+#: 0-3 recorded in PERF.md (``tools/moe_train_readings.py``; H100 80GB
+#: HBM3, 700 W; not sized at run time): each limit the geometric mean, to
+#: two digits, of the largest sound reading (the card, and the plain
+#: versions on the card, against the CPU) and the bf16-carrier control's
+#: smallest -- grads 3.14e-2 against 4.19e-2, sign flips 8.51e-3 against
+#: 1.416e-2, updates where the sign agrees 2.67e-2 against 3.19e-2,
+#: updates 0.161 against 0.206.  |d ce| read 1.1e-5 to 2.1e-3, the
+#: control's 8.5e-4 to 3.4e-3: ce cannot tell the two apart at this width
+#: (as at Yi's, phase 18d), so it is held to 5e-3, 2.4x the largest sound
+#: reading, and left out of the control's check
+GRANITE_TRAIN_LIMITS = {"ce": 5e-3, "grads": 3.6e-2, "sign_flips": 1.1e-2,
+                        "updates_sign": 2.9e-2, "updates": 0.18}
+GRANITE_CONTROL = ("grads", "sign_flips", "updates_sign", "updates")
+
+
+def granite_train_cfg(layers, **kw):
+    """Granite-3.0-MoE's published widths (``configs/granite_moe_3b_a800m.py``:
+    40 experts of 512, top 8, capacity factor 1.25) at ``layers`` layers,
+    ``flash_pallas``, ``remat`` on (the config's default) unless ``kw``
+    says otherwise."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                               n_layers=layers,
+                               **{"attention_impl": "flash_pallas", **kw})
+
+
+def _int_mm_padded(torch, a, b):
+    """``torch._int_mm`` on a (M, K) and b (K, N), the contraction and the
+    rows zero-padded to what it takes (M > 16, K a multiple of 8): the
+    padding made here, outside the timed calls."""
+    m, k = a.shape
+    kp, mp = -(-k // 8) * 8, max(m, 17)
+    a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    b = torch.nn.functional.pad(b, (0, 0, 0, kp - k))
+    return a.contiguous(), b.contiguous()
+
+
+def check_int8_bwd_experts(torch, dev, gen, results):
+    """Phase 22a, the expert-batched #4 (``int8_matmul_nt_experts``) and
+    #5 (``int8_matmul_tn_experts``) at ``EXPERT_BWD_CASES``, bf16 gradient
+    and output: one launch each bit for bit against its plain version (the
+    2-D plain version expert by expert), against E launches of the 2-D
+    entry, and against a second launch of itself; each timed queued and
+    call by call beside its bound (bytes and int8 operations), its plain
+    version and E ``torch._int_mm`` calls on the same int8 operands,
+    queued; every GEMM kernel of the library holds ``IGMMA``."""
+    import importlib
+    im = importlib.import_module("repro_torch.kernels.int8_matmul")
+    dt = torch.bfloat16
+    rows = {"int8_matmul_nt_experts": [], "int8_matmul_tn_experts": []}
+    for tag, e, kns, cs_rows in EXPERT_BWD_CASES:
+        for k, n in kns:
+            for c in cs_rows:
+                g = (torch.randn((e, c, n), generator=gen, device=dev)
+                     * 0.02).to(dt)
+                w = torch.randint(-128, 128, (e, k, n), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                x = torch.randint(-128, 128, (e, c, k), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                fw = torch.rand((e, 1, n), generator=gen, device=dev) \
+                    * 0.01 + 1e-4
+                fx = torch.rand((e, c, 1), generator=gen, device=dev) \
+                    * 0.05 + 1e-4
+                qn = _grad_scale(torch, g, fw, 2)
+                qt = _grad_scale(torch, g, fx, 1)
+                hn = torch.stack([im._quant_grad(g[i], fw[i],
+                                                 im.scale_guard(qn[i]))
+                                  for i in range(e)]).to(torch.int8)
+                ht = torch.stack([im._quant_grad(g[i], fx[i],
+                                                 im.scale_guard(qt[i]))
+                                  for i in range(e)]).to(torch.int8)
+                yard = {"int8_matmul_nt_experts": [
+                            _int_mm_padded(torch, hn[i], w[i].t())
+                            for i in range(e)],
+                        "int8_matmul_tn_experts": [
+                            _int_mm_padded(torch, x[i].t(), ht[i])
+                            for i in range(e)]}
+                del hn, ht
+                cases = {
+                    "int8_matmul_nt_experts": (
+                        lambda: im.int8_matmul_nt_experts(g, w, fw, qn, dt),
+                        lambda: im.int8_matmul_nt_experts_plain(g, w, fw, qn,
+                                                                dt),
+                        lambda: torch.stack([im.int8_matmul_nt(
+                            g[i], w[i], fw[i], qn[i], dt) for i in range(e)]),
+                        e * (2 * c * n + k * n + 4 * (n + c) + 2 * c * k),
+                        im.gemm_splits(c, k, n, e)),
+                    "int8_matmul_tn_experts": (
+                        lambda: im.int8_matmul_tn_experts(x, g, fx, qt, dt),
+                        lambda: im.int8_matmul_tn_experts_plain(x, g, fx, qt,
+                                                                dt),
+                        lambda: torch.stack([im.int8_matmul_tn(
+                            x[i], g[i], fx[i], qt[i], dt) for i in range(e)]),
+                        e * (c * k + 2 * c * n + 4 * (c + n) + 2 * k * n),
+                        im.gemm_splits(k, n, c, e))}
+                for name, (kern, plain, per, nbytes, splits) in cases.items():
+                    want, got, again, by_2d = plain(), kern(), kern(), per()
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not (torch.equal(got, want) and torch.equal(again, got)
+                            and torch.equal(by_2d, got)):
+                        fail(f"phase 22a {name} {tag} E={e} C={c} K={k} "
+                             f"N={n}: not bit-exact against the plain "
+                             f"version (max err {err}), a repeat or {e} 2-D "
+                             f"launches")
+                    del want, got, again, by_2d
+                    b, by = bound_ms(nbytes, 2.0 * e * c * n * k, INT8_OPS)
+                    ops = yard[name]
+                    row = dict(
+                        shape=f"E={e},C={c},K={k},N={n},bfloat16", model=tag,
+                        splits=splits, max_abs_err=err, ms=queued_ms(kern),
+                        ms_call=time_ms(kern),
+                        plain_ms=time_ms(plain, iters=2, warmup=1),
+                        bound_ms=b, bound_by=by,
+                        library_ms=queued_ms(lambda: [torch._int_mm(a, bb)
+                                                      for a, bb in ops]),
+                        library=f"{e} x torch._int_mm on the int8 operands")
+                    rows[name].append(row)
+                    print(f"phase 22a {name} {tag} E={e} C={c:5d} K={k:5d} "
+                          f"N={n:5d} bf16: bit-exact (tol 0) against the "
+                          f"plain version, a repeat and {e} 2-D launches, "
+                          f"{splits} split{'s' if splits > 1 else ''}; "
+                          f"queued ms {row['ms']:.4f} (call by call "
+                          f"{row['ms_call']:.4f}), plain_ms "
+                          f"{row['plain_ms']:.4f}, bound_ms {b:.5f} ({by}), "
+                          f"library_ms ({row['library']}, queued) "
+                          f"{row['library_ms']:.4f}", flush=True)
+                del g, w, x, fw, fx, qn, qt, yard, cases
+    # the JSON entries report Granite's w_gate / w_up at training's C =
+    # 2,049 (two of every three launches); kernels.json keeps all
+    for name, line in (("int8_matmul_nt_experts", 146),
+                       ("int8_matmul_tn_experts", 205)):
+        results[name] = dict(
+            route="cuda", source="src/repro_torch/csrc/int8_matmul_bwd.cu",
+            replaces=f"src/repro/kernels/int8_matmul.py:{line}", tol=0.0,
+            shapes=rows[name], **rows[name][0])
+    counts = sass_counts("int8_matmul_bwd", "IGMMA")
+    gemm = {fn: c for fn, c in counts.items() if "gemm_s8_kernel" in fn}
+    if not gemm or min(gemm.values()) == 0:
+        fail(f"phase 22a: an int8 backward GEMM kernel has no IGMMA: {gemm}")
+    print(f"phase 22a int8_matmul_bwd SASS: {len(gemm)} GEMM kernels, each "
+          f"{min(gemm.values())}-{max(gemm.values())} IGMMA instructions")
+
+
+def train_granite(torch, dev, seed):
+    """Phase 22b: Granite-3.0-MoE pre-training on the card at its full
+    width and depth -- 32 layers, ``GRANITE_TRAIN_BATCH`` x
+    ``GRANITE_TRAIN_SEQ`` tokens a step, ``flash_pallas``, recomputation
+    on, ``TRAIN_POLICY`` with int moments, random weights from ``seed``:
+    phase 7's checks and numbers (``train``), the launches a step exactly
+    ``train_launches``: 256 #3 (the attention's 4 linears x 32, twice),
+    192 expert-batched #3 (gate, up, down x 32, twice), 128 #4 and #5, 96
+    expert-batched #4 and #5, one #6, 64 #8, 32 #9 and #10 -- no per-expert
+    2-D launch.  Returns the launch counts."""
+    return train(torch, dev, seed, cfg=granite_train_cfg(32),
+                 batch=GRANITE_TRAIN_BATCH, seq=GRANITE_TRAIN_SEQ,
+                 steps=GRANITE_TRAIN_STEPS, tag="phase 22b train_granite")
+
+
+def granite_remat(torch, dev, seed):
+    """Phase 22c: at ``GRANITE_REMAT_LAYERS`` layers and 22b's tokens, one
+    forward and backward with recomputation on, one with it off and the
+    first again, from the same weights: ce and every gradient
+    bit-identical all three ways (the recomputation routes as the forward
+    did, or the step raises: ``models/moe.route_check_contexts``), the
+    peak (above the weights) lower with recomputation; the launches of
+    each exactly ``train_launches``."""
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = granite_train_cfg(GRANITE_REMAT_LAYERS)
+    params = build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    toks = _yi_tokens(torch, dev, cfg, GRANITE_TRAIN_BATCH, GRANITE_TRAIN_SEQ)
+    on = _loss_and_grads(torch, cfg, params, toks)
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    off = _loss_and_grads(torch, off_cfg, params, toks)
+    again = _loss_and_grads(torch, cfg, params, toks)
+    d_ce, g_rel, same = _grads_distance(torch, on, off)
+    repeat = _grads_distance(torch, on, again)[2]
+    show = lambda c: {k: v for k, v in c.items() if v}
+    print(f"phase 22c: {cfg.name} {cfg.n_layers}L, {GRANITE_TRAIN_BATCH} x "
+          f"{GRANITE_TRAIN_SEQ} tokens, flash_pallas: ce {float(on[0]):.6f} "
+          f"(remat on) vs {float(off[0]):.6f} (off); ce and all "
+          f"{len(on[1])} gradients {'bit-identical' if same else 'DIFFER'} "
+          f"(tol 0; |d ce| {d_ce:.3e}, grads rel L2 {g_rel:.3e}); a second "
+          f"run with remat on {'bit-identical' if repeat else 'DIFFERS'}; "
+          f"peak above the weights {on[3] / 2 ** 30:.2f} GiB with "
+          f"recomputation, {off[3] / 2 ** 30:.2f} GiB without; launches on "
+          f"{show(on[2])}, off {show(off[2])}")
+    for got, c in ((on[2], cfg), (off[2], off_cfg), (again[2], cfg)):
+        want = dict(train_launches(c), fused_adamw_leaves=0)
+        if got != want:
+            fail(f"phase 22c: launches {show(got)}, expected {show(want)}")
+    if not (same and repeat):
+        fail("phase 22c: recomputation or a repeat changed ce or a gradient")
+    if not on[3] < off[3]:
+        fail("phase 22c: the peak is not lower with recomputation")
+
+
+def granite_train_card_vs_cpu(torch, dev, seed, strict=True, extra=None):
+    """Phase 22d: phase 8's checks for one train step at Granite's width
+    and ``GRANITE_CHECK_LAYERS`` layers (float32 carrier, recomputation on,
+    ``flash_pallas``, ``GRANITE_CHECK_BATCH`` x ``GRANITE_CHECK_SEQ``
+    tokens) on the card's routes, within ``GRANITE_TRAIN_LIMITS``: C's
+    moments compared where the zero points agree and dequantized
+    (``zero_points=False``), D, the bf16-carrier control, above the limits
+    of ``GRANITE_CONTROL``, and E, every kernel's plain version on the
+    card, within them (``train_card_vs_cpu``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = granite_train_cfg(GRANITE_CHECK_LAYERS, dtype="float32")
+    return train_card_vs_cpu(torch, dev, seed, cfg=cfg,
+                             batch=GRANITE_CHECK_BATCH, seq=GRANITE_CHECK_SEQ,
+                             limits=GRANITE_TRAIN_LIMITS, label="phase 22d",
+                             control=GRANITE_CONTROL, zero_points=False,
+                             strict=strict, plain_check=True, extra=extra)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4780,6 +5096,11 @@ def main() -> int:
     del granite_params
     cell_card_vs_cpu(torch, dev, args.seed, GRANITE)
     lap("21")
+    check_int8_bwd_experts(torch, dev, gen, results)
+    granite_train_counts = train_granite(torch, dev, args.seed)
+    granite_remat(torch, dev, args.seed)
+    granite_train_card_vs_cpu(torch, dev, args.seed)
+    lap("22")
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
@@ -4789,8 +5110,9 @@ def main() -> int:
     # engines (phase 17a), the ladder's walk (phase 17c) and Yi-6B trained
     # under flash_pallas (phase 18a) and _attend (phase 18c), Gemma-2B
     # served dense and paged (phases 19b and 19c), Qwen3-32B at 16 layers
-    # (phase 20a) and Granite-3.0-MoE served dense and paged (phases 21b
-    # and 21c), each path's counts read right after its run
+    # (phase 20a), Granite-3.0-MoE served dense and paged (phases 21b
+    # and 21c) and trained (phase 22b), each path's counts read right after
+    # its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -4812,7 +5134,8 @@ def main() -> int:
                    "serve_gemma_paged": gemma_paged_counts[name],
                    "serve_qwen3": qwen3_counts[name],
                    "serve_granite": granite_counts[name],
-                   "serve_granite_paged": granite_paged_counts[name]}
+                   "serve_granite_paged": granite_paged_counts[name],
+                   "train_granite": granite_train_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

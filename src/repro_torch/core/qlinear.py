@@ -17,7 +17,10 @@ with the straight-through estimator for the x / w cotangents.  Two
   payloads as residuals; when the recipe carries an in-contract G8 spec
   (:func:`int8_bwd_supported`) both backward matmuls run on the transposed
   int8 kernels against those payloads, otherwise the backward dequantizes
-  on read and replays the reference VJP with plain matmuls.
+  on read and replays the reference VJP with plain matmuls.  Its
+  expert-batched instance (:func:`int8_quantized_linear_experts`, the
+  reference's ``vmap`` of it over an MoE's experts) runs every expert's
+  forward, dx and dW in one call of each kernel, every scale per expert.
 
 The recipe's ``grads_dx`` spec turns on the paper's instability ablation
 (quantized gradients on the dx path too).
@@ -30,11 +33,13 @@ import torch
 
 from repro_torch.core.qadam import QState
 from repro_torch.core.qconfig import Granularity, QuantRecipe, RoundMode
-from repro_torch.core.quantizer import (dequantize_int, fake_quant_nograd,
-                                        quantize_int)
+from repro_torch.core.quantizer import (compute_scale_zero, dequantize_int,
+                                        fake_quant_nograd, quantize_int)
 from repro_torch.kernels.ops import (fused_fake_quant,
                                      fused_fake_quant_eligible, int8_bwd_dw,
-                                     int8_bwd_dx, int8_payload_linear)
+                                     int8_bwd_dw_experts, int8_bwd_dx,
+                                     int8_bwd_dx_experts, int8_payload_linear,
+                                     int8_payload_linear_experts)
 
 
 def _flat2d(a: torch.Tensor) -> torch.Tensor:
@@ -241,3 +246,80 @@ def int8_quantized_linear(x: torch.Tensor, w: torch.Tensor,
             f"recipe [{recipe.describe() if recipe else 'fp'}] is outside the "
             "int8 kernel contract; use quantized_linear")
     return _QLinearInt8.apply(x, w, recipe)
+
+
+# ---------------------------------------------------------------------------
+# The expert-batched instance: the reference's jax.vmap of _qlinear_int8
+# over an MoE's experts, one kernel call a matmul for all of them
+# ---------------------------------------------------------------------------
+
+#: reduction axes of a spec on an expert-stacked operand: per token over the
+#: features of each row, per channel over each expert's rows, per tensor
+#: over each expert's matrix -- what vmap makes of the 2-D spec
+_EXPERT_AXES = {Granularity.PER_TOKEN: (-1,), Granularity.PER_CHANNEL: (-2,),
+                Granularity.PER_TENSOR: (-2, -1)}
+
+
+def quantize_experts(t: torch.Tensor, spec) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """(payload, scale) of an (E, R, C) operand under an unblocked
+    symmetric spec, expert e's bit for bit ``quantize_int(t[e], spec)``: a
+    per-token scale (E, R, 1), per-channel (E, 1, C), per-tensor (E, 1,
+    1)."""
+    scale, zero = compute_scale_zero(t, spec, axes=_EXPERT_AXES[
+        spec.granularity])
+    q = torch.clamp(torch.round(t.to(torch.float32) / scale) - zero,
+                    spec.qmin, spec.qmax)
+    return q.to(torch.int8), scale
+
+
+class _QLinearInt8Experts(torch.autograd.Function):
+    """The MoE's experts on the int8 kernels: x (E, C, d_in), w (E, d_in,
+    d_out), each expert's operands quantized with scales of its own (a
+    per-token spec over all E x C rows at once, whose rows are each
+    expert's), one ``int8_matmul_experts`` launch forward and, in
+    contract, one ``int8_matmul_nt_experts`` and one
+    ``int8_matmul_tn_experts`` backward; expert e's values are
+    :class:`_QLinearInt8`'s on its slices."""
+
+    @staticmethod
+    def forward(ctx, x, w, recipe):
+        xq, x_scale = quantize_experts(x, recipe.acts)
+        wq, w_scale = quantize_experts(w, recipe.weights)
+        y = int8_payload_linear_experts(xq, x_scale, wq, w_scale,
+                                        out_dtype=x.dtype)
+        ctx.save_for_backward(xq, x_scale, wq, w_scale)
+        ctx.recipe, ctx.dtypes = recipe, (x.dtype, w.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, x_scale, wq, w_scale = ctx.saved_tensors
+        r, (x_dtype, w_dtype) = ctx.recipe, ctx.dtypes
+        if int8_bwd_supported(r):
+            dx = int8_bwd_dx_experts(g, wq, w_scale, out_dtype=x_dtype)
+            dw = int8_bwd_dw_experts(xq, x_scale, g, out_dtype=w_dtype)
+            return dx, dw, None
+        # out of contract: dequantize on read and replay the reference VJP
+        # expert by expert, as the vmap of _QLinearInt8's backward
+        xd = dequantize_int(xq, x_scale, torch.zeros_like(x_scale), r.acts,
+                            dtype=x_dtype)
+        wd = dequantize_int(wq, w_scale, torch.zeros_like(w_scale), r.weights,
+                            dtype=w_dtype)
+        parts = [_qlinear_bwd_core(r, xd[e], wd[e], xd.shape[1:], g[e])
+                 for e in range(xq.shape[0])]
+        return (torch.stack([dx for dx, _ in parts]),
+                torch.stack([dw for _, dw in parts]), None)
+
+
+def int8_quantized_linear_experts(x: torch.Tensor, w: torch.Tensor,
+                                  recipe: QuantRecipe) -> torch.Tensor:
+    """:func:`int8_quantized_linear` of every expert at once: x (E, C,
+    d_in), w (E, d_in, d_out) -> (E, C, d_out), the reference's ``vmap``
+    of ``_qlinear_int8``.  The caller checks
+    :func:`int8_backend_supported`."""
+    if not int8_backend_supported(recipe):
+        raise ValueError(
+            f"recipe [{recipe.describe() if recipe else 'fp'}] is outside the "
+            "int8 kernel contract; use quantized_linear")
+    return _QLinearInt8Experts.apply(x, w, recipe)

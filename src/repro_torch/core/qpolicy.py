@@ -24,9 +24,12 @@ A weight reaches :meth:`QuantPolicy.linear` in one of two forms:
 An expert weight (E, d_in, d_out) with activations (E, C, d_in) is the
 reference's ``jax.vmap`` of ``policy.linear`` over the experts, so every
 scale stays per expert: a prepared int8 one runs #3's expert-batched
-instance in one call (``kernels.ops.int8_prepared_linear_experts``), an fp
-one a batched matmul, and any other quantized one (fake quant, raw weights
-under the int8 backend, the dequant-read matmul) the 2-D path expert by
+instance in one call (``kernels.ops.int8_prepared_linear_experts``); a raw
+one under the int8 backend whose recipe fits the W8A8 contract runs the
+expert-batched Fig-1 linear (``core.qlinear.int8_quantized_linear_experts``:
+one call of #3 forward and, in the backward's contract, one each of #4 and
+#5); an fp one a batched matmul; and any other quantized one (fake quant,
+out-of-contract recipes, the dequant-read matmul) the 2-D path expert by
 expert.
 """
 from __future__ import annotations
@@ -43,7 +46,9 @@ from repro_torch.core.qconfig import (Granularity, QuantRecipe, QuantSpec,
 from repro_torch.core.qlinear import (int8_backend_supported,
                                       int8_bwd_supported,
                                       int8_decode_attn_supported,
-                                      int8_quantized_linear, quantized_linear)
+                                      int8_quantized_linear,
+                                      int8_quantized_linear_experts,
+                                      quantized_linear)
 from repro_torch.core.quantizer import fake_quant, fake_quant_nograd
 
 ROLES = ("embed", "lm_head", "attn_qkv", "attn_out", "mlp_up", "mlp_down",
@@ -65,11 +70,15 @@ class KernelBackend(NamedTuple):
     eligibility (unsupported recipes fall back to ``fake_quant``);
     ``bwd_supports(recipe)`` says whether the backward also runs quantized
     kernels; ``decode_attn_supports(kv_spec)`` whether the backend's
-    attention kernels consume a KV cache stored under that spec."""
+    attention kernels consume a KV cache stored under that spec;
+    ``experts_fn(x, w, recipe)``, where there is one, runs an
+    expert-stacked weight (E, d_in, d_out) in one call (None: ``fn``
+    expert by expert)."""
     fn: Callable
     supports: Callable
     bwd_supports: Callable = lambda recipe: False
     decode_attn_supports: Callable = lambda spec: False
+    experts_fn: Optional[Callable] = None
 
 
 KERNEL_BACKENDS: Dict[str, KernelBackend] = {
@@ -77,7 +86,8 @@ KERNEL_BACKENDS: Dict[str, KernelBackend] = {
     INT8_BACKEND: KernelBackend(int8_quantized_linear,
                                 supports=int8_backend_supported,
                                 bwd_supports=int8_bwd_supported,
-                                decode_attn_supports=int8_decode_attn_supported),
+                                decode_attn_supports=int8_decode_attn_supported,
+                                experts_fn=int8_quantized_linear_experts),
 }
 
 
@@ -142,12 +152,14 @@ def _dispatch(resolved: "Resolved", x: torch.Tensor, w) -> torch.Tensor:
     recipe = resolved.recipe
     if recipe is None or not recipe.any_linear_quant:
         return torch.matmul(x, w)
-    if w.ndim == 3:          # experts: the 2-D path on each slice
-        return torch.stack([_dispatch(resolved, x[e], w[e])
-                            for e in range(w.shape[0])])
     be = KERNEL_BACKENDS[resolved.backend]
     if not be.supports(recipe):
         be = KERNEL_BACKENDS["fake_quant"]       # automatic fallback
+    if w.ndim == 3:          # experts: one call, or the 2-D path on each
+        if be.experts_fn is not None:
+            return be.experts_fn(x, w, recipe)
+        return torch.stack([be.fn(x[e], w[e], recipe)
+                            for e in range(w.shape[0])])
     return be.fn(x, w, recipe)
 
 

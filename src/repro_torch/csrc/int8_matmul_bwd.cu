@@ -56,6 +56,14 @@
 //  4. The two to three kernels of a call are programmatic dependent
 //     launches: the card starts each while the one before it drains, and
 //     each waits (griddepcontrol.wait) before it reads what that one wrote.
+//  5. The MoE's experts (the reference's vmap over both kernels) run as
+//     one call of E products of one shape: the quantize passes take a
+//     grid dimension over the experts, each reading its own fold and
+//     scales, and the GEMM's z runs over (expert, split) pairs
+//     (gemm_s8.cuh).  tn contracts over an expert's C rows, which are
+//     ragged (C = 2,049 at Granite's training shape): each expert's packed
+//     rows are padded to 16 bytes with zeros on their own, so no stored
+//     sum reads another expert's rows.  Expert e's bits are the 2-D call's.
 // Tried and dropped, none faster at the training shapes on the H100:
 // persistent GEMM blocks, 128 x 256 tiles (one block an SM), and letting the
 // next kernel launch early (griddepcontrol.launch_dependents).
@@ -72,41 +80,50 @@ constexpr int kQuantThreads = 256;
 constexpr int kQuantRows = 4;  // rows per thread of nt's pass
 
 // nt's pass: gq[m, n] = quant_g(g[m, n], fold[n], g(qs[m])) for n < N and
-// 0 for N <= n < ldq.  A thread writes 8 bytes of each of kQuantRows rows,
-// so its 8 fold values load once.  vec (vec_fold): N % 8 == 0 and g (fold)
+// 0 for N <= n < ldq.  A thread writes 8 bytes of each of kQuantRows rows
+// of one expert, so its 8 fold values (that expert's) load once.  g, qs and
+// gq hold `experts` blocks of M rows each, fold one row of N per expert;
+// experts == 1 is the 2-D call.  vec (vec_fold): N % 8 == 0 and g (fold)
 // 16-byte aligned, so each thread's 8 values load as whole vectors.
 template <typename GT>
 __global__ void __launch_bounds__(kQuantThreads)
 quant_rows_kernel(const GT* __restrict__ g, const float* __restrict__ fold,
                   const float* __restrict__ qs, int8_t* __restrict__ gq,
-                  int M, int N, int ldq, bool vec, bool vec_fold) {
+                  int M, int N, int ldq, int experts, bool vec,
+                  bool vec_fold) {
   const int chunks = ldq / 8;
   const size_t idx = static_cast<size_t>(blockIdx.x) * kQuantThreads +
                      threadIdx.x;
-  const int groups = (M + kQuantRows - 1) / kQuantRows;
-  if (idx >= static_cast<size_t>(groups) * chunks) return;
-  const int m0 = static_cast<int>(idx / chunks) * kQuantRows;
+  const int groups = (M + kQuantRows - 1) / kQuantRows;  // an expert's
+  if (idx >= static_cast<size_t>(groups) * experts * chunks) return;
+  const int grp = static_cast<int>(idx / chunks);
+  const int e = grp / groups;
+  const int m0 = (grp % groups) * kQuantRows;
   const int n0 = static_cast<int>(idx % chunks) * 8;
   grid_dependency_wait();
   float f[8];
-  load8(fold, n0, N, vec_fold, f);
+  load8(fold + static_cast<size_t>(e) * N, n0, N, vec_fold, f);
 #pragma unroll
   for (int i = 0; i < kQuantRows; ++i) {
-    const int m = m0 + i;
-    if (m >= M) break;
+    if (m0 + i >= M) break;
+    const size_t m = static_cast<size_t>(e) * M + m0 + i;
     float v[8];
-    load8(g + static_cast<size_t>(m) * N, n0, N, vec, v);
+    load8(g + m * N, n0, N, vec, v);
     const float rq = scale_guard(qs[m]);
     uint2 out;
     int8_t* o = reinterpret_cast<int8_t*>(&out);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = n0 + e < N ? quant_g(v[e], f[e], rq) : 0;
-    *reinterpret_cast<uint2*>(gq + static_cast<size_t>(m) * ldq + n0) = out;
+    for (int k = 0; k < 8; ++k) o[k] = n0 + k < N ? quant_g(v[k], f[k], rq) : 0;
+    *reinterpret_cast<uint2*>(gq + m * ldq + n0) = out;
   }
 }
 
-// both of tn's passes in one launch: blocks z = 0 quantize and transpose
-// the gradient g (M, N) into gt, blocks z = 1 transpose x (M, K) into xt
+// both of tn's passes in one launch: blocks with an even z quantize and
+// transpose the gradient g (M, N) into gt, blocks with an odd z transpose x
+// (M, K) into xt, each for expert z / 2: that expert's M rows of g, x and
+// fold, its N scales qs, its (N, ldm) and (K, ldm) payloads.  An expert's
+// payload rows are padded to ldm with zeros on their own, so no contraction
+// reads another expert's rows.
 template <typename GT>
 __global__ void __launch_bounds__(256)
 pack_tn_kernel(const GT* __restrict__ g, const int8_t* __restrict__ x,
@@ -115,23 +132,29 @@ pack_tn_kernel(const GT* __restrict__ g, const int8_t* __restrict__ x,
                int K, int ldm, bool vec_g, bool vec_x) {
   __shared__ uint32_t tile[64][17];
   const int r0 = blockIdx.y * 64, c0 = blockIdx.x * 64;
-  if (blockIdx.z == 0) {
+  const size_t e = blockIdx.z / 2;
+  if (blockIdx.z % 2 == 0) {
     if (c0 < N)
-      pack_t_tile<GT, true>(g, fold, qs, gt, M, N, ldm, vec_g, r0, c0, tile);
+      pack_t_tile<GT, true>(g + e * M * N, fold + e * M, qs + e * N,
+                            gt + e * N * ldm, M, N, ldm, vec_g, r0, c0, tile);
   } else if (c0 < K) {
-    pack_t_tile<int8_t, false>(x, nullptr, nullptr, xt, M, K, ldm, vec_x, r0,
-                               c0, tile);
+    pack_t_tile<int8_t, false>(x + e * M * K, nullptr, nullptr,
+                               xt + e * K * ldm, M, K, ldm, vec_x, r0, c0,
+                               tile);
   }
 }
 
 // ----------------------------------------------------------------- host
+// experts blocks of M rows (experts == 1: the 2-D pass)
 int quant_rows(const void* g, const float* fold, const float* qs, void* gq,
-               int M, int N, int g_dtype, cudaStream_t st) {
-  if (M < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+               int M, int N, int g_dtype, cudaStream_t st, int experts = 1) {
+  if (M < 1 || N < 1 || experts < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int ldq = pad_to16(N);
   const bool vec = N % 8 == 0 && aligned16(g);
   const bool vec_fold = N % 8 == 0 && aligned16(fold);
-  const size_t n = static_cast<size_t>(ceil_div(M, kQuantRows)) * (ldq / 8);
+  const size_t n = static_cast<size_t>(ceil_div(M, kQuantRows)) * experts *
+                   (ldq / 8);
   const unsigned grid = static_cast<unsigned>((n + kQuantThreads - 1) /
                                               kQuantThreads);
   int8_t* o = static_cast<int8_t*>(gq);
@@ -139,21 +162,23 @@ int quant_rows(const void* g, const float* fold, const float* qs, void* gq,
     return launch_pdl(quant_rows_kernel<float>, dim3(grid),
                       dim3(kQuantThreads), 0, st,
                       static_cast<const float*>(g), fold, qs, o, M, N, ldq,
-                      vec, vec_fold);
+                      experts, vec, vec_fold);
   if (g_dtype == kBFloat16)
     return launch_pdl(quant_rows_kernel<__nv_bfloat16>, dim3(grid),
                       dim3(kQuantThreads), 0, st,
                       static_cast<const __nv_bfloat16*>(g), fold, qs, o, M,
-                      N, ldq, vec, vec_fold);
+                      N, ldq, experts, vec, vec_fold);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// both of tn's passes in one launch (pack_tn_kernel)
+// both of tn's passes in one launch (pack_tn_kernel), for each of
+// `experts` blocks of M rows
 int pack_tn(const void* x, const void* g, const float* fold, const float* qs,
             void* xt, void* gt, int M, int N, int K, int g_dtype,
-            cudaStream_t st) {
-  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(ceil_div(N > K ? N : K, 64), ceil_div(M, 64), 2);
+            cudaStream_t st, int experts = 1) {
+  if (M < 1 || N < 1 || K < 1 || experts < 1 || 2L * experts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(ceil_div(N > K ? N : K, 64), ceil_div(M, 64), 2 * experts);
   const bool vec_g = N % 4 == 0 && aligned16(g);
   const bool vec_x = K % 4 == 0 && aligned16(x);
   const int8_t* xs = static_cast<const int8_t*>(x);
@@ -260,4 +285,50 @@ extern "C" int repro_int8_matmul_tn(const void* x, const void* g,
   const int ldm = pad_to16(M);
   return gemm_out<kColScale>(out_dtype, xt, gt, nullptr, q, out, ws, K, N, M,
                              ldm, ldm, splits, st);
+}
+
+// ------------------------------------- the expert-batched backwards (MoE)
+// E experts' products of one shape in one call (the reference's vmap over
+// int8_matmul_nt and int8_matmul_tn): the quantize pass takes each expert's
+// fold and scales, and the GEMM's z runs over (expert, split) pairs
+// (gemm_s8.cuh).  Expert e's output is the 2-D call's on its slices, bit for
+// bit.
+//
+// nt: g (E, M, N) carrier, w (E, K, ldw) int8, fold (E, N) f32, qs (E, M)
+// f32, all contiguous; gq (E * M, pad16(N)) and ws (splits, E, M, K) int32
+// (splits > 1 only) the wrapper's buffers; out (E, M, K) in out_dtype.
+extern "C" int repro_int8_matmul_nt_experts(const void* g, const void* w,
+                                            const void* fold, const void* qs,
+                                            void* out, void* gq, void* ws,
+                                            int M, int N, int K, int ldw,
+                                            int splits, int experts,
+                                            int g_dtype, int out_dtype,
+                                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(qs);
+  if (int e = quant_rows(g, static_cast<const float*>(fold), q, gq, M, N,
+                         g_dtype, st, experts))
+    return e;
+  return gemm_out<kRowScale>(out_dtype, gq, w, q, nullptr, out, ws, M, K, N,
+                             pad_to16(N), ldw, splits, st, experts);
+}
+
+// tn: x (E, M, K) int8, g (E, M, N) carrier, fold (E, M) f32, qs (E, N) f32,
+// all contiguous; xt (E, K, pad16(M)), gt (E, N, pad16(M)) and ws (splits,
+// E, K, N) int32 (splits > 1 only) the wrapper's buffers; out (E, K, N).
+extern "C" int repro_int8_matmul_tn_experts(const void* x, const void* g,
+                                            const void* fold, const void* qs,
+                                            void* out, void* xt, void* gt,
+                                            void* ws, int M, int N, int K,
+                                            int splits, int experts,
+                                            int g_dtype, int out_dtype,
+                                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(qs);
+  if (int e = pack_tn(x, g, static_cast<const float*>(fold), q, xt, gt, M, N,
+                      K, g_dtype, st, experts))
+    return e;
+  const int ldm = pad_to16(M);
+  return gemm_out<kColScale>(out_dtype, xt, gt, nullptr, q, out, ws, K, N, M,
+                             ldm, ldm, splits, st, experts);
 }

@@ -12,7 +12,10 @@ from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_fwd_q8)
 from repro_torch.kernels.int8_matmul import (int8_matmul,
                                              int8_matmul_experts,
-                                             int8_matmul_nt, int8_matmul_tn)
+                                             int8_matmul_nt,
+                                             int8_matmul_nt_experts,
+                                             int8_matmul_tn,
+                                             int8_matmul_tn_experts)
 from repro_torch.kernels.opt_update import (fused_adamw_blocks,
                                             fused_adamw_leaves)
 from repro_torch.kernels.qdq import qdq_row, qdq_scaled
@@ -22,7 +25,8 @@ KERNELS = (int8_matmul, flash_attention_fwd_q8, decode_attention,
            int8_matmul_nt, int8_matmul_tn, fused_adamw_blocks,
            fused_adamw_leaves, decode_attention_paged, qdq_row, qdq_scaled, flash_attention_fwd,
            flash_attention_fwd_lse, flash_attention_bwd_dkdv,
-           flash_attention_bwd_dq, int8_matmul_experts)
+           flash_attention_bwd_dq, int8_matmul_experts,
+           int8_matmul_nt_experts, int8_matmul_tn_experts)
 
 
 def reset_launch_counts() -> None:
@@ -40,5 +44,6 @@ __all__ = ["KERNELS", "decode_attention", "decode_attention_paged",
            "flash_attention_fwd_lse", "flash_attention_fwd_q8",
            "fused_adamw_blocks", "fused_adamw_leaves", "int8_matmul",
            "int8_matmul_experts", "int8_matmul_nt",
-           "int8_matmul_tn", "launch_counts", "qdq_row", "qdq_scaled",
+           "int8_matmul_nt_experts", "int8_matmul_tn",
+           "int8_matmul_tn_experts", "launch_counts", "qdq_row", "qdq_scaled",
            "reset_launch_counts"]

@@ -43,6 +43,8 @@ SIGNATURES = {
     "int8_matmul_bwd": {
         "repro_int8_matmul_nt": [_P] * 7 + [_I] * 7 + [_P],
         "repro_int8_matmul_tn": [_P] * 8 + [_I] * 6 + [_P],
+        "repro_int8_matmul_nt_experts": [_P] * 7 + [_I] * 8 + [_P],
+        "repro_int8_matmul_tn_experts": [_P] * 8 + [_I] * 7 + [_P],
         "repro_int8_quant_rows": [_P] * 4 + [_I] * 3 + [_P],
         "repro_int8_pack_tn": [_P] * 6 + [_I] * 4 + [_P],
         "repro_int8_gemm": [_P] * 5 + [_I] * 8 + [_P],

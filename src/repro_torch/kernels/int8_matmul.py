@@ -28,7 +28,8 @@ fp gradient, quantize it once into K-major int8 payloads and multiply those
 on the int8 tensor cores (see their docstrings and the stages below); the
 wrappers in ``kernels/ops.py`` reduce its scales.  The forward and the
 backward share one GEMM (``csrc/gemm_s8.cuh``), with the scale per row,
-per column or both.
+per column or both.  :func:`int8_matmul_nt_experts` and
+:func:`int8_matmul_tn_experts` are the backward's expert-batched instance.
 """
 from __future__ import annotations
 
@@ -967,3 +968,152 @@ def int8_matmul_tn(x: torch.Tensor, g: torch.Tensor, fold_scale: torch.Tensor,
 
 int8_matmul_nt.launches = 0
 int8_matmul_tn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The backward's expert-batched instance (the MoE's experts: the reference
+# reaches int8_matmul_nt and int8_matmul_tn through jax.vmap, whose
+# batching rule adds a grid dimension over the experts).  E products of one
+# shape in one call; each expert's fold and quantization scales are its
+# own, and expert e's bits are the 2-D call's on its slices.
+# ---------------------------------------------------------------------------
+
+def _check_bwd_experts(what, a, b, fold, q_scale, fold_n, q_n):
+    """(E, C, ·) operands of one expert count and row count, and E * fold_n
+    fold and E * q_n quantization scales."""
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or fold.numel() != a.shape[0] * fold_n
+            or q_scale.numel() != a.shape[0] * q_n):
+        raise ValueError(f"{what}: {tuple(a.shape)}, {tuple(b.shape)}, fold "
+                         f"{tuple(fold.shape)}, q_scale "
+                         f"{tuple(q_scale.shape)}")
+
+
+def int8_matmul_nt_experts_plain(g: torch.Tensor, w: torch.Tensor,
+                                 fold_scale: torch.Tensor,
+                                 q_scale: torch.Tensor,
+                                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`int8_matmul_nt_experts`:
+    :func:`int8_matmul_nt_plain` expert by expert."""
+    e = g.shape[0]
+    fold, qs = fold_scale.reshape(e, -1), q_scale.reshape(e, -1)
+    return torch.stack([int8_matmul_nt_plain(g[i], w[i], fold[i], qs[i],
+                                             out_dtype) for i in range(e)])
+
+
+def int8_matmul_tn_experts_plain(x: torch.Tensor, g: torch.Tensor,
+                                 fold_scale: torch.Tensor,
+                                 q_scale: torch.Tensor,
+                                 out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of :func:`int8_matmul_tn_experts`:
+    :func:`int8_matmul_tn_plain` expert by expert."""
+    e = g.shape[0]
+    fold, qs = fold_scale.reshape(e, -1), q_scale.reshape(e, -1)
+    return torch.stack([int8_matmul_tn_plain(x[i], g[i], fold[i], qs[i],
+                                             out_dtype) for i in range(e)])
+
+
+def int8_matmul_nt_experts(g: torch.Tensor, w: torch.Tensor,
+                           fold_scale: torch.Tensor, q_scale: torch.Tensor,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """#4's expert-batched instance: g fp32/bf16 (E, C, N); w int8 (E, K, N)
+    stored forward payloads; fold_scale fp32 (E, 1, N) -- each expert's
+    weight dequant scales; q_scale fp32 (E, C, 1) -- the per-token quant
+    scales of g * fold -> (E, C, K) ``out_dtype``, expert e's slice equal
+    bit for bit to ``int8_matmul_nt(g[e], w[e], fold_scale[e],
+    q_scale[e])``.
+
+    CPU tensors take :func:`int8_matmul_nt_experts_plain`; CUDA tensors
+    launch the kernels or raise: one quantize pass over every expert's
+    rows into (E * C, pad16(N)) int8, then the int8 GEMM over (expert,
+    split) pairs.  A call adds one to ``int8_matmul_nt_experts.launches``."""
+    _check_bwd_experts("int8_matmul_nt_experts", g, w, fold_scale, q_scale,
+                       g.shape[-1], g.shape[1])
+    e, c, n = g.shape
+    k = w.shape[1]
+    if w.shape[2] != n:
+        raise ValueError(f"int8_matmul_nt_experts: g {tuple(g.shape)} vs w "
+                         f"{tuple(w.shape)}")
+    if not _on_card("int8_matmul_nt_experts", g):
+        return int8_matmul_nt_experts_plain(g, w, fold_scale, q_scale,
+                                            out_dtype)
+    fold = fold_scale.reshape(e, n).contiguous()
+    qs = q_scale.reshape(e, c).contiguous()
+    _check_cuda("int8_matmul_nt_experts", g.device, (
+        ("g", g, _CARRIERS), ("w", w, (torch.int8,)),
+        ("fold_scale", fold, (torch.float32,)),
+        ("q_scale", qs, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_nt_experts: unsupported out_dtype "
+                         f"{out_dtype}")
+    if n > MAX_CONTRACTION:
+        raise ValueError(f"int8_matmul_nt_experts: contraction {n} > "
+                         f"{MAX_CONTRACTION} (int32 sums)")
+    out = torch.empty((e, c, k), dtype=out_dtype, device=g.device)
+    gq = torch.empty((e * c, _pad16(n)), dtype=torch.int8, device=g.device)
+    wk = kmajor_weight(w)
+    splits = gemm_splits(c, k, n, e)
+    ws = (torch.empty((splits, e, c, k), dtype=torch.int32, device=g.device)
+          if splits > 1 else None)
+    _run("repro_int8_matmul_nt_experts", _build.ptr(g), _build.ptr(wk),
+         _build.ptr(fold), _build.ptr(qs), _build.ptr(out), _build.ptr(gq),
+         _p(ws), c, n, k, wk.stride(-2), splits, e, _DTYPE_CODES[g.dtype],
+         _DTYPE_CODES[out_dtype], _build.stream_of(g))
+    int8_matmul_nt_experts.launches += 1
+    return out
+
+
+def int8_matmul_tn_experts(x: torch.Tensor, g: torch.Tensor,
+                           fold_scale: torch.Tensor, q_scale: torch.Tensor,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """#5's expert-batched instance: x int8 (E, C, K) stored forward
+    payloads; g fp32/bf16 (E, C, N); fold_scale fp32 (E, C, 1) -- each
+    expert's per-token activation scales; q_scale fp32 (E, 1, N) -- the
+    per-channel quant scales of g * fold over that expert's C rows -> (E,
+    K, N) ``out_dtype``, expert e's slice equal bit for bit to
+    ``int8_matmul_tn(x[e], g[e], fold_scale[e], q_scale[e])``.
+
+    CPU tensors take :func:`int8_matmul_tn_experts_plain`; CUDA tensors
+    launch the kernels or raise: every expert's gradient quantized and
+    transposed into (E, N, pad16(C)) and its activations into (E, K,
+    pad16(C)) in one pass -- each expert's rows padded on their own -- then
+    the int8 GEMM over (expert, split) pairs.  A call adds one to
+    ``int8_matmul_tn_experts.launches``."""
+    _check_bwd_experts("int8_matmul_tn_experts", x, g, fold_scale, q_scale,
+                       x.shape[1], g.shape[-1])
+    e, c, k = x.shape
+    n = g.shape[2]
+    if g.shape[1] != c:
+        raise ValueError(f"int8_matmul_tn_experts: x {tuple(x.shape)} vs g "
+                         f"{tuple(g.shape)}")
+    if not _on_card("int8_matmul_tn_experts", g):
+        return int8_matmul_tn_experts_plain(x, g, fold_scale, q_scale,
+                                            out_dtype)
+    fold = fold_scale.reshape(e, c).contiguous()
+    qs = q_scale.reshape(e, n).contiguous()
+    _check_cuda("int8_matmul_tn_experts", g.device, (
+        ("x", x, (torch.int8,)), ("g", g, _CARRIERS),
+        ("fold_scale", fold, (torch.float32,)),
+        ("q_scale", qs, (torch.float32,))))
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul_tn_experts: unsupported out_dtype "
+                         f"{out_dtype}")
+    if c > MAX_CONTRACTION:
+        raise ValueError(f"int8_matmul_tn_experts: contraction {c} > "
+                         f"{MAX_CONTRACTION} (int32 sums)")
+    out = torch.empty((e, k, n), dtype=out_dtype, device=g.device)
+    xt = torch.empty((e, k, _pad16(c)), dtype=torch.int8, device=g.device)
+    gt = torch.empty((e, n, _pad16(c)), dtype=torch.int8, device=g.device)
+    splits = gemm_splits(k, n, c, e)
+    ws = (torch.empty((splits, e, k, n), dtype=torch.int32, device=g.device)
+          if splits > 1 else None)
+    _run("repro_int8_matmul_tn_experts", _build.ptr(x), _build.ptr(g),
+         _build.ptr(fold), _build.ptr(qs), _build.ptr(out), _build.ptr(xt),
+         _build.ptr(gt), _p(ws), c, n, k, splits, e, _DTYPE_CODES[g.dtype],
+         _DTYPE_CODES[out_dtype], _build.stream_of(g))
+    int8_matmul_tn_experts.launches += 1
+    return out
+
+
+int8_matmul_nt_experts.launches = 0
+int8_matmul_tn_experts.launches = 0

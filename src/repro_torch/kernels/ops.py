@@ -5,7 +5,8 @@ kernels -- the quantize -> int8-matmul -> dequant path that realizes the
 paper's W8A8 recipe with real integer compute, forward and backward
 (``int8_payload_linear``, ``int8_linear``, ``int8_prepared_linear`` and
 its expert-batched instance ``int8_prepared_linear_experts``,
-``int8_bwd_dx``, ``int8_bwd_dw``).  The activation quantization and the
+``int8_bwd_dx``, ``int8_bwd_dw`` and their expert-batched instances
+``int8_bwd_dx_experts``, ``int8_bwd_dw_experts``).  The activation quantization and the
 column / tensor / gradient absmax reduces stay plain torch, as they stay
 in XLA in the JAX package, except at the decode step: there a prepared
 linear is one kernel that quantizes its activations per token itself
@@ -21,7 +22,10 @@ from repro_torch.core.qconfig import Granularity, QuantSpec, RoundMode
 from repro_torch.core.quantizer import _EPS, _div, quantize_int
 from repro_torch.kernels.int8_matmul import (int8_matmul,
                                              int8_matmul_experts,
-                                             int8_matmul_nt, int8_matmul_tn,
+                                             int8_matmul_nt,
+                                             int8_matmul_nt_experts,
+                                             int8_matmul_tn,
+                                             int8_matmul_tn_experts,
                                              int8_quant_matmul,
                                              int8_quant_matmul_experts,
                                              takes_quant_fwd)
@@ -77,6 +81,19 @@ def int8_payload_linear(xq: torch.Tensor, x_scale: torch.Tensor,
     col = w_scale.to(torch.float32).reshape(1, -1).expand(1, n).contiguous()
     return int8_matmul(xq.contiguous(), wq.contiguous(), row, col,
                        out_dtype=out_dtype)
+
+
+def int8_payload_linear_experts(xq: torch.Tensor, x_scale: torch.Tensor,
+                                wq: torch.Tensor, w_scale: torch.Tensor,
+                                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`int8_payload_linear` for every expert in one launch of
+    ``int8_matmul_experts``: ``xq`` (E, C, K) int8 with per-token (E, C, 1)
+    or per-expert (E, 1, 1) scales, ``wq`` (E, K, N) int8 with per-channel
+    (E, 1, N) or per-expert (E, 1, 1) scales -> (E, C, N)."""
+    e, c, _ = xq.shape
+    row = x_scale.to(torch.float32).reshape(e, -1, 1).expand(e, c, 1)
+    return int8_matmul_experts(xq.contiguous(), wq.contiguous(), row,
+                               w_scale, out_dtype=out_dtype)
 
 
 def int8_linear(x: torch.Tensor, w: torch.Tensor, a_spec: QuantSpec,
@@ -189,3 +206,41 @@ def int8_bwd_dw(xq: torch.Tensor, x_scale: torch.Tensor, g: torch.Tensor,
     q_scale = _div(absmax.clamp_min(_EPS), 127.0)
     return int8_matmul_tn(xq.contiguous(), g.contiguous(), fold, q_scale,
                           out_dtype=out_dtype)
+
+
+def int8_bwd_dx_experts(g: torch.Tensor, wq: torch.Tensor,
+                        w_scale: torch.Tensor,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """:func:`int8_bwd_dx` for every expert in one call (the reference's
+    ``vmap`` of it): g fp (E, C, N); wq int8 (E, K, N); w_scale fp32 (E, 1,
+    N) or one an expert (E, 1, 1) -> (E, C, K), expert e's slice that of
+    ``int8_bwd_dx(g[e], wq[e], w_scale[e])``: each row's absmax over N
+    with its expert's fold, then one ``int8_matmul_nt_experts``."""
+    out_dtype = out_dtype or g.dtype
+    e, _, n = g.shape
+    fold = w_scale.to(torch.float32).reshape(e, 1, -1).expand(
+        e, 1, n).contiguous()
+    absmax = torch.amax(g.to(torch.float32).abs() * fold, dim=2,
+                        keepdim=True)
+    q_scale = _div(absmax.clamp_min(_EPS), 127.0)
+    return int8_matmul_nt_experts(g.contiguous(), wq.contiguous(), fold,
+                                  q_scale, out_dtype=out_dtype)
+
+
+def int8_bwd_dw_experts(xq: torch.Tensor, x_scale: torch.Tensor,
+                        g: torch.Tensor,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """:func:`int8_bwd_dw` for every expert in one call: xq int8 (E, C, K);
+    x_scale fp32 per token (E, C, 1) or one an expert (E, 1, 1); g fp (E,
+    C, N) -> (E, K, N), expert e's slice that of ``int8_bwd_dw(xq[e],
+    x_scale[e], g[e])``: each column's absmax over its expert's C rows,
+    then one ``int8_matmul_tn_experts``."""
+    e, c, _ = g.shape
+    fold = x_scale.to(torch.float32).reshape(e, -1, 1).expand(
+        e, c, 1).contiguous()
+    absmax = torch.amax(g.to(torch.float32).abs() * fold, dim=1,
+                        keepdim=True)
+    q_scale = _div(absmax.clamp_min(_EPS), 127.0)
+    return int8_matmul_tn_experts(xq.contiguous(), g.contiguous(), fold,
+                                  q_scale, out_dtype=out_dtype)

@@ -52,16 +52,19 @@ def tree_unflatten(structure, leaves):
     return walk(structure)
 
 
-def checkpointed(fn: Callable, *args, **kwargs):
+def checkpointed(fn: Callable, *args, context_fn=None, **kwargs):
     """``fn(*args, **kwargs)`` whose backward recomputes it, the
     reference's ``jax.checkpoint``: nothing ``fn`` computes inside is kept
     for the backward, only its arguments (non-reentrant
     ``torch.utils.checkpoint``, so the backward runs the same autograd
     graph, and the recomputed values are the first forward's bits wherever
-    its ops repeat theirs).  Under ``no_grad`` (serving, eval) it is a plain
-    call."""
+    its ops repeat theirs).  ``context_fn`` gives the pair of context
+    managers the forward and the recomputation run in.  Under ``no_grad``
+    (serving, eval) it is a plain call."""
     if not torch.is_grad_enabled():
         return fn(*args, **kwargs)
+    if context_fn is not None:
+        kwargs["context_fn"] = context_fn
     return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 

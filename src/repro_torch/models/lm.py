@@ -30,7 +30,9 @@ context (``blocks.block_context``, ``blocks.block_finish``): the backward
 keeps a layer's input and its context -- the reference's
 ``save_only_these_names("attn_ctx")`` -- and recomputes the rest, so every
 block linear's forward kernel runs twice a step and the attention forward
-twice.  Two segments rather than selective checkpointing, because
+twice; an MoE layer's recomputation must route as its forward did, or
+it raises (``moe.route_check_contexts``).  Two segments rather than
+selective checkpointing, because
 ``create_selective_checkpoint_contexts`` sees aten ops and not the
 ``autograd.Function`` around the flash and int8 kernels.  The CE chunks
 are always checkpointed (``chunked_ce``), whatever ``cfg.remat`` says, and
@@ -54,6 +56,7 @@ from repro_torch.models.attention import Cache, init_caches
 from repro_torch.models.blocks import block_apply, block_context, block_finish
 from repro_torch.models.common import (Params, apply_norm, cast_params,
                                        checkpointed, rope_tables, tree_map)
+from repro_torch.models.moe import route_check_contexts
 
 _NEG = -1e30
 #: the MoE losses' weights in the training loss (the reference's)
@@ -176,8 +179,11 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
     positions = torch.arange(inp.shape[1], device=inp.device)
     h = embed_tokens(params, inp, cfg, positions, dtype, policy)
     rope = rope_for(cfg, positions)
+    moe_routes = None
     if cfg.n_experts:
         aux = z = torch.zeros((), dtype=torch.float32, device=h.device)
+        # the recomputation must route as the forward did
+        moe_routes = route_check_contexts
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         if cfg.remat:
             # the reference's save_only_these_names("attn_ctx"): the
@@ -185,7 +191,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             ctx = checkpointed(block_context, lp, h, cfg, policy=policy,
                                layer=i, rope=rope)
             h, a, zz = checkpointed(block_finish, lp, h, ctx, cfg,
-                                    policy=policy, layer=i)
+                                    policy=policy, layer=i,
+                                    context_fn=moe_routes)
         else:
             h, a, zz = block_apply(lp, h, cfg, policy=policy, layer=i,
                                    rope=rope)

@@ -28,7 +28,7 @@ from repro_torch.core.quantizer import _div
 from repro_torch.models.attention import _pick_chunk
 from repro_torch.models.common import (cast_params, tree_flatten,
                                        tree_unflatten)
-from repro_torch.models.model_api import Model
+from repro_torch.models.model_api import Model, _check_supported
 from repro_torch.optim.adamw import (AdamState, OptConfig, adamw_update,
                                      init_adam_state, opt_path_desc)
 
@@ -109,15 +109,13 @@ def train_path_summary(recipe, n_layers: int = 0,
 
 
 def check_trainable(cfg) -> None:
-    """Training takes the dense family: the MoE family's loss forward runs
-    (``Model.train_loss``), but its training -- the expert-batched int8
-    backward and the load-balance and z losses' gradients -- is not ported
-    yet, so a train step for experts raises."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: training the MoE family (n_experts="
-            f"{cfg.n_experts}) is not ported yet (ROADMAP section 1, item "
-            f"6); its loss forward runs, and it serves")
+    """Training takes every family the port builds: the dense family and
+    the MoE family in the reference's ``local`` mode (every expert on the
+    one card; the experts' Fig-1 linears on the expert-batched int8
+    kernels, the dispatch's and the router's gradients, the load-balance
+    and z losses).  The families ``build_model`` refuses -- SSM, hybrid,
+    encdec and VLM -- raise here too, before any state is made."""
+    _check_supported(cfg)
 
 
 def init_train_state(model: Model, generator: Optional[torch.Generator],
@@ -167,7 +165,8 @@ def make_train_step(model: Model, recipe, opt_cfg: OptConfig,
     ``health=True`` adds the sentinel's quantization-health counters to
     the metrics (``grad_sat``, ``grad_qerr``: see
     ``core.diagnostics.grad_quant_health``) -- one more pass over the
-    gradient leaves.  MoE configs raise (:func:`check_trainable`)."""
+    gradient leaves.  Families the port does not build raise
+    (:func:`check_trainable`)."""
     check_trainable(model.cfg)
     policy = as_policy(recipe)
 

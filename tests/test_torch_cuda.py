@@ -54,8 +54,12 @@ read by TMA); a small llama config's loss and gradients bit for bit with
 recomputation on and off; #3's expert-batched instance (the MoE's
 experts) bit for bit against its plain version, against per-expert
 launches of the 2-D entry and against a repeat, at both MoE models'
-expert shapes; #11-#13 at Granite's G = 3; and a 2-layer Granite's paged
-engine giving the dense engine's tokens.
+expert shapes; #11-#13 at Granite's G = 3; a 2-layer Granite's paged
+engine giving the dense engine's tokens; the expert-batched #4 and #5 bit
+for bit against their plain versions, E launches of the 2-D entries and a
+repeat (small E, ragged C, both carriers, the split path); and a
+Granite-shaped MoE layer's forward and backward bit-repeatable across two
+runs, on the expert-batched kernels alone.
 """
 import importlib
 import pathlib
@@ -1432,3 +1436,136 @@ def test_granite_engine_paged_equals_dense(cuda):
         eng.scheduler.stop()
     assert out[True] == out[False]
     assert all(len(t) == 16 for t in out[False])
+
+
+def _experts_bwd_case(cuda, e, c, k, n, dtype, seed):
+    """E experts' gradients (E, C, N), int8 payloads w (E, K, N) and x (E,
+    C, K), each expert's nt fold (E, 1, N) and tn fold (E, C, 1), and the
+    quantization scales the wrappers in ``kernels/ops.py`` reduce from them
+    (every 5th row or column scale 0: the guard maps it to 1)."""
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy((rng.randn(e, c, n) * 0.02).astype(np.float32))
+    g[:, :, 5] = 0.0
+    w = torch.from_numpy(rng.randint(-128, 128, (e, k, n)).astype(np.int8))
+    x = torch.from_numpy(rng.randint(-128, 128, (e, c, k)).astype(np.int8))
+    fw = torch.from_numpy(rng.uniform(1e-3, 0.1, (e, 1, n)).astype(
+        np.float32))
+    fx = torch.from_numpy(rng.uniform(1e-3, 0.1, (e, c, 1)).astype(
+        np.float32))
+    g = g.to(dtype)
+    qn = (g.float().abs() * fw).amax(dim=2, keepdim=True)
+    qn = qn.clamp_min(1e-12) / torch.full_like(qn, 127.0)
+    qt = (g.float().abs() * fx).amax(dim=1, keepdim=True)
+    qt = qt.clamp_min(1e-12) / torch.full_like(qt, 127.0)
+    qn[:, ::5] = 0.0
+    qt[:, :, ::5] = 0.0
+    return tuple(t.to(cuda) for t in (g, w, x, fw, fx, qn, qt))
+
+
+#: the expert-batched #4 and #5: (E, C, K, N) -- a few experts at ragged C
+#: (17, 33, 2049: Granite's training capacity), C = 1, ragged K and N (nt
+#: reads a zero-padded copy of w), Granite's w_gate/w_up and w_down shapes
+#: at a few experts, and one that takes the split path
+EXPERT_BWD_SHAPES = [(3, 17, 96, 40), (5, 33, 90, 257), (2, 1, 48, 40),
+                     (4, 2049, 1536, 512), (3, 2049, 512, 1536),
+                     (2, 8192, 90, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,k,n", EXPERT_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_bwd_experts_kernels(cuda, e, c, k, n, dtype,
+                                         out_dtype):
+    """``int8_matmul_nt_experts`` and ``int8_matmul_tn_experts``: one
+    launch each on its counter, bit for bit against its plain version (the
+    2-D plain versions expert by expert), against E launches of the 2-D
+    entry, and against a repeat."""
+    g, w, x, fw, fx, qn, qt = _experts_bwd_case(cuda, e, c, k, n, dtype,
+                                                seed=e * c + k + n)
+    before = im.int8_matmul_nt_experts.launches
+    got = im.int8_matmul_nt_experts(g, w, fw, qn, out_dtype=out_dtype)
+    assert im.int8_matmul_nt_experts.launches == before + 1
+    assert got.shape == (e, c, k)
+    assert torch.equal(got, im.int8_matmul_nt_experts_plain(
+        g, w, fw, qn, out_dtype=out_dtype))
+    assert torch.equal(got, torch.stack([int8_matmul_nt(
+        g[i], w[i], fw[i], qn[i], out_dtype=out_dtype) for i in range(e)]))
+    assert torch.equal(im.int8_matmul_nt_experts(g, w, fw, qn,
+                                                 out_dtype=out_dtype), got)
+    before = im.int8_matmul_tn_experts.launches
+    got = im.int8_matmul_tn_experts(x, g, fx, qt, out_dtype=out_dtype)
+    assert im.int8_matmul_tn_experts.launches == before + 1
+    assert got.shape == (e, k, n)
+    assert torch.equal(got, im.int8_matmul_tn_experts_plain(
+        x, g, fx, qt, out_dtype=out_dtype))
+    assert torch.equal(got, torch.stack([int8_matmul_tn(
+        x[i], g[i], fx[i], qt[i], out_dtype=out_dtype) for i in range(e)]))
+    assert torch.equal(im.int8_matmul_tn_experts(x, g, fx, qt,
+                                                 out_dtype=out_dtype), got)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_bwd_experts_split_and_refusals(cuda):
+    """Both instances where the GEMM splits its contraction (the (splits,
+    E, ·, ·) workspace and the per-expert scales of the reduction), bit for
+    bit against the plain versions; the wrappers refuse 2-D operands and
+    mismatched scales."""
+    e, c, k, n = 2, 8192, 90, 40
+    g, w, x, fw, fx, qn, qt = _experts_bwd_case(cuda, e, c, k, n,
+                                                torch.bfloat16, seed=1)
+    assert im.gemm_splits(k, n, c, e) > 1
+    assert torch.equal(im.int8_matmul_tn_experts(x, g, fx, qt),
+                       im.int8_matmul_tn_experts_plain(x, g, fx, qt))
+    e, c, k, n = 6, 40, 96, 8192
+    g, w, x, fw, fx, qn, qt = _experts_bwd_case(cuda, e, c, k, n,
+                                                torch.bfloat16, seed=2)
+    assert im.gemm_splits(c, k, n, e) > 1
+    assert torch.equal(im.int8_matmul_nt_experts(g, w, fw, qn),
+                       im.int8_matmul_nt_experts_plain(g, w, fw, qn))
+    with pytest.raises(ValueError, match="int8_matmul_nt_experts"):
+        im.int8_matmul_nt_experts(g[0], w[0], fw[0], qn[0])
+    with pytest.raises(ValueError, match="int8_matmul_tn_experts"):
+        im.int8_matmul_tn_experts(x, g, fx[:, :3], qt)
+
+
+@pytest.mark.cuda
+def test_granite_moe_layer_backward_repeats(cuda):
+    """One Granite-3.0-MoE layer's experts at full width (d_model 1536, 40
+    experts of 512, top 8), 2 x 512 tokens at the bf16 carrier under the
+    training policy's W8A8G8 recipe on the int8 kernels: the forward and
+    backward of ``moe_apply`` twice from the same inputs give bit-identical
+    outputs and gradients (x, the router and the three expert weights),
+    each run one launch of the expert-batched #3 (gate, up, down) and one
+    of #4 and of #5 a projection, and never the 2-D ones."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), n_layers=1)
+    params = build_model(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    leaves = {k: v[0].to(torch.bfloat16)
+              for k, v in params["blocks"]["moe"].items()}
+    x = (torch.randn((2, 512, cfg.d_model), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+         ).to(torch.bfloat16)
+    dy = torch.randn_like(x)
+
+    def run():
+        p = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        xi = x.clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        y, aux, z = moe.moe_apply(p, xi, cfg, policy=chip_smoke.TRAIN_POLICY,
+                                  layer=0, n_layers=1)
+        loss = (y.float() * dy.float()).sum() + aux + z
+        grads = torch.autograd.grad(loss, [xi, *p.values()])
+        torch.cuda.synchronize()
+        return [y, *grads], kernels.launch_counts()
+    a, counts = run()
+    b, _ = run()
+    assert all(torch.isfinite(t.float()).all() for t in a)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+    assert {k: v for k, v in counts.items() if v} == {
+        "int8_matmul_experts": 3, "int8_matmul_nt_experts": 3,
+        "int8_matmul_tn_experts": 3}

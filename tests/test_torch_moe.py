@@ -418,18 +418,22 @@ def test_check_supported_takes_moe_and_refuses_the_rest():
                                              n_experts=4, top_k=2))
 
 
-def test_training_refuses_moe():
-    """The train step factory and the launcher raise for experts, naming
-    ROADMAP item 6; the loss forward stays callable (above)."""
+def test_training_takes_moe(capsys):
+    """The train step factory builds for experts, and the launcher runs one
+    granite-moe-smoke step on the CPU with a finite ce."""
+    import math
+    import re
     from repro_torch.launch import train as launcher
     from repro_torch.optim import OptConfig
     from repro_torch.train import make_train_step
     cfg = get_smoke_config("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="section 1, item 6"):
-        make_train_step(build_model(cfg), POLICY, OptConfig())
-    with pytest.raises(NotImplementedError, match="section 1, item 6"):
-        launcher.main(["--arch", "granite-moe-3b-a800m", "--smoke",
-                       "--steps", "1", "--device", "cpu"])
+    assert callable(make_train_step(build_model(cfg), POLICY, OptConfig()))
+    launcher.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                   "--steps", "1", "--batch", "2", "--seq", "32",
+                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    ce = re.search(r"step\s+1\s+ce=(\S+)", out)
+    assert ce and math.isfinite(float(ce.group(1))), out
 
 
 def test_moe_modes_with_a_mesh_raise():
