@@ -168,7 +168,7 @@ Phases, in order; any failure exits non-zero:
     ``SERVE_OOM_PLAN`` on the paged engine: a preemption, never a
     ``CapacityError``, every request to length and every page back
     (``serve_oom``).  Every healthy serving phase (4, 4b,
-    4c, 14b, 16b, 16c, 17a, 17d, 19b, 19c, 20a, 21b, 21c) fails unless it ends with
+    4c, 14b, 16b, 16c, 17a, 17d, 19b, 19c, 20a, 21b, 21c, 23b) fails unless it ends with
     no kernel error, no demotion and rung 0 (``healthy``);
 18. llama pre-training at Yi-6B's published widths (random weights from
     ``--seed``, bf16 carrier, ``TRAIN_POLICY`` with int moments, the
@@ -255,7 +255,35 @@ Phases, in order; any failure exits non-zero:
     (``granite_remat``); 22d. phase 8's checks at Granite's width and 2
     layers on the card's routes within ``GRANITE_TRAIN_LIMITS``, the
     bf16-carrier control above them, every kernel's plain version on the
-    card within them (``granite_train_card_vs_cpu``).
+    card within them (``granite_train_card_vs_cpu``);
+23. Mamba2-130M at full width and depth (``configs/mamba2_130m.py``: 24
+    SSD layers, d_model 768, d_inner 1536 in 24 heads of 64, a state of
+    128, a conv of width 4, a tied head of 50,280; no attention, no
+    positions): 23a. #3 at the five projections' ``MAMBA_INT8_KN`` --
+    in_dt's N = 24 the first output width on any path that is no multiple
+    of 16: the cluster route's 32-column clusters run over 24 columns, the
+    tensor-core route reads a zero-padded K-major copy -- and
+    ``MAMBA_INT8_ROWS`` with phase 16a's gates (``check_int8_cell``); 23b. the dense engine (random float32 weights
+    from ``--seed``, bf16 carrier, ``POLICY``: W8A8 prepared projections,
+    no KV cache, the engine state the SSM and conv states), 16 slots of
+    2048 rows, 32 requests in two waves of one prefill bucket (257-512,
+    then 129-256 prompt tokens), 64 new each: exactly 120 #3 a decode step
+    and a prefill launch and no other kernel, no KV cache, rung 0 (the
+    one rung ``none``) throughout (``serve_cell``); 23c. phase 16d at
+    Mamba2-130M's width and 2 layers with ``MAMBA_B_LIMIT`` and a
+    bf16-carrier control above each limit (``cell_card_vs_cpu``);
+24. Mamba2-130M pre-training: 24a. #4 and #5 at the five projections'
+    training shapes (8,192 rows) bit for bit against their plain versions
+    (``check_int8_bwd_ssm``); 24b. 24 layers at full width, 4 x 2048
+    tokens a step (16 SSD chunks a row), ``TRAIN_POLICY`` with int
+    moments, recomputation (one checkpoint a layer), ``MAMBA_TRAIN_STEPS``
+    finite steps, each launching exactly 240 #3, 120 #4, 120 #5 and one
+    #6 (``train_mamba2``); 24c. recomputation on against off and a repeat
+    at full depth: ce and every gradient bit-identical, the peak lower
+    (``mamba_remat``); 24d. phase 8's checks at Mamba2-130M's width and 2
+    layers within ``MAMBA_TRAIN_LIMITS``, the bf16-carrier control above
+    them, every kernel's plain version on the card within them
+    (``mamba_train_card_vs_cpu``).
 
 Phases 7, 10, 11 and 14 pin ``remat=False`` (``gpt2_train_cfg``), so
 their launch gates (72 #3 a step) and their numbers keep their meaning;
@@ -1333,9 +1361,10 @@ def profile_decode(torch, eng, cfg, rng) -> None:
               f"{name[:90]}")
     attn = [k for k in kern if "decode_chunk_kernel" in k[0]
             or "decode_combine_kernel" in k[0]]
-    print(f"profile: decode attention (decode_attn.cu's two kernels) "
-          f"{sum(k[1] for k in attn) / 4e3:.3f} ms/step in "
-          f"{sum(k[2] for k in attn) // 4} kernels/step")
+    if cfg.family != "ssm":
+        print(f"profile: decode attention (decode_attn.cu's two kernels) "
+              f"{sum(k[1] for k in attn) / 4e3:.3f} ms/step in "
+              f"{sum(k[2] for k in attn) // 4} kernels/step")
     fwd = [k for k in kern if int8_kernel_side(k[0]) == "fwd"]
     print(f"profile: the int8 forward (int8_matmul, FWD_STAGES) "
           f"{sum(k[1] for k in fwd) / 4e3:.3f} ms/step in "
@@ -1542,8 +1571,9 @@ def serve_paged_pressure(torch, dev, seed):
 def _teacher_forced(torch, model, cfg, params, toks, policy, device,
                     kv_path=None):
     """Logits of a 64-token prefill and 8 teacher-forced decode steps,
-    (9, B, vocab), on ``device``; the KV caches as the last step left them.
-    ``kv_path`` picks how an int8 cache is read (phase 17b)."""
+    (9, B, vocab), on ``device``; the KV caches as the last step left them
+    (the SSM family: its SSM and conv states).  ``kv_path`` picks how an
+    int8 cache is read (phase 17b)."""
     from repro_torch.infer.prepare import prepare_params
     from repro_torch.models.common import tree_map
     p = prepare_params(cfg, tree_map(lambda t: t.to(device), params), policy)
@@ -1556,7 +1586,8 @@ def _teacher_forced(torch, model, cfg, params, toks, policy, device,
         lg, st = model.decode(p, st, toks[:, 64 + i:65 + i].to(device), pos,
                               policy=policy, kv_path=kv_path)
         out.append(lg.cpu())
-    return torch.stack(out)[..., :cfg.vocab_size], st["caches"]
+    return (torch.stack(out)[..., :cfg.vocab_size],
+            st["ssm"] if st["caches"] is None else st["caches"])
 
 
 @contextlib.contextmanager
@@ -1623,15 +1654,21 @@ def _agreement(torch, card, cpu, margin):
     return err, int(agree.sum()), int((decided & ~agree).sum())
 
 
+#: the SSM layer's leaves of the reference's ``fan_in`` init: the five
+#: projections and the conv (its true fan-in the conv's width)
+SSM_FAN_IN = ("in_z", "in_x", "in_bc", "in_dt", "out_proj", "conv_w")
+
+
 def true_fan_in(params, cfg):
     """The block weights rescaled from the reference init's std 1/sqrt(L)
     (its fan-in is read from the stacked layer dim; ROADMAP section 3) to
-    the true fan-in's 1/sqrt(d_in).  At the reference's scale the random
-    model's logits jump by up to about 1 with the last bit of its inputs,
-    so the plain versions alone put the card that far from the CPU
-    (PERF.md); at this scale they stay continuous enough to compare."""
+    the true fan-in's 1/sqrt(d_in) (an SSM layer's conv: 1/sqrt(width)).
+    At the reference's scale the random model's logits jump by up to about
+    1 with the last bit of its inputs, so the plain versions alone put the
+    card that far from the CPU (PERF.md); at this scale they stay
+    continuous enough to compare."""
     blocks = {mod: {n: (w * math.sqrt(cfg.n_layers / w.shape[-2])
-                        if n.startswith("w") else w)
+                        if n.startswith("w") or n in SSM_FAN_IN else w)
                     for n, w in leaves.items()}
               for mod, leaves in params["blocks"].items()}
     return dict(params, blocks=blocks)
@@ -1762,16 +1799,23 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
                   f"{readings[label]['route_flips']:.3e}, max |dlogit| "
                   f"{readings[label]['free_err']:.3e}; below, the cpu, the "
                   f"plain versions and the control on the card's routes")
-        flips = [float((card_kv["k"][i].cpu() != cpu_kv["k"][i]).float()
-                       .mean()) for i in range(cfg.n_layers)]
+        if cfg.family == "ssm":
+            # no KV cache: each layer's SSM state, relative L2
+            flips = [_rel_l2(torch, [card_kv["ssm"][i].cpu()],
+                             [cpu_kv["ssm"][i]]) for i in range(cfg.n_layers)]
+        else:
+            flips = [float((card_kv["k"][i].cpu() != cpu_kv["k"][i]).float()
+                           .mean()) for i in range(cfg.n_layers)]
         print(f"card vs cpu {label} {cfg.name} {cfg.n_layers}L d="
               f"{cfg.d_model} {policy} (float32 carrier, 2 x 64 prompt "
               f"+ 8 teacher-forced steps): max |dlogit| {err:.3e} (limit "
               f"{limit:.1e}), top-1 agree {n_agree}/{cpu.shape[0] * cpu.shape[1]}"
               f" ({n_bad} disagreements where the CPU's top-2 margin > "
               f"limit); plain versions on the card vs cpu: max |dlogit| "
-              f"{spread:.3e}; share of K-cache payloads that differ, by "
-              f"layer: {' '.join(f'{x:.1e}' for x in flips)}")
+              f"{spread:.3e}; "
+              + ("SSM state rel L2, by layer" if cfg.family == "ssm" else
+                 "share of K-cache payloads that differ, by layer")
+              + f": {' '.join(f'{x:.1e}' for x in flips)}")
         ok &= err <= limit and n_bad == 0 and bool(torch.isfinite(card).all())
         if control:
             ctl, _ = run(policy, dev, carrier="bfloat16", replay=card_routes)
@@ -1879,7 +1923,7 @@ def bwd_stage_ms(torch, kind, g, other, fold, qs, k, n, dt) -> dict:
     return out
 
 
-def check_int8_bwd(torch, dev, gen, results):
+def check_int8_bwd(torch, dev, gen, results, cases=None, tag=None):
     """Phase 6a: nt and tn at the training path's shapes (M = 8192 tokens,
     the three (K, N) of GPT-2 small's linears, bf16 gradient and output) and
     at fp32 (gradient and output, (768, 768)), bit for bit against their
@@ -1887,14 +1931,16 @@ def check_int8_bwd(torch, dev, gen, results):
     with its stages (quantize pass, GEMM, split reduction) beside its bound,
     its plain version and ``torch._int_mm``, all with the card's queue
     full (``queued_ms``); every GEMM kernel of the library holds integer
-    wgmma (``IGMMA``) in its SASS."""
+    wgmma (``IGMMA``) in its SASS.  Phase 24a: ``cases`` ((K, N, dtype)
+    at M = 8192) under ``results[name][tag]``, the SASS left to phase 6."""
     from repro_torch.kernels.int8_matmul import (
         _quant_grad, gemm_splits, int8_matmul_nt, int8_matmul_nt_plain,
         int8_matmul_tn, int8_matmul_tn_plain, scale_guard)
     m = TRAIN_BATCH * TRAIN_SEQ
     rows = {"int8_matmul_nt": [], "int8_matmul_tn": []}
-    cases = [(768, 768, torch.bfloat16), (768, 3072, torch.bfloat16),
-             (3072, 768, torch.bfloat16), (768, 768, torch.float32)]
+    label = "phase 24a " if tag else ""
+    cases = cases or [(768, 768, torch.bfloat16), (768, 3072, torch.bfloat16),
+                      (3072, 768, torch.bfloat16), (768, 768, torch.float32)]
     for k, n, dt in cases:
         g = (torch.randn((m, n), generator=gen, device=dev) * 0.02).to(dt)
         w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
@@ -1931,11 +1977,11 @@ def check_int8_bwd(torch, dev, gen, results):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             if not torch.equal(got, want):
-                fail(f"{name} M={m} K={k} N={n} {dt} not bit-exact (max err "
-                     f"{err})")
+                fail(f"{label}{name} M={m} K={k} N={n} {dt} not bit-exact "
+                     f"(max err {err})")
             if not torch.equal(again, got):
-                fail(f"{name} M={m} K={k} N={n} {dt}: a second launch gave "
-                     f"other bits")
+                fail(f"{label}{name} M={m} K={k} N={n} {dt}: a second launch "
+                     f"gave other bits")
             ms = queued_ms(kern)
             split = stages()
             plain_ms = time_ms(plain, iters=3)
@@ -1945,12 +1991,17 @@ def check_int8_bwd(torch, dev, gen, results):
                                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    bound_ms=b, bound_by=by, library_ms=lib,
                                    stages_ms=split, splits=splits))
-            print(f"{name} M={m} K={k:4d} N={n:4d} {str(dt)[6:]}: bit-exact "
+            print(f"{label}{name} M={m} K={k:4d} N={n:4d} {str(dt)[6:]}: "
+                  f"bit-exact "
                   f"(tol 0), repeat bit-identical, ms {ms:.4f} (stages alone: "
                   + ", ".join(f"{st} {v:.4f}" for st, v in split.items())
                   + f"; {splits} split{'s' if splits > 1 else ''}), plain_ms "
                   f"{plain_ms:.4f}, bound_ms {b:.5f} ({by}), "
                   f"library_ms(_int_mm) {lib:.4f}")
+    if tag:
+        for name in rows:
+            results[name][tag] = dict(shapes=rows[name])
+        return
     # the JSON entry reports the shape with the most launches on the main
     # path: wq, wk, wv and wo at K = N = 768 (48 of the 72 a step)
     for name, line in (("int8_matmul_nt", 146), ("int8_matmul_tn", 205)):
@@ -2215,13 +2266,16 @@ def adamw_update_time(torch, dev, gen):
 def train_launches(cfg):
     """The launches of one train step on the int8 kernels: each 2-D block
     linear's forward (#3) once, and once more in the backward under
-    ``cfg.remat`` (the layer's recomputation); its backward (#4, #5) once;
+    ``cfg.remat`` (the layer's recomputation); its backward (#4, #5) once
+    (an SSM layer's five projections likewise, and no attention kernel);
     with experts, the three expert projections likewise on the
     expert-batched #3, #4 and #5 (the attention's four linears on the 2-D
     ones); one ``fused_adamw_leaves`` (#6); under ``flash_pallas`` the
     flash forward (#8) once a layer, again under ``remat``, and its
     backward (#9, #10) once a layer."""
-    if cfg.n_experts:
+    if cfg.family == "ssm":
+        per_layer = SSM_LINEARS
+    elif cfg.n_experts:
         per_layer = MOE_ATTN_LINEARS
     else:
         per_layer = 7 if cfg.mlp_kind == "gated" else 6
@@ -2341,11 +2395,12 @@ def profile_train_step(torch, step_fn, state, batch) -> None:
     print(f"profile: 1 train step, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{sum(k[2] for k in kern)} kernel launches")
-    # the twelve largest, and every flash kernel and every kernel of the
-    # int8 forward and backward wherever it ranks
+    # the twelve largest, and every flash kernel, every kernel of the int8
+    # forward and backward and the fused AdamW (#6) wherever it ranks
     side = {k[0]: int8_kernel_side(k[0]) for k in kern}
     for rank, (name, us, n) in enumerate(kern):
-        if rank < 12 or "flash" in name or side[name]:
+        if (rank < 12 or "flash" in name or side[name]
+                or "adamw_stream_kernel" in name):
             print(f"profile:   {us / 1e3:8.3f} ms {n:5d} launches "
                   f"{name[:90]}")
     for key, what in (("fwd", "the int8 forward (int8_matmul)"),
@@ -3742,7 +3797,7 @@ GRANITE_B_LIMIT = 0.12
 
 @dataclasses.dataclass(frozen=True)
 class ServeCell:
-    """A model served at its published width (phases 16, 19, 20, 21):
+    """A model served at its published width (phases 16, 19, 20, 21, 23):
     its config and depth (``layers``, None: the config's), #3's distinct
     (K, N) and the decode step's 2-D linears of a layer in call order
     (seven a dense gated layer, an MoE layer's four attention ones),
@@ -3771,6 +3826,9 @@ class ServeCell:
     #: ``prompt``): the dense engine then prefills each wave in one launch,
     #: as the paged engine does (phase 21c)
     waves: tuple | None = None
+    #: the rows at which phase 16a holds #3 (the decode step's 16, then
+    #: prefill and training rows)
+    rows: tuple = (16, 2048)
 
     def config(self, **kw):
         from repro_torch.configs import get_config
@@ -3809,7 +3867,8 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
     tensor-core route runs on every call, timed alone; and the decode
     step's seven linears of a layer through the fused entry over four
     layers' distinct weights (the L2 cold), ms per call beside the round's
-    byte bound."""
+    byte bound.  Phase 23a holds Mamba2-130M's projections so at
+    ``cell.rows``."""
     import importlib
     im = importlib.import_module("repro_torch.kernels.int8_matmul")
     from repro_torch.core.qconfig import Granularity, QuantSpec
@@ -3819,7 +3878,7 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
     n_layers = cell.config().n_layers
     rows = []
     for k, n in cell.int8_kn:
-        for m in YI_INT8_ROWS:
+        for m in cell.rows:
             x, w, rs, cs = _int8_case(torch, dev, gen, m, k, n)
             want = im.int8_matmul_plain(x, w, rs, cs, out_dtype=dt)
             got = {"wrapper": im.int8_matmul(x, w, rs, cs, out_dtype=dt)}
@@ -3886,7 +3945,8 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
     # the transposes a prefill launch runs: every layer's 2-D linears
     linears = len(cell.decode_kn)
     per_layer = sum(next(r["transpose_ms"] for r in rows
-                         if r["shape"].startswith(f"M=2048,K={k},N={n},"))
+                         if r["shape"].startswith(
+                             f"M={cell.rows[-1]},K={k},N={n},"))
                     for k, n in cell.decode_kn)
     print(f"{label} int8_matmul: the tensor-core route's weight transposes "
           f"of one prefill launch ({n_layers} layers x {linears} linears, "
@@ -4065,13 +4125,17 @@ def cell_prompts(cell, cfg, seed):
 
 def serve_launches(cfg, prefills, decode_steps, attn):
     """The launches a serving run must count: every layer's 2-D block
-    linears (7 a dense gated layer, 4 an MoE one's attention) and one #11 a
-    prefill launch, those linears and one ``attn`` (#12 or #13) a decode
-    step; an MoE layer's three expert projections once a decode step and
-    once a dispatch chunk of each prefill launch of ``prefills`` (its (B,
-    S) token shapes; ``models/moe.dispatch_chunk``)."""
+    linears (7 a dense gated layer, 4 an MoE one's attention, an SSM
+    layer's 5 projections) and one #11 a prefill launch, those linears and
+    one ``attn`` (#12 or #13) a decode step -- no attention kernel in the
+    SSM family; an MoE layer's three expert projections once a decode
+    step and once a dispatch chunk of each prefill launch of ``prefills``
+    (its (B, S) token shapes; ``models/moe.dispatch_chunk``)."""
     from repro_torch.models.moe import dispatch_chunk
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"int8_matmul": SSM_LINEARS * L * (len(prefills)
+                                                  + decode_steps)}
     linears = MOE_ATTN_LINEARS if cfg.n_experts else YI_LINEARS
     want = {"int8_matmul": linears * L * (len(prefills) + decode_steps),
             "flash_attention_fwd_q8": L * len(prefills),
@@ -4198,13 +4262,19 @@ def serve_cell(torch, dev, seed, cell=YI):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    ssm = eng._state["caches"] is None
     print(f"{label}: {cfg.name} ({cfg.n_layers} layers) float32 weights "
           f"{fp32_bytes / 1e9:.2f} GB drawn and prepared in "
           f"{time.perf_counter() - t0:.1f} s, freed; the engine holds "
           f"{params_nbytes(eng.params) / 1e9:.2f} GB of parameters (int8 "
           f"block weights, bf16 "
           f"{'tied embedding' if cfg.tie_embeddings else 'embedding and head'}"
-          f") and {eng.kv_cache_nbytes() / 1e9:.2f} GB of int8 KV cache")
+          f") and {eng.kv_cache_nbytes() / 1e9:.3f} GB of "
+          f"{'SSM and conv state, no KV cache' if ssm else 'int8 KV cache'}"
+          f"; {eng.path_summary()}")
+    if cfg.family == "ssm" and not (ssm and eng.path_summary().endswith(
+            "kv=none")):
+        fail(f"{label}: the SSM engine holds a KV cache")
     prompts = cell_prompts(cell, cfg, seed)
     counts, tokens, st = _cell_serve_run(torch, eng, cfg, cell, prompts,
                                          f"{label} engine")
@@ -4986,6 +5056,150 @@ def granite_train_card_vs_cpu(torch, dev, seed, strict=True, extra=None):
                              strict=strict, plain_check=True, extra=extra)
 
 
+# ---------------------------------------------------------------------------
+# Phases 23 and 24: the SSM family, Mamba2-130M served and pre-trained at
+# its published widths and full depth
+# ---------------------------------------------------------------------------
+
+#: phase 23a: #3's (K, N) in a Mamba2-130M layer -- in_z and in_x (768,
+#: 1536), in_bc (768, 256), in_dt (768, 24: the first output width on any
+#: path that is no multiple of 16) and out_proj (1536, 768) -- at the
+#: decode step's 16 slots, the second wave's prefill (16 x 256 rows) and
+#: the first wave's and a train step's 8,192 rows
+MAMBA_INT8_KN = ((768, 1536), (768, 256), (768, 24), (1536, 768))
+MAMBA_DECODE_KN = ((768, 1536), (768, 1536), (768, 256), (768, 24),
+                   (1536, 768))
+MAMBA_INT8_ROWS = (16, 4096, 8192)
+#: the block linears of an SSM layer (its four input segments, out_proj)
+SSM_LINEARS = 5
+#: phase 23c, policy B at Mamba2-130M's width and 2 layers: the geometric
+#: mean, to two digits, of the card-vs-CPU readings' largest and the
+#: bf16-carrier control's smallest at seeds 0-3 (``tools/ssm_readings.py``,
+#: PERF.md; H100 80GB HBM3, 700 W): 9.5e-7 to 1.90e-2 against controls
+#: 0.172-0.597.  The plain versions on the card read the same as the
+#: kernels (the card with the plain int8_matmul in the kernel's place is
+#: bit-identical at every seed): the distance is PyTorch's own fp32 ops on
+#: the two devices, carried by the per-token codec.  Policy A reads 7.2e-6
+#: to 3.6e-5 under phase 5's 1e-2, its controls 0.094-0.369.
+MAMBA_B_LIMIT = 0.057
+MAMBA = ServeCell("23", "mamba2", "mamba2-130m", MAMBA_INT8_KN,
+                  MAMBA_DECODE_KN, None, None, slots=16, seq=2048,
+                  requests=32, prompt=(129, 512), new=64,
+                  b_limit=MAMBA_B_LIMIT, control=True,
+                  waves=((257, 512), (129, 256)), rows=MAMBA_INT8_ROWS)
+#: phase 24: Mamba2-130M pre-training at full width and depth, 4 x 2048
+#: tokens a step (16 SSD chunks of 128 a row); 24d card vs CPU at 2 layers,
+#: 2 x 256 tokens
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_TRAIN_STEPS = 4, 2048, 6
+MAMBA_CHECK_LAYERS, MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ = 2, 2, 256
+#: phase 24d: the card against the CPU for one train step at Mamba2-130M's
+#: width and 2 layers, set from the readings at seeds 0-3
+#: (``tools/ssm_readings.py``, PERF.md; H100 80GB HBM3, 700 W; not sized at
+#: run time): each limit the geometric mean, to two digits, of the largest
+#: sound reading (the card, and the plain versions on the card, which read
+#: the same) and the bf16-carrier control's smallest -- grads 2.62e-2
+#: against 7.39e-2, sign flips 2.43e-3 against 9.44e-3, updates where the
+#: sign agrees 1.41e-2 against 3.67e-2, updates 7.12e-2 against 0.146
+#: (phase 8's 1e-2 and 0.2 would hold the control inside two of them).
+#: |d ce| read 1.4e-4 to 4.0e-4, the control's 5.3e-5 to 1.7e-3: ce cannot
+#: tell the two apart, so it keeps phase 8's 1e-3 and stays out of the
+#: control's check
+MAMBA_TRAIN_LIMITS = {"ce": 1e-3, "grads": 4.4e-2, "sign_flips": 4.8e-3,
+                      "updates_sign": 2.3e-2, "updates": 0.10}
+MAMBA_CONTROL = ("grads", "sign_flips", "updates_sign", "updates")
+
+
+def mamba_train_cfg(layers, **kw):
+    """Mamba2-130M's published widths (``configs/mamba2_130m.py``) at
+    ``layers`` layers, ``remat`` on (the config's default) unless ``kw``
+    says otherwise."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-130m"), n_layers=layers,
+                               **kw)
+
+
+def check_int8_bwd_ssm(torch, dev, gen, results):
+    """Phase 24a: #4 and #5 at the five projections' training shapes (M =
+    8,192 tokens, bf16 gradients), phase 6a's gates and timings
+    (``check_int8_bwd``): nt quantizes in_dt's gradient into pad16(24) =
+    32 columns, tn writes a (768, 24) dW."""
+    check_int8_bwd(torch, dev, gen, results,
+                   cases=[(k, n, torch.bfloat16) for k, n in MAMBA_INT8_KN],
+                   tag="mamba2")
+
+
+def train_mamba2(torch, dev, seed):
+    """Phase 24b: Mamba2-130M pre-training on the card at its full width
+    and depth -- 24 layers, ``MAMBA_TRAIN_BATCH`` x ``MAMBA_TRAIN_SEQ``
+    tokens a step, recomputation on (one checkpoint a layer),
+    ``TRAIN_POLICY`` with int moments, random weights from ``seed``: phase
+    7's checks and numbers (``train``), the launches a step exactly
+    ``train_launches``: 240 #3 (the five projections x 24, again in the
+    recomputation), 120 #4 and #5, one #6, and no attention kernel.
+    Returns the launch counts."""
+    return train(torch, dev, seed, cfg=mamba_train_cfg(24),
+                 batch=MAMBA_TRAIN_BATCH, seq=MAMBA_TRAIN_SEQ,
+                 steps=MAMBA_TRAIN_STEPS, tag="phase 24b train_mamba2")
+
+
+def mamba_remat(torch, dev, seed):
+    """Phase 24c: at full depth and 24b's tokens, one forward and backward
+    with recomputation on, one with it off and the first again, from the
+    same weights: ce and every gradient bit-identical all three ways, the
+    peak (above the weights) lower with recomputation; the launches of
+    each exactly ``train_launches``."""
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mamba_train_cfg(24)
+    params = build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    toks = _yi_tokens(torch, dev, cfg, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ)
+    on = _loss_and_grads(torch, cfg, params, toks)
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    off = _loss_and_grads(torch, off_cfg, params, toks)
+    again = _loss_and_grads(torch, cfg, params, toks)
+    d_ce, g_rel, same = _grads_distance(torch, on, off)
+    repeat = _grads_distance(torch, on, again)[2]
+    show = lambda c: {k: v for k, v in c.items() if v}
+    print(f"phase 24c: {cfg.name} {cfg.n_layers}L, {MAMBA_TRAIN_BATCH} x "
+          f"{MAMBA_TRAIN_SEQ} tokens: ce {float(on[0]):.6f} (remat on) vs "
+          f"{float(off[0]):.6f} (off); ce and all {len(on[1])} gradients "
+          f"{'bit-identical' if same else 'DIFFER'} (tol 0; |d ce| "
+          f"{d_ce:.3e}, grads rel L2 {g_rel:.3e}); a second run with remat "
+          f"on {'bit-identical' if repeat else 'DIFFERS'}; peak above the "
+          f"weights {on[3] / 2 ** 30:.2f} GiB with recomputation, "
+          f"{off[3] / 2 ** 30:.2f} GiB without; launches on {show(on[2])}, "
+          f"off {show(off[2])}")
+    for got, c in ((on[2], cfg), (off[2], off_cfg), (again[2], cfg)):
+        want = dict(train_launches(c), fused_adamw_leaves=0)
+        if got != want:
+            fail(f"phase 24c: launches {show(got)}, expected {show(want)}")
+    if not (same and repeat):
+        fail("phase 24c: recomputation or a repeat changed ce or a gradient")
+    if not on[3] < off[3]:
+        fail("phase 24c: the peak is not lower with recomputation")
+
+
+def mamba_train_card_vs_cpu(torch, dev, seed, strict=True, extra=None):
+    """Phase 24d: phase 8's checks for one train step at Mamba2-130M's
+    width and ``MAMBA_CHECK_LAYERS`` layers (float32 carrier,
+    recomputation on, ``MAMBA_CHECK_BATCH`` x ``MAMBA_CHECK_SEQ`` tokens)
+    within ``MAMBA_TRAIN_LIMITS``: C's moments compared where the zero
+    points agree and dequantized (``zero_points=False``), D, the
+    bf16-carrier control, above the limits of ``MAMBA_CONTROL``, and E,
+    every kernel's plain version on the card, within them
+    (``train_card_vs_cpu``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mamba_train_cfg(MAMBA_CHECK_LAYERS, dtype="float32")
+    return train_card_vs_cpu(torch, dev, seed, cfg=cfg,
+                             batch=MAMBA_CHECK_BATCH, seq=MAMBA_CHECK_SEQ,
+                             limits=MAMBA_TRAIN_LIMITS, label="phase 24d",
+                             control=MAMBA_CONTROL, zero_points=False,
+                             strict=strict, plain_check=True, extra=extra)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5101,6 +5315,17 @@ def main() -> int:
     granite_remat(torch, dev, args.seed)
     granite_train_card_vs_cpu(torch, dev, args.seed)
     lap("22")
+    check_int8_cell(torch, dev, gen, results, MAMBA)
+    mamba_counts, _, _, mamba_params = serve_cell(torch, dev, args.seed,
+                                                  MAMBA)
+    del mamba_params
+    cell_card_vs_cpu(torch, dev, args.seed, MAMBA)
+    lap("23")
+    check_int8_bwd_ssm(torch, dev, gen, results)
+    mamba_train_counts = train_mamba2(torch, dev, args.seed)
+    mamba_remat(torch, dev, args.seed)
+    mamba_train_card_vs_cpu(torch, dev, args.seed)
+    lap("24")
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
@@ -5111,8 +5336,8 @@ def main() -> int:
     # under flash_pallas (phase 18a) and _attend (phase 18c), Gemma-2B
     # served dense and paged (phases 19b and 19c), Qwen3-32B at 16 layers
     # (phase 20a), Granite-3.0-MoE served dense and paged (phases 21b
-    # and 21c) and trained (phase 22b), each path's counts read right after
-    # its run
+    # and 21c) and trained (phase 22b), Mamba2-130M served (phase 23b) and
+    # trained (phase 24b), each path's counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -5135,7 +5360,9 @@ def main() -> int:
                    "serve_qwen3": qwen3_counts[name],
                    "serve_granite": granite_counts[name],
                    "serve_granite_paged": granite_paged_counts[name],
-                   "train_granite": granite_train_counts[name]}
+                   "train_granite": granite_train_counts[name],
+                   "serve_mamba2": mamba_counts[name],
+                   "train_mamba2": mamba_train_counts[name]}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
                          **{k: results[name][k] for k in keys}))

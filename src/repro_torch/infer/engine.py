@@ -77,6 +77,17 @@ taken by every routed row, a decode step's empty slots and a prefill's
 pad rows included, so which rows share a launch is part of a token's
 route, as in the reference.
 
+The SSM family (mamba2) serves in dense mode only, as in the reference
+(paged mode raises: pages hold KV rows, and an SSM carries a state): the
+engine state holds ``"ssm"`` -- per-layer SSM states (L, slots, H, N, P)
+fp32 and conv tails (L, slots, W - 1, C) -- beside ``"caches": None``;
+admission copies each admitted prompt's states into its slot, and a
+decode step's new states replace the live ones only once the step has
+returned.  With no KV cache the ladder has the one rung ``"none"`` (the
+reference's), so a failing step re-raises.  Prefill runs the whole padded
+bucket, so a prompt's pad tokens enter its state, as in the reference
+(ROADMAP section 3).
+
 The tensors' device decides kernel or plain version; :meth:`path_summary`
 reports which path runs.  Meshes and AOT compilation are not ported (see
 ROADMAP).
@@ -116,6 +127,9 @@ from repro_torch.train.faults import FaultInjected
 
 #: shortest prefill length; prompts are padded to doubling buckets from it
 PREFILL_BUCKET = 16
+
+#: the families paged mode serves: their decode state is KV rows alone
+PAGED_FAMILIES = ("dense", "moe")
 
 #: a queued request skipped this many admission passes (each time because
 #: its page need exceeded the free pool while smaller requests went ahead)
@@ -194,6 +208,10 @@ class Engine:
         self.max_seq = int(max_seq)
         self.detokenizer = detokenizer
         self._dtype = carrier_dtype(cfg)
+        if paged and cfg.family not in PAGED_FAMILIES:
+            raise ValueError(
+                f"paged KV serving needs a pure attention cache "
+                f"({PAGED_FAMILIES}); {cfg.family!r} carries SSM state")
         kv_backend = self.policy.decode_attn_backend()[0]
         kv_spec = self.policy.kv_spec()
         # the ladder's rungs, fastest first (see the module docstring)
@@ -238,6 +256,9 @@ class Engine:
             self._state = model.init_decode_state(
                 self.max_slots, self.max_seq, self._dtype,
                 policy=self.policy, device=self.device)
+            if self._state["caches"] is None:
+                # no KV cache (the SSM family): no rung to step down to
+                self._rungs = ["none"]
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self.monitor = EngineMonitor(monitor)
@@ -283,7 +304,8 @@ class Engine:
                    for sub in self.params["blocks"].values()
                    for v in sub.values()):
             return None
-        res = self.policy.resolve("attn_qkv", 0, self.cfg.n_layers)
+        role = "ssm_in" if self.cfg.family == "ssm" else "attn_qkv"
+        res = self.policy.resolve(role, 0, self.cfg.n_layers)
         if res.backend == INT8_BACKEND and int8_backend_supported(res.recipe):
             return "cuda" if self.device.type == "cuda" else "plain"
         return "dequant"
@@ -429,17 +451,19 @@ class Engine:
         toksa[0, :plen] = key
         # one segment, the causal mask: the rows a request prefilling this
         # prompt itself would write
-        _, caches = self._prefill_call(toksa, np.asarray([[0, plen - 1]]))
+        _, state = self._prefill_call(toksa, np.asarray([[0, plen - 1]]))
         pids = self.pool.alloc(n_pg)
         self.pool.pin(pids)
-        self._page_in(caches, 0, 0, pids)
+        self._page_in(state["caches"], 0, 0, pids)
         self._prefixes[key] = pids
         return n_pg
 
     def kv_cache_nbytes(self) -> int:
-        """Resident bytes of the decode state (the KV strips or pools)."""
+        """Resident bytes of the decode state (the KV strips or pools, and
+        the SSM states)."""
         return sum(t.numel() * t.element_size()
-                   for t in self._state["caches"].values())
+                   for part in self._state.values() if part is not None
+                   for t in part.values())
 
     def live_kv_bytes(self) -> int:
         """KV bytes referenced by live sequences: paged, the live pages
@@ -452,7 +476,9 @@ class Engine:
     def _kv_mode(self) -> str:
         """Which path reads the KV cache in the rung that runs: ``fused``
         (the int8-KV kernels), ``dequant`` (int8 storage, dequantize on
-        read) or ``fp``."""
+        read), ``fp``, or ``none`` (no KV cache: the SSM family)."""
+        if self._state["caches"] is None:
+            return "none"
         if "k_scale" not in self._state["caches"]:
             return "fp"
         return "fused" if self._rungs[self._rung] == "fused" else "dequant"
@@ -460,7 +486,9 @@ class Engine:
     def kv_decode_read_bytes(self) -> int:
         """Bytes of KV a decode step reads across the stack in the rung that
         runs (``kernels.decode_attn.decode_kv_read_bytes``); paged mode
-        counts the live pages only."""
+        counts the live pages only; 0 without a KV cache."""
+        if self._state["caches"] is None:
+            return 0
         k = self._state["caches"]["k"]
         n_layers, kh, hd = k.shape[0], k.shape[-2], k.shape[-1]
         fp_bytes = torch.empty((), dtype=self._dtype).element_size()
@@ -475,8 +503,8 @@ class Engine:
         """Which path serving runs: ``weights=prepared-int8(<route>)`` with
         route ``cuda`` (the int8 matmul kernel), ``plain`` (its plain version,
         CPU tensors) or ``dequant`` (dequant-read matmul), or
-        ``weights=raw``; ``kv=int8-fused``, ``int8-dequant`` or ``fp``
-        (paged: ``int8-paged-fused(p<page>)``,
+        ``weights=raw``; ``kv=int8-fused``, ``int8-dequant``, ``fp`` or
+        ``none`` (paged: ``int8-paged-fused(p<page>)``,
         ``int8-paged-gather(p<page>)`` or ``fp-paged(p<page>)``) for the
         rung that runs, and ``degraded=<rung>(rung i/n)`` below rung 0."""
         route = self._weights_route()
@@ -487,7 +515,7 @@ class Engine:
                   "fp": "fp-paged"}[mode] + f"(p{self.page_size})"
         else:
             kv = {"fused": "int8-fused", "dequant": "int8-dequant",
-                  "fp": "fp"}[mode]
+                  "fp": "fp", "none": "none"}[mode]
         s = f"weights={weights} kv={kv}"
         if self._rung > 0:
             s += (f" degraded={self._rungs[self._rung]}"
@@ -537,14 +565,16 @@ class Engine:
     def _prefill_call(self, toks: np.ndarray, last: np.ndarray, segs=None):
         """One prefill launch into max_seq-row buffers (so attention's
         reduction length is the dense engine's) on rung 0's path, whatever
-        the rung -> (logits, caches in the structure of the engine's)."""
+        the rung -> (logits, state: caches in the structure of the engine's,
+        SSM states)."""
         dev = self.device
         logits, state = self.model.prefill(
             self.params, torch.from_numpy(toks).to(dev), policy=self.policy,
             max_seq=self.max_seq, last_pos=torch.from_numpy(last).to(dev),
             segments=None if segs is None else torch.from_numpy(segs).to(dev),
             kv_path=self._kv_path(self._rungs[0]))
-        return logits, self._match_prefill_state(state["caches"])
+        return logits, dict(state,
+                            caches=self._match_prefill_state(state["caches"]))
 
     def _admit(self) -> None:
         """Admit queued requests into free slots.  The queue is scanned in
@@ -613,7 +643,8 @@ class Engine:
 
     def _admit_group(self, lb: int, group: List[Request]) -> None:
         """Dense mode: one bucketed prefill launch for ``group``, each
-        row's whole max_seq strip copied into its slot."""
+        row's whole max_seq strip (or its SSM and conv states) copied into
+        its slot."""
         n = len(group)
         slots = [self._free.pop(0) for _ in range(n)]
         toks = np.zeros((n, lb), np.int64)
@@ -622,10 +653,11 @@ class Engine:
             toks[i, :len(r.tokens)] = r.tokens
             last[i] = len(r.tokens) - 1
         t0 = time.perf_counter()
-        logits, caches = self._prefill_call(toks, last)
+        logits, state = self._prefill_call(toks, last)
         idx = torch.tensor(slots, device=self.device)
-        for name, buf in self._state["caches"].items():
-            buf.index_copy_(1, idx, caches[name])
+        for part, bufs in self._state.items():
+            for name, buf in (bufs or {}).items():
+                buf.index_copy_(1, idx, state[part][name])
         first = sample(logits, self.sampling, self._generator).cpu().numpy()
         self._prefill_stats(t0, group)
         for i, r in enumerate(group):
@@ -670,8 +702,9 @@ class Engine:
                 last[i] = (ri, off + n - 1)
                 placement[i] = (ri, off)
         t0 = time.perf_counter()
-        logits, caches = self._prefill_call(toks, last,
-                                            segs if packed else None)
+        logits, state = self._prefill_call(toks, last,
+                                           segs if packed else None)
+        caches = state["caches"]
         first = sample(logits, self.sampling, self._generator).cpu().numpy()
         self._prefill_stats(t0, selected)
         for i, r in enumerate(selected):
@@ -754,14 +787,15 @@ class Engine:
     @staticmethod
     def _kv_path(rung: str) -> Optional[str]:
         """The model's ``kv_path`` on ``rung`` (the fp rung's caches are
-        fp, read one way)."""
-        return None if rung == "fp" else rung
+        fp, read one way; the ``none`` rung has no caches)."""
+        return None if rung in ("fp", "none") else rung
 
     def _decode_call(self, tok, pos, table) -> np.ndarray:
         """One decode step on the current rung: the model, the per-slot
         finite flag reduced on the device (a non-finite row is zeroed before
         sampling; its token is discarded), the sampled tokens -> host (2, B)
-        int64 array of (token, finite)."""
+        int64 array of (token, finite).  The model's new state replaces the
+        engine's only when the model returns (the SSM states' commit)."""
         logits, self._state = self.model.decode(
             self.params, self._state, tok, pos, policy=self.policy,
             page_table=table, kv_path=self._kv_path(self._rungs[self._rung]))
@@ -797,6 +831,8 @@ class Engine:
     def _match_prefill_state(self, caches):
         """Prefill runs rung 0's path and writes int8 caches; on the fp rung
         they are dequantized to match the engine's before the copy."""
+        if caches is None:
+            return None
         if "k_scale" in caches and "k_scale" not in self._state["caches"]:
             return self._dequant_caches(caches)
         return caches
@@ -810,7 +846,8 @@ class Engine:
         frm, to = self._rungs[self._rung], self._rungs[self._rung + 1]
         caches = self._state["caches"]
         if to == "fp" and "k_scale" in caches:
-            self._state = {"caches": self._dequant_caches(caches)}
+            self._state = dict(self._state,
+                               caches=self._dequant_caches(caches))
         self._rung += 1
         self.monitor.record_demotion(step, frm, to, why)
         return True
@@ -824,18 +861,24 @@ class Engine:
         frm, to = self._rungs[self._rung], self._rungs[self._rung - 1]
         caches = self._state["caches"]
         if frm == "fp" and "k_scale" not in caches:
-            self._state = {"caches": self._requant_caches(caches)}
+            self._state = dict(self._state,
+                               caches=self._requant_caches(caches))
         self._rung -= 1
         self.monitor.record_promotion(step, frm, to)
         return True
 
     def _absorb_step_failure(self, e: FaultInjected, step: int) -> bool:
         """True when the engine demoted a rung and the caller should retry
-        the step; False (the bottom rung) re-raises.  The reference also
-        refuses when its donated buffers were consumed; the port donates
-        nothing (its caches are written in place), and a retry is sound:
-        every rung writes row ``pos`` of every layer before it reads it, so
-        the retry overwrites whatever the failed attempt wrote."""
+        the step; False (the bottom rung, and the SSM family's one rung
+        ``none``) re-raises.  The reference also refuses when its donated
+        buffers were consumed; the port donates nothing, and a retry -- by
+        the ladder here, or by the caller after a re-raise -- starts from
+        the state the failed attempt started from.  KV caches are written
+        in place, but every rung writes row ``pos`` of every layer before it
+        reads it, so the retry overwrites whatever the failed attempt wrote.
+        SSM states are a recurrence, which a second update would advance
+        twice: the decode step computes them into fresh tensors, and
+        ``_decode_call`` commits them only when the step returns."""
         self.monitor.record_kernel_error(step)
         return self._demote(f"decode step failed: {type(e).__name__}: {e}",
                             step=step)

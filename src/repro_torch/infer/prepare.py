@@ -1,6 +1,6 @@
 """Prepared weights: resolve the QuantPolicy once and quantize each block
 weight into a stored int8 payload + scales (port of
-``repro/infer/prepare.py`` for the dense and MoE families).
+``repro/infer/prepare.py`` for the dense, MoE and SSM families).
 
 At inference the weights never change, so the engine quantizes them once
 into :class:`QState` containers; ``QuantPolicy.linear`` recognizes a QState
@@ -35,7 +35,11 @@ _MLP_ROLES = {"w_gate": "mlp_up", "w_up": "mlp_up", "w_fc1": "mlp_up",
               "w_down": "mlp_down", "w_fc2": "mlp_down"}
 # the router is skipped: its call site casts the weight (fp by default)
 _MOE_ROLES = {"w_gate": "mlp_up", "w_up": "mlp_up", "w_down": "mlp_down"}
-_MODULE_TABLES = {"attn": _ATTN_ROLES, "mlp": _MLP_ROLES, "moe": _MOE_ROLES}
+# the SSM layer's five linears; its conv, A, dt, D and gate norm stay raw
+_SSM_ROLES = {"in_z": "ssm_in", "in_x": "ssm_in", "in_bc": "ssm_in",
+              "in_dt": "ssm_in", "out_proj": "ssm_out"}
+_MODULE_TABLES = {"attn": _ATTN_ROLES, "mlp": _MLP_ROLES, "moe": _MOE_ROLES,
+                  "ssm": _SSM_ROLES}
 
 
 def quantize_weight(w: torch.Tensor, spec: QuantSpec) -> QState:

@@ -9,7 +9,12 @@ The block is two halves split at the attention context, the tensor the
 reference's recomputation keeps (``attn_ctx``): :func:`block_context`
 (norm, q/k/v, attention) and :func:`block_finish` (the output projection,
 the residual, norm, MLP).  ``lm.lm_loss`` checkpoints each half on its own
-under ``cfg.remat``; :func:`block_apply` runs both."""
+under ``cfg.remat``; :func:`block_apply` runs both.
+
+The SSM family's block (:func:`ssm_block`, the reference's ``ssm`` branch)
+is pre-norm, the Mamba2 layer (``models/ssm.py``) and the residual: no
+attention, no MLP, and no MoE losses (the reference's zeros; None here, as
+on the dense branch)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -21,6 +26,7 @@ from repro_torch.models.attention import Cache, attn_context, attn_out
 from repro_torch.models.common import apply_norm
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.ssm import SSMState, ssm_apply, ssm_decode_step
 
 #: what a block returns: (h, aux, z_loss), the MoE losses None when dense
 BlockOut = Tuple[torch.Tensor, Optional[torch.Tensor],
@@ -68,3 +74,23 @@ def block_apply(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
                         page_table=page_table, mask=mask, rope=rope,
                         kv_path=kv_path)
     return block_finish(params, h, ctx, cfg, policy=policy, layer=layer)
+
+
+def ssm_block(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
+              layer: int, state: Optional[SSMState] = None,
+              decode: bool = False
+              ) -> Tuple[torch.Tensor, Optional[SSMState]]:
+    """h + ssm(norm(h)) -> (h, the layer's new state, or None when
+    ``state`` is None: training).  ``decode`` runs the one-token recurrent
+    step from ``state``, else the chunked SSD over h (prefill starts from
+    ``state``, the zeros of ``init_ssm_state``)."""
+    x = apply_norm(h, params["norm"], cfg.norm)
+    if decode:
+        y, new = ssm_decode_step(params["ssm"], x, cfg, policy=policy,
+                                 state=state, layer=layer,
+                                 n_layers=cfg.n_layers)
+    else:
+        y, new = ssm_apply(params["ssm"], x, cfg, policy=policy, state=state,
+                           return_state=state is not None, layer=layer,
+                           n_layers=cfg.n_layers)
+    return h + y, new

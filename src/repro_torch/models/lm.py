@@ -5,7 +5,10 @@ and qwen3 (qk-norm); and the MoE family (granite, phi-3.5-moe: the MLP
 replaced by ``models/moe.py``, whose load-balance and z losses the stack
 sums and the loss adds, as the reference's ``lm_loss``); embed, a Python loop over the layers in place of the
 reference's scan, final norm and head (port of ``repro/models/lm.py``):
-the training loss with a chunked cross entropy, prefill and decode.
+the training loss with a chunked cross entropy, prefill and decode.  The
+SSM family (Mamba2: ``models/ssm.py``, ``blocks.ssm_block``) runs the same
+stack without attention, positions or a mask, and carries per-layer SSM
+and conv states in place of the KV caches.
 
 Positions: a prefill's rows sit at ``arange(S)`` (packed prompts restart
 at 0, ``segment_positions_and_mask``), a decode step's at each slot's own
@@ -15,7 +18,10 @@ RoPE the rotary tables are built from them once per forward
 
 The caches are stacked (L, B, S, ...) buffers, as in the JAX package; each
 layer works on its view and writes its rows in place, so ``lm_decode``
-mutates the caches it is given (the JAX step returns new ones).
+mutates the caches it is given (the JAX step returns new ones).  The SSM
+states are stacked (L, B, ...) too, but ``lm_decode`` returns new ones and
+leaves those it is given as they are: a recurrence read and written in
+place could not be retried.
 
 Attention follows ``cfg.attention_impl``: under ``"flash_pallas"`` the loss
 and the unpacked fp-KV prefill attend through the flash kernels (#8
@@ -40,7 +46,10 @@ are always checkpointed (``chunked_ce``), whatever ``cfg.remat`` says, and
 checkpoints are non-reentrant, so the backward runs the same autograd
 graph on recomputed values: loss and gradients are bit-identical with
 ``remat`` on and off wherever the recomputed ops repeat their bits (the
-kernels use no float atomics).  Prefill and decode never recompute.
+kernels use no float atomics).  An SSM layer is one checkpointed segment:
+it has no attention context, so the reference's ``save_only_these_names(
+"attn_ctx")`` keeps nothing inside it.  Prefill and decode never
+recompute.
 """
 from __future__ import annotations
 
@@ -53,10 +62,12 @@ from repro_torch.core.qadam import QState
 from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.core.quantizer import _div
 from repro_torch.models.attention import Cache, init_caches
-from repro_torch.models.blocks import block_apply, block_context, block_finish
+from repro_torch.models.blocks import (block_apply, block_context,
+                                      block_finish, ssm_block)
 from repro_torch.models.common import (Params, apply_norm, cast_params,
                                        checkpointed, rope_tables, tree_map)
 from repro_torch.models.moe import route_check_contexts
+from repro_torch.models.ssm import SSMState, init_ssm_state
 
 _NEG = -1e30
 #: the MoE losses' weights in the training loss (the reference's)
@@ -185,7 +196,12 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
         # the recomputation must route as the forward did
         moe_routes = route_check_contexts
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
-        if cfg.remat:
+        if cfg.family == "ssm":
+            # one segment a layer: there is no attention context to keep
+            h = (checkpointed(ssm_block, lp, h, cfg, policy=policy, layer=i)
+                 if cfg.remat else
+                 ssm_block(lp, h, cfg, policy=policy, layer=i))[0]
+        elif cfg.remat:
             # the reference's save_only_these_names("attn_ctx"): the
             # backward keeps h and ctx and recomputes each half
             ctx = checkpointed(block_context, lp, h, cfg, policy=policy,
@@ -211,16 +227,39 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
 
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
-               caches: Cache, cache_offset, positions: torch.Tensor,
-               page_table=None, mask=None, kv_path=None) -> torch.Tensor:
+               caches: Optional[Cache], cache_offset, positions: torch.Tensor,
+               page_table=None, mask=None, kv_path=None,
+               ssm_states: Optional[SSMState] = None, decode: bool = False):
+    """-> (final-normed h, the new SSM states stacked over the layers, or
+    None without them).  The caches are written in place."""
     rope = rope_for(cfg, positions)
+    new = []
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
+        if ssm_states is not None:
+            h, st = ssm_block(lp, h, cfg, policy=policy, layer=i,
+                              state={k: v[i] for k, v in ssm_states.items()},
+                              decode=decode)
+            new.append(st)
+            continue
         h, _, _ = block_apply(lp, h, cfg, policy=policy, layer=i,
                               cache={k: c[i] for k, c in caches.items()},
                               cache_offset=cache_offset,
                               page_table=page_table, mask=mask, rope=rope,
                               kv_path=kv_path)
-    return apply_norm(h, params["final_norm"], cfg.norm)
+    states = ({k: torch.stack([st[k] for st in new]) for k in new[0]}
+              if new else None)
+    return apply_norm(h, params["final_norm"], cfg.norm), states
+
+
+def init_decode_caches(cfg, batch: int, max_seq: int, dtype: torch.dtype,
+                       kv_spec=None, device="cpu"):
+    """(KV caches, SSM states) of the whole stack, the reference's
+    ``init_caches``: KV caches and no SSM states for the attention
+    families, the reverse for the SSM family."""
+    if cfg.family == "ssm":
+        return None, init_ssm_state(cfg, batch, dtype, device=device)
+    return init_caches(cfg, batch, max_seq, dtype, kv_spec=kv_spec,
+                       device=device), None
 
 
 def segment_positions_and_mask(segments: torch.Tensor, max_seq: int):
@@ -248,9 +287,12 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
                segments: Optional[torch.Tensor] = None,
                kv_path: Optional[str] = None):
     """Process right-padded prompts (B, S); returns (logits, caches sized
-    to ``max_seq`` (default S)).  ``last_pos`` picks the logits' rows: None
-    the last column, (B,) per-row indices (B logits), or (M, 2) ``(row,
-    col)`` pairs (M logits, one per packed prompt).  ``segments`` (B, S)
+    to ``max_seq`` (default S), SSM states).  The SSM family has no caches
+    (None) and returns the states after the whole padded row: its pad
+    tokens enter the state, as in the reference (ROADMAP section 3).
+    ``last_pos`` picks the logits' rows: None the last column, (B,)
+    per-row indices (B logits), or (M, 2) ``(row, col)`` pairs (M logits,
+    one per packed prompt).  ``segments`` (B, S)
     packs several prompts into a row: equal ids one prompt, -1 padding;
     positions restart per prompt and each attends only to itself (fp KV
     caches and ``kv_path="dequant"`` only: the int8-KV flash kernel is
@@ -265,14 +307,19 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
     mask = None
     if segments is None:
         positions = torch.arange(s, device=device).expand(b, s)
+    elif cfg.family == "ssm":
+        raise NotImplementedError(
+            "packed (segment-id) prefill is attention-family only")
     else:
         positions, mask = segment_positions_and_mask(segments.to(device),
                                                      max_seq)
     h = embed_tokens(params, tokens, cfg, positions, dtype, policy)
-    caches = init_caches(cfg, b, max_seq, dtype,
-                         kv_spec=policy.kv_spec(), device=device)
-    h = _run_stack(params, h, cfg, policy, caches, 0, positions, mask=mask,
-                   kv_path=kv_path)
+    caches, ssm_states = init_decode_caches(cfg, b, max_seq, dtype,
+                                            kv_spec=policy.kv_spec(),
+                                            device=device)
+    h, ssm_states = _run_stack(params, h, cfg, policy, caches, 0, positions,
+                               mask=mask, kv_path=kv_path,
+                               ssm_states=ssm_states)
     if last_pos is None:
         hc = h[:, -1:, :]
     else:
@@ -281,19 +328,22 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
             hc = h[lp[:, 0], lp[:, 1]][:, None, :]
         else:
             hc = h[torch.arange(b, device=device), lp][:, None, :]
-    return logits_chunk(params, hc, cfg, policy)[:, 0, :], caches
+    return logits_chunk(params, hc, cfg, policy)[:, 0, :], caches, ssm_states
 
 
-def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
+def lm_decode(params: Params, caches: Optional[Cache], token: torch.Tensor,
               pos: torch.Tensor, cfg, *, policy=None,
               page_table: Optional[torch.Tensor] = None,
-              kv_path: Optional[str] = None):
+              kv_path: Optional[str] = None,
+              ssm_states: Optional[SSMState] = None):
     """One-token decode.  token: (B, 1); pos: (B,) int32 per-slot count of
     tokens already in the cache (each slot writes its own row and masks its
     own history); ``page_table`` (B, maxp) int32 makes the caches page
     pools (L, P, page, K, hd), a slot's logical cache ``maxp * page`` rows;
     ``kv_path`` as in :func:`lm_prefill`.  Returns (logits (B, V_padded),
-    caches) -- the caches are updated in place."""
+    caches, SSM states) -- the caches are updated in place; the SSM family
+    (caches None) steps from ``ssm_states`` and returns new ones, leaving
+    those given as they were."""
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
@@ -302,6 +352,7 @@ def lm_decode(params: Params, caches: Cache, token: torch.Tensor,
         page_table = page_table.to(device=token.device, dtype=torch.int32)
     positions = pos[:, None].long()
     h = embed_tokens(params, token, cfg, positions, dtype, policy)
-    h = _run_stack(params, h, cfg, policy, caches, pos, positions, page_table,
-                   kv_path=kv_path)
-    return logits_chunk(params, h, cfg, policy)[:, 0, :], caches
+    h, ssm_states = _run_stack(params, h, cfg, policy, caches, pos,
+                               positions, page_table, kv_path=kv_path,
+                               ssm_states=ssm_states, decode=True)
+    return logits_chunk(params, h, cfg, policy)[:, 0, :], caches, ssm_states

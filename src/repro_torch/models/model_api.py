@@ -6,7 +6,9 @@ MLP, grouped KV heads, untied head), gemma (the embedding scaled by
 sqrt(d_model), RMSNorm with (1 + w), GeGLU, tied head) and qwen3 (RMSNorm
 on q and k per head, qk-norm) -- and for the MoE family (granite,
 phi-3.5-moe: the gated MLP replaced by top-k routed experts,
-``models/moe.py``, in the reference's ``local`` mode);
+``models/moe.py``, in the reference's ``local`` mode) -- and for the SSM
+family (mamba2: ``models/ssm.py``, no attention and no positions, its
+decode state the per-layer SSM and conv states in place of KV caches);
 :func:`params_from_jax` carries a JAX parameter tree across, and
 :func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
 state (params, step, Adam moments) both ways.
@@ -18,7 +20,9 @@ bias} (RMSNorm: {scale}), ``attn`` {wq, wk, wv, wo[, bq, bk, bv, bo][,
 q_norm, k_norm (L, hd)]},
 ``mlp`` {w_fc1, w_fc2[, b_fc1, b_fc2]} (gated: {w_gate, w_up, w_down}) or,
 under experts, ``moe`` {w_router (L, d, E), w_gate and w_up (L, E, d, ff),
-w_down (L, E, ff, d)} --
+w_down (L, E, ff, d)}; the SSM family's blocks are ``norm`` {scale} and
+``ssm`` {in_z, in_x, in_bc, in_dt, conv_w, conv_b, A_log, dt_bias, D,
+gate_norm, out_proj} --
 ``final_norm`` as ``ln1``, and ``lm_head`` (d, V_padded) when the head is
 untied.
 """
@@ -34,24 +38,26 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qpolicy import as_policy
 from repro_torch.models import lm
-from repro_torch.models.attention import init_caches
 from repro_torch.models.common import Params
 from repro_torch.models.moe import moe_spec
+from repro_torch.models.ssm import ssm_spec
 
 DeviceLike = Union[str, torch.device, None]
 
 
 #: what the port's decoder takes: each field's ported values (GPT-2's,
-#: llama's, gemma's and qwen3's; granite's and phi-3.5-moe's experts)
-SUPPORTED = {"family": ("dense", "moe"), "pos": ("learned", "rope"),
+#: llama's, gemma's and qwen3's; granite's and phi-3.5-moe's experts;
+#: mamba2's SSM layers, which take no positions)
+SUPPORTED = {"family": ("dense", "moe", "ssm"),
+             "pos": ("learned", "rope", "none"),
              "norm": ("layernorm", "rmsnorm", "rmsnorm_p1"),
              "mlp_kind": ("classic", "gated"), "qk_norm": (False, True),
              "embed_scale": (False, True)}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The dense and MoE families only (experts exactly when the family is
-    ``moe``, gated): SSM, hybrid, encdec and VLM raise."""
+    """The dense, MoE and SSM families only (experts exactly when the
+    family is ``moe``, gated): hybrid, encdec and VLM raise."""
     bad = {k: getattr(cfg, k) for k, v in SUPPORTED.items()
            if getattr(cfg, k) not in v}
     moe = cfg.family == "moe"
@@ -59,16 +65,16 @@ def _check_supported(cfg: ArchConfig) -> None:
         bad.update(n_experts=cfg.n_experts, mlp_kind=cfg.mlp_kind)
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port takes the dense and MoE "
+            f"{cfg.name}: {bad} -- the port takes the dense, MoE and SSM "
             f"families ({SUPPORTED}; experts gated, and only under "
-            f"family='moe') so far; SSM, hybrid, encdec and VLM wait for "
+            f"family='moe') so far; hybrid, encdec and VLM wait for "
             f"ROADMAP section 1, item 6")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
-    """name -> (shape, init, std) in the JAX tree layout; the init kinds and
-    scales of ``repro.models`` (lm_spec, attn_spec, mlp_spec, moe_spec,
-    norm_spec)."""
+    """name -> (shape, init[, std]) in the JAX tree layout; the init kinds
+    and scales of ``repro.models`` (lm_spec, attn_spec, mlp_spec, moe_spec,
+    ssm_spec, norm_spec)."""
     d, ff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -96,12 +102,15 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
                      "bv": ((k * hd,), "zeros"), "bo": ((d,), "zeros")})
         mlp.update(mlp_bias)
     blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
-    if cfg.n_experts:
+    if cfg.family == "ssm":
+        blocks = {"norm": norm(d), "ssm": ssm_spec(cfg)}
+    elif cfg.n_experts:
         blocks["moe"] = moe_spec(cfg)
     else:
         blocks["mlp"] = mlp
     # block leaves carry the stacked layer dim, as in the reference
-    blocks = {mod: {n: ((L,) + shape, init) for n, (shape, init) in leaves.items()}
+    blocks = {mod: {n: ((L,) + leaf[0],) + leaf[1:]
+                    for n, leaf in leaves.items()}
               for mod, leaves in blocks.items()}
     # init_params draws the leaves in this order
     spec = {"embed": ((cfg.vocab_padded, d), "normal", 0.02)}
@@ -158,34 +167,40 @@ class Model:
                 last_pos: Optional[torch.Tensor] = None,
                 segments: Optional[torch.Tensor] = None,
                 kv_path: Optional[str] = None):
-        """-> (logits, state ``{"caches": ...}``); ``last_pos``,
+        """-> (logits, state ``{"caches": ..., "ssm": ...}``, the SSM
+        family's caches None, the others' SSM states None); ``last_pos``,
         ``segments`` and ``kv_path`` as in ``lm.lm_prefill``."""
-        logits, caches = lm.lm_prefill(params, tokens, self.cfg,
-                                       policy=policy, max_seq=max_seq,
-                                       last_pos=last_pos, segments=segments,
-                                       kv_path=kv_path)
-        return logits, {"caches": caches}
+        logits, caches, ssm = lm.lm_prefill(params, tokens, self.cfg,
+                                            policy=policy, max_seq=max_seq,
+                                            last_pos=last_pos,
+                                            segments=segments,
+                                            kv_path=kv_path)
+        return logits, {"caches": caches, "ssm": ssm}
 
     def decode(self, params: Params, state, token: torch.Tensor,
                pos: torch.Tensor, *, policy=None,
                page_table: Optional[torch.Tensor] = None,
                kv_path: Optional[str] = None):
         """-> (logits (B, V_padded), state); the state's caches (dense
-        strips, or page pools with ``page_table``) are updated in place;
-        ``kv_path`` as in ``lm.lm_decode``."""
-        logits, caches = lm.lm_decode(params, state["caches"], token, pos,
-                                      self.cfg, policy=policy,
-                                      page_table=page_table, kv_path=kv_path)
-        return logits, {"caches": caches}
+        strips, or page pools with ``page_table``) are updated in place,
+        its SSM states are new tensors (those of ``state`` are left as they
+        were); ``kv_path`` as in ``lm.lm_decode``."""
+        logits, caches, ssm = lm.lm_decode(
+            params, state.get("caches"), token, pos, self.cfg, policy=policy,
+            page_table=page_table, kv_path=kv_path,
+            ssm_states=state.get("ssm"))
+        return logits, {"caches": caches, "ssm": ssm}
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype: Optional[torch.dtype] = None, policy=None,
                           device: DeviceLike = "cuda"):
+        """``{"caches": ..., "ssm": ...}`` of ``lm.init_decode_caches``."""
         kv_spec = as_policy(policy).kv_spec()
         dtype = dtype or lm.carrier_dtype(self.cfg)
-        return {"caches": init_caches(self.cfg, batch, max_seq, dtype,
-                                      kv_spec=kv_spec,
-                                      device=resolve_device(device))}
+        caches, ssm = lm.init_decode_caches(self.cfg, batch, max_seq, dtype,
+                                            kv_spec=kv_spec,
+                                            device=resolve_device(device))
+        return {"caches": caches, "ssm": ssm}
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -62,9 +62,11 @@ def recompute_desc(cfg, batch: int, seq: int) -> str:
     :func:`train_path_summary`: what the loss recomputes (``layer+ce``
     under ``cfg.remat``, else the CE chunks alone) and how its attention
     runs on a (batch, seq) micro-batch (``flash``, ``dense``, or ``q<n>``:
-    ``_attend`` in q-chunks of n rows)."""
+    ``_attend`` in q-chunks of n rows; ``none`` in the SSM family)."""
     remat = "layer+ce" if cfg.remat else "ce"
-    if cfg.attention_impl == "flash_pallas":
+    if cfg.family == "ssm":
+        attend = "none"
+    elif cfg.attention_impl == "flash_pallas":
         attend = "flash"
     else:
         chunk = _pick_chunk(seq, seq, batch, cfg.n_heads)
@@ -109,12 +111,15 @@ def train_path_summary(recipe, n_layers: int = 0,
 
 
 def check_trainable(cfg) -> None:
-    """Training takes every family the port builds: the dense family and
-    the MoE family in the reference's ``local`` mode (every expert on the
-    one card; the experts' Fig-1 linears on the expert-batched int8
-    kernels, the dispatch's and the router's gradients, the load-balance
-    and z losses).  The families ``build_model`` refuses -- SSM, hybrid,
-    encdec and VLM -- raise here too, before any state is made."""
+    """Training takes every family the port builds: the dense family, the
+    MoE family in the reference's ``local`` mode (every expert on the one
+    card; the experts' Fig-1 linears on the expert-batched int8 kernels,
+    the dispatch's and the router's gradients, the load-balance and z
+    losses) and the SSM family (mamba2: the five projections' Fig-1
+    linears on the 2-D int8 kernels, the scan's gradients by autograd of
+    plain torch, as the reference's are XLA autodiff of plain ops).  The
+    families ``build_model`` refuses -- hybrid, encdec and VLM -- raise
+    here too, before any state is made."""
     _check_supported(cfg)
 
 

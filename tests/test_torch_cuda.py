@@ -59,7 +59,10 @@ engine giving the dense engine's tokens; the expert-batched #4 and #5 bit
 for bit against their plain versions, E launches of the 2-D entries and a
 repeat (small E, ragged C, both carriers, the split path); and a
 Granite-shaped MoE layer's forward and backward bit-repeatable across two
-runs, on the expert-batched kernels alone.
+runs, on the expert-batched kernels alone; #3, #4 and #5 at Mamba2-130M's
+projections (N = 24 included) bit for bit, and a mamba2-smoke model's
+decode step leaving its given state as it was, its loss and gradients
+bit-identical with recomputation on and off.
 """
 import importlib
 import pathlib
@@ -1569,3 +1572,74 @@ def test_granite_moe_layer_backward_repeats(cuda):
     assert {k: v for k, v in counts.items() if v} == {
         "int8_matmul_experts": 3, "int8_matmul_nt_experts": 3,
         "int8_matmul_tn_experts": 3}
+
+
+#: Mamba2-130M's five projections: in_z and in_x (768, 1536), in_bc (768,
+#: 256), in_dt (768, 24: no multiple of 16), out_proj (1536, 768)
+SSM_KN = [(768, 1536), (768, 256), (768, 24), (1536, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", SSM_KN)
+@pytest.mark.parametrize("m", [16, 130])
+def test_int8_kernels_at_the_ssm_projections(cuda, k, n, m):
+    """#3 on the wrapper's route and, at M = 16, the cluster route and the
+    fused decode entry; nt and tn at the same (K, N): each bit for bit
+    against its plain version, a repeat bit-identical."""
+    x, w, rs, cs = _mm_case(cuda, m, k, n)
+    for out in (torch.float32, torch.bfloat16):
+        want = int8_matmul_plain(x, w, rs, cs, out)
+        got = int8_matmul(x, w, rs, cs, out_dtype=out)
+        assert torch.equal(got, want)
+        assert torch.equal(int8_matmul(x, w, rs, cs, out_dtype=out), got)
+        if m <= im.FWD_GEMV_MAX_M:
+            assert torch.equal(im.int8_matmul_gemv(x, w, rs, cs, out), want)
+    if m <= im.FWD_GEMV_MAX_M:
+        spec = QuantSpec(8, Granularity.PER_TOKEN)
+        xf = (torch.randn((m, k), device=cuda) * 3).to(torch.bfloat16)
+        assert torch.equal(
+            im.int8_quant_matmul(xf, w, cs, spec, torch.bfloat16),
+            im.int8_quant_matmul_plain(xf, w, cs, spec, torch.bfloat16))
+    g, wq, fw, qn = _nt_case(cuda, m, n, k, torch.bfloat16)
+    dx = int8_matmul_nt(g, wq, fw, qn, out_dtype=torch.bfloat16)
+    assert torch.equal(dx, int8_matmul_nt_plain(g, wq, fw, qn,
+                                                out_dtype=torch.bfloat16))
+    xq, g, fx, qt = _tn_case(cuda, m, n, k, torch.bfloat16)
+    dw = int8_matmul_tn(xq, g, fx, qt, out_dtype=torch.float32)
+    assert tuple(dw.shape) == (k, n)
+    assert torch.equal(dw, int8_matmul_tn_plain(xq, g, fx, qt,
+                                                out_dtype=torch.float32))
+    assert torch.equal(int8_matmul_tn(xq, g, fx, qt,
+                                      out_dtype=torch.float32), dw)
+
+
+@pytest.mark.cuda
+def test_ssm_decode_and_remat_on_the_card(cuda):
+    """mamba2-smoke on the card under ``chip_smoke.TRAIN_POLICY``'s int8
+    route: a decode step leaves the state it is given as it was and
+    returns finite logits; ce and every gradient bit-identical with
+    recomputation on and off, the launches those of
+    ``chip_smoke.train_launches``."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config("mamba2-130m"), n_layers=4)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    toks = chip_smoke._yi_tokens(torch, cuda, cfg, 2, 256)
+    lg, st = model.prefill(params, toks[:, :40], policy=chip_smoke.POLICY)
+    saved = {k: v.clone() for k, v in st["ssm"].items()}
+    lg, new = model.decode(params, st, toks[:, 40:41],
+                           torch.full((2,), 40, device=cuda),
+                           policy=chip_smoke.POLICY)
+    assert bool(torch.isfinite(lg).all()) and new["caches"] is None
+    for k, v in saved.items():
+        assert torch.equal(st["ssm"][k], v), k
+    on = chip_smoke._loss_and_grads(torch, cfg, params, toks)
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    off = chip_smoke._loss_and_grads(torch, off_cfg, params, toks)
+    assert chip_smoke._grads_distance(torch, on, off)[2]
+    for got, c in ((on[2], cfg), (off[2], off_cfg)):
+        assert got == dict(chip_smoke.train_launches(c),
+                           fused_adamw_leaves=0)

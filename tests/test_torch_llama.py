@@ -303,14 +303,14 @@ def test_lm_loss_and_grads_match_jax():
         assert rel <= 1e-4, (k, rel)
 
 
-@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "mamba2-130m",
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
                                   "granite-moe-3b-a800m"])
 def test_check_supported_still_raises(name):
-    """The SSM family stays out, naming ROADMAP section 1, item 6; the
-    port's config of each is the JAX one field for field.  The MoE family
-    (granite, phi-3.5-moe) builds since its serving path was ported, and
-    so does the rest of the dense family (qwen3's qk-norm, gemma's
-    embedding scale and plus-one RMSNorm)."""
+    """The hybrid family (zamba2) stays out, naming ROADMAP section 1, item
+    6; the port's config of each is the JAX one field for field.  The MoE
+    family (granite, phi-3.5-moe) builds since its serving path was ported,
+    and so do the rest of the dense family (qwen3's qk-norm, gemma's
+    embedding scale and plus-one RMSNorm) and the SSM family (mamba2)."""
     def port_cfg(jcfg):
         return ArchConfig(**{f.name: getattr(jcfg, f.name)
                              for f in dataclasses.fields(ArchConfig)})
@@ -320,8 +320,8 @@ def test_check_supported_still_raises(name):
     else:
         with pytest.raises(NotImplementedError, match="section 1, item 6"):
             build_model(cfg)
-    for dense in ("qwen3-32b", "gemma-2b"):
-        assert build_model(port_cfg(get_smoke_config(dense))).cfg.name
+    for built in ("qwen3-32b", "gemma-2b", "mamba2-130m"):
+        assert build_model(port_cfg(get_smoke_config(built))).cfg.name
 
 
 def test_engine_bounds_rope_configs_by_their_context():

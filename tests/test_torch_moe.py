@@ -402,13 +402,18 @@ def test_lm_loss_moe_terms_match_jax(name):
 
 
 def test_check_supported_takes_moe_and_refuses_the_rest():
-    """MoE builds (both models); SSM, hybrid, encdec and VLM still raise
-    with ROADMAP item 6's message, and so do experts outside the moe
-    family or a moe config without experts."""
+    """MoE builds (both models), and so does the SSM family (mamba2);
+    hybrid, encdec and VLM still raise with ROADMAP item 6's message, and
+    so do experts outside the moe family or a moe config without
+    experts."""
     for name in ARCHS:
         _check_supported(get_config(name))
     base = get_smoke_config("granite-moe-3b-a800m")
     for family in ("ssm", "hybrid", "encdec", "vlm"):
+        if family == "ssm":
+            _check_supported(get_config("mamba2-130m"))
+            _check_supported(get_smoke_config("mamba2-130m"))
+            continue
         with pytest.raises(NotImplementedError, match="section 1, item 6"):
             _check_supported(dataclasses.replace(base, family=family))
     with pytest.raises(NotImplementedError, match="section 1, item 6"):
