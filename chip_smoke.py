@@ -283,7 +283,25 @@ Phases, in order; any failure exits non-zero:
     (``mamba_remat``); 24d. phase 8's checks at Mamba2-130M's width and 2
     layers within ``MAMBA_TRAIN_LIMITS``, the bf16-carrier control above
     them, every kernel's plain version on the card within them
-    (``mamba_train_card_vs_cpu``).
+    (``mamba_train_card_vs_cpu``);
+25. Zamba2-2.7B at full width and depth (``configs/zamba2_2p7b.py``: 54
+    Mamba2 layers, d_model 2560, and one attention + MLP block shared
+    across the depth, run after every 6th layer -- 9 invocations, each with
+    its own int8 KV cache -- on concat(h, the embedding), 5,120 wide: 32
+    heads of 160, a gated GELU MLP of 10,240, a projection back to
+    2,560): 25a. #3 at ``ZAMBA_INT8_KN`` x ``ZAMBA_INT8_ROWS``
+    (``check_int8_cell``), #11 at ``ZAMBA_Q8_SHAPE`` and #12 / #13 at
+    ``ZAMBA_DECODE_SHAPE``, their head-dim-160 instances, with phase 3's
+    gates (``cell_kernels``); 25b. the dense engine (random float32
+    weights from ``--seed``, bf16 carrier, ``POLICY``), 16 slots of 4096
+    rows, 32 requests in two waves of one prefill bucket each: exactly 342
+    #3 (5 x 54 projections and 8 x 9 shared-block linears) and 9 #12 a
+    decode step, 342 #3 and 9 #11 a prefill launch, the engine's state
+    the int8 KV caches and the SSM states, rung 0 throughout
+    (``serve_cell``); 25c. phase 16d at Zamba2's width and 12 layers (two
+    groups: a cut below ``hybrid_attn_every`` would drop the shared block)
+    with ``ZAMBA_B_LIMIT`` and a bf16-carrier control above each limit
+    (``cell_card_vs_cpu``).
 
 Phases 7, 10, 11 and 14 pin ``remat=False`` (``gpt2_train_cfg``), so
 their launch gates (72 #3 a step) and their numbers keep their meaning;
@@ -1321,6 +1339,31 @@ def serve(torch, dev, seed):
     return counts, [tokens[i] for i in ids], dense_bytes, stats
 
 
+def decode_step_bytes(eng, cfg):
+    """The bytes one decode step must move at the engine's positions, the
+    least it could read and write: every parameter once (the head too; the
+    hybrid's shared block once an invocation), each running slot's live KV
+    rows of every cache read once and its new row written, and the SSM
+    states read and written.  Returns (total, {part: bytes})."""
+    from repro_torch.infer.prepare import params_nbytes
+    parts = {"params": params_nbytes(eng.params)}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.hybrid_attn_every
+        parts["params"] += (groups - 1) * params_nbytes(eng.params["shared"])
+    caches = eng._state.get("caches")
+    if caches is not None and not eng.paged:
+        n, s, kh = (caches["k"].shape[0], caches["k"].shape[2],
+                    caches["k"].shape[3])
+        row = sum(t[0, 0, 0].numel() * t.element_size()
+                  for t in caches.values())          # every buffer, 1 row
+        live = sum(min(int(eng._pos[i]), s) + 1 for i in eng._running)
+        parts["kv"] = n * live * row
+    if eng._state.get("ssm") is not None:
+        parts["ssm"] = 2 * sum(t.numel() * t.element_size()
+                               for t in eng._state["ssm"].values())
+    return sum(parts.values()), parts
+
+
 def profile_decode(torch, eng, cfg, rng) -> None:
     """Where a decode step's time goes: torch.profiler over 4 steps with
     every slot live (16 fresh 64-token requests, admitted outside the
@@ -1335,6 +1378,7 @@ def profile_decode(torch, eng, cfg, rng) -> None:
                            max_new_tokens=8))
     eng.scheduler.step()                     # prefill + one decode step
     torch.cuda.synchronize()
+    step_bytes, parts = decode_step_bytes(eng, cfg)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1355,7 +1399,10 @@ def profile_decode(torch, eng, cfg, rng) -> None:
           f"steps x 16 slots, wall {wall_us / 4e3:.2f} ms/step, "
           f"device busy {busy / 4e3:.2f} ms/step, idle share "
           f"{1 - busy / wall_us:.3f}, {sum(k[2] for k in kern) / 4:.0f} "
-          f"kernel launches/step")
+          f"kernel launches/step; the byte bound of a step at the window's "
+          f"first positions {step_bytes / HBM_BPS * 1e3:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+          + ")")
     for name, us, n in kern[:8]:
         print(f"profile:   {us / 4e3:8.3f} ms/step {n // 4:5d} launches/step "
               f"{name[:90]}")
@@ -1804,8 +1851,9 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
             flips = [_rel_l2(torch, [card_kv["ssm"][i].cpu()],
                              [cpu_kv["ssm"][i]]) for i in range(cfg.n_layers)]
         else:
+            # one cache a layer, or a shared-block invocation (hybrid)
             flips = [float((card_kv["k"][i].cpu() != cpu_kv["k"][i]).float()
-                           .mean()) for i in range(cfg.n_layers)]
+                           .mean()) for i in range(cpu_kv["k"].shape[0])]
         print(f"card vs cpu {label} {cfg.name} {cfg.n_layers}L d="
               f"{cfg.d_model} {policy} (float32 carrier, 2 x 64 prompt "
               f"+ 8 teacher-forced steps): max |dlogit| {err:.3e} (limit "
@@ -2043,17 +2091,18 @@ def gpt2_bucket_rows(torch, dev, cfg):
     return rows + (-rows) % BUCKET_TILE_ROWS, n_params
 
 
-def gpt2_leaves(torch, dev, gen, rec, seed=0):
-    """GPT-2 small's quantizable leaves as the optimizer reads them: params
-    from ``init_params`` (``seed``), random fp32 gradients, and both
-    moments of random values quantized per leaf with ``rec``'s codecs (m2
-    through its sqrt domain).  A dict of lists: g, p, m1, m2 (QStates)."""
+def gpt2_leaves(torch, dev, gen, rec, seed=0, arch="gpt2-small"):
+    """GPT-2 small's (``arch``'s) quantizable leaves as the optimizer reads
+    them: params from ``init_params`` (``seed``), random fp32 gradients,
+    and both moments of random values quantized per leaf with ``rec``'s
+    codecs (m2 through its sqrt domain).  A dict of lists: g, p, m1, m2
+    (QStates)."""
     from repro_torch.configs import get_config
     from repro_torch.core import qadam
     from repro_torch.core.quantizer import quantize_int
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_flatten
-    params = build_model(get_config("gpt2-small")).init_params(
+    params = build_model(get_config(arch)).init_params(
         torch.Generator(device=dev).manual_seed(seed), device=dev)
     p = [t for t in tree_flatten(params)[0] if qadam.quantizable(t)]
     del params
@@ -3797,7 +3846,7 @@ GRANITE_B_LIMIT = 0.12
 
 @dataclasses.dataclass(frozen=True)
 class ServeCell:
-    """A model served at its published width (phases 16, 19, 20, 21, 23):
+    """A model served at its published width (phases 16, 19-21, 23, 25):
     its config and depth (``layers``, None: the config's), #3's distinct
     (K, N) and the decode step's 2-D linears of a layer in call order
     (seven a dense gated layer, an MoE layer's four attention ones),
@@ -3829,12 +3878,27 @@ class ServeCell:
     #: the rows at which phase 16a holds #3 (the decode step's 16, then
     #: prefill and training rows)
     rows: tuple = (16, 2048)
+    #: the hybrid's shared-block linears in call order, run once a group of
+    #: ``hybrid_attn_every`` layers (``decode_kn`` then holds an SSM
+    #: layer's)
+    shared_kn: tuple = ()
+    #: the depth of the card-against-CPU check (``cell_card_vs_cpu``)
+    cmp_layers: int = 2
 
     def config(self, **kw):
         from repro_torch.configs import get_config
         if self.layers:
             kw = {"n_layers": self.layers, **kw}
         return dataclasses.replace(get_config(self.arch), **kw)
+
+    def step_linears(self, cfg=None) -> int:
+        """The 2-D block linears of one decode step (and of one prefill
+        launch) across the stack of ``cfg`` (default: the cell's)."""
+        cfg = cfg or self.config()
+        groups = (cfg.n_layers // cfg.hybrid_attn_every
+                  if self.shared_kn else 0)
+        return (len(self.decode_kn) * cfg.n_layers
+                + len(self.shared_kn) * groups)
 
 
 YI = ServeCell("16", "yi", "yi-6b", YI_INT8_KN, YI_DECODE_KN, YI_Q8_SHAPE,
@@ -3942,18 +4006,26 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
                   f"{'' if m > 16 else ' on 17 rows'}, queued) "
                   f"{row['library_ms']:.4f}{extra}")
             del x, w, rs, cs, want, got
-    # the transposes a prefill launch runs: every layer's 2-D linears
-    linears = len(cell.decode_kn)
-    per_layer = sum(next(r["transpose_ms"] for r in rows
-                         if r["shape"].startswith(
-                             f"M={cell.rows[-1]},K={k},N={n},"))
-                    for k, n in cell.decode_kn)
+    # the transposes a prefill launch runs: every layer's 2-D linears (and
+    # every invocation's of the hybrid's shared block)
+    linears = len(cell.decode_kn) + len(cell.shared_kn)
+    per_step = cell.step_linears()
+
+    def transposes(kns):
+        return sum(next(r["transpose_ms"] for r in rows
+                        if r["shape"].startswith(
+                            f"M={cell.rows[-1]},K={k},N={n},"))
+                   for k, n in kns)
+    groups = n_layers // max(cell.config().hybrid_attn_every, 1)
+    launch_ms = (n_layers * transposes(cell.decode_kn)
+                 + (groups * transposes(cell.shared_kn)
+                    if cell.shared_kn else 0.0))
     print(f"{label} int8_matmul: the tensor-core route's weight transposes "
-          f"of one prefill launch ({n_layers} layers x {linears} linears, "
-          f"queued): {n_layers * per_layer:.3f} ms")
+          f"of one prefill launch ({per_step} linears, queued): "
+          f"{launch_ms:.3f} ms")
     args = []
     for _ in range(4):
-        for k, n in cell.decode_kn:
+        for k, n in cell.decode_kn + cell.shared_kn:
             _, w, _, cs = _int8_case(torch, dev, gen, 16, k, n)
             xf = torch.randn((16, k), generator=gen, device=dev).to(dt)
             args.append((xf, w, cs, spec, dt))
@@ -3966,7 +4038,6 @@ def check_int8_cell(torch, dev, gen, results, cell=YI):
                                 len(args), queued=True),
                 ms_call=time_cold_ms(im.int8_quant_matmul, args,
                                      2 * len(args), len(args)))
-    per_step = linears * n_layers
     print(f"{label} int8_quant_matmul L2 cold, a round over a layer's "
           f"{linears} linears x 4 ({cold['weight_bytes'] / 1e6:.1f} MB) at "
           f"M = 16: ms per call queued {cold['ms']:.4f}, call by call "
@@ -4128,7 +4199,8 @@ def serve_launches(cfg, prefills, decode_steps, attn):
     linears (7 a dense gated layer, 4 an MoE one's attention, an SSM
     layer's 5 projections) and one #11 a prefill launch, those linears and
     one ``attn`` (#12 or #13) a decode step -- no attention kernel in the
-    SSM family; an MoE layer's three expert projections once a decode
+    SSM family; the hybrid's attention and its 8 shared-block linears once
+    a group of ``hybrid_attn_every`` SSM layers; an MoE layer's three expert projections once a decode
     step and once a dispatch chunk of each prefill launch of ``prefills``
     (its (B, S) token shapes; ``models/moe.dispatch_chunk``)."""
     from repro_torch.models.moe import dispatch_chunk
@@ -4136,6 +4208,14 @@ def serve_launches(cfg, prefills, decode_steps, attn):
     if cfg.family == "ssm":
         return {"int8_matmul": SSM_LINEARS * L * (len(prefills)
                                                   + decode_steps)}
+    if cfg.family == "hybrid":
+        # an SSM layer's projections, and the shared block's linears once a
+        # group, whose attention is one #11 a prefill, one #12 a step
+        groups = L // cfg.hybrid_attn_every
+        return {"int8_matmul": (SSM_LINEARS * L + SHARED_LINEARS * groups)
+                * (len(prefills) + decode_steps),
+                "flash_attention_fwd_q8": groups * len(prefills),
+                attn: groups * decode_steps}
     linears = MOE_ATTN_LINEARS if cfg.n_experts else YI_LINEARS
     want = {"int8_matmul": linears * L * (len(prefills) + decode_steps),
             "flash_attention_fwd_q8": L * len(prefills),
@@ -4232,6 +4312,17 @@ def _head_ms(torch, eng, cfg, rows):
                     h.to(torch.float32), hf)))
 
 
+def _state_parts(eng) -> str:
+    """The engine state's two parts, their shapes and sizes."""
+    parts = []
+    for part in ("caches", "ssm"):
+        bufs = eng._state[part]
+        parts.append(f"{part} " + ", ".join(
+            f"{k} {tuple(t.shape)}" for k, t in bufs.items())
+            + f" ({sum(t.numel() * t.element_size() for t in bufs.values()) / 1e9:.3f} GB)")
+    return "; ".join(parts)
+
+
 def serve_cell(torch, dev, seed, cell=YI):
     """Phase 16b (19b, 20a: ``cell``): the cell's model at its published
     width and ``cell.layers`` deep, random float32 weights from ``seed``
@@ -4263,18 +4354,27 @@ def serve_cell(torch, dev, seed, cell=YI):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     ssm = eng._state["caches"] is None
+    state = {"ssm": "SSM and conv state, no KV cache",
+             "hybrid": "int8 KV cache (one strip a shared-block invocation)"
+                       " and SSM and conv state"}.get(cfg.family,
+                                                      "int8 KV cache")
     print(f"{label}: {cfg.name} ({cfg.n_layers} layers) float32 weights "
           f"{fp32_bytes / 1e9:.2f} GB drawn and prepared in "
           f"{time.perf_counter() - t0:.1f} s, freed; the engine holds "
           f"{params_nbytes(eng.params) / 1e9:.2f} GB of parameters (int8 "
           f"block weights, bf16 "
           f"{'tied embedding' if cfg.tie_embeddings else 'embedding and head'}"
-          f") and {eng.kv_cache_nbytes() / 1e9:.3f} GB of "
-          f"{'SSM and conv state, no KV cache' if ssm else 'int8 KV cache'}"
-          f"; {eng.path_summary()}")
+          f") and {eng.kv_cache_nbytes() / 1e9:.3f} GB of {state}; "
+          + (_state_parts(eng) + "; " if cfg.family == "hybrid" else "")
+          + eng.path_summary())
     if cfg.family == "ssm" and not (ssm and eng.path_summary().endswith(
             "kv=none")):
         fail(f"{label}: the SSM engine holds a KV cache")
+    if cfg.family == "hybrid" and (ssm or eng._state["ssm"] is None
+                                   or "kv=int8-fused" not in
+                                   eng.path_summary()):
+        fail(f"{label}: the hybrid engine lacks its KV cache, its SSM "
+             f"states or the fused KV path")
     prompts = cell_prompts(cell, cfg, seed)
     counts, tokens, st = _cell_serve_run(torch, eng, cfg, cell, prompts,
                                          f"{label} engine")
@@ -4333,8 +4433,8 @@ def serve_cell_paged(torch, dev, seed, params, dense_tokens, dense_stats,
 
 
 def cell_card_vs_cpu(torch, dev, seed, cell=YI, strict=True):
-    """Phase 16d (19d, 20b: ``cell``): phase 5 at the cell's full width and
-    2 layers (float32 carrier, ``true_fan_in`` weights, the gated leaves and
+    """Phase 16d (19d, 20b, 21d, 23c, 25c: ``cell``): phase 5 at the cell's
+    full width and ``cell.cmp_layers`` layers (float32 carrier, ``true_fan_in`` weights, the gated leaves and
     the norms included), with phase 5's A check and limit, and its B check
     with ``cell.b_limit``; under ``cell.control`` also the card at the bf16
     carrier, which must exceed each limit.  Returns the readings;
@@ -4342,7 +4442,7 @@ def cell_card_vs_cpu(torch, dev, seed, cell=YI, strict=True):
     gc.collect()
     torch.cuda.empty_cache()
     return card_vs_cpu(torch, dev, seed, cfg=cell.config(
-        n_layers=2, dtype="float32"), b_limit=cell.b_limit,
+        n_layers=cell.cmp_layers, dtype="float32"), b_limit=cell.b_limit,
         control=cell.control, strict=strict)
 
 
@@ -5200,6 +5300,55 @@ def mamba_train_card_vs_cpu(torch, dev, seed, strict=True, extra=None):
                              strict=strict, plain_check=True, extra=extra)
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the hybrid family, Zamba2-2.7B served at its published widths
+# and full depth
+# ---------------------------------------------------------------------------
+
+#: phase 25a: #3's (K, N) in Zamba2-2.7B -- an SSM layer's in_z and in_x
+#: (2560, 5120), in_bc (2560, 128), in_dt (2560, 80), out_proj (5120,
+#: 2560); the shared block's wq, wk, wv and wo (5120, 5120), w_gate and
+#: w_up (5120, 10240), w_down (10240, 5120) and proj (5120, 2560, as
+#: out_proj) -- at the decode step's 16 slots, the second wave's prefill
+#: and the first wave's (16 x 256 and 16 x 2048 rows: 4,096 and 32,768;
+#: 2,048 stands for the first)
+ZAMBA_INT8_KN = ((2560, 5120), (2560, 128), (2560, 80), (5120, 2560),
+                 (5120, 5120), (5120, 10240), (10240, 5120))
+ZAMBA_INT8_ROWS = (16, 2048, 4096)
+#: an SSM layer's five projections and the shared block's eight linears,
+#: each in call order
+ZAMBA_SSM_KN = ((2560, 5120), (2560, 5120), (2560, 128), (2560, 80),
+                (5120, 2560))
+ZAMBA_SHARED_KN = ((5120, 5120),) * 4 + ((5120, 10240), (5120, 10240),
+                                         (10240, 5120), (5120, 2560))
+#: the linears of one shared-block invocation
+SHARED_LINEARS = len(ZAMBA_SHARED_KN)
+#: #11 at Zamba2's prefill: 2 prompts of 2048 over 4096-row buffers, 32
+#: heads of 160, no grouping; #12 / #13 at 16 slots of 4096 rows, G = 1
+ZAMBA_Q8_SHAPE = (2, 2048, 4096, 32, 32, 160)
+ZAMBA_DECODE_SHAPE = (16, 4096, 32, 1, 160)
+#: phase 25c, policy B at Zamba2's width and 12 layers (two groups: a cut
+#: below ``hybrid_attn_every`` would drop the shared block): the geometric
+#: mean, to two digits, of the card-vs-CPU readings' largest and the
+#: bf16-carrier control's smallest at seeds 0-3 (``tools/hybrid_readings.py``,
+#: PERF.md; H100 80GB HBM3, 700 W): 0.517-0.903 against controls
+#: 2.47-4.05.  The plain versions on the card read 0.468-0.853 and the card
+#: with the plain int8_matmul in the kernel's place is bit-identical at
+#: every seed: the distance is PyTorch's own fp32 ops on the two devices,
+#: carried through 12 layers of per-token activation codecs on a random
+#: model (its stacked SSM weights at the true fan-in).  Policy A reads
+#: 5.4e-4 to 7.9e-4 under phase 5's 1e-2, its controls 0.98-2.58.  Seeds
+#: 4-7, read after the limit was set, give 0.451-1.060 against controls
+#: 2.04-3.61.
+ZAMBA_B_LIMIT = 1.5
+ZAMBA = ServeCell("25", "zamba2", "zamba2-2.7b", ZAMBA_INT8_KN, ZAMBA_SSM_KN,
+                  ZAMBA_Q8_SHAPE, ZAMBA_DECODE_SHAPE, slots=16, seq=4096,
+                  requests=32, prompt=(129, 2048), new=32,
+                  b_limit=ZAMBA_B_LIMIT, control=True,
+                  waves=((1025, 2048), (129, 256)), rows=ZAMBA_INT8_ROWS,
+                  shared_kn=ZAMBA_SHARED_KN, cmp_layers=12)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5326,6 +5475,12 @@ def main() -> int:
     mamba_remat(torch, dev, args.seed)
     mamba_train_card_vs_cpu(torch, dev, args.seed)
     lap("24")
+    cell_kernels(torch, dev, gen, results, ZAMBA)
+    zamba_counts, _, _, zamba_params = serve_cell(torch, dev, args.seed,
+                                                  ZAMBA)
+    del zamba_params
+    cell_card_vs_cpu(torch, dev, args.seed, ZAMBA)
+    lap("25")
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
@@ -5337,7 +5492,8 @@ def main() -> int:
     # served dense and paged (phases 19b and 19c), Qwen3-32B at 16 layers
     # (phase 20a), Granite-3.0-MoE served dense and paged (phases 21b
     # and 21c) and trained (phase 22b), Mamba2-130M served (phase 23b) and
-    # trained (phase 24b), each path's counts read right after its run
+    # trained (phase 24b), Zamba2-2.7B served (phase 25b), each path's
+    # counts read right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -5362,10 +5518,17 @@ def main() -> int:
                    "serve_granite_paged": granite_paged_counts[name],
                    "train_granite": granite_train_counts[name],
                    "serve_mamba2": mamba_counts[name],
-                   "train_mamba2": mamba_train_counts[name]}
+                   "train_mamba2": mamba_train_counts[name],
+                   "serve_zamba2": zamba_counts[name]}
+        # the kernel gates of the later phases at their models' shapes
+        # (Yi's, Gemma's, Granite's, Zamba2's head dim of 160, ...)
+        cells = {tag: {k: v[k] for k in keys if k in v}
+                 for tag, v in results[name].items()
+                 if isinstance(v, dict) and "ms" in v and "shape" in v}
         kern.append(dict(name=name, launches=sum(by_path.values()),
                          launches_by_path=by_path,
-                         **{k: results[name][k] for k in keys}))
+                         **{k: results[name][k] for k in keys},
+                         **({"cells": cells} if cells else {})))
     (out_dir / "kernels.json").write_text(json.dumps(results, indent=1))
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -64,3 +64,31 @@ class ArchConfig:
     @property
     def attn_free(self) -> bool:
         return self.family == "ssm"
+
+    def param_count(self) -> int:
+        """Approximate total parameter count (embeddings included), the
+        reference's formula: the hybrid adds its one shared attention + MLP
+        block over 2 * d_model and its projection back to d_model."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        h, k, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        per_layer = 0
+        if self.family in ("dense", "moe", "vlm", "encdec"):
+            attn = d * (h * hd) * 2 + d * (k * hd) * 2
+            mlp = 3 * d * ff if self.mlp_kind == "gated" else 2 * d * ff
+            if self.n_experts:
+                mlp = self.n_experts * 3 * d * ff + d * self.n_experts
+            per_layer = attn + mlp
+        elif self.family in ("ssm", "hybrid"):
+            di = self.ssm_expand * d
+            nh = di // self.ssm_head_dim
+            per_layer = d * (2 * di + 2 * self.ssm_state + nh) + di * d
+        total = self.n_layers * per_layer
+        if self.family == "hybrid" and self.hybrid_attn_every:
+            d2 = 2 * d
+            total += (d2 * (h * hd) * 2 + d2 * (k * hd) * 2 + 3 * d2 * ff
+                      + d2 * d)
+        if self.family == "encdec":
+            attn = d * (h * hd) * 2 + d * (k * hd) * 2
+            mlp = 2 * d * ff if self.mlp_kind == "classic" else 3 * d * ff
+            total += self.enc_layers * (attn + mlp) + self.n_layers * attn
+        return total + v * d * (1 if self.tie_embeddings else 2)

@@ -54,7 +54,12 @@
 //     a page can be shorter than a box.
 //  3. Scores: the hd / 16 threads of a row each dot their 16 K bytes with
 //     the matching slice of q * scale (fp32) and reduce with shuffles; the
-//     guarded K scale multiplies the sum.  Int8 is widened with a byte
+//     guarded K scale multiplies the sum.  A row's lanes form an aligned
+//     group of LG = hd / 16 rounded up to a power of two (the shuffles'
+//     butterfly needs one inside a warp); at hd 160 (Zamba2) that is 16
+//     lanes for 10 segments, lanes 10-15 of each group idle and adding
+//     zeros, so a sub-tile holds 8 rows and a chunk 16 sub-tiles, as at
+//     hd 256.  Int8 is widened with a byte
 //     permute and one fp32 add (exact), not the int-to-float conversion,
 //     whose pipe runs at a sixteenth of the FMA rate.  The chunk's softmax
 //     (max m, sum l, p * g(vs)) runs one warp per query row.  P.V: thread
@@ -158,6 +163,13 @@ __device__ __forceinline__ size_t ws_offset(int b, int kh, int c, int KH,
   return ((static_cast<size_t>(b) * KH + kh) * NC + c) * G * (HD + 2);
 }
 
+// lanes that take one cache row: its NS = HD / 16 segments rounded up to a
+// power of two, so that the row's shuffle butterfly stays in an aligned
+// group of a warp
+__host__ __device__ constexpr int lane_group(int ns) {
+  return ns <= 1 ? 1 : 2 * lane_group((ns + 1) / 2);
+}
+
 template <int HD>
 __host__ __device__ constexpr int payload_bytes() {  // K, then P.V partials
   return CHUNK * HD > THREADS * 16 * 4 ? CHUNK * HD : THREADS * 16 * 4;
@@ -179,9 +191,14 @@ decode_chunk_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                     float* __restrict__ ws, Rows rows, int KH, int G, int NC,
                     float scale) {
   constexpr int NS = HD / 16;           // 16-byte segments of a row
-  constexpr int RP = THREADS / NS;      // rows of a sub-tile
-  constexpr int NG = CHUNK / RP;        // sub-tiles of a chunk (2, 4 or 8)
+  constexpr int LG = lane_group(NS);    // lanes of a row (NS or more)
+  constexpr int RP = THREADS / LG;      // rows of a sub-tile
+  constexpr int NG = CHUNK / RP;        // sub-tiles of a chunk (2 to 16)
   constexpr int PB = payload_bytes<HD>();
+  static_assert(HD % 16 == 0 && NS <= LG && LG <= 32 && (LG & (LG - 1)) == 0,
+                "a row's lanes: an aligned power-of-two group in a warp");
+  static_assert(THREADS % LG == 0 && CHUNK % RP == 0 && NG * RP == CHUNK,
+                "the sub-tiles tile the chunk exactly");
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sk = reinterpret_cast<int8_t*>(smem);           // [CHUNK][HD]
   int8_t* sv = sk + PB;                                     // [CHUNK][HD]
@@ -198,11 +215,13 @@ decode_chunk_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   if (t0 >= n_valid) return;
   const int n = min(CHUNK, n_valid - t0);
 
-  const int rr = tid / NS, seg = tid % NS;
+  // lanes past a row's NS segments (hd 160) load nothing and add zeros
+  const int rr = tid / LG, seg = tid % LG;
+  const bool live_seg = seg < NS;
 #pragma unroll
   for (int j = 0; j < NG; ++j) {
     const int i = j * RP + rr;
-    if (i < n) {
+    if (i < n && live_seg) {
       const size_t r = rows(b, t0 + i) * KH + kh;
       cp_async16(sk + i * HD + seg * 16, kq + r * HD + seg * 16);
       cp_async16(sv + i * HD + seg * 16, vq + r * HD + seg * 16);
@@ -226,22 +245,26 @@ decode_chunk_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     cp_async_wait(NG - 1 - j);
     const int i = j * RP + rr;
     float kf[16];
-    widen16(*reinterpret_cast<const uint4*>(sk + i * HD + seg * 16), kf);
+    if (live_seg)
+      widen16(*reinterpret_cast<const uint4*>(sk + i * HD + seg * 16), kf);
     const float ksg = seg == 0 && i < n ? scale_guard(sks[i]) : 0.0f;
     for (int g = 0; g < G; ++g) {
-      const float4* q4 =
-          reinterpret_cast<const float4*>(qs + g * HD + seg * 16);
-      float part[4];
+      float a = 0.0f;
+      if (live_seg) {
+        const float4* q4 =
+            reinterpret_cast<const float4*>(qs + g * HD + seg * 16);
+        float part[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float4 v = q4[k];
-        part[k] = fmaf(v.w, kf[4 * k + 3],
-                       fmaf(v.z, kf[4 * k + 2],
-                            fmaf(v.y, kf[4 * k + 1], v.x * kf[4 * k])));
+        for (int k = 0; k < 4; ++k) {
+          const float4 v = q4[k];
+          part[k] = fmaf(v.w, kf[4 * k + 3],
+                         fmaf(v.z, kf[4 * k + 2],
+                              fmaf(v.y, kf[4 * k + 1], v.x * kf[4 * k])));
+        }
+        a = (part[0] + part[1]) + (part[2] + part[3]);
       }
-      float a = (part[0] + part[1]) + (part[2] + part[3]);
 #pragma unroll
-      for (int o = NS / 2; o > 0; o >>= 1)
+      for (int o = LG / 2; o > 0; o >>= 1)
         a += __shfl_xor_sync(0xffffffffu, a, o);
       if (seg == 0 && i < n) sc[g * CHUNK + i] = a * ksg;
     }
@@ -454,6 +477,7 @@ int dispatch(int HD, int dtype, int S, const Args& a, Rows rows) {
       case 32: return launch<32, float>(a, rows);
       case 64: return launch<64, float>(a, rows);
       case 128: return launch<128, float>(a, rows);
+      case 160: return launch<160, float>(a, rows);
       case 256: return launch<256, float>(a, rows);
     }
   } else if (dtype == kBFloat16) {
@@ -461,6 +485,7 @@ int dispatch(int HD, int dtype, int S, const Args& a, Rows rows) {
       case 32: return launch<32, __nv_bfloat16>(a, rows);
       case 64: return launch<64, __nv_bfloat16>(a, rows);
       case 128: return launch<128, __nv_bfloat16>(a, rows);
+      case 160: return launch<160, __nv_bfloat16>(a, rows);
       case 256: return launch<256, __nv_bfloat16>(a, rows);
     }
   }
@@ -477,7 +502,7 @@ extern "C" int repro_decode_chunk() { return CHUNK; }
 // ks/vs (B, S, KH, 1) float32, updated in place; pos (B,) int32; ws a
 // float32 workspace of B * KH * NC * G * (HD + 2) elements, NC = ceil(S /
 // CHUNK) (refused otherwise).  All contiguous, the int8 caches 16-byte
-// aligned; HD in {32, 64, 128, 256}, G <= 16.
+// aligned; HD in {32, 64, 128, 160, 256}, G <= 16.
 extern "C" int repro_decode_attn(const void* q, void* kq, void* ks, void* vq,
                                  void* vs, const void* new_k,
                                  const void* new_v, const void* pos, void* out,

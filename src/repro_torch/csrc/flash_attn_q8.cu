@@ -26,7 +26,8 @@
 // probabilities go through shared memory to the P.V product, where a lane
 // owns hd/32 output columns.  Dequantized K/V never reach device memory.
 // At hd 256 (Gemma) a block takes 213,760 bytes of shared memory, one block
-// an SM, and a lane holds 16 rows x 8 columns of the accumulator.
+// an SM, and a lane holds 16 rows x 8 columns of the accumulator; at hd
+// 160 (Zamba2) 140,032 bytes and 16 rows x 5 columns.
 #include "common.cuh"
 
 namespace {
@@ -181,6 +182,7 @@ int by_hd(int HD, const void* q, const void* kq, const void* ks,
     case 32: return launch<32, T>(q, kq, ks, vq, vs, out, B, Sq, Skv, H, KH, scale, causal, q_offset, s);
     case 64: return launch<64, T>(q, kq, ks, vq, vs, out, B, Sq, Skv, H, KH, scale, causal, q_offset, s);
     case 128: return launch<128, T>(q, kq, ks, vq, vs, out, B, Sq, Skv, H, KH, scale, causal, q_offset, s);
+    case 160: return launch<160, T>(q, kq, ks, vq, vs, out, B, Sq, Skv, H, KH, scale, causal, q_offset, s);
     case 256: return launch<256, T>(q, kq, ks, vq, vs, out, B, Sq, Skv, H, KH, scale, causal, q_offset, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -189,7 +191,7 @@ int by_hd(int HD, const void* q, const void* kq, const void* ks,
 }  // namespace
 
 // All tensors contiguous in the JAX layout; dtype is the carrier of q/out
-// (0 float32, 1 bfloat16); hd in {32, 64, 128, 256}.
+// (0 float32, 1 bfloat16); hd in {32, 64, 128, 160, 256}.
 extern "C" int repro_flash_attn_q8(const void* q, const void* kq,
                                    const void* ks, const void* vq,
                                    const void* vs, void* out, int B, int Sq,

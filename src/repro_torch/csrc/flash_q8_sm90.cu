@@ -7,7 +7,7 @@
 // CUDA-core body: TF32 drops 13 bits of every operand.
 // q (B, Sq, H, hd) bf16; kq/vq (B, Skv, KH, hd) int8 payloads with ks/vs
 // (B, Skv, KH, 1) fp32 per-(position, head) scales; GQA through kv head
-// h / (H / KH), no repeat; hd in {32, 64, 128, 256}; every tensor
+// h / (H / KH), no repeat; hd in {32, 64, 128, 160, 256}; every tensor
 // contiguous, q, kq and vq 16-byte aligned.
 //
 // What is computed, in the reference's rounding order (summed in another
@@ -67,6 +67,12 @@
 //    half-tile pairs (64 KB) and two int8 rings (96 KB): 198,272 bytes,
 //    one block an SM; each warpgroup's O accumulator is 64 x 256 fp32
 //    (128 registers a thread), and P V runs as four m64n64 chunks;
+//  - at hd 160 (Zamba2's shared block) 1/sqrt(160) is no power of two, so
+//    q takes three terms, padded to HDP = 192 (three 64-column chunks:
+//    Q's columns 160-191 zero-filled by TMA, the bf16 K/V tiles' zeroed
+//    once); three Q terms (72 KB), the bf16 half-tiles (48 KB) and the
+//    rings of 160-byte int8 rows (72 KB) make the same 198,272 bytes; the
+//    accumulator is 64 x 192 fp32 (96 registers a thread);
 //  - key tiles past q_offset + a warpgroup's last query are skipped, so the
 //    engine's 1024-row buffers are never read past the prompt; the combine
 //    goes through shared memory, each output row is written once, no
@@ -541,6 +547,8 @@ int by_hd(const void* q, const void* kq, const void* ks, const void* vq,
     case 32: return REPRO_LAUNCH(64, 3);
     case 64: return pow2 ? REPRO_LAUNCH(64, 1) : REPRO_LAUNCH(64, 3);
     case 128: return REPRO_LAUNCH(128, 3);
+    // hd 160 pads to three 64-column chunks; its scale takes three terms
+    case 160: return REPRO_LAUNCH(192, 3);
     // three Q terms would need 263,808 bytes of shared memory at hd 256,
     // over the block's limit; its scale of 1/16 takes one
     case 256: return pow2 ? REPRO_LAUNCH(256, 1)
@@ -555,7 +563,7 @@ int by_hd(const void* q, const void* kq, const void* ks, const void* vq,
 // q (B, Sq, H, HD) bf16, kq/vq (B, Skv, KH, HD) int8, ks/vs (B, Skv, KH, 1)
 // f32, all contiguous (q, kq, vq 16-byte aligned) -> out (B, Sq, H, HD):
 // bf16 (out_dtype 1, the kernel of the serving path) or f32 before the
-// cast (out_dtype 0, for the tests).  HD in {32, 64, 128, 256} (256 with a
+// cast (out_dtype 0, for the tests).  HD in {32, 64, 128, 160, 256} (256 with a
 // power-of-two scale only), H % KH == 0.
 extern "C" int repro_flash_q8_sm90(const void* q, const void* kq,
                                    const void* ks, const void* vq,

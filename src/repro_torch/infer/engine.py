@@ -88,6 +88,16 @@ reference's), so a failing step re-raises.  Prefill runs the whole padded
 bucket, so a prompt's pad tokens enter its state, as in the reference
 (ROADMAP section 3).
 
+The hybrid family (zamba2) serves in dense mode only too, as in the
+reference: its state holds both parts, the SSM and conv states (L, slots,
+...) and one KV cache strip a shared-block invocation (G, slots, max_seq,
+K, hd).  Admission writes both slot by slot; a decode step commits its new
+SSM states only when it returns, and writes its KV row in place as the
+attention families do.  Its ladder is theirs (``fused / dequant / fp``):
+demotion and promotion convert the KV part and leave the SSM part as it
+is, and a retried step starts from the SSM states the failed attempt
+started from.
+
 The tensors' device decides kernel or plain version; :meth:`path_summary`
 reports which path runs.  Meshes and AOT compilation are not ported (see
 ROADMAP).
@@ -299,16 +309,31 @@ class Engine:
     def _weights_route(self) -> Optional[str]:
         """How the prepared block linears run: ``cuda`` (the int8 matmul
         kernel), ``plain`` (its plain version, CPU tensors) or ``dequant``
-        (dequant-read matmul); None for raw weights."""
-        if not any(isinstance(v, QState)
-                   for sub in self.params["blocks"].values()
-                   for v in sub.values()):
+        (dequant-read matmul; also where the hybrid's SSM layers and its
+        shared block resolve to different routes); None for raw
+        weights."""
+        def prepared(part):
+            return any(isinstance(v, QState)
+                       for sub in self.params.get(part, {}).values()
+                       for v in (sub.values() if isinstance(sub, dict)
+                                 else (sub,)))
+        # (role, layer) of the first linear of each part with prepared
+        # weights: the stacked blocks, the hybrid's depth-less shared block
+        sites = []
+        if prepared("blocks"):
+            sites.append(("ssm_in" if self.cfg.family in ("ssm", "hybrid")
+                          else "attn_qkv", 0))
+        if prepared("shared"):
+            sites.append(("attn_qkv", None))
+        if not sites:
             return None
-        role = "ssm_in" if self.cfg.family == "ssm" else "attn_qkv"
-        res = self.policy.resolve(role, 0, self.cfg.n_layers)
-        if res.backend == INT8_BACKEND and int8_backend_supported(res.recipe):
-            return "cuda" if self.device.type == "cuda" else "plain"
-        return "dequant"
+        n = self.cfg.n_layers
+        for role, layer in sites:
+            res = self.policy.resolve(role, layer, n)
+            if not (res.backend == INT8_BACKEND
+                    and int8_backend_supported(res.recipe)):
+                return "dequant"
+        return "cuda" if self.device.type == "cuda" else "plain"
 
     def _rung0_libraries(self) -> List[str]:
         """The kernel libraries the configured path (rung 0) launches."""

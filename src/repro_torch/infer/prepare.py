@@ -1,6 +1,6 @@
 """Prepared weights: resolve the QuantPolicy once and quantize each block
 weight into a stored int8 payload + scales (port of
-``repro/infer/prepare.py`` for the dense, MoE and SSM families).
+``repro/infer/prepare.py`` for the dense, MoE, SSM and hybrid families).
 
 At inference the weights never change, so the engine quantizes them once
 into :class:`QState` containers; ``QuantPolicy.linear`` recognizes a QState
@@ -12,6 +12,10 @@ d_out) scales that the layer loop slices with the payload, and a stacked
 expert weight (L, E, d_in, d_out) gets (L, E, 1, d_out): one scale grid
 per expert, the reference's ``vmap`` slices.  Scales stay
 fp32, never cast to the carrier.
+
+The hybrid's shared block (``params["shared"]``: its ``attn`` and ``mlp``
+through the same tables, its ``proj`` under ``shared_proj``) is depth-less:
+its roles resolve with no layer, as its linears do.
 
 Weights stay raw when the role resolves to fp, when a depth-banded policy
 gives the layers of one stacked tensor different specs, or when the spec
@@ -77,22 +81,31 @@ def prepare_params(cfg, params: Params, policy) -> Params:
     n_layers = cfg.n_layers
     carrier = getattr(torch, cfg.dtype)
 
-    def resolve_uniform(role: str) -> Optional[Resolved]:
+    def resolve_uniform(role: str, depthful: bool) -> Optional[Resolved]:
+        if not depthful:
+            return policy.resolve(role, None, n_layers)
         rs = [policy.resolve(role, i, n_layers) for i in range(n_layers)]
         return rs[0] if all(r == rs[0] for r in rs) else None
 
-    def prep(w, role: str):
-        spec = _preparable_spec(resolve_uniform(role))
+    def prep(w, role: str, depthful: bool = True):
+        spec = _preparable_spec(resolve_uniform(role, depthful))
         if spec is None or isinstance(w, QState):    # raw, or prepared
             return w
         return quantize_weight(w.to(carrier), spec)
 
+    def prep_modules(tree, depthful: bool):
+        return {mod: ({k: (prep(v, _MODULE_TABLES[mod][k], depthful)
+                           if k in _MODULE_TABLES[mod] else v)
+                       for k, v in sub.items()}
+                      if mod in _MODULE_TABLES else sub)
+                for mod, sub in tree.items()}
+
     out = dict(params)
-    out["blocks"] = {
-        mod: ({k: (prep(v, _MODULE_TABLES[mod][k])
-                   if k in _MODULE_TABLES.get(mod, {}) else v)
-               for k, v in sub.items()} if mod in _MODULE_TABLES else sub)
-        for mod, sub in params["blocks"].items()}
+    out["blocks"] = prep_modules(params["blocks"], True)
+    if "shared" in params:                  # zamba2: depth-less shared block
+        shared = prep_modules(params["shared"], False)
+        shared["proj"] = prep(params["shared"]["proj"], "shared_proj", False)
+        out["shared"] = shared
     return out
 
 

@@ -34,7 +34,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.int8_matmul import scale_guard
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+#: head dims of the kernels (160: Zamba2's shared block, whose rows take
+#: aligned groups of 16 lanes for their 10 segments)
+_HEAD_DIMS = (32, 64, 128, 160, 256)
 MAX_GROUP = 16
 #: logical cache rows per chunk block of the kernel (``csrc/decode_attn.cu``
 #: CHUNK, which the library reports as ``repro_decode_chunk``)

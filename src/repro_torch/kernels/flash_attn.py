@@ -36,8 +36,9 @@ from repro_torch.kernels.int8_matmul import scale_guard
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of #11's kernels (256 at the power-of-two scale 1/16 only on
-#: the tensor-core kernel, which the wrapper always passes)
-_HEAD_DIMS = (32, 64, 128, 256)
+#: the tensor-core kernel, which the wrapper always passes; 160, Zamba2's
+#: shared block, padded to 192 columns there)
+_HEAD_DIMS = (32, 64, 128, 160, 256)
 #: head dims of the fp flash kernels: every multiple of 16 up to 256
 FLASH_MAX_HEAD_DIM = 256
 #: the largest head dim of the tensor-core backward (``csrc/flash_bwd_sm90.cu``
@@ -155,7 +156,7 @@ def flash_attention_fwd_q8(q: torch.Tensor, kq: torch.Tensor,
     fp32 -> (B, Sq, H, hd) in q's dtype.  H % K == 0 (GQA/MQA); causal
     masking makes any never-written cache tail (rows >= q_offset + Sq)
     invisible.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel :func:`q8_library` names (hd in 32, 64, 128, 256; q, kq and vq
+    kernel :func:`q8_library` names (hd in 32, 64, 128, 160, 256; q, kq and vq
     on 16-byte boundaries) or raise."""
     b, sq, h, hd, skv, kh = _check_args(q, kq, causal, q_offset)
     if q.device.type == "cpu":

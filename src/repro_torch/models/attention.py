@@ -42,6 +42,9 @@ set of page pools, ``(P, page, K, hd)`` shared by every slot):
   whole max_seq buffer instead; the causal mask hides its never-written
   rows.
 
+The input width is the weights' (``wq``'s rows), not ``cfg.d_model``: the
+hybrid's shared block attends over concat(h, emb0), 2 * d_model wide.
+
 Under qk-norm (``cfg.qk_norm``, qwen3) q and k are RMS-normed per head
 (``q_norm``, ``k_norm``) right after their projections, and under RoPE
 (``cfg.pos == "rope"``) then rotated, before any of this, k before it is
@@ -82,13 +85,23 @@ Cache = Dict[str, torch.Tensor]
 KV_PATHS = ("fused", "dequant")
 
 
+def cache_count(cfg) -> int:
+    """How many KV caches the stack holds: one a layer for the attention
+    families, one a shared-block invocation for the hybrid (n_layers //
+    hybrid_attn_every)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
 def init_caches(cfg, batch: int, max_seq: int, dtype: torch.dtype,
                 kv_spec=None, device: Union[str, torch.device] = "cpu") -> Cache:
-    """KV cache buffers stacked over the layers: (L, B, S, K, hd) in the
-    carrier, or int8 payloads plus (L, B, S, K, 1) fp32 scales when
+    """KV cache buffers stacked over the ``cache_count`` attention calls of
+    the stack: (L, B, S, K, hd) in the carrier (the hybrid: (G, B, S, K,
+    hd)), or int8 payloads plus (L, B, S, K, 1) fp32 scales when
     ``kv_spec`` (``policy.kv_spec()``) is set.  Never-written rows hold
     payload 0 and scale 0."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cache_count(cfg), batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     if kv_spec is None:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}

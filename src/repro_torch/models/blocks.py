@@ -14,14 +14,21 @@ under ``cfg.remat``; :func:`block_apply` runs both.
 The SSM family's block (:func:`ssm_block`, the reference's ``ssm`` branch)
 is pre-norm, the Mamba2 layer (``models/ssm.py``) and the residual: no
 attention, no MLP, and no MoE losses (the reference's zeros; None here, as
-on the dense branch)."""
+on the dense branch).
+
+The hybrid family (zamba2) runs groups of SSM blocks, each followed by
+:func:`shared_block` (the reference's ``lm._shared_attn``): one attention +
+MLP block whose weights every group shares, on concat(h, emb0) -- the
+running residual and the embedding output, 2 * d_model wide -- projected
+back to d_model (role ``shared_proj``) and added to h.  Its linears resolve
+depth-less (``layer=None``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.qpolicy import QuantPolicy
+from repro_torch.core.qpolicy import LinearCtx, QuantPolicy
 from repro_torch.models.attention import Cache, attn_context, attn_out
 from repro_torch.models.common import apply_norm
 from repro_torch.models.mlp import mlp_apply
@@ -94,3 +101,23 @@ def ssm_block(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
                            return_state=state is not None, layer=layer,
                            n_layers=cfg.n_layers)
     return h + y, new
+
+
+def shared_block(params, h: torch.Tensor, emb0: torch.Tensor, cfg, *,
+                 policy: QuantPolicy, **attn_kw) -> torch.Tensor:
+    """zamba2's shared block: x2 = concat(h, emb0); x2 += attn(ln1(x2));
+    x2 += mlp(ln2(x2)); h + x2 @ proj -> h.  ``attn_kw`` as in
+    :func:`block_context` (this invocation's cache, ``cache_offset``,
+    ``mask``, ``rope``, ``kv_path``); every linear depth-less."""
+    nl = cfg.n_layers
+    x2 = torch.cat([h, emb0], dim=-1)
+    x = apply_norm(x2, params["ln1"], cfg.norm)
+    ctx = attn_context(params["attn"], x, cfg, policy=policy, layer=None,
+                       n_layers=nl, **attn_kw)
+    x2 = x2 + attn_out(params["attn"], ctx, policy=policy, layer=None,
+                       n_layers=nl)
+    x = apply_norm(x2, params["ln2"], cfg.norm)
+    x2 = x2 + mlp_apply(params["mlp"], x, cfg, policy=policy, layer=None,
+                        n_layers=nl)
+    return h + policy.linear(LinearCtx("shared_proj", None, nl), x2,
+                             params["proj"])

@@ -8,7 +8,14 @@ reference's scan, final norm and head (port of ``repro/models/lm.py``):
 the training loss with a chunked cross entropy, prefill and decode.  The
 SSM family (Mamba2: ``models/ssm.py``, ``blocks.ssm_block``) runs the same
 stack without attention, positions or a mask, and carries per-layer SSM
-and conv states in place of the KV caches.
+and conv states in place of the KV caches.  The hybrid family (zamba2)
+runs its SSM layers in groups of ``hybrid_attn_every``, each group
+followed by the shared attention + MLP block (``blocks.shared_block``) on
+concat(h, emb0), emb0 the embedding output (a prefill's or a decode
+step's); invocation g reads and writes KV cache g, so it carries both
+the stacked SSM states and (G, B, S, K, hd) caches, G = n_layers //
+hybrid_attn_every.  Its loss is not ported yet (ROADMAP section 1, item
+6).
 
 Positions: a prefill's rows sit at ``arange(S)`` (packed prompts restart
 at 0, ``segment_positions_and_mask``), a decode step's at each slot's own
@@ -63,7 +70,7 @@ from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.core.quantizer import _div
 from repro_torch.models.attention import Cache, init_caches
 from repro_torch.models.blocks import (block_apply, block_context,
-                                      block_finish, ssm_block)
+                                      block_finish, shared_block, ssm_block)
 from repro_torch.models.common import (Params, apply_norm, cast_params,
                                        checkpointed, rope_tables, tree_map)
 from repro_torch.models.moe import route_check_contexts
@@ -179,6 +186,10 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             policy=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {"tokens": (B, S + 1) int[, "loss_mask": (B, S)]} -> (loss,
     metrics).  ``policy`` is anything ``as_policy`` accepts."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family's training loss is not ported "
+            f"yet (ROADMAP section 1, item 6); it serves")
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
@@ -231,8 +242,12 @@ def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
                page_table=None, mask=None, kv_path=None,
                ssm_states: Optional[SSMState] = None, decode: bool = False):
     """-> (final-normed h, the new SSM states stacked over the layers, or
-    None without them).  The caches are written in place."""
+    None without them).  The caches are written in place.  The hybrid's
+    shared block follows every ``hybrid_attn_every``-th SSM layer, on
+    concat(h, the stack's input h)."""
     rope = rope_for(cfg, positions)
+    emb0 = h
+    per = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     new = []
     for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
         if ssm_states is not None:
@@ -240,6 +255,13 @@ def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,
                               state={k: v[i] for k, v in ssm_states.items()},
                               decode=decode)
             new.append(st)
+            if per and (i + 1) % per == 0:
+                g = i // per
+                h = shared_block(params["shared"], h, emb0, cfg,
+                                 policy=policy,
+                                 cache={k: c[g] for k, c in caches.items()},
+                                 cache_offset=cache_offset, mask=mask,
+                                 rope=rope, kv_path=kv_path)
             continue
         h, _, _ = block_apply(lp, h, cfg, policy=policy, layer=i,
                               cache={k: c[i] for k, c in caches.items()},
@@ -255,11 +277,15 @@ def init_decode_caches(cfg, batch: int, max_seq: int, dtype: torch.dtype,
                        kv_spec=None, device="cpu"):
     """(KV caches, SSM states) of the whole stack, the reference's
     ``init_caches``: KV caches and no SSM states for the attention
-    families, the reverse for the SSM family."""
-    if cfg.family == "ssm":
-        return None, init_ssm_state(cfg, batch, dtype, device=device)
-    return init_caches(cfg, batch, max_seq, dtype, kv_spec=kv_spec,
-                       device=device), None
+    families, the reverse for the SSM family, both for the hybrid (one KV
+    cache a shared-block invocation)."""
+    caches = states = None
+    if cfg.family in ("ssm", "hybrid"):
+        states = init_ssm_state(cfg, batch, dtype, device=device)
+    if cfg.family != "ssm":
+        caches = init_caches(cfg, batch, max_seq, dtype, kv_spec=kv_spec,
+                             device=device)
+    return caches, states
 
 
 def segment_positions_and_mask(segments: torch.Tensor, max_seq: int):
@@ -289,7 +315,8 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
     """Process right-padded prompts (B, S); returns (logits, caches sized
     to ``max_seq`` (default S), SSM states).  The SSM family has no caches
     (None) and returns the states after the whole padded row: its pad
-    tokens enter the state, as in the reference (ROADMAP section 3).
+    tokens enter the state, as in the reference (ROADMAP section 3); the
+    hybrid returns both.
     ``last_pos`` picks the logits' rows: None the last column, (B,)
     per-row indices (B logits), or (M, 2) ``(row, col)`` pairs (M logits,
     one per packed prompt).  ``segments`` (B, S)
@@ -307,7 +334,7 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg, *, policy=None,
     mask = None
     if segments is None:
         positions = torch.arange(s, device=device).expand(b, s)
-    elif cfg.family == "ssm":
+    elif cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             "packed (segment-id) prefill is attention-family only")
     else:
@@ -342,8 +369,8 @@ def lm_decode(params: Params, caches: Optional[Cache], token: torch.Tensor,
     pools (L, P, page, K, hd), a slot's logical cache ``maxp * page`` rows;
     ``kv_path`` as in :func:`lm_prefill`.  Returns (logits (B, V_padded),
     caches, SSM states) -- the caches are updated in place; the SSM family
-    (caches None) steps from ``ssm_states`` and returns new ones, leaving
-    those given as they were."""
+    (caches None) and the hybrid step from ``ssm_states`` and return new
+    ones, leaving those given as they were."""
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)

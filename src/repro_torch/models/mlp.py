@@ -4,6 +4,9 @@ projections, ``mlp_down`` for the contraction back to the residual):
 
 * classic (GPT-2): fc1 -> act -> fc2;
 * gated (llama's SwiGLU): ``act(x @ w_gate) * (x @ w_up)``, then ``w_down``.
+
+Widths come from the weights, so the hybrid's shared block runs it on its
+2 * d_model-wide input.
 """
 from __future__ import annotations
 

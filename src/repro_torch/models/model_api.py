@@ -8,7 +8,10 @@ on q and k per head, qk-norm) -- and for the MoE family (granite,
 phi-3.5-moe: the gated MLP replaced by top-k routed experts,
 ``models/moe.py``, in the reference's ``local`` mode) -- and for the SSM
 family (mamba2: ``models/ssm.py``, no attention and no positions, its
-decode state the per-layer SSM and conv states in place of KV caches);
+decode state the per-layer SSM and conv states in place of KV caches) --
+and for the hybrid family (zamba2: groups of Mamba2 layers, each followed
+by one attention + MLP block whose weights are shared across the depth,
+its decode state both the SSM states and a KV cache per invocation);
 :func:`params_from_jax` carries a JAX parameter tree across, and
 :func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
 state (params, step, Adam moments) both ways.
@@ -22,9 +25,11 @@ q_norm, k_norm (L, hd)]},
 under experts, ``moe`` {w_router (L, d, E), w_gate and w_up (L, E, d, ff),
 w_down (L, E, ff, d)}; the SSM family's blocks are ``norm`` {scale} and
 ``ssm`` {in_z, in_x, in_bc, in_dt, conv_w, conv_b, A_log, dt_bias, D,
-gate_norm, out_proj} --
-``final_norm`` as ``ln1``, and ``lm_head`` (d, V_padded) when the head is
-untied.
+gate_norm, out_proj} (the hybrid's too) --
+``final_norm`` as ``ln1``, ``lm_head`` (d, V_padded) when the head is
+untied, and the hybrid's depth-less ``shared`` block over d2 = 2 * d:
+``ln1`` and ``ln2`` over d2, ``attn`` and the gated ``mlp`` with inputs
+d2 wide, and ``proj`` (d2, d).
 """
 from __future__ import annotations
 
@@ -47,8 +52,8 @@ DeviceLike = Union[str, torch.device, None]
 
 #: what the port's decoder takes: each field's ported values (GPT-2's,
 #: llama's, gemma's and qwen3's; granite's and phi-3.5-moe's experts;
-#: mamba2's SSM layers, which take no positions)
-SUPPORTED = {"family": ("dense", "moe", "ssm"),
+#: mamba2's SSM layers, which take no positions; zamba2's hybrid)
+SUPPORTED = {"family": ("dense", "moe", "ssm", "hybrid"),
              "pos": ("learned", "rope", "none"),
              "norm": ("layernorm", "rmsnorm", "rmsnorm_p1"),
              "mlp_kind": ("classic", "gated"), "qk_norm": (False, True),
@@ -56,25 +61,31 @@ SUPPORTED = {"family": ("dense", "moe", "ssm"),
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The dense, MoE and SSM families only (experts exactly when the
-    family is ``moe``, gated): hybrid, encdec and VLM raise."""
+    """The dense, MoE, SSM and hybrid families only (experts exactly when
+    the family is ``moe``, gated; the hybrid with a shared block every
+    ``hybrid_attn_every`` > 0 layers, a whole number of groups, no
+    experts): encdec and VLM raise."""
     bad = {k: getattr(cfg, k) for k, v in SUPPORTED.items()
            if getattr(cfg, k) not in v}
     moe = cfg.family == "moe"
     if moe != (cfg.n_experts > 0) or (moe and cfg.mlp_kind != "gated"):
         bad.update(n_experts=cfg.n_experts, mlp_kind=cfg.mlp_kind)
+    per = cfg.hybrid_attn_every
+    if cfg.family == "hybrid" and (per <= 0 or cfg.n_layers % per):
+        bad.update(hybrid_attn_every=per, n_layers=cfg.n_layers)
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port takes the dense, MoE and SSM "
-            f"families ({SUPPORTED}; experts gated, and only under "
-            f"family='moe') so far; hybrid, encdec and VLM wait for "
-            f"ROADMAP section 1, item 6")
+            f"{cfg.name}: {bad} -- the port takes the dense, MoE, SSM and "
+            f"hybrid families ({SUPPORTED}; experts gated, and only under "
+            f"family='moe'; the hybrid's shared block every "
+            f"hybrid_attn_every > 0 layers, which divides n_layers) so far; "
+            f"encdec and VLM wait for ROADMAP section 1, item 6")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
     """name -> (shape, init[, std]) in the JAX tree layout; the init kinds
-    and scales of ``repro.models`` (lm_spec, attn_spec, mlp_spec, moe_spec,
-    ssm_spec, norm_spec)."""
+    and scales of ``repro.models`` (lm_spec, shared_block_spec, attn_spec,
+    mlp_spec, moe_spec, ssm_spec, norm_spec)."""
     d, ff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -85,29 +96,40 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
             return {"scale": ((n,), "zeros")}
         return {"scale": ((n,), "ones"), "bias": ((n,), "zeros")}
 
-    attn = {"wq": ((d, h * hd), "fan_in"), "wk": ((d, k * hd), "fan_in"),
-            "wv": ((d, k * hd), "fan_in"), "wo": ((h * hd, d), "fan_in")}
-    if cfg.qk_norm:
-        attn.update({"q_norm": ((hd,), "ones"), "k_norm": ((hd,), "ones")})
-    if cfg.mlp_kind == "gated":
-        mlp = {"w_gate": ((d, ff), "fan_in"), "w_up": ((d, ff), "fan_in"),
-               "w_down": ((ff, d), "fan_in")}
-        mlp_bias = {"b_gate": ((ff,), "zeros"), "b_up": ((ff,), "zeros"),
-                    "b_down": ((d,), "zeros")}
-    else:
-        mlp = {"w_fc1": ((d, ff), "fan_in"), "w_fc2": ((ff, d), "fan_in")}
-        mlp_bias = {"b_fc1": ((ff,), "zeros"), "b_fc2": ((d,), "zeros")}
-    if cfg.use_bias:
-        attn.update({"bq": ((h * hd,), "zeros"), "bk": ((k * hd,), "zeros"),
-                     "bv": ((k * hd,), "zeros"), "bo": ((d,), "zeros")})
-        mlp.update(mlp_bias)
-    blocks = {"ln1": norm(d), "attn": attn, "ln2": norm(d)}
-    if cfg.family == "ssm":
+    def attn(d_in):
+        a = {"wq": ((d_in, h * hd), "fan_in"),
+             "wk": ((d_in, k * hd), "fan_in"),
+             "wv": ((d_in, k * hd), "fan_in"),
+             "wo": ((h * hd, d_in), "fan_in")}
+        if cfg.qk_norm:
+            a.update({"q_norm": ((hd,), "ones"), "k_norm": ((hd,), "ones")})
+        if cfg.use_bias:
+            a.update({"bq": ((h * hd,), "zeros"), "bk": ((k * hd,), "zeros"),
+                      "bv": ((k * hd,), "zeros"), "bo": ((d_in,), "zeros")})
+        return a
+
+    def mlp(d_in):
+        if cfg.mlp_kind == "gated":
+            m = {"w_gate": ((d_in, ff), "fan_in"),
+                 "w_up": ((d_in, ff), "fan_in"),
+                 "w_down": ((ff, d_in), "fan_in")}
+            bias = {"b_gate": ((ff,), "zeros"), "b_up": ((ff,), "zeros"),
+                    "b_down": ((d_in,), "zeros")}
+        else:
+            m = {"w_fc1": ((d_in, ff), "fan_in"),
+                 "w_fc2": ((ff, d_in), "fan_in")}
+            bias = {"b_fc1": ((ff,), "zeros"), "b_fc2": ((d_in,), "zeros")}
+        if cfg.use_bias:
+            m.update(bias)
+        return m
+
+    blocks = {"ln1": norm(d), "attn": attn(d), "ln2": norm(d)}
+    if cfg.family in ("ssm", "hybrid"):
         blocks = {"norm": norm(d), "ssm": ssm_spec(cfg)}
     elif cfg.n_experts:
         blocks["moe"] = moe_spec(cfg)
     else:
-        blocks["mlp"] = mlp
+        blocks["mlp"] = mlp(d)
     # block leaves carry the stacked layer dim, as in the reference
     blocks = {mod: {n: ((L,) + leaf[0],) + leaf[1:]
                     for n, leaf in leaves.items()}
@@ -119,6 +141,12 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
     spec.update(blocks=blocks, final_norm=norm(d))
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.vocab_padded), "fan_in")
+    if cfg.family == "hybrid":
+        # zamba2's shared block, not stacked: its fan_in leaves draw with
+        # their true fan-in (the reference's rule reads shape[0])
+        d2 = 2 * d
+        spec["shared"] = {"ln1": norm(d2), "attn": attn(d2), "ln2": norm(d2),
+                          "mlp": mlp(d2), "proj": ((d2, d), "fan_in")}
     return spec
 
 

@@ -62,7 +62,11 @@ Granite-shaped MoE layer's forward and backward bit-repeatable across two
 runs, on the expert-batched kernels alone; #3, #4 and #5 at Mamba2-130M's
 projections (N = 24 included) bit for bit, and a mamba2-smoke model's
 decode step leaving its given state as it was, its loss and gradients
-bit-identical with recomputation on and off.
+bit-identical with recomputation on and off; #11-#13 at head dim 160
+(Zamba2's shared block) in the cases above, and a zamba2-smoke model
+served on the card: its dense engine's prefill and decode steps on the
+kernels' launch counts, a decode step leaving its given SSM states as
+they were, and the tokens of a second engine on the same weights equal.
 """
 import importlib
 import pathlib
@@ -312,10 +316,12 @@ def test_int8_matmul_routes_by_rows(cuda, monkeypatch):
 
 #: decode kernel cases (kv heads, group, head dim): G in {1, 3, 8, 16} at
 #: every head dim the kernel takes (256: gemma's G = 8, and G = 16, where a
-#: thread takes two P.V items)
+#: thread takes two P.V items; 160: Zamba2's G = 1, a row's 10 segments on
+#: 16 lanes, and G = 3 and 16)
 DECODE_CASES = [(4, 1, 32), (2, 3, 64), (1, 8, 128), (2, 16, 64),
                 (1, 16, 128), (1, 16, 32), (12, 1, 64), (1, 8, 256),
-                (1, 16, 256), (2, 3, 256)]
+                (1, 16, 256), (2, 3, 256), (4, 1, 160), (2, 3, 160),
+                (1, 16, 160)]
 
 
 def _decode_pos(s):
@@ -385,7 +391,8 @@ def _paged(cache, lengths, page, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("page", [8, 16, 64, 256])
 @pytest.mark.parametrize("kh,g,hd", [(2, 3, 64), (1, 8, 128), (4, 1, 32),
-                                     (2, 16, 64), (1, 8, 256), (1, 16, 256)])
+                                     (2, 16, 64), (1, 8, 256), (1, 16, 256),
+                                     (4, 1, 160), (1, 16, 160)])
 def test_decode_attention_paged_kernel(cuda, dtype, page, kh, g, hd):
     """Pos 0 on the freed slot, the chunk edges, pos == maxp * page on a
     full one over a 1024-row logical cache; pages smaller than the
@@ -444,13 +451,16 @@ def test_decode_attention_paged_rejects_what_it_cannot_take(cuda):
                                    sc, rows, rows, args["pos"], args["table"])
 
 #: (B, Sq, Skv, H, KH, hd, q_offset): GQA 6/2 and MQA 2/1, hd 32 / 64 /
-#: 128 / 256 (gemma's 8 heads over one, and GQA 4/2 at an offset), an
-#: offset of 7, ragged Sq and Skv, and the engine's shapes (16 slots at the
-#: 512 bucket, one prompt at 32, over 1024-row buffers)
+#: 128 / 256 (gemma's 8 heads over one, and GQA 4/2 at an offset) / 160
+#: (Zamba2's heads, no grouping, three Q terms padded to 192 columns; and
+#: GQA 4/2 at an offset), an offset of 7, ragged Sq and Skv, and the
+#: engine's shapes (16 slots at the 512 bucket, one prompt at 32, over
+#: 1024-row buffers)
 Q8_CUDA_SHAPES = [(2, 130, 200, 6, 2, 64, 0), (2, 130, 200, 4, 4, 32, 7),
                   (2, 130, 200, 2, 1, 128, 0), (16, 512, 1024, 12, 12, 64, 0),
                   (1, 32, 1024, 12, 12, 64, 0), (2, 130, 200, 8, 1, 256, 0),
-                  (2, 130, 200, 4, 2, 256, 7)]
+                  (2, 130, 200, 4, 2, 256, 7), (2, 130, 200, 4, 4, 160, 0),
+                  (2, 130, 200, 4, 2, 160, 7)]
 
 
 @pytest.mark.cuda
@@ -1643,3 +1653,51 @@ def test_ssm_decode_and_remat_on_the_card(cuda):
     for got, c in ((on[2], cfg), (off[2], off_cfg)):
         assert got == dict(chip_smoke.train_launches(c),
                            fused_adamw_leaves=0)
+
+
+@pytest.mark.cuda
+def test_hybrid_served_on_the_card(cuda):
+    """zamba2-smoke (4 layers, 2 shared-block invocations, hd 32) under
+    ``chip_smoke.POLICY`` on the card: a decode step leaves the SSM states
+    it is given as they were and returns finite logits; the dense engine
+    serves ragged prompts in one prefill bucket with exactly the launches
+    of ``chip_smoke.serve_launches`` (342 / 9 at full depth: here 4 x 5 +
+    2 x 8 #3 and 2 #11 / #12 a launch), rung 0 to the end, and a second
+    engine on the same weights gives the same tokens."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.infer import Engine, Request
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("zamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    toks = chip_smoke._yi_tokens(torch, cuda, cfg, 2, 48)
+    lg, st = model.prefill(params, toks[:, :40], policy=chip_smoke.POLICY,
+                           max_seq=64)
+    saved = {k: v.clone() for k, v in st["ssm"].items()}
+    lg, new = model.decode(params, st, toks[:, 40:41],
+                           torch.full((2,), 40, device=cuda),
+                           policy=chip_smoke.POLICY)
+    assert bool(torch.isfinite(lg).all())
+    assert new["caches"] is st["caches"] and new["caches"]["k"].shape[0] == 2
+    for k, v in saved.items():
+        assert torch.equal(st["ssm"][k], v), k
+    prompts = [list(range(3 + i, 12 + 2 * i)) for i in range(4)]
+    out = []
+    for _ in range(2):
+        eng = Engine(model, params, chip_smoke.POLICY, max_slots=4,
+                     max_seq=64, device=cuda)
+        ids = [eng.submit(Request(tokens=p, max_new_tokens=6))
+               for p in prompts]
+        kernels.reset_launch_counts()
+        by_id = {r.request_id: r.tokens for r in eng.run()}
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        steps = eng.stats["decode_steps"]
+        assert counts == chip_smoke.serve_launches(
+            cfg, [(4, 16)], steps, "decode_attention")
+        s = eng.resilience_summary()
+        assert s["rung"] == "fused" and not s["demotions"]
+        out.append([by_id[i] for i in ids])
+        eng.scheduler.stop()
+    assert out[0] == out[1] and all(len(t) == 6 for t in out[0])

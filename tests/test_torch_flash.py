@@ -50,11 +50,27 @@ SWEEP = [(4, 128, 128, 64, True), (2, 256, 256, 32, True),
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
-    """Two intra-op threads: the suite runs several pytest workers at once."""
-    before = torch.get_num_threads()
+    """Two intra-op threads: the suite runs several pytest workers at once.
+    The process-wide numeric settings the float32 comparisons depend on
+    are pinned too, and restored after: a test file run earlier in the
+    same worker could have left them set (a float32 matmul precision of
+    "medium" lets oneDNN run this file's float32 products in bf16 on a CPU
+    with AMX, which moves the forward by 7.5e-3 against its 2e-5 limit)."""
+    before = (torch.get_num_threads(), torch.get_default_dtype(),
+              torch.get_float32_matmul_precision(),
+              jax.config.jax_enable_x64,
+              jax.config.jax_default_matmul_precision)
     torch.set_num_threads(2)
+    torch.set_default_dtype(torch.float32)
+    torch.set_float32_matmul_precision("highest")
+    jax.config.update("jax_enable_x64", False)
+    jax.config.update("jax_default_matmul_precision", None)
     yield
-    torch.set_num_threads(before)
+    torch.set_num_threads(before[0])
+    torch.set_default_dtype(before[1])
+    torch.set_float32_matmul_precision(before[2])
+    jax.config.update("jax_enable_x64", before[3])
+    jax.config.update("jax_default_matmul_precision", before[4])
 
 
 def _qkv(bh, sq, skv, d, seed=0):
