@@ -462,12 +462,11 @@ def int8_quant_matmul_experts(x: torch.Tensor, wq: torch.Tensor,
 def _exact_matmul(a: torch.Tensor, b: torch.Tensor,
                   dtype=torch.float32) -> torch.Tensor:
     """The exact integer product of two integer-valued tensors, cast to
-    ``dtype``: int32 on the CPU, float64 on the card (no CUDA integer
-    matmul; float64 is exact below 2**53, float32 only below 2**24)."""
-    if a.is_cuda:
-        return torch.matmul(a.to(torch.float64), b.to(torch.float64)
-                            ).to(dtype)
-    return torch.matmul(a.to(torch.int32), b.to(torch.int32)).to(dtype)
+    ``dtype``: summed in float64 on both devices, exact below 2**53 (CUDA
+    has no integer matmul, and the CPU's int32 one is about 10x slower than
+    its float64 one; float32 is exact only below 2**24), as
+    :func:`int8_matmul_plain` sums."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(dtype)
 
 
 def _quant_grad(g: torch.Tensor, fold: torch.Tensor,

@@ -22,6 +22,9 @@ stability sentinel's recovery ladder and deterministic fault plans.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
         --steps 10 --batch 4 --seq 2048 --state-storage int \\
         --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda'
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --steps 10 --batch 2 --seq 4096 --state-storage int \\
+        --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda'
 
 Prints the reference's ``arch=... policy=[...]``, ``train-path:`` and
 ``fault-plan:`` lines, then ``step N ce=... ms/step`` rows (``valid=`` on

@@ -21,7 +21,9 @@ The hybrid family (zamba2) runs groups of SSM blocks, each followed by
 MLP block whose weights every group shares, on concat(h, emb0) -- the
 running residual and the embedding output, 2 * d_model wide -- projected
 back to d_model (role ``shared_proj``) and added to h.  Its linears resolve
-depth-less (``layer=None``)."""
+depth-less (``layer=None``).  It too is two halves split at the attention
+context, :func:`shared_context` and :func:`shared_finish`, which the loss
+checkpoints on their own."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -103,17 +105,23 @@ def ssm_block(params, h: torch.Tensor, cfg, *, policy: QuantPolicy,
     return h + y, new
 
 
-def shared_block(params, h: torch.Tensor, emb0: torch.Tensor, cfg, *,
-                 policy: QuantPolicy, **attn_kw) -> torch.Tensor:
-    """zamba2's shared block: x2 = concat(h, emb0); x2 += attn(ln1(x2));
-    x2 += mlp(ln2(x2)); h + x2 @ proj -> h.  ``attn_kw`` as in
-    :func:`block_context` (this invocation's cache, ``cache_offset``,
-    ``mask``, ``rope``, ``kv_path``); every linear depth-less."""
-    nl = cfg.n_layers
-    x2 = torch.cat([h, emb0], dim=-1)
+def shared_context(params, x2: torch.Tensor, cfg, *, policy: QuantPolicy,
+                   **attn_kw) -> torch.Tensor:
+    """The first half of :func:`shared_block`: the attention context of
+    ln1(x2), x2 = concat(h, emb0) (``attn_kw`` as in :func:`block_context`:
+    this invocation's cache, ``cache_offset``, ``mask``, ``rope``,
+    ``kv_path``)."""
     x = apply_norm(x2, params["ln1"], cfg.norm)
-    ctx = attn_context(params["attn"], x, cfg, policy=policy, layer=None,
-                       n_layers=nl, **attn_kw)
+    return attn_context(params["attn"], x, cfg, policy=policy, layer=None,
+                        n_layers=cfg.n_layers, **attn_kw)
+
+
+def shared_finish(params, h: torch.Tensor, x2: torch.Tensor,
+                  ctx: torch.Tensor, cfg, *,
+                  policy: QuantPolicy) -> torch.Tensor:
+    """The second half of :func:`shared_block`: x2 += attn_out(ctx); x2 +=
+    mlp(ln2(x2)); h + x2 @ proj -> h."""
+    nl = cfg.n_layers
     x2 = x2 + attn_out(params["attn"], ctx, policy=policy, layer=None,
                        n_layers=nl)
     x = apply_norm(x2, params["ln2"], cfg.norm)
@@ -121,3 +129,14 @@ def shared_block(params, h: torch.Tensor, emb0: torch.Tensor, cfg, *,
                         n_layers=nl)
     return h + policy.linear(LinearCtx("shared_proj", None, nl), x2,
                              params["proj"])
+
+
+def shared_block(params, h: torch.Tensor, emb0: torch.Tensor, cfg, *,
+                 policy: QuantPolicy, **attn_kw) -> torch.Tensor:
+    """zamba2's shared block: x2 = concat(h, emb0); x2 += attn(ln1(x2));
+    x2 += mlp(ln2(x2)); h + x2 @ proj -> h (:func:`shared_context`, then
+    :func:`shared_finish`).  ``attn_kw`` as in :func:`block_context`;
+    every linear depth-less."""
+    x2 = torch.cat([h, emb0], dim=-1)
+    ctx = shared_context(params, x2, cfg, policy=policy, **attn_kw)
+    return shared_finish(params, h, x2, ctx, cfg, policy=policy)

@@ -14,8 +14,8 @@ followed by the shared attention + MLP block (``blocks.shared_block``) on
 concat(h, emb0), emb0 the embedding output (a prefill's or a decode
 step's); invocation g reads and writes KV cache g, so it carries both
 the stacked SSM states and (G, B, S, K, hd) caches, G = n_layers //
-hybrid_attn_every.  Its loss is not ported yet (ROADMAP section 1, item
-6).
+hybrid_attn_every.  Its loss passes emb0, the embedding output, to every
+invocation, as the reference's (``_hybrid_loss_stack``).
 
 Positions: a prefill's rows sit at ``arange(S)`` (packed prompts restart
 at 0, ``segment_positions_and_mask``), a decode step's at each slot's own
@@ -55,7 +55,13 @@ graph on recomputed values: loss and gradients are bit-identical with
 ``remat`` on and off wherever the recomputed ops repeat their bits (the
 kernels use no float atomics).  An SSM layer is one checkpointed segment:
 it has no attention context, so the reference's ``save_only_these_names(
-"attn_ctx")`` keeps nothing inside it.  Prefill and decode never
+"attn_ctx")`` keeps nothing inside it.  A hybrid group (``hybrid_attn_every``
+SSM layers and the shared block), which the reference checkpoints whole
+keeping the shared block's ``attn_ctx``, is two segments split there: the
+SSM layers with the shared block's attention context, then the rest of
+the shared block.  The backward keeps the group's input, the SSM layers'
+output and the context, so each linear's forward and the attention
+forward run twice a step there too.  Prefill and decode never
 recompute.
 """
 from __future__ import annotations
@@ -70,7 +76,9 @@ from repro_torch.core.qpolicy import QuantPolicy, as_policy
 from repro_torch.core.quantizer import _div
 from repro_torch.models.attention import Cache, init_caches
 from repro_torch.models.blocks import (block_apply, block_context,
-                                      block_finish, shared_block, ssm_block)
+                                      block_finish, shared_block,
+                                      shared_context, shared_finish,
+                                      ssm_block)
 from repro_torch.models.common import (Params, apply_norm, cast_params,
                                        checkpointed, rope_tables, tree_map)
 from repro_torch.models.moe import route_check_contexts
@@ -186,10 +194,6 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
             policy=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {"tokens": (B, S + 1) int[, "loss_mask": (B, S)]} -> (loss,
     metrics).  ``policy`` is anything ``as_policy`` accepts."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family's training loss is not ported "
-            f"yet (ROADMAP section 1, item 6); it serves")
     policy = as_policy(policy)
     dtype = carrier_dtype(cfg)
     params = cast_params(params, dtype)
@@ -206,25 +210,30 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
         aux = z = torch.zeros((), dtype=torch.float32, device=h.device)
         # the recomputation must route as the forward did
         moe_routes = route_check_contexts
-    for i, lp in enumerate(unstack_layers(params["blocks"], cfg.n_layers)):
-        if cfg.family == "ssm":
-            # one segment a layer: there is no attention context to keep
-            h = (checkpointed(ssm_block, lp, h, cfg, policy=policy, layer=i)
-                 if cfg.remat else
-                 ssm_block(lp, h, cfg, policy=policy, layer=i))[0]
-        elif cfg.remat:
-            # the reference's save_only_these_names("attn_ctx"): the
-            # backward keeps h and ctx and recomputes each half
-            ctx = checkpointed(block_context, lp, h, cfg, policy=policy,
-                               layer=i, rope=rope)
-            h, a, zz = checkpointed(block_finish, lp, h, ctx, cfg,
-                                    policy=policy, layer=i,
-                                    context_fn=moe_routes)
-        else:
-            h, a, zz = block_apply(lp, h, cfg, policy=policy, layer=i,
-                                   rope=rope)
-        if cfg.n_experts:
-            aux, z = aux + a, z + zz
+    layers = unstack_layers(params["blocks"], cfg.n_layers)
+    if cfg.family == "hybrid":
+        h = _hybrid_loss_stack(params["shared"], layers, h, cfg, policy, rope)
+    else:
+        for i, lp in enumerate(layers):
+            if cfg.family == "ssm":
+                # one segment a layer: there is no attention context to keep
+                h = (checkpointed(ssm_block, lp, h, cfg, policy=policy,
+                                  layer=i)
+                     if cfg.remat else
+                     ssm_block(lp, h, cfg, policy=policy, layer=i))[0]
+            elif cfg.remat:
+                # the reference's save_only_these_names("attn_ctx"): the
+                # backward keeps h and ctx and recomputes each half
+                ctx = checkpointed(block_context, lp, h, cfg, policy=policy,
+                                   layer=i, rope=rope)
+                h, a, zz = checkpointed(block_finish, lp, h, ctx, cfg,
+                                        policy=policy, layer=i,
+                                        context_fn=moe_routes)
+            else:
+                h, a, zz = block_apply(lp, h, cfg, policy=policy, layer=i,
+                                       rope=rope)
+            if cfg.n_experts:
+                aux, z = aux + a, z + zz
     h = apply_norm(h, params["final_norm"], cfg.norm)
     ce = chunked_ce(params, h, labels, batch.get("loss_mask"), cfg, policy)
     metrics = {"ce": ce}
@@ -235,6 +244,54 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg, *,
         metrics.update(moe_aux=_div(aux, nl), moe_z=_div(z, nl))
     metrics["loss"] = total
     return total, metrics
+
+
+def _hybrid_context(group, shared: Params, h: torch.Tensor,
+                    emb0: torch.Tensor, cfg, *, policy: QuantPolicy,
+                    first: int, rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first half of a hybrid group in the loss: its SSM layers (the
+    stack's layers ``first``, ``first + 1``, ...), then the shared block's
+    attention context on concat(h, emb0) -> (h, ctx)."""
+    for j, lp in enumerate(group):
+        h = ssm_block(lp, h, cfg, policy=policy, layer=first + j)[0]
+    x2 = torch.cat([h, emb0], dim=-1)
+    return h, shared_context(shared, x2, cfg, policy=policy, rope=rope)
+
+
+def _hybrid_finish(shared: Params, h: torch.Tensor, emb0: torch.Tensor,
+                   ctx: torch.Tensor, cfg, *,
+                   policy: QuantPolicy) -> torch.Tensor:
+    """The second half of a hybrid group in the loss: the rest of the
+    shared block (``blocks.shared_finish``) on concat(h, emb0), built
+    again here rather than kept."""
+    x2 = torch.cat([h, emb0], dim=-1)
+    return shared_finish(shared, h, x2, ctx, cfg, policy=policy)
+
+
+def _hybrid_loss_stack(shared: Params, layers, h: torch.Tensor, cfg,
+                       policy: QuantPolicy, rope) -> torch.Tensor:
+    """The hybrid's stack in the loss: groups of ``hybrid_attn_every`` SSM
+    layers, each followed by the shared block on concat(h, emb0), emb0 the
+    embedding output.  Each group runs as two halves split at the shared
+    block's attention context (:func:`_hybrid_context`,
+    :func:`_hybrid_finish`), checkpointed under ``cfg.remat`` -- the
+    reference checkpoints the whole group keeping ``attn_ctx`` -- and
+    called as they are without it, so the autograd graph, and with it the
+    order in which the shared weights' 9 gradients (one an invocation) are
+    summed, is the same either way."""
+    per, emb0 = cfg.hybrid_attn_every, h
+    for first in range(0, len(layers), per):
+        group = layers[first:first + per]
+        if cfg.remat:
+            h, ctx = checkpointed(_hybrid_context, group, shared, h, emb0,
+                                  cfg, policy=policy, first=first, rope=rope)
+            h = checkpointed(_hybrid_finish, shared, h, emb0, ctx, cfg,
+                             policy=policy)
+        else:
+            h, ctx = _hybrid_context(group, shared, h, emb0, cfg,
+                                     policy=policy, first=first, rope=rope)
+            h = _hybrid_finish(shared, h, emb0, ctx, cfg, policy=policy)
+    return h
 
 
 def _run_stack(params: Params, h: torch.Tensor, cfg, policy: QuantPolicy,

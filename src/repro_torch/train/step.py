@@ -60,10 +60,13 @@ def _path_desc(backend: str, caps, recipe=None) -> str:
 def recompute_desc(cfg, batch: int, seq: int) -> str:
     """The ``remat=`` and ``attend=`` segments of
     :func:`train_path_summary`: what the loss recomputes (``layer+ce``
-    under ``cfg.remat``, else the CE chunks alone) and how its attention
-    runs on a (batch, seq) micro-batch (``flash``, ``dense``, or ``q<n>``:
-    ``_attend`` in q-chunks of n rows; ``none`` in the SSM family)."""
-    remat = "layer+ce" if cfg.remat else "ce"
+    under ``cfg.remat``, ``group+ce`` in the hybrid family, whose segments
+    span a group of SSM layers and the shared block; else the CE chunks
+    alone) and how its attention runs on a (batch, seq) micro-batch
+    (``flash``, ``dense``, or ``q<n>``: ``_attend`` in q-chunks of n rows;
+    ``none`` in the SSM family)."""
+    unit = "group" if cfg.family == "hybrid" else "layer"
+    remat = f"{unit}+ce" if cfg.remat else "ce"
     if cfg.family == "ssm":
         attend = "none"
     elif cfg.attention_impl == "flash_pallas":
@@ -114,18 +117,15 @@ def check_trainable(cfg) -> None:
     """Training takes the dense family, the MoE family in the reference's
     ``local`` mode (every expert on the one card; the experts' Fig-1
     linears on the expert-batched int8 kernels, the dispatch's and the
-    router's gradients, the load-balance and z losses) and the SSM family
+    router's gradients, the load-balance and z losses), the SSM family
     (mamba2: the five projections' Fig-1 linears on the 2-D int8 kernels,
     the scan's gradients by autograd of plain torch, as the reference's are
-    XLA autodiff of plain ops).  The families ``build_model`` refuses --
-    encdec and VLM -- raise here too, and so does the hybrid, which
-    ``build_model`` takes for serving but whose loss is not ported yet:
-    all before any state is made."""
+    XLA autodiff of plain ops) and the hybrid (zamba2: the SSM family's
+    layers and the shared attention + MLP block, whose weights take the
+    summed gradients of every invocation).  The families ``build_model``
+    refuses -- encdec and VLM -- raise here too, before any state is
+    made."""
     _check_supported(cfg)
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: training the hybrid family is not ported yet "
-            f"(ROADMAP section 1, item 6); the port serves it")
 
 
 def init_train_state(model: Model, generator: Optional[torch.Generator],

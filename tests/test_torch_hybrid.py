@@ -304,28 +304,26 @@ def test_packed_prefill_raises():
         tmodel.prefill(tparams, toks, segments=torch.zeros_like(toks))
 
 
-def test_training_is_refused_before_any_state():
-    """``check_trainable``, the loss and the launcher refuse the hybrid
-    with ROADMAP item 6's message; the launcher before it draws any
-    parameter."""
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
+def test_training_refuses_encdec_and_vlm_before_any_state(family,
+                                                          monkeypatch):
+    """The hybrid trains (``check_trainable`` takes it); encdec and the VLM
+    -- here zamba2's smoke config relabelled -- are still refused by
+    ``check_trainable`` and by the launcher with ROADMAP item 6's message,
+    the launcher before it draws any parameter."""
     from repro_torch.launch import train as launcher
-    cfg = get_config(NAME)
-    build_model(cfg)                         # serving builds it
+    check_trainable(get_config(NAME))
+    check_trainable(get_smoke_config(NAME))
+    bad = dataclasses.replace(get_smoke_config(NAME), family=family)
     with pytest.raises(NotImplementedError, match="section 1, item 6"):
-        check_trainable(cfg)
-    _, _, _, tcfg, _, tparams = pair()
-    with pytest.raises(NotImplementedError, match="section 1, item 6"):
-        lm.lm_loss(tparams, {"tokens": torch.zeros((1, 9), dtype=torch.long)},
-                   tcfg)
+        check_trainable(bad)
     calls = []
-    orig = launcher.build_model
-    launcher.build_model = lambda *a, **k: calls.append(a) or orig(*a, **k)
-    try:
-        with pytest.raises(NotImplementedError, match="section 1, item 6"):
-            launcher.main(["--arch", NAME, "--smoke", "--steps", "1",
-                           "--device", "cpu"])
-    finally:
-        launcher.build_model = orig
+    monkeypatch.setattr(launcher, "get_smoke_config", lambda name: bad)
+    monkeypatch.setattr(launcher, "build_model",
+                        lambda *a, **k: calls.append(a))
+    with pytest.raises(NotImplementedError, match="section 1, item 6"):
+        launcher.main(["--arch", NAME, "--smoke", "--steps", "1",
+                       "--device", "cpu"])
     assert calls == []
 
 
