@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build the CUDA kernel libraries of ``_build.SOURCES`` (ten sources
+1. build the CUDA kernel libraries of ``_build.SOURCES`` (eleven sources
    under ``src/repro_torch/csrc``, one nvcc each, all at once;
    ``int8_matmul.cu`` holds the forward's two routes -- the decode step's
    split-K weight stream reduced in a thread-block cluster (one kernel,
@@ -13,11 +13,13 @@ Phases, in order; any failure exits non-zero:
    weight transpose and int8 tensor-core GEMM (``gemm_s8.cuh``, shared with
    the backward) -- and the first CUDA-core dp4a kernel; ``decode_attn.cu``
    the dense and the paged decode kernels; ``flash_attn.cu`` the float32 flash
-   forward and both backward kernels; ``flash_fwd_sm90.cu`` and
-   ``flash_bwd_sm90.cu`` the bf16 flash forward and backward on the tensor
-   cores; ``flash_q8_sm90.cu`` the bf16 int8-KV prefill on the tensor
-   cores, ``flash_attn_q8.cu`` its float32 instance; ``int8_matmul_bwd.cu``
-   the int8 backward's quantize passes, 2-D and expert-batched) and print
+   forward and both backward kernels; ``flash_fwd_sm90.cu`` the bf16 flash
+   forward on the tensor cores, ``flash_bwd_sm90.cu`` and
+   ``flash_bwd_sm90_wide.cu`` its backward at head dims 16-128 and 144-256 (the
+   parts they share in ``flash_bwd_sm90.cuh``); ``flash_q8_sm90.cu`` the bf16
+   int8-KV prefill on the tensor cores, ``flash_attn_q8.cu`` its float32
+   instance; ``int8_matmul_bwd.cu`` the int8 backward's quantize passes, 2-D
+   and expert-batched) and print
    the build time;
 2. print the card's name and power limit (nvidia-smi);
 3. hold each serving kernel against its plain PyTorch version on the card
@@ -111,11 +113,12 @@ Phases, in order; any failure exits non-zero:
     dims 16-256, Sq != Skv, an odd length, non-causal, the prefill
     shape), float32 and bfloat16, on the same inputs, within ``FLASH_TOL``
     and, at bfloat16, ``FLASH_BF16`` with five controls outside it; #7
-    equal to #8, repeats bit-identical, a planted NaN propagated; each
+    equal to #8, repeats bit-identical, a NaN planted at hd 64, 160 and
+    256 propagated (``FLASH_NAN_HEAD_DIMS``); each
     timed beside its bound (the least the tensor cores need), plain
     version and SDPA (the backward also with the card's queue full), and
     #8, #9 and #10 also at hd 128 (BH 16, S 512); the bf16 forward's and
-    backward's kernels hold ``HGMMA`` instructions in their SASS
+    both backward libraries' kernels hold ``HGMMA`` instructions in their SASS
     (``cuobjdump``), or the phase fails (``check_flash``);
 14. phase 7 with ``attention_impl="flash_pallas"``: 10 finite steps, each
     launching exactly 72 / 72 / 72 / 1 int8 and AdamW kernels and #8, #9,
@@ -137,16 +140,17 @@ Phases, in order; any failure exits non-zero:
     ``YI_Q8_SHAPE``; ``decode_attention`` and ``decode_attention_paged`` at
     ``YI_DECODE_SHAPE`` (pages of 16, 64, 256 bit for bit against the dense
     kernel), each timed beside its bound and SDPA on dequantized K/V with
-    the KV heads expanded (``cell_kernels``); 16b. serve Yi-6B (random
-    float32 weights from ``--seed``, freed once prepared; bf16 carrier,
-    ``POLICY``) through the dense engine, 16 slots of 4096 rows, 32
-    requests of 128-2048 prompt tokens, 64 new tokens each: every request
-    to length, exactly 224 ``int8_matmul`` and 32 ``decode_attention`` a
-    decode step and 224 and 32 ``flash_attention_fwd_q8`` a prefill launch;
+    the KV heads expanded (``cell_kernels``); 16b. serve Yi-6B at
+    ``YI_SERVE_LAYERS`` of its 32 layers (random float32 weights from
+    ``--seed``, freed once prepared; bf16 carrier, ``POLICY``) through the
+    dense engine, 16 slots of 4096 rows, 32 requests of 128-2048 prompt
+    tokens, 32 new tokens each: every request to length, exactly 7
+    ``int8_matmul`` and one ``decode_attention`` a layer a decode step and
+    7 and one ``flash_attention_fwd_q8`` a layer a prefill launch;
     decode ms/step, tokens/s, prefill ms, peak memory, one profiled decode
     step and the untied head's share (``serve_cell``); 16c. the same requests
-    through the paged engine (pages of 64 rows): 16b's tokens, 32
-    ``decode_attention_paged`` a step, every page back
+    through the paged engine (pages of 64 rows): 16b's tokens, one
+    ``decode_attention_paged`` a layer a step, every page back
     (``serve_cell_paged``); 16d. phase 5's checks at Yi's width and 2 layers,
     its limits but B's, which is ``YI_B_LIMIT`` there (``cell_card_vs_cpu``);
 17. the serving degradation ladder on GPT-2 small (phase 4's weights):
@@ -176,7 +180,7 @@ Phases, in order; any failure exits non-zero:
     (``cfg.remat``: per-layer checkpoints that keep the attention context,
     checkpointed CE chunks, ``_attend`` in checkpointed q-chunks): 18a.
     ``YI_TRAIN_LAYERS`` of its 32 layers, 2 x 4096 tokens a step,
-    ``flash_pallas``, 6 finite steps, each launching exactly
+    ``flash_pallas``, ``YI_TRAIN_STEPS`` finite steps, each launching exactly
     ``train_launches`` (14 #3 a layer: each linear again in the
     recomputation; 2 #8 a layer), ms/step, tokens/s, peak memory, one
     profiled step (``train_yi``); 18b. at 4 layers, recomputation on
@@ -195,7 +199,7 @@ Phases, in order; any failure exits non-zero:
     ``GEMMA_Q8_SHAPE`` and ``GEMMA_DECODE_SHAPE`` (#11, #12 and #13 at head
     dim 256); 19b. the dense engine (random float32 weights from
     ``--seed``, freed once prepared; bf16 carrier, ``POLICY``), 16 slots of
-    8192 rows, 32 requests of 256-6144 prompt tokens, 64 new each: exactly
+    8192 rows, 32 requests of 256-6144 prompt tokens, 32 new each: exactly
     126 #3 and 18 #12 a decode step, 126 #3 and 18 #11 a prefill launch,
     rung 0 throughout; 19c. the same requests paged (pages of 64 rows):
     19b's tokens, 18 #13 a step, every page back; 19d. phase 16d at
@@ -209,7 +213,7 @@ Phases, in order; any failure exits non-zero:
     32 new each: exactly 112 #3 and 16 #12 a decode step, rung 0
     throughout; 20b. phase 19d at Qwen3's width and 2 layers with
     ``QWEN3_B_LIMIT``;
-21. Granite-3.0-MoE 3B-A800M at full width and depth
+21. Granite-3.0-MoE 3B-A800M at full width
     (``configs/granite_moe_3b_a800m.py``: 32 layers, d_model 1536, 24
     query heads over 8 KV heads of 64 (G = 3), 40 experts of 512 with
     top-8 routing, a tied head of 49,155): 21a. phase 16a at
@@ -220,16 +224,17 @@ Phases, in order; any failure exits non-zero:
     per-expert launches of the 2-D entry and against a repeat, its fused
     entry too, each timed beside its bound, its plain version and E
     ``torch._int_mm`` calls (``check_int8_experts``); 21b. the dense engine
-    (random float32 weights from ``--seed``, freed once prepared; bf16
-    carrier, ``POLICY``), 16 slots of 4096 rows, 32 requests in two waves
-    of one prefill bucket each (``GRANITE.waves``: 16 of 1025-2048 prompt
-    tokens, then 16 of 129-256), 64 new each: exactly 128 #3, 96
-    ``int8_matmul_experts`` and 32 #12 a decode step, 128 #3 and 32 #11 a
-    prefill launch and 96 ``int8_matmul_experts`` a dispatch chunk of it
+    at ``GRANITE_SERVE_LAYERS`` of its layers (random float32 weights from
+    ``--seed``, freed once prepared; bf16 carrier, ``POLICY``), 16 slots of
+    4096 rows, 32 requests in two waves of one prefill bucket each
+    (``GRANITE.waves``: 16 of 1025-2048 prompt tokens, then 16 of
+    129-256), 32 new each: exactly 4 #3, 3 ``int8_matmul_experts`` and one
+    #12 a layer a decode step, 4 #3 and one #11 a layer a prefill launch
+    and 3 ``int8_matmul_experts`` a layer a dispatch chunk of it
     (``serve_launches``), rung 0 throughout; 21c. the same requests paged
     (pages of 64 rows): 21b's tokens -- both engines prefill each wave in
     one launch, so every expert's capacity is taken by the same rows in
-    the same order -- 32 #13 a step, every page back; 21d. phase 16d at
+    the same order -- one #13 a layer a step, every page back; 21d. phase 16d at
     Granite's width and 2 layers, the CPU, the plain versions and the
     bf16-carrier control on the card's routes (``routes_replayed``), B
     within ``GRANITE_B_LIMIT``; each device routing on its own, the share
@@ -244,13 +249,14 @@ Phases, in order; any failure exits non-zero:
     Phi-3.5-MoE's 16 at 2,561) bit for bit against their plain versions,
     E launches of the 2-D entries and a repeat, each timed beside its
     bound, its plain version and E ``torch._int_mm`` calls, every GEMM
-    kernel holding ``IGMMA`` (``check_int8_bwd_experts``); 22b. 32 layers
-    at full width (random weights from ``--seed``, bf16 carrier,
+    kernel holding ``IGMMA`` (``check_int8_bwd_experts``); 22b.
+    ``GRANITE_TRAIN_LAYERS`` of its 32 layers at full width (random
+    weights from ``--seed``, bf16 carrier,
     ``TRAIN_POLICY`` with int moments, ``flash_pallas``, recomputation),
     2 x 4096 tokens a step for ``GRANITE_TRAIN_STEPS`` finite steps, each
-    launching exactly ``train_launches``: 256 #3, 192 expert-batched #3,
-    128 #4 and #5, 96 expert-batched #4 and #5, one #6, 64 #8, 32 #9 and
-    #10 (``train_granite``); 22c. at 4 layers, recomputation on against
+    launching exactly ``train_launches``: 8 #3, 6 expert-batched #3, 4 #4
+    and #5, 3 expert-batched #4 and #5, 2 #8, one #9 and one #10 a layer,
+    one #6 (``train_granite``); 22c. at 4 layers, recomputation on against
     off and a repeat: ce and every gradient bit-identical, the peak lower
     (``granite_remat``); 22d. phase 8's checks at Granite's width and 2
     layers (4 x 128 tokens) on the card's routes within
@@ -268,7 +274,7 @@ Phases, in order; any failure exits non-zero:
     from ``--seed``, bf16 carrier, ``POLICY``: W8A8 prepared projections,
     no KV cache, the engine state the SSM and conv states), 16 slots of
     2048 rows, 32 requests in two waves of one prefill bucket (257-512,
-    then 129-256 prompt tokens), 64 new each: exactly 120 #3 a decode step
+    then 129-256 prompt tokens), 32 new each: exactly 120 #3 a decode step
     and a prefill launch and no other kernel, no KV cache, rung 0 (the
     one rung ``none``) throughout (``serve_cell``); 23c. phase 16d at
     Mamba2-130M's width and 2 layers with ``MAMBA_B_LIMIT`` and a
@@ -285,7 +291,7 @@ Phases, in order; any failure exits non-zero:
     layers within ``MAMBA_TRAIN_LIMITS``, the bf16-carrier control above
     them, every kernel's plain version on the card within them
     (``mamba_train_card_vs_cpu``);
-25. Zamba2-2.7B at full width and depth (``configs/zamba2_2p7b.py``: 54
+25. Zamba2-2.7B at full width (``configs/zamba2_2p7b.py``: 54
     Mamba2 layers, d_model 2560, and one attention + MLP block shared
     across the depth, run after every 6th layer -- 9 invocations, each with
     its own int8 KV cache -- on concat(h, the embedding), 5,120 wide: 32
@@ -295,9 +301,11 @@ Phases, in order; any failure exits non-zero:
     ``ZAMBA_DECODE_SHAPE``, their head-dim-160 instances, with phase 3's
     gates (``cell_kernels``); 25b. the dense engine (random float32
     weights from ``--seed``, bf16 carrier, ``POLICY``), 16 slots of 4096
-    rows, 32 requests in two waves of one prefill bucket each: exactly 342
-    #3 (5 x 54 projections and 8 x 9 shared-block linears) and 9 #12 a
-    decode step, 342 #3 and 9 #11 a prefill launch, the engine's state
+    rows, ``ZAMBA_SERVE_LAYERS`` of its 54 layers, 32 requests in two
+    waves of one prefill bucket each, 16 new tokens each: exactly 5 #3 a
+    layer and 8 #3 and one #12 a shared-block call (152 #3 and 4 #12 at 24
+    layers) a decode step, the same #3 and one #11 a call a prefill
+    launch, the engine's state
     the int8 KV caches and the SSM states, rung 0 throughout
     (``serve_cell``); 25c. phase 16d at Zamba2's width and 12 layers (two
     groups: a cut below ``hybrid_attn_every`` would drop the shared block)
@@ -310,16 +318,20 @@ Phases, in order; any failure exits non-zero:
     keeps ``attn_ctx``): 26a. #4 and #5 at ``ZAMBA_INT8_KN`` at 8,192
     rows (``check_int8_bwd``), and #8, #9 and #10 at the shared block's
     training attention (``ZAMBA_FLASH_SHAPE``: B 2, S 4096, 32 heads of
-    160, causal, bf16; the backward on ``flash_attn.cu``'s CUDA-core
-    bodies above head dim 128) within ``FLASH_BF16`` of their plain
-    versions, a repeat bit-identical, each timed beside its bound and
-    SDPA's forward and backward (``check_flash_zamba``); 26b. 54 layers at
+    160, causal, bf16; the backward on ``flash_bwd_sm90_wide.cu``) and at
+    Gemma-2B's (``GEMMA_FLASH_SHAPE``: 8 heads of 256 over one KV head)
+    within ``FLASH_BF16`` of their plain versions, a repeat bit-identical,
+    each timed beside its bound and SDPA's forward and backward, #9 and
+    #10 also beside ``flash_attn.cu``'s CUDA-core bodies at bf16 on the
+    same inputs (``check_flash_train``); 26b. 54 layers at
     full width (random weights from ``--seed``, bf16 carrier,
     ``TRAIN_POLICY`` with int moments, ``flash_pallas``), 2 x 4096 tokens
     a step for ``ZAMBA_TRAIN_STEPS`` finite steps, each launching exactly
     ``train_launches``: 684 #3, 342 #4, 342 #5, one #6, 18 #8, 9 #9 and 9
-    #10 (``train_zamba2``); 26c. the same step under ``_attend``
-    (``attention_impl="xla"``), ``ZAMBA_XLA_STEPS`` finite steps and no
+    #10, the backward's library the tensor-core ``flash_bwd_sm90_wide``
+    (``train_zamba2``); 26c. the same step under ``_attend``
+    (``attention_impl="xla"``) at ``ZAMBA_XLA_LAYERS`` layers,
+    ``ZAMBA_XLA_STEPS`` finite steps and no
     flash launch (``train_zamba2_xla``); 26d. at 12 layers (two groups),
     recomputation on against off and a repeat: ce and every gradient
     bit-identical, the peak lower (``zamba_remat``); 26e. phase 8's checks
@@ -493,6 +505,9 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_LSE_TOL = 2e-5
 FLASH_GRAD_TOL = 1e-4
 FLASH_BF16 = {"rel_l2": 2e-4, "over_ulp": 1e-3}
+#: phase 13's NaN check: hd 64 (``flash_bwd_sm90.cu``) and one head dim of
+#: each instance of ``flash_bwd_sm90_wide.cu`` (192 and 256 columns)
+FLASH_NAN_HEAD_DIMS = (64, 160, 256)
 #: phase 14b: the flash prefill serves 8 of phase 4's prompts, 16 new
 #: tokens each, from an fp KV cache (no kv_cache role)
 FLASH_SERVE_POLICY = "*=w8c+a8t@int8_cuda"
@@ -2376,6 +2391,24 @@ def train_launches(cfg):
                    int8_matmul_tn=linears, fused_adamw_leaves=1, **extra)
 
 
+@contextlib.contextmanager
+def libraries_loaded():
+    """Yields the set of library names that ``_build.load`` is asked for
+    inside the block: every kernel launch looks its library up, so it names
+    the libraries a path ran on."""
+    from repro_torch.kernels import _build
+    names, real = set(), _build.load
+
+    def load(name):
+        names.add(name)
+        return real(name)
+    _build.load = load
+    try:
+        yield names
+    finally:
+        _build.load = real
+
+
 def train(torch, dev, seed, impl="xla", cfg=None, batch=TRAIN_BATCH,
           seq=TRAIN_SEQ, steps=TRAIN_STEPS, tag=None, profile=True):
     """Phase 7 (``impl="xla"``, attention through ``_attend``) and phase 14
@@ -3473,19 +3506,23 @@ def check_flash(torch, dev, gen, results):
                              "flash_attention_bwd_dq": diff[2]})
             del q, k, v, do
     # a NaN in q row 70 of head 1 reaches its o and LSE rows, its dq row and
-    # the dk / dv rows it attends to; head 0 stays finite
-    q, k, v, do = (torch.randn((2, 256, 64), generator=gen, device=dev)
-                   .bfloat16() for _ in range(4))
-    q[1, 70, 5] = float("nan")
-    o, lse, dq, dk, dv, _ = _flash_all(fa, q, k, v, do, True, 0)
-    nan_ok = (bool(o[1, 70].isnan().all()) and bool(lse[1, 70].isnan())
-              and bool(dq[1, 70].isnan().all())
-              and bool(dk[1, :71].isnan().all())
-              and bool(dv[1, :71].isnan().all())
-              and all(bool(t[0].isfinite().all()) for t in (o, dq, dk, dv)))
-    print(f"flash NaN planted in q[1, 70]: o, lse, dq row and dk/dv rows "
-          f"0-70 {'NaN, head 0 finite' if nan_ok else 'NOT as expected'}")
-    ok &= nan_ok
+    # the dk / dv rows it attends to; head 0 stays finite -- at hd 64 and at
+    # the wide backward's two instances (hd 160 and 256)
+    for d in FLASH_NAN_HEAD_DIMS:
+        q, k, v, do = (torch.randn((2, 256, d), generator=gen, device=dev)
+                       .bfloat16() for _ in range(4))
+        q[1, 70, 5] = float("nan")
+        o, lse, dq, dk, dv, _ = _flash_all(fa, q, k, v, do, True, 0)
+        nan_ok = (bool(o[1, 70].isnan().all()) and bool(lse[1, 70].isnan())
+                  and bool(dq[1, 70].isnan().all())
+                  and bool(dk[1, :71].isnan().all())
+                  and bool(dv[1, :71].isnan().all())
+                  and all(bool(t[0].isfinite().all())
+                          for t in (o, dq, dk, dv)))
+        print(f"flash NaN planted in q[1, 70] at hd {d}: o, lse, dq row and "
+              f"dk/dv rows 0-70 "
+              f"{'NaN, head 0 finite' if nan_ok else 'NOT as expected'}")
+        ok &= nan_ok
     if not ok:
         fail("phase 13: a flash kernel disagrees with its plain version")
 
@@ -3647,10 +3684,11 @@ def bulk_sass_check(*libs) -> None:
 def flash_sass_check() -> None:
     """Phase 13: the bf16 flash kernels run on the tensor cores -- the
     forward's (``flash_fwd_sm90.cu``, every head-dim template with and
-    without the LSE store) and the backward's (``flash_bwd_sm90.cu``, dK/dV
-    and dQ at each head-dim template): count the ``HGMMA`` instructions of
-    each in the built library's SASS, and fail if any kernel has none."""
-    for lib in ("flash_fwd_sm90", "flash_bwd_sm90"):
+    without the LSE store) and the backward's (``flash_bwd_sm90.cu`` and
+    ``flash_bwd_sm90_wide.cu``, dK/dV and dQ at each head-dim template):
+    count the ``HGMMA`` instructions of each in the built library's SASS,
+    and fail if any kernel has none."""
+    for lib in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_sm90_wide"):
         counts = sass_counts(lib, "HGMMA")
         print(f"{lib} SASS: {sum(counts.values())} HGMMA instructions over "
               f"{len(counts)} kernels (each "
@@ -3803,8 +3841,11 @@ YI_DECODE_KN = ((4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
 #: over 4 KV heads of 128 (B, Sq, Skv, H, K, hd)
 YI_Q8_SHAPE = (2, 2048, 4096, 32, 4, 128)
 #: phases 16b and 16c: 16 slots of 4096 rows, 32 requests of 128-2048
-#: prompt tokens, 64 new tokens each; the paged engine's pages hold 64 rows
-YI_REQUESTS, YI_NEW, YI_SLOTS, YI_SEQ = 32, 64, 16, 4096
+#: prompt tokens, 32 new tokens each, 16 of the 32 layers (cut to hold the
+#: script's time budget, PERF.md section 4); the paged engine's pages hold
+#: 64 rows
+YI_REQUESTS, YI_NEW, YI_SLOTS, YI_SEQ = 32, 32, 16, 4096
+YI_SERVE_LAYERS = 16
 YI_PROMPT = (128, 2048)
 #: the block linears of a gated (llama, gemma, qwen3) layer
 YI_LINEARS = 7
@@ -3943,20 +3984,24 @@ class ServeCell:
 
 YI = ServeCell("16", "yi", "yi-6b", YI_INT8_KN, YI_DECODE_KN, YI_Q8_SHAPE,
                YI_DECODE_SHAPE, YI_SLOTS, YI_SEQ, YI_REQUESTS, YI_PROMPT,
-               YI_NEW, YI_B_LIMIT)
+               YI_NEW, YI_B_LIMIT, layers=YI_SERVE_LAYERS)
 GEMMA = ServeCell("19", "gemma", "gemma-2b", GEMMA_INT8_KN, GEMMA_DECODE_KN,
                   GEMMA_Q8_SHAPE, GEMMA_DECODE_SHAPE, slots=16, seq=8192,
-                  requests=32, prompt=(256, 6144), new=64,
+                  requests=32, prompt=(256, 6144), new=32,
                   b_limit=GEMMA_B_LIMIT, control=True)
 QWEN3 = ServeCell("20", "qwen3", "qwen3-32b", QWEN3_INT8_KN, QWEN3_DECODE_KN,
                   None, None, slots=16, seq=4096, requests=16,
                   prompt=(128, 2048), new=32, b_limit=QWEN3_B_LIMIT,
                   control=True, layers=QWEN3_LAYERS)
+#: phases 21b and 21c serve 16 of Granite's 32 layers (cut to hold the
+#: script's time budget, PERF.md section 4)
+GRANITE_SERVE_LAYERS = 16
 GRANITE = ServeCell("21", "granite", "granite-moe-3b-a800m", GRANITE_INT8_KN,
                     GRANITE_DECODE_KN, GRANITE_Q8_SHAPE,
                     GRANITE_DECODE_SHAPE, slots=16, seq=4096, requests=32,
-                    prompt=(129, 2048), new=64, b_limit=GRANITE_B_LIMIT,
-                    control=True, waves=((1025, 2048), (129, 256)))
+                    prompt=(129, 2048), new=32, b_limit=GRANITE_B_LIMIT,
+                    control=True, waves=((1025, 2048), (129, 256)),
+                    layers=GRANITE_SERVE_LAYERS)
 
 
 def check_int8_cell(torch, dev, gen, results, cell=YI):
@@ -4748,11 +4793,12 @@ def serve_oom(torch, dev, seed):
 # phase 18: llama pre-training at Yi-6B's width, with recomputation
 # ---------------------------------------------------------------------------
 
-#: phase 18a: 16 of Yi-6B's 32 layers (the full depth needs more than one
-#: 80 GB card: FSDP, ROADMAP section 1, item 8), 2 x 4096 tokens a step, 6
+#: phase 18a: 8 of Yi-6B's 32 layers (the full depth needs more than one 80 GB
+#: card: FSDP, ROADMAP section 1, item 8; the depth and the steps cut to hold
+#: the script's time budget, PERF.md section 4), 2 x 4096 tokens a step, 5
 #: steps; 18b and 18c at 4 layers; 18c's second run 2 steps of 18a's shape
 #: under ``_attend``; 18d card against CPU at 2 layers, 1 x 128 tokens
-YI_TRAIN_LAYERS, YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 16, 2, 4096, 6
+YI_TRAIN_LAYERS, YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_STEPS = 8, 2, 4096, 5
 YI_REMAT_LAYERS, YI_XLA_STEPS = 4, 2
 YI_CHECK_LAYERS, YI_CHECK_BATCH, YI_CHECK_SEQ = 2, 1, 128
 #: phase 18c: ``_attend`` in q-chunks against one block at 4 layers x 1 x
@@ -4969,12 +5015,15 @@ def yi_train_card_vs_cpu(torch, dev, seed, strict=True):
 EXPERT_BWD_CASES = (("granite", 40, ((1536, 512), (512, 1536)),
                      (2049, 17, 1001)),
                     ("phi3.5-moe", 16, ((4096, 6400), (6400, 4096)), (2561,)))
-#: phase 22b: Granite-3.0-MoE pre-training at full width and depth, 2 x
-#: 4096 tokens a step; 22c at 4 layers; 22d card vs CPU at 2 layers, 4 x
-#: 128 tokens (at 1 x 128 a sound reading crossed its limit at seed 11:
-#: four sequences average the chaos a random model's int8 codecs add to
-#: the readings, and the sound ones and the control's move apart)
-GRANITE_TRAIN_BATCH, GRANITE_TRAIN_SEQ, GRANITE_TRAIN_STEPS = 2, 4096, 6
+#: phase 22b: Granite-3.0-MoE pre-training at full width and
+#: ``GRANITE_TRAIN_LAYERS`` of its 32 layers (cut, with a step, to hold the
+#: script's time budget, PERF.md section 4), 2 x 4096 tokens a step; 22c at 4
+#: layers; 22d card vs CPU at 2 layers, 4 x 128 tokens (at 1 x 128 a sound
+#: reading crossed its limit at seed 11: four sequences average the chaos a
+#: random model's int8 codecs add to the readings, and the sound ones and the
+#: control's move apart)
+GRANITE_TRAIN_BATCH, GRANITE_TRAIN_SEQ, GRANITE_TRAIN_STEPS = 2, 4096, 5
+GRANITE_TRAIN_LAYERS = 16
 GRANITE_REMAT_LAYERS = 4
 GRANITE_CHECK_LAYERS, GRANITE_CHECK_BATCH, GRANITE_CHECK_SEQ = 2, 4, 128
 #: phase 22d: the card against the CPU for one train step at Granite's
@@ -5125,15 +5174,16 @@ def check_int8_bwd_experts(torch, dev, gen, results):
 
 def train_granite(torch, dev, seed):
     """Phase 22b: Granite-3.0-MoE pre-training on the card at its full
-    width and depth -- 32 layers, ``GRANITE_TRAIN_BATCH`` x
+    width and ``GRANITE_TRAIN_LAYERS`` layers, ``GRANITE_TRAIN_BATCH`` x
     ``GRANITE_TRAIN_SEQ`` tokens a step, ``flash_pallas``, recomputation
     on, ``TRAIN_POLICY`` with int moments, random weights from ``seed``:
     phase 7's checks and numbers (``train``), the launches a step exactly
-    ``train_launches``: 256 #3 (the attention's 4 linears x 32, twice),
-    192 expert-batched #3 (gate, up, down x 32, twice), 128 #4 and #5, 96
-    expert-batched #4 and #5, one #6, 64 #8, 32 #9 and #10 -- no per-expert
-    2-D launch.  Returns the launch counts."""
-    return train(torch, dev, seed, cfg=granite_train_cfg(32),
+    ``train_launches``: 8 #3 a layer (the attention's 4 linears, twice), 6
+    expert-batched #3 (gate, up, down, twice), 4 #4 and #5, 3
+    expert-batched #4 and #5, 2 #8, one #9 and #10, and one #6 -- no
+    per-expert 2-D launch.  Returns the launch counts."""
+    cfg = granite_train_cfg(GRANITE_TRAIN_LAYERS)
+    return train(torch, dev, seed, cfg=cfg,
                  batch=GRANITE_TRAIN_BATCH, seq=GRANITE_TRAIN_SEQ,
                  steps=GRANITE_TRAIN_STEPS, tag="phase 22b train_granite")
 
@@ -5229,13 +5279,13 @@ HYBRID_SHARED_LINEARS = 8
 MAMBA_B_LIMIT = 0.057
 MAMBA = ServeCell("23", "mamba2", "mamba2-130m", MAMBA_INT8_KN,
                   MAMBA_DECODE_KN, None, None, slots=16, seq=2048,
-                  requests=32, prompt=(129, 512), new=64,
+                  requests=32, prompt=(129, 512), new=32,
                   b_limit=MAMBA_B_LIMIT, control=True,
                   waves=((257, 512), (129, 256)), rows=MAMBA_INT8_ROWS)
 #: phase 24: Mamba2-130M pre-training at full width and depth, 4 x 2048
 #: tokens a step (16 SSD chunks of 128 a row); 24d card vs CPU at 2 layers,
 #: 2 x 256 tokens
-MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_TRAIN_STEPS = 4, 2048, 6
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_TRAIN_STEPS = 4, 2048, 5
 MAMBA_CHECK_LAYERS, MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ = 2, 2, 256
 #: phase 24d: the card against the CPU for one train step at Mamba2-130M's
 #: width and 2 layers, set from the readings at seeds 0-3
@@ -5384,12 +5434,16 @@ ZAMBA_DECODE_SHAPE = (16, 4096, 32, 1, 160)
 #: 4-7, read after the limit was set, give 0.451-1.060 against controls
 #: 2.04-3.61.
 ZAMBA_B_LIMIT = 1.5
+#: phase 25b serves 24 of Zamba2's 54 layers (four groups; cut to hold the
+#: script's time budget, PERF.md section 4)
+ZAMBA_SERVE_LAYERS = 24
 ZAMBA = ServeCell("25", "zamba2", "zamba2-2.7b", ZAMBA_INT8_KN, ZAMBA_SSM_KN,
                   ZAMBA_Q8_SHAPE, ZAMBA_DECODE_SHAPE, slots=16, seq=4096,
-                  requests=32, prompt=(129, 2048), new=32,
+                  requests=32, prompt=(129, 2048), new=16,
                   b_limit=ZAMBA_B_LIMIT, control=True,
                   waves=((1025, 2048), (129, 256)), rows=ZAMBA_INT8_ROWS,
-                  shared_kn=ZAMBA_SHARED_KN, cmp_layers=12)
+                  shared_kn=ZAMBA_SHARED_KN, cmp_layers=12,
+                  layers=ZAMBA_SERVE_LAYERS)
 
 
 # ---------------------------------------------------------------------------
@@ -5398,18 +5452,25 @@ ZAMBA = ServeCell("25", "zamba2", "zamba2-2.7b", ZAMBA_INT8_KN, ZAMBA_SSM_KN,
 # ---------------------------------------------------------------------------
 
 #: phase 26a: #8, #9 and #10 at the shared block's training attention --
-#: (B, S, heads, head dim), causal, bf16: above ``FLASH_BWD_SM90_MAX_HEAD_DIM``
-#: = 128 the backward runs ``flash_attn.cu``'s CUDA-core bodies
+#: (B, S, heads, head dim), causal, bf16: above
+#: ``FLASH_BWD_SM90_NARROW_MAX_HEAD_DIM`` = 128 the backward runs
+#: ``flash_bwd_sm90_wide.cu``; ``flash_attn.cu``'s CUDA-core bodies, which
+#: it replaced on this path, are timed beside it on the same inputs
 ZAMBA_FLASH_SHAPE = (2, 4096, 32, 160)
-#: the plain versions' heads at a time at that shape (a whole call's
+#: and at Gemma-2B's training attention: 8 query heads of 256 over one KV
+#: head, repeated to 8 as ``models.attention._flash`` does (BH 16); on no
+#: system path yet (Gemma's training is a later slice)
+GEMMA_FLASH_SHAPE, GEMMA_FLASH_KV_HEADS = (2, 4096, 8, 256), 1
+#: the plain versions' heads at a time at those shapes (a whole call's
 #: float64 products would hold several (B * H, S, S) slabs at once)
 ZAMBA_PLAIN_HEADS = 8
-#: phase 26b: Zamba2-2.7B pre-training at full width and depth, 2 x 4096
-#: tokens a step; 26c the same under ``_attend``; 26d remat at 12 layers
-#: (two groups: the shared block's gradient sums two invocations); 26e
-#: card vs CPU at 12 layers, 1 x 128 tokens
-ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, ZAMBA_TRAIN_STEPS = 2, 4096, 6
-ZAMBA_XLA_STEPS = 2
+#: phase 26b: Zamba2-2.7B pre-training at full width and depth, 2 x 4096 tokens
+#: a step; 26c the same under ``_attend`` at ``ZAMBA_XLA_LAYERS`` (cut to hold
+#: the script's time budget); 26d remat at 12 layers (two groups: the shared
+#: block's gradient sums two invocations); 26e card vs CPU at 12 layers, 1 x
+#: 128 tokens
+ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, ZAMBA_TRAIN_STEPS = 2, 4096, 5
+ZAMBA_XLA_STEPS, ZAMBA_XLA_LAYERS = 2, 12
 ZAMBA_REMAT_LAYERS = 12
 ZAMBA_CHECK_LAYERS, ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ = 12, 1, 128
 #: phase 26e: the card against the CPU for one train step at Zamba2's
@@ -5441,35 +5502,47 @@ def zamba_train_cfg(layers, **kw):
                         **{"attention_impl": "flash_pallas", **kw})
 
 
-def check_flash_zamba(torch, dev, gen, results):
-    """Phase 26a's attention: #8, #9 and #10 at ``ZAMBA_FLASH_SHAPE``
-    (causal, bf16, unit-normal inputs) against their plain versions on the
-    same inputs (``ZAMBA_PLAIN_HEADS`` heads a call; the backward's
-    products summed in float64, the kernels' lse and delta given to both):
-    o, dq, dk and dv within ``FLASH_BF16``, the LSE within
-    ``FLASH_LSE_TOL``, a second launch bit-identical.  Each timed with the
-    card's queue full beside its bound (phase 13's count: the bf16-exact
-    products at 989 TFLOP/s, a product of fp32 p or ds as three), its
-    plain version and SDPA's forward and backward at the same shape."""
+def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
+    """Phase 26a's attention at one training shape ``shape`` = (B, S,
+    heads, head dim), ``kv_heads`` KV heads repeated to the query heads as
+    ``_flash`` repeats them: #8, #9 and #10 (causal, bf16, unit-normal
+    inputs) against their plain versions on the same inputs
+    (``ZAMBA_PLAIN_HEADS`` heads a call; the backward's products summed in
+    float64, the kernels' lse and delta given to both): o, dq, dk and dv
+    within ``FLASH_BF16``, the LSE within ``FLASH_LSE_TOL``, a second
+    launch bit-identical.  Each timed with the card's queue full beside its
+    bound (phase 13's count: the bf16-exact products at 989 TFLOP/s, a
+    product of fp32 p or ds as three), its plain version and SDPA's forward
+    and backward at the same shape; #9 and #10 also beside
+    ``flash_attn.cu``'s CUDA-core bodies at bf16 on the same inputs (what
+    ran above head dim 128 before ``flash_bwd_sm90_wide.cu``; two calls
+    each, 58-96 ms a call at Zamba2's shape).  Results go under
+    ``results[name][tag]``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
-    b, s, h, hd = ZAMBA_FLASH_SHAPE
-    bh = b * h
-    q, k, v, do = (torch.randn((bh, s, hd), generator=gen, device=dev)
-                   .bfloat16() for _ in range(4))
+    b, s, h, hd = shape
+    bh, rep = b * h, h // kv_heads
+    q, k, v, do = (torch.randn(shp, generator=gen, device=dev).bfloat16()
+                   for shp in ((bh, s, hd), (b * kv_heads, s, hd),
+                               (b * kv_heads, s, hd), (bh, s, hd)))
+    if rep > 1:
+        k, v = (t.repeat_interleave(rep, dim=0) for t in (k, v))
     got = _flash_all(fa, q, k, v, do, True, 0)
     again = _flash_all(fa, q, k, v, do, True, 0)
     repeat = all(torch.equal(x, y) for x, y in zip(got, again))
     del again
     c = ZAMBA_PLAIN_HEADS
-
-    def plain_all():
-        parts = [_flash_plain(fa, q[i:i + c], k[i:i + c], v[i:i + c],
-                              do[i:i + c], got[1][i:i + c], got[5][i:i + c],
-                              True, 0) for i in range(0, bh, c)]
-        return [torch.cat(t) for t in zip(*parts)]
-    want = plain_all()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    parts = [_flash_plain(fa, q[i:i + c], k[i:i + c], v[i:i + c],
+                          do[i:i + c], got[1][i:i + c], got[5][i:i + c],
+                          True, 0) for i in range(0, bh, c)]
+    want = [torch.cat(t) for t in zip(*parts)]
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    del parts
     lse_err = (got[1] - want[1]).abs().max().item()
     names = ("o", "dq", "dk", "dv")
     dist = [_bf16_distance(torch, g, w)
@@ -5480,8 +5553,9 @@ def check_flash_zamba(torch, dev, gen, results):
     ok = (repeat and lse_err <= FLASH_LSE_TOL
           and all(d[0] <= lim["rel_l2"] and d[1] <= lim["over_ulp"]
                   for d in dist))
-    print(f"phase 26a flash B={b} S={s} H={h} hd={hd} causal bf16 against "
-          f"the plain versions: "
+    bwd_src = fa.bwd_library(torch.bfloat16, hd) + ".cu"
+    print(f"phase 26a flash {tag} B={b} S={s} H={h} KV={kv_heads} hd={hd} "
+          f"causal bf16 against the plain versions (backward on {bwd_src}): "
           + ", ".join(f"{n} rel L2 {d[0]:.2e}, over one bf16 step {d[1]:.2e}"
                       for n, d in zip(names, dist))
           + f" (limits {lim['rel_l2']:.0e}, {lim['over_ulp']:.0e}); lse max "
@@ -5489,8 +5563,8 @@ def check_flash_zamba(torch, dev, gen, results):
           f"{'bit-identical' if repeat else 'DIFFERS'}")
     del want
     if not ok:
-        fail("phase 26a: a flash kernel disagrees with its plain version at "
-             "hd 160")
+        fail(f"phase 26a: a flash kernel disagrees with its plain version at "
+             f"{tag}'s hd {hd}")
     o, lse, delta = got[0], got[1], got[5]
     bwd = (q, k, v, do, lse, delta)
     q4, k4, v4, do4 = (t.view(b, h, s, hd) for t in (q, k, v, do))
@@ -5501,38 +5575,50 @@ def check_flash_zamba(torch, dev, gen, results):
     sdpa_bwd = queued_ms(lambda: torch.autograd.grad(o4, leaves, do4,
                                                      retain_graph=True),
                          iters=5)
-    plain_ms = time_ms(plain_all, iters=1, warmup=0)
+    del leaves, o4
+    core = {}
+    for which, outs in (("dkdv", (torch.empty_like(k), torch.empty_like(v))),
+                        ("dq", (torch.empty_like(q),))):
+        core[which] = queued_ms(
+            lambda which=which, outs=outs: fa._launch_bwd(
+                which, *bwd, outs, True, 0, library="flash_attn"),
+            iters=2, warmup=1)
     pairs = _visible_pairs(s, s, True, 0) * bh
     tens, rows = bh * s * hd * 2, bh * s * 4
     mm = 2 * hd * pairs
-    shape = f"B={b},S={s},H={h},hd={hd},causal"
-    for name, kern, nbytes, ops, lib, lib_what, src, err in (
+    shape_s = f"B={b},S={s},H={h},KV={kv_heads},hd={hd},causal"
+    for name, kern, nbytes, ops, lib, lib_what, src, err, base in (
             ("flash_attention_fwd_lse",
              lambda: fa.flash_attention_fwd_lse(q, k, v), 4 * tens + rows,
              2 * mm, sdpa_fwd, "SDPA forward", "flash_fwd_sm90.cu",
-             max(diff[0], lse_err)),
+             max(diff[0], lse_err), None),
             ("flash_attention_bwd_dkdv",
              lambda: fa.flash_attention_bwd_dkdv(*bwd),
              6 * tens + 2 * rows, 8 * mm, sdpa_bwd,
-             "SDPA backward, dq+dk+dv together", "flash_attn.cu",
-             max(diff[2], diff[3])),
+             "SDPA backward, dq+dk+dv together", bwd_src,
+             max(diff[2], diff[3]), core["dkdv"]),
             ("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq(*bwd),
              5 * tens + 2 * rows, 5 * mm, sdpa_bwd,
-             "SDPA backward, dq+dk+dv together", "flash_attn.cu", diff[1])):
+             "SDPA backward, dq+dk+dv together", bwd_src, diff[1],
+             core["dq"])):
         ms = queued_ms(kern, iters=5)
         bd, by = bound_ms(nbytes, ops, BF16_FLOPS)
-        print(f"phase 26a {name} {shape} bf16: ms {ms:.4f} (queued), "
+        was = ("" if base is None else
+               f"; flash_attn.cu's CUDA-core body at bf16 on the same inputs "
+               f"{base:.4f} (queued), {base / ms:.1f}x this kernel's time")
+        print(f"phase 26a {name} {tag} {shape_s} bf16: ms {ms:.4f} (queued), "
               f"plain_ms {plain_ms:.4f} (the three plain versions in one "
               f"call), bound_ms {bd:.5f} ({by}; {ops / 1e9:.1f} GFLOP "
               f"bf16-exact at 989 TFLOP/s, {nbytes / 1e6:.1f} MB), "
               f"{ms / bd:.1f}x the bound, library_ms({lib_what}, queued) "
               f"{lib:.4f}, {ms / lib:.2f}x it; route "
-              f"src/repro_torch/csrc/{src}")
-        results[name]["zamba2"] = dict(
-            shape=shape, source=f"src/repro_torch/csrc/{src}",
+              f"src/repro_torch/csrc/{src}{was}")
+        results[name][tag] = dict(
+            shape=shape_s, source=f"src/repro_torch/csrc/{src}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bd,
-            bound_by=by, library_ms=lib)
-    del q, k, v, do, got, o, lse, delta, bwd, q4, k4, v4, do4, leaves, o4
+            bound_by=by, library_ms=lib,
+            **({} if base is None else {"cuda_core_ms": base}))
+    del q, k, v, do, got, o, lse, delta, bwd, q4, k4, v4, do4
 
 
 def check_zamba_train_kernels(torch, dev, gen, results):
@@ -5540,11 +5626,15 @@ def check_zamba_train_kernels(torch, dev, gen, results):
     (``ZAMBA_INT8_KN``: an SSM layer's projections, the shared block's
     attention, MLP and projection) at 8,192 rows, bf16, phase 6a's gates
     and timings (``check_int8_bwd``); then the attention's #8, #9 and #10
-    at head dim 160 (``check_flash_zamba``)."""
+    at head dim 160 (``check_flash_train`` at ``ZAMBA_FLASH_SHAPE``) and at
+    Gemma-2B's training attention, head dim 256 (``GEMMA_FLASH_SHAPE``)."""
     check_int8_bwd(torch, dev, gen, results,
                    cases=[(k, n, torch.bfloat16) for k, n in ZAMBA_INT8_KN],
                    tag="zamba2", phase="26a")
-    check_flash_zamba(torch, dev, gen, results)
+    check_flash_train(torch, dev, gen, results, "zamba2", ZAMBA_FLASH_SHAPE,
+                      ZAMBA_FLASH_SHAPE[2])
+    check_flash_train(torch, dev, gen, results, "gemma2b", GEMMA_FLASH_SHAPE,
+                      GEMMA_FLASH_KV_HEADS)
 
 
 def train_zamba2(torch, dev, seed):
@@ -5555,13 +5645,25 @@ def train_zamba2(torch, dev, seed):
     random weights from ``seed``: phase 7's checks and numbers (``train``),
     the launches a step exactly ``train_launches``: 684 #3 (5 x 54
     projections and 8 x 9 shared-block linears, again in the
-    recomputation), 342 #4 and #5, one #6, 18 #8, 9 #9 and #10.  Returns
-    the launch counts."""
+    recomputation), 342 #4 and #5, one #6, 18 #8, 9 #9 and #10 -- #9 and
+    #10 from the library ``bwd_library`` names at head dim 160, the
+    tensor-core ``flash_bwd_sm90_wide``, and no other backward library
+    (``libraries_loaded``).  Returns the launch counts."""
+    from repro_torch.kernels import flash_attn as fa
     gc.collect()
     torch.cuda.empty_cache()
-    return train(torch, dev, seed, cfg=zamba_train_cfg(54),
-                 batch=ZAMBA_TRAIN_BATCH, seq=ZAMBA_TRAIN_SEQ,
-                 steps=ZAMBA_TRAIN_STEPS, tag="phase 26b train_zamba2")
+    cfg = zamba_train_cfg(54)
+    with libraries_loaded() as loaded:
+        counts = train(torch, dev, seed, cfg=cfg, batch=ZAMBA_TRAIN_BATCH,
+                       seq=ZAMBA_TRAIN_SEQ, steps=ZAMBA_TRAIN_STEPS,
+                       tag="phase 26b train_zamba2")
+    want = fa.bwd_library(torch.bfloat16, cfg.head_dim)
+    bwd = sorted(n for n in loaded if n in fa._BWD_ENTRY)
+    print(f"phase 26b: #9/#10 ran on {bwd} (expected [{want!r}])")
+    if want != "flash_bwd_sm90_wide" or bwd != [want]:
+        fail(f"phase 26b: the backward ran on {bwd}, expected the "
+             f"tensor-core flash_bwd_sm90_wide")
+    return counts
 
 
 def train_zamba2_xla(torch, dev, seed):
@@ -5571,7 +5673,7 @@ def train_zamba2_xla(torch, dev, seed):
     launch counts."""
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = zamba_train_cfg(54, attention_impl="xla")
+    cfg = zamba_train_cfg(ZAMBA_XLA_LAYERS, attention_impl="xla")
     return train(torch, dev, seed, cfg=cfg, batch=ZAMBA_TRAIN_BATCH,
                  seq=ZAMBA_TRAIN_SEQ, steps=ZAMBA_XLA_STEPS,
                  tag="phase 26c train_zamba2_xla", profile=False)
@@ -5678,101 +5780,110 @@ def main() -> int:
         # where the time limit goes
         print(f"chip_smoke: phases {phases} done at "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    check_int8_matmul(torch, dev, gen, results)
-    check_decode_attention(torch, dev, gen, results)
-    check_decode_attention_paged(torch, dev, gen, results)
-    check_flash_q8(torch, dev, gen, results)
-    serve_counts, dense_tokens, dense_bytes, dense_stats = serve(
-        torch, dev, args.seed)
-    paged_counts = serve_paged(torch, dev, args.seed, dense_tokens,
-                               dense_bytes, dense_stats)
-    serve_paged_pressure(torch, dev, args.seed)
-    card_vs_cpu(torch, dev, args.seed)
+
+    def sub(label, fn, *a):
+        # one phase's host seconds (where a slice's time limit goes)
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"chip_smoke: {label} took {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return out
+    ts = (torch, dev, args.seed)
+    tg = (torch, dev, gen, results)
+    sub("3 check_int8_matmul", check_int8_matmul, *tg)
+    sub("3 check_decode_attention", check_decode_attention, *tg)
+    sub("3b check_decode_attention_paged", check_decode_attention_paged, *tg)
+    sub("3 check_flash_q8", check_flash_q8, *tg)
+    serve_counts, dense_tokens, dense_bytes, dense_stats = sub(
+        "4 serve", serve, *ts)
+    paged_counts = sub("4b serve_paged", serve_paged, *ts, dense_tokens,
+                       dense_bytes, dense_stats)
+    sub("4c serve_paged_pressure", serve_paged_pressure, *ts)
+    sub("5 card_vs_cpu", card_vs_cpu, *ts)
     lap("1-5")
-    check_int8_bwd(torch, dev, gen, results)
-    check_fused_adamw(torch, dev, gen, results)
-    train_counts = train(torch, dev, args.seed)
-    train_card_vs_cpu(torch, dev, args.seed)
-    check_qdq(torch, dev, gen, results)
-    fake_counts = train_fake(torch, dev, args.seed)
-    guarded_counts = train_guarded(torch, dev, args.seed)
-    train_resume(torch, dev, args.seed)
-    train_fake_card_vs_cpu(torch, dev, args.seed)
+    sub("6 check_int8_bwd", check_int8_bwd, *tg)
+    sub("6b check_fused_adamw", check_fused_adamw, *tg)
+    train_counts = sub("7 train", train, *ts)
+    sub("8 train_card_vs_cpu", train_card_vs_cpu, *ts)
+    sub("9 check_qdq", check_qdq, *tg)
+    fake_counts = sub("10 train_fake", train_fake, *ts)
+    guarded_counts = sub("11 train_guarded", train_guarded, *ts)
+    sub("11b train_resume", train_resume, *ts)
+    sub("12 train_fake_card_vs_cpu", train_fake_card_vs_cpu, *ts)
     lap("6-12")
-    check_flash(torch, dev, gen, results)
-    flash_counts = train(torch, dev, args.seed, impl="flash_pallas")
-    serve_flash_counts = serve_flash(torch, dev, args.seed)
-    flash_card_vs_cpu(torch, dev, args.seed)
+    sub("13 check_flash", check_flash, *tg)
+    flash_counts = sub("14 train flash_pallas", train, *ts, "flash_pallas")
+    serve_flash_counts = sub("14b serve_flash", serve_flash, *ts)
+    sub("15 flash_card_vs_cpu", flash_card_vs_cpu, *ts)
     lap("13-15")
-    cell_kernels(torch, dev, gen, results, YI)
-    yi_counts, yi_tokens, yi_stats, yi_params = serve_cell(torch, dev,
-                                                           args.seed, YI)
-    yi_paged_counts = serve_cell_paged(torch, dev, args.seed, yi_params,
-                                       yi_tokens, yi_stats, YI)
+    sub("16a cell_kernels", cell_kernels, *tg, YI)
+    yi_counts, yi_tokens, yi_stats, yi_params = sub("16b serve_cell",
+                                                    serve_cell, *ts, YI)
+    yi_paged_counts = sub("16c serve_cell_paged", serve_cell_paged, *ts,
+                          yi_params, yi_tokens, yi_stats, YI)
     del yi_params
-    cell_card_vs_cpu(torch, dev, args.seed, YI)
+    sub("16d cell_card_vs_cpu", cell_card_vs_cpu, *ts, YI)
     lap("16")
-    dequant_counts = serve_dequant(torch, dev, args.seed)
-    dequant_card_vs_cpu(torch, dev, args.seed)
-    ladder_counts = serve_ladder(torch, dev, args.seed)
-    serve_oom(torch, dev, args.seed)
+    dequant_counts = sub("17a serve_dequant", serve_dequant, *ts)
+    sub("17b dequant_card_vs_cpu", dequant_card_vs_cpu, *ts)
+    ladder_counts = sub("17c serve_ladder", serve_ladder, *ts)
+    sub("17d serve_oom", serve_oom, *ts)
     lap("17")
-    yi_train_counts = train_yi(torch, dev, args.seed)
-    yi_remat(torch, dev, args.seed)
-    yi_xla_counts = yi_attend_chunks(torch, dev, args.seed)
-    yi_train_card_vs_cpu(torch, dev, args.seed)
+    yi_train_counts = sub("18a train_yi", train_yi, *ts)
+    sub("18b yi_remat", yi_remat, *ts)
+    yi_xla_counts = sub("18c yi_attend_chunks", yi_attend_chunks, *ts)
+    sub("18d yi_train_card_vs_cpu", yi_train_card_vs_cpu, *ts)
     lap("18")
-    cell_kernels(torch, dev, gen, results, GEMMA)
-    gemma_counts, gemma_tokens, gemma_stats, gemma_params = serve_cell(
-        torch, dev, args.seed, GEMMA)
-    gemma_paged_counts = serve_cell_paged(torch, dev, args.seed,
-                                          gemma_params, gemma_tokens,
-                                          gemma_stats, GEMMA)
+    sub("19a cell_kernels", cell_kernels, *tg, GEMMA)
+    gemma_counts, gemma_tokens, gemma_stats, gemma_params = sub(
+        "19b serve_cell", serve_cell, *ts, GEMMA)
+    gemma_paged_counts = sub("19c serve_cell_paged", serve_cell_paged, *ts,
+                             gemma_params, gemma_tokens, gemma_stats, GEMMA)
     del gemma_params
-    cell_card_vs_cpu(torch, dev, args.seed, GEMMA)
+    sub("19d cell_card_vs_cpu", cell_card_vs_cpu, *ts, GEMMA)
     lap("19")
-    check_int8_cell(torch, dev, gen, results, QWEN3)
-    qwen3_counts, _, _, qwen3_params = serve_cell(torch, dev, args.seed,
-                                                  QWEN3)
+    sub("20a check_int8_cell", check_int8_cell, *tg, QWEN3)
+    qwen3_counts, _, _, qwen3_params = sub("20a serve_cell", serve_cell,
+                                           *ts, QWEN3)
     del qwen3_params
-    cell_card_vs_cpu(torch, dev, args.seed, QWEN3)
+    sub("20b cell_card_vs_cpu", cell_card_vs_cpu, *ts, QWEN3)
     lap("20")
-    cell_kernels(torch, dev, gen, results, GRANITE)
-    granite_counts, granite_tokens, granite_stats, granite_params = \
-        serve_cell(torch, dev, args.seed, GRANITE)
-    granite_paged_counts = serve_cell_paged(torch, dev, args.seed,
-                                            granite_params, granite_tokens,
-                                            granite_stats, GRANITE)
+    sub("21a cell_kernels", cell_kernels, *tg, GRANITE)
+    granite_counts, granite_tokens, granite_stats, granite_params = sub(
+        "21b serve_cell", serve_cell, *ts, GRANITE)
+    granite_paged_counts = sub("21c serve_cell_paged", serve_cell_paged,
+                               *ts, granite_params, granite_tokens,
+                               granite_stats, GRANITE)
     del granite_params
-    cell_card_vs_cpu(torch, dev, args.seed, GRANITE)
+    sub("21d cell_card_vs_cpu", cell_card_vs_cpu, *ts, GRANITE)
     lap("21")
-    check_int8_bwd_experts(torch, dev, gen, results)
-    granite_train_counts = train_granite(torch, dev, args.seed)
-    granite_remat(torch, dev, args.seed)
-    granite_train_card_vs_cpu(torch, dev, args.seed)
+    sub("22a check_int8_bwd_experts", check_int8_bwd_experts, *tg)
+    granite_train_counts = sub("22b train_granite", train_granite, *ts)
+    sub("22c granite_remat", granite_remat, *ts)
+    sub("22d granite_train_card_vs_cpu", granite_train_card_vs_cpu, *ts)
     lap("22")
-    check_int8_cell(torch, dev, gen, results, MAMBA)
-    mamba_counts, _, _, mamba_params = serve_cell(torch, dev, args.seed,
-                                                  MAMBA)
+    sub("23a check_int8_cell", check_int8_cell, *tg, MAMBA)
+    mamba_counts, _, _, mamba_params = sub("23b serve_cell", serve_cell,
+                                           *ts, MAMBA)
     del mamba_params
-    cell_card_vs_cpu(torch, dev, args.seed, MAMBA)
+    sub("23c cell_card_vs_cpu", cell_card_vs_cpu, *ts, MAMBA)
     lap("23")
-    check_int8_bwd_ssm(torch, dev, gen, results)
-    mamba_train_counts = train_mamba2(torch, dev, args.seed)
-    mamba_remat(torch, dev, args.seed)
-    mamba_train_card_vs_cpu(torch, dev, args.seed)
+    sub("24a check_int8_bwd_ssm", check_int8_bwd_ssm, *tg)
+    mamba_train_counts = sub("24b train_mamba2", train_mamba2, *ts)
+    sub("24c mamba_remat", mamba_remat, *ts)
+    sub("24d mamba_train_card_vs_cpu", mamba_train_card_vs_cpu, *ts)
     lap("24")
-    cell_kernels(torch, dev, gen, results, ZAMBA)
-    zamba_counts, _, _, zamba_params = serve_cell(torch, dev, args.seed,
-                                                  ZAMBA)
+    sub("25a cell_kernels", cell_kernels, *tg, ZAMBA)
+    zamba_counts, _, _, zamba_params = sub("25b serve_cell", serve_cell,
+                                           *ts, ZAMBA)
     del zamba_params
-    cell_card_vs_cpu(torch, dev, args.seed, ZAMBA)
+    sub("25c cell_card_vs_cpu", cell_card_vs_cpu, *ts, ZAMBA)
     lap("25")
-    check_zamba_train_kernels(torch, dev, gen, results)
-    zamba_train_counts = train_zamba2(torch, dev, args.seed)
-    zamba_xla_counts = train_zamba2_xla(torch, dev, args.seed)
-    zamba_remat(torch, dev, args.seed)
-    zamba_train_card_vs_cpu(torch, dev, args.seed)
+    sub("26a check_zamba_train_kernels", check_zamba_train_kernels, *tg)
+    zamba_train_counts = sub("26b train_zamba2", train_zamba2, *ts)
+    zamba_xla_counts = sub("26c train_zamba2_xla", train_zamba2_xla, *ts)
+    sub("26d zamba_remat", zamba_remat, *ts)
+    sub("26e zamba_train_card_vs_cpu", zamba_train_card_vs_cpu, *ts)
     lap("26")
 
     # launches: each kernel's count on the main paths, dense serving (phase
@@ -5818,7 +5929,7 @@ def main() -> int:
                    "train_zamba2_xla": zamba_xla_counts[name]}
         # the kernel gates of the later phases at their models' shapes
         # (Yi's, Gemma's, Granite's, Zamba2's head dim of 160, ...)
-        cells = {tag: {k: v[k] for k in keys if k in v}
+        cells = {tag: {k: v[k] for k in keys + ("cuda_core_ms",) if k in v}
                  for tag, v in results[name].items()
                  if isinstance(v, dict) and "ms" in v and "shape" in v}
         kern.append(dict(name=name, launches=sum(by_path.values()),

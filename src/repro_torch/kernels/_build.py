@@ -68,6 +68,12 @@ SIGNATURES = {
         "repro_flash_bwd_sm90_dq":
             [_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
         "repro_flash_bwd_max_head_dim": []},
+    "flash_bwd_sm90_wide": {
+        "repro_flash_bwd_sm90_wide_dkdv":
+            [_P] * 8 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+        "repro_flash_bwd_sm90_wide_dq":
+            [_P] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+        "repro_flash_bwd_sm90_wide_max_head_dim": []},
     "decode_attn": {
         "repro_decode_attn": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
         "repro_decode_attn_paged":

@@ -3,9 +3,10 @@ causal over the int8 KV cache for the int8-KV prefill of the serving path.
 
 Over fp K/V, in the reference's ``(BH, S, d)`` layout (the ports of
 ``repro/kernels/flash_attn.py``; each launches a kernel on CUDA tensors --
-at bfloat16 the forward ``csrc/flash_fwd_sm90.cu`` and the backward, up to
-head dim 128, ``csrc/flash_bwd_sm90.cu``, both on the tensor cores;
-everything else ``csrc/flash_attn.cu`` on the CUDA cores -- and runs its
+at bfloat16 the forward ``csrc/flash_fwd_sm90.cu`` and the backward
+``csrc/flash_bwd_sm90.cu`` (head dims 16-128) or
+``csrc/flash_bwd_sm90_wide.cu`` (144-256), all on the tensor cores; at
+float32 ``csrc/flash_attn.cu`` on the CUDA cores -- and runs its
 ``*_plain`` version on CPU tensors):
 
 * :func:`flash_attention_fwd` -- ``flash_attention_fwd`` (#7);
@@ -41,9 +42,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 160, 256)
 #: head dims of the fp flash kernels: every multiple of 16 up to 256
 FLASH_MAX_HEAD_DIM = 256
-#: the largest head dim of the tensor-core backward (``csrc/flash_bwd_sm90.cu``
-#: exports it as ``repro_flash_bwd_max_head_dim``)
-FLASH_BWD_SM90_MAX_HEAD_DIM = 128
+#: the largest head dim of the tensor-core backward
+#: (``csrc/flash_bwd_sm90_wide.cu`` exports it as
+#: ``repro_flash_bwd_sm90_wide_max_head_dim``)
+FLASH_BWD_SM90_MAX_HEAD_DIM = 256
+#: the largest head dim of ``csrc/flash_bwd_sm90.cu`` (exported as
+#: ``repro_flash_bwd_max_head_dim``); above it the wide library
+FLASH_BWD_SM90_NARROW_MAX_HEAD_DIM = 128
 
 
 def _check_args(q, kq, causal, q_offset):
@@ -378,32 +383,40 @@ CPU_SUM_DTYPE = torch.float32
 
 def bwd_library(dtype: torch.dtype, d: int) -> str:
     """The library a CUDA backward call (#9, #10) launches, by a fixed rule:
-    bfloat16 at head dims up to :data:`FLASH_BWD_SM90_MAX_HEAD_DIM` takes
-    the tensor-core kernels (``"flash_bwd_sm90"``); float32 (TF32 would
-    leave the float32 tolerances) and head dims in (128, 256] (their dK and
-    dV accumulators alone would take 128 registers a thread or more) take
-    PR 15's CUDA-core kernels (``"flash_attn"``)."""
-    if dtype == torch.bfloat16 and d <= FLASH_BWD_SM90_MAX_HEAD_DIM:
+    bfloat16 takes the tensor-core kernels, at head dims up to
+    :data:`FLASH_BWD_SM90_NARROW_MAX_HEAD_DIM` ``"flash_bwd_sm90"`` and
+    above it, up to :data:`FLASH_BWD_SM90_MAX_HEAD_DIM`,
+    ``"flash_bwd_sm90_wide"`` (its two warpgroups split dK and dV, which
+    together take d registers a thread); float32 (TF32 would leave the
+    float32 tolerances) takes the CUDA-core kernels (``"flash_attn"``)."""
+    if dtype != torch.bfloat16:
+        return "flash_attn"
+    if d <= FLASH_BWD_SM90_NARROW_MAX_HEAD_DIM:
         return "flash_bwd_sm90"
-    return "flash_attn"
+    return "flash_bwd_sm90_wide"
+
+
+#: each backward library's prefix of its two entry points
+_BWD_ENTRY = {"flash_bwd_sm90": "repro_flash_bwd_sm90_",
+              "flash_bwd_sm90_wide": "repro_flash_bwd_sm90_wide_",
+              "flash_attn": "repro_flash_attn_bwd_"}
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, outs, causal,
-                q_offset):
+                q_offset, library: str | None = None):
     """#9 (``which="dkdv"``, outs (dk, dv)) or #10 (``"dq"``, outs (dq,))
-    through the library :func:`bwd_library` names; raises on a CUDA
-    error."""
+    through the library :func:`bwd_library` names, or ``library`` (the
+    card's checks time ``flash_attn.cu``'s CUDA-core bodies at bfloat16 so;
+    counted nowhere); raises on a CUDA error."""
     bh, sq, skv, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2]
-    name = bwd_library(q.dtype, d)
+    name = library or bwd_library(q.dtype, d)
     lib = _build.load(name)
     args = [_build.ptr(t) for t in (q, k, v, do, lse, delta, *outs)]
     args += [bh, sq, skv, d, _scale(d), int(causal), int(q_offset)]
-    if name == "flash_bwd_sm90":
-        rc = getattr(lib, f"repro_flash_bwd_sm90_{which}")(
-            *args, _build.stream_of(q))
-    else:
-        rc = getattr(lib, f"repro_flash_attn_bwd_{which}")(
-            *args, _DTYPE_CODES[q.dtype], _build.stream_of(q))
+    # the CUDA-core entries take a dtype code, the tensor-core ones none
+    code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn" else ()
+    rc = getattr(lib, _BWD_ENTRY[name] + which)(*args, *code,
+                                                _build.stream_of(q))
     _build.check(lib, rc, f"flash_attention_bwd_{which}")
 
 
@@ -462,12 +475,12 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
                              q_offset: int = 0):
     """#9: (dK, dV), each (BH, Skv, d) in q's type, from q, k, v, dO (q's
-    type), lse and delta (BH, Sq) float32.  CPU tensors take the plain
-    version with fp32 sums (:data:`CPU_SUM_DTYPE`); CUDA tensors launch the
-    kernel :func:`bwd_library` names (bfloat16 at d <= 128: the tensor
-    cores, ``csrc/flash_bwd_sm90.cu``; float32, and d in (128, 256]:
-    ``csrc/flash_attn.cu``) or raise.  A block per key block walks the
-    query tiles; no atomics, so a launch repeats its bits."""
+    type), lse and delta (BH, Sq) float32.  CPU tensors take the plain version
+    with fp32 sums (:data:`CPU_SUM_DTYPE`); CUDA tensors launch the kernel
+    :func:`bwd_library` names (bfloat16: the tensor cores,
+    ``csrc/flash_bwd_sm90.cu`` at d <= 128, ``csrc/flash_bwd_sm90_wide.cu``
+    above; float32: ``csrc/flash_attn.cu``) or raise.  A block per key block
+    walks the query tiles; no atomics, so a launch repeats its bits."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
                                               causal=causal,

@@ -44,8 +44,10 @@ float32, and at bfloat16 o and the gradients within
 ``chip_smoke.FLASH_BF16`` (relative L2, and the share of elements more
 than one bf16 step apart), #7 equal to #8's output, every launch
 repeating its bits, a NaN in q reaching o, the LSE and every gradient it
-touches (at bf16 and d <= 128 the backward is ``flash_bwd_sm90.cu``'s
-tensor-core kernels, held to the plain backward with float64 sums and
+touches (at bf16 the backward is ``flash_bwd_sm90.cu``'s tensor-core
+kernels up to d = 128 and ``flash_bwd_sm90_wide.cu``'s at 144-256, with
+ragged Sq != Skv cases at every column padding of the wide instances,
+held to the plain backward with float64 sums and
 delta summed in float64, ``chip_smoke._flash_all``; the rule and the
 exported head-dim limit are checked too); the bf16 forward's key tile
 equal to ``kv_tile`` at every head dim, and every flash wrapper refusing a
@@ -1032,7 +1034,8 @@ def _flash_inputs(cuda, bh, sq, skv, d, dtype, seed):
     (2, 140, 300, 224, False, 0), (2, 200, 200, 80, True, 0),
     (2, 180, 180, 112, False, 0), (2, 160, 600, 128, True, 440),
     (2, 300, 1024, 128, True, 0), (3, 1, 70, 64, True, 69),
-    (3, 17, 17, 32, False, 0)])
+    (3, 17, 17, 32, False, 0), (2, 150, 350, 192, True, 200),
+    (2, 200, 260, 208, True, 60), (2, 130, 500, 256, True, 370)])
 def test_flash_kernels(cuda, dtype, bh, sq, skv, d, causal, off):
     q, k, v, do = _flash_inputs(cuda, bh, sq, skv, d, dtype, seed=sq + d)
     counts = [f.launches for f in (fa.flash_attention_fwd_lse,
@@ -1086,23 +1089,28 @@ def test_flash_kernels_propagate_nan(cuda, dtype):
 
 @pytest.mark.cuda
 def test_flash_bwd_routes_bf16_to_the_tensor_cores(cuda, monkeypatch):
-    """The tensor-core backward exports the wrappers' head-dim limit, and a
-    CUDA backward call loads the library ``bwd_library`` names: at bf16 and
-    d <= 128 ``flash_bwd_sm90``, at float32 or d > 128 ``flash_attn``."""
+    """The tensor-core backward's libraries export the wrappers' head-dim
+    limits, and a CUDA backward call loads the library ``bwd_library``
+    names: at bf16 ``flash_bwd_sm90`` up to d = 128 and
+    ``flash_bwd_sm90_wide`` at 144-256, at float32 ``flash_attn``."""
     from repro_torch.kernels import _build
     lib = _build.load("flash_bwd_sm90")
-    assert lib.repro_flash_bwd_max_head_dim() == fa.FLASH_BWD_SM90_MAX_HEAD_DIM
+    assert (lib.repro_flash_bwd_max_head_dim()
+            == fa.FLASH_BWD_SM90_NARROW_MAX_HEAD_DIM)
+    wide = _build.load("flash_bwd_sm90_wide")
+    assert (wide.repro_flash_bwd_sm90_wide_max_head_dim()
+            == fa.FLASH_BWD_SM90_MAX_HEAD_DIM)
     loaded = []
     real_load = _build.load
     monkeypatch.setattr(_build, "load",
                         lambda name: loaded.append(name) or real_load(name))
-    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 128),
-                     (torch.bfloat16, 144), (torch.float32, 64)):
+    cases = [(torch.bfloat16, d) for d in (64, 128, *range(144, 257, 16))]
+    for dtype, d in cases + [(torch.float32, 64), (torch.float32, 160)]:
         q, k, v, do = _flash_inputs(cuda, 1, 64, 64, d, dtype, seed=d)
         loaded.clear()
         chip_smoke._flash_all(fa, q, k, v, do, True, 0)
-        want = ("flash_bwd_sm90" if dtype == torch.bfloat16 and d <= 128
-                else "flash_attn")
+        want = ("flash_attn" if dtype == torch.float32
+                else "flash_bwd_sm90" if d <= 128 else "flash_bwd_sm90_wide")
         assert loaded[-2:] == [want, want], (dtype, d, loaded)
 
 

@@ -1,5 +1,5 @@
 """The flash backward's pieces on the CPU: the exact three-term bfloat16
-split that the tensor-core backward (``csrc/flash_bwd_sm90.cu``) feeds its
+split that the tensor-core backward (``csrc/flash_bwd_sm90.cuh``) feeds its
 wgmma with, the plain backward whose products are summed in float64 (the
 function phase 13 of ``chip_smoke.py`` holds the kernels to) against
 ``jax.grad`` of the JAX custom VJP in Pallas interpret mode, and the
@@ -132,24 +132,31 @@ def test_term_products_are_exact(kind, seed):
 # ---------------------------------------------------------------------------
 
 def _jax_grads(arrays, w, dtype, causal):
+    """``jax.grad`` of the JAX flash attention, and the forward's (o, lse)
+    that its backward reads (``_fa_fwd``'s residuals: ``_fwd_with_lse``
+    with the same blocks)."""
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = getattr(torch, dtype)
     jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
 
     def loss(a, b, c):
         o = jfa.flash_attention(a, b, c, causal, 0, 64, 64, True)
         return jnp.sum(o.astype(jnp.float32) * w)
-    return [torch.from_numpy(np.asarray(g.astype(jnp.float32))).to(
-        getattr(torch, dtype))
-        for g in jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    grads = [torch.from_numpy(np.asarray(g.astype(jnp.float32))).to(tdt)
+             for g in jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    o, lse = jfa._fwd_with_lse(jq, jk, jv, causal, 0, 64, 64, True)
+    return grads, (torch.from_numpy(np.asarray(o.astype(jnp.float32))).to(tdt),
+                   torch.from_numpy(np.asarray(lse)))
 
 
-def _plain_grads(arrays, w, dtype, causal, sum_dtype):
+def _plain_grads(arrays, w, dtype, causal, sum_dtype, fwd):
     """The port's backward as ``_FlashAttention.backward`` runs it (delta
-    = sum(g * o) in fp32, g the cotangent in the carrier), through the
-    plain versions with their products summed in ``sum_dtype``."""
+    = sum(g * o) in fp32, g the cotangent in the carrier) on the forward's
+    ``fwd`` = (o, lse), through the plain versions with their products
+    summed in ``sum_dtype``."""
     tdt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
-    o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+    o, lse = fwd
     g = torch.from_numpy(w).to(tdt)
     delta = (g.float() * o.float()).sum(-1)
     kw = dict(causal=causal, sum_dtype=sum_dtype)
@@ -160,22 +167,28 @@ def _plain_grads(arrays, w, dtype, causal, sum_dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_backward_meets_jax(dtype, causal):
+@pytest.mark.parametrize("shape", [(2, 128, 64), (1, 64, 160), (1, 64, 256)])
+def test_plain_backward_meets_jax(dtype, causal, shape):
     """The plain backward with float64 sums (its default) against
-    ``jax.grad`` of the JAX flash attention: within 1e-4 at float32, within
-    ``FLASH_BF16`` at bfloat16.  Under the causal mask query row 0 sees key
-    0 alone, so o_0 = v_0 and dp_00 - delta_0 vanishes in exact arithmetic:
-    dq's row 0 is the rounding noise of two sums of the same 64 products in
-    both packages (float64 sums make the port's exactly 0, JAX's fp32 ones
-    leave up to a few ulp), so at bfloat16 it is held to that noise level
-    instead, and the other rows to ``FLASH_BF16``."""
+    ``jax.grad`` of the JAX flash attention, both on the JAX forward's o and
+    lse: within 1e-4 at float32, within ``FLASH_BF16`` at bfloat16; at hd
+    64 and at the wide tensor-core backward's head dims 160 and 256 (one
+    head of 64 rows).  (On each package's own forward the two o differ in
+    a few bf16 elements -- the scores summed in float64 and in fp32 round
+    p to bf16 apart now and then -- and delta = sum(g * o) carries that
+    into dk: 2.1e-4 at hd 256 over 64 rows.)  Under the
+    causal mask query row 0 sees key 0 alone, so o_0 = v_0 and dp_00 -
+    delta_0 vanishes in exact arithmetic: dq's row 0 is the rounding noise
+    of two sums of the same products in both packages (float64 sums make
+    the port's exactly 0, JAX's fp32 ones leave up to a few ulp), so at
+    bfloat16 it is held to that noise level instead, and the other rows to
+    ``FLASH_BF16``."""
     rng = np.random.RandomState(11)
-    arrays = [rng.standard_normal((2, 128, 64)).astype(np.float32)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
               for _ in range(3)]
-    w = np.random.RandomState(12).standard_normal((2, 128, 64)).astype(
-        np.float32)
-    want = _jax_grads(arrays, w, dtype, causal)
-    got = _plain_grads(arrays, w, dtype, causal, torch.float64)
+    w = np.random.RandomState(12).standard_normal(shape).astype(np.float32)
+    want, fwd = _jax_grads(arrays, w, dtype, causal)
+    got = _plain_grads(arrays, w, dtype, causal, torch.float64, fwd)
     if dtype == "float32":
         for name, g, j in zip(("dq", "dk", "dv"), got, want):
             np.testing.assert_allclose(g.numpy(), j.numpy(), rtol=1e-4,
@@ -224,12 +237,16 @@ def test_cpu_wrappers_keep_fp32_sums():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", range(16, 257, 16))
 def test_bwd_library_rule(dtype, d):
-    """bfloat16 at head dims up to 128 takes the tensor-core backward;
-    float32, and head dims 144-256, PR 15's CUDA-core kernels."""
-    want = ("flash_bwd_sm90" if dtype == torch.bfloat16 and d <= 128
-            else "flash_attn")
+    """bfloat16 takes a tensor-core backward at every head dim the wrappers
+    admit: ``flash_bwd_sm90`` up to 128, ``flash_bwd_sm90_wide`` at
+    144-256; float32 the CUDA-core kernels."""
+    if dtype == torch.float32:
+        want = "flash_attn"
+    else:
+        want = "flash_bwd_sm90" if d <= 128 else "flash_bwd_sm90_wide"
     assert fa.bwd_library(dtype, d) == want
-    assert fa.FLASH_BWD_SM90_MAX_HEAD_DIM == 128
+    assert fa.FLASH_BWD_SM90_NARROW_MAX_HEAD_DIM == 128
+    assert fa.FLASH_BWD_SM90_MAX_HEAD_DIM == fa.FLASH_MAX_HEAD_DIM == 256
 
 
 class _FakeLib:
@@ -246,11 +263,14 @@ class _FakeLib:
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 112),
                                      (torch.bfloat16, 160),
+                                     (torch.bfloat16, 256),
                                      (torch.float32, 64)])
 def test_launch_reaches_the_routed_library(which, dtype, d, monkeypatch):
     """``_launch_bwd`` loads the library ``bwd_library`` names and calls its
     entry point with the arguments ``_build.SIGNATURES`` declares: the
-    tensor-core entries take no dtype code, the CUDA-core ones do."""
+    tensor-core entries (``flash_bwd_sm90`` up to hd 128,
+    ``flash_bwd_sm90_wide`` at 160 and 256) take no dtype code, the
+    CUDA-core ones do."""
     libs = {}
 
     def load(name):
@@ -265,8 +285,12 @@ def test_launch_reaches_the_routed_library(which, dtype, d, monkeypatch):
     name = fa.bwd_library(dtype, d)
     assert list(libs) == [name]
     (entry, args), = libs[name].calls
-    prefix = ("repro_flash_bwd_sm90_" if name == "flash_bwd_sm90"
-              else "repro_flash_attn_bwd_")
+    prefix = {"flash_bwd_sm90": "repro_flash_bwd_sm90_",
+              "flash_bwd_sm90_wide": "repro_flash_bwd_sm90_wide_",
+              "flash_attn": "repro_flash_attn_bwd_"}[name]
+    assert name == ("flash_attn" if dtype == torch.float32
+                    else "flash_bwd_sm90" if d <= 128
+                    else "flash_bwd_sm90_wide")
     assert entry == prefix + which
     assert len(args) == len(_build.SIGNATURES[name][entry])
     n_ptr = 6 + len(outs)
@@ -277,13 +301,22 @@ def test_launch_reaches_the_routed_library(which, dtype, d, monkeypatch):
 
 
 def test_the_library_is_declared():
-    """``flash_bwd_sm90`` is a library of its own, built from its source
-    with the others: its entry points and the exported head-dim limit."""
-    sig = _build.SIGNATURES["flash_bwd_sm90"]
-    assert set(sig) == {"repro_flash_bwd_sm90_dkdv", "repro_flash_bwd_sm90_dq",
-                        "repro_flash_bwd_max_head_dim"}
-    assert sig["repro_flash_bwd_max_head_dim"] == []
-    assert (_build.CSRC / "flash_bwd_sm90.cu").is_file()
-    src = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
-    for entry in sig:
-        assert f'extern "C" int {entry}(' in src
+    """``flash_bwd_sm90`` and ``flash_bwd_sm90_wide`` are libraries of their
+    own, built from their sources with the others (both include
+    ``flash_bwd_sm90.cuh``, which every library's cache key hashes): their
+    entry points and the exported head-dim limits."""
+    for name, limit in (("flash_bwd_sm90", "repro_flash_bwd_max_head_dim"),
+                        ("flash_bwd_sm90_wide",
+                         "repro_flash_bwd_sm90_wide_max_head_dim")):
+        sig = _build.SIGNATURES[name]
+        prefix = f"repro_{name}_"
+        assert set(sig) == {prefix + "dkdv", prefix + "dq", limit}
+        assert sig[limit] == []
+        assert sig[prefix + "dkdv"] == \
+            _build.SIGNATURES["flash_bwd_sm90"]["repro_flash_bwd_sm90_dkdv"]
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "flash_bwd_sm90.cuh"' in src
+        for entry in sig:
+            assert f'extern "C" int {entry}(' in src
+    assert (_build.CSRC / "flash_bwd_sm90.cuh").is_file()
