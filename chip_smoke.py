@@ -337,7 +337,47 @@ Phases, in order; any failure exits non-zero:
     bit-identical, the peak lower (``zamba_remat``); 26e. phase 8's checks
     at Zamba2's width and 12 layers within ``ZAMBA_TRAIN_LIMITS``, the
     bf16-carrier control above them, every kernel's plain version on the
-    card within them (``zamba_train_card_vs_cpu``).
+    card within them (``zamba_train_card_vs_cpu``);
+27. seamless-m4t-medium served (``configs/seamless_m4t_medium.py``: 12
+    encoder and 12 decoder layers, d_model 1024, 16 heads of 64, a classic
+    GELU MLP of 4096 with biases, LayerNorm, RoPE, an untied head over
+    256,206 tokens; the audio frontend a stub, precomputed frames through
+    ``frame_proj``), through ``train.serve.greedy_generate``, which sends
+    the family to the reference's prefill-then-decode loop: 27a. at 2 + 2
+    layers, full width and vocab, float32 carrier, ``flash_pallas``, the
+    card's greedy run against the CPU's on the same weights within
+    ``SEAMLESS_B_LIMIT``, the plain #3 bit-identical, the bf16-carrier
+    control beyond the limit (``seamless_serve_card_vs_cpu``); 27b. 12 +
+    12 layers (random weights from ``--seed``, bf16 carrier,
+    ``FLASH_SERVE_POLICY``, ``flash_pallas``): 8 rows of 1,024 frames, a
+    64-token prompt, 32 new tokens; exactly 3,265 #3, 12 #7 non-causal on
+    the encoder and 12 #7 causal on the prompt, prefill and decode times,
+    tokens/s, peak memory and a profiled decode step
+    (``serve_seamless``);
+28. seamless-m4t-medium pre-trained: 28a. #8, #9 and #10 at a step's
+    cross-attention (4 x 16 heads, Sq 2,048 over Skv 512, non-causal)
+    within ``FLASH_BF16`` of their plain versions, a repeat bit-identical,
+    each timed beside its bound and SDPA (``check_seamless_flash``); then
+    12 + 12 layers at full width,
+    4 x 2,048 decoder tokens over 512 frames a step, ``TRAIN_POLICY`` with
+    int moments, ``flash_pallas``, recomputation (each block one
+    checkpoint), ``SEAMLESS_TRAIN_STEPS`` finite steps, each launching
+    exactly 385 #3, 193 #4, 193 #5, one #6, 72 #8, 36 #9 and 36 #10 --
+    #8-#10 non-causal on the encoder's self-attention and on the
+    cross-attention at Sq 2,048 > Skv 512 (``train_seamless``); 28b. at 4
+    + 4 layers, recomputation on against off and a repeat: ce and every
+    gradient bit-identical, the peak lower (``seamless_remat``); 28c.
+    phase 8's checks at 2 + 2 layers, full width and vocab, within
+    ``SEAMLESS_TRAIN_LIMITS``, the bf16-carrier control above them, every
+    kernel's plain version on the card within them
+    (``seamless_train_card_vs_cpu``).
+
+The CPU sides of the larger card-vs-CPU checks (16d, 18d, 19d, 20b, 23c,
+24d, 25c, 26e, 27a and 28c: their weights drawn on the CPU and the CPU's
+run) are computed by a worker process started after the build
+(``CpuHalves``, ``cpu_jobs``), at the main process's torch thread count,
+while the card runs the phases before them; each check prints its split
+(``print_split``).
 
 Phases 7, 10, 11 and 14 pin ``remat=False`` (``gpt2_train_cfg``), so
 their launch gates (72 #3 a step) and their numbers keep their meaning;
@@ -356,9 +396,13 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
+import os
+import shutil
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -462,8 +506,10 @@ def serve_walk(summary):
 #: phase 13: the flash kernels at the training shape (BH = 8 x 12 heads,
 #: S = 1024, hd = 64, causal), then this sweep: (label, BH, Sq, Skv, hd,
 #: causal, q_offset) -- every other head dim of the repo's configs, Sq !=
-#: Skv at q_offset = Skv - Sq, an odd length, the non-causal case and the
-#: fp-KV prefill's 300-token prompt against a 1024-row cache
+#: Skv at q_offset = Skv - Sq, an odd length, the non-causal case, the
+#: fp-KV prefill's 300-token prompt against a 1024-row cache and
+#: seamless-m4t-medium's cross-attention in training (B 4 x 16 heads,
+#: 2,048 decoder rows over 512 encoder frames, non-causal: Sq > Skv)
 FLASH_SWEEP = (("hd16", 16, 512, 512, 16, True, 0),
                ("hd32", 16, 512, 512, 32, True, 0),
                ("hd128", 16, 512, 512, 128, True, 0),
@@ -472,7 +518,8 @@ FLASH_SWEEP = (("hd16", 16, 512, 512, 16, True, 0),
                ("offset", 16, 384, 1024, 64, True, 640),
                ("odd", 16, 1000, 1000, 64, True, 0),
                ("noncausal", 16, 512, 700, 64, False, 0),
-               ("prefill", 12, 300, 1024, 64, True, 0))
+               ("prefill", 12, 300, 1024, 64, True, 0),
+               ("cross", 64, 2048, 512, 64, False, 0))
 #: phase 13's tolerances of the kernels against their plain versions on
 #: the same unit-normal inputs (the backward's plain versions read the
 #: kernels' lse and delta): o's max |error| by carrier and the LSE rows'
@@ -1719,7 +1766,9 @@ def plain_versions(names):
                                      opt_update.fused_adamw_blocks_plain)],
              "fused_adamw_leaves": [(opt_update, "fused_adamw_leaves",
                                      opt_update.fused_adamw_leaves_plain)],
-             **{n: [(flash_attn, n, getattr(flash_attn, n + "_plain"))]
+             # the model's attention calls #7 through its own binding
+             **{n: [(mod, n, getattr(flash_attn, n + "_plain"))
+                    for mod in (flash_attn, attention) if hasattr(mod, n)]
                 for n in FLASH_KERNELS}}
     swaps = [site for n in names for site in sites[n]]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
@@ -1752,12 +1801,17 @@ def true_fan_in(params, cfg):
     At the reference's scale the random model's logits jump by up to about
     1 with the last bit of its inputs, so the plain versions alone put the
     card that far from the CPU (PERF.md); at this scale they stay
-    continuous enough to compare."""
-    blocks = {mod: {n: (w * math.sqrt(cfg.n_layers / w.shape[-2])
-                        if n.startswith("w") or n in SSM_FAN_IN else w)
-                    for n, w in leaves.items()}
-              for mod, leaves in params["blocks"].items()}
-    return dict(params, blocks=blocks)
+    continuous enough to compare.  The encoder-decoder's two stacks are
+    each rescaled from their own depth."""
+    stacks = ({"enc_blocks": cfg.enc_layers, "dec_blocks": cfg.n_layers}
+              if cfg.family == "encdec" else {"blocks": cfg.n_layers})
+    out = dict(params)
+    for key, depth in stacks.items():
+        out[key] = {mod: {n: (w * math.sqrt(depth / w.shape[-2])
+                              if n.startswith("w") or n in SSM_FAN_IN else w)
+                          for n, w in leaves.items()}
+                    for mod, leaves in params[key].items()}
+    return out
 
 
 @contextlib.contextmanager
@@ -1807,6 +1861,169 @@ def route_flips(torch, a, b) -> float:
     return sum(int((x != y).sum()) for x, y in zip(a, b)) / max(n, 1)
 
 
+# ---------------------------------------------------------------------------
+# the CPU halves of the card-vs-CPU checks, computed ahead by a worker
+# ---------------------------------------------------------------------------
+
+#: the worker of ``main()`` (None: every CPU half is computed in place)
+_HALVES = None
+
+
+def cpu_half(name: str, *args):
+    """The CPU side of a card-vs-CPU check: ``name`` a function of this
+    module called as ``fn(torch, *args)``, which draws the check's inputs
+    on the CPU and computes the CPU's results, returning a dict with its
+    ``draw_s`` and ``cpu_s``.  Taken from the worker (:class:`CpuHalves`)
+    where ``main()`` queued it, else computed here; ``where`` and
+    ``wait_s`` (the seconds this process spent on it) are added."""
+    import torch
+    if _HALVES is not None:
+        got = _HALVES.take(name, args)
+        if got is not None:
+            return got
+    t0 = time.perf_counter()
+    out = globals()[name](torch, *args)
+    out.update(where="here", wait_s=time.perf_counter() - t0)
+    return out
+
+
+class _inline_half:
+    """The split of a check whose CPU side runs here between its card runs
+    (Granite's, which replay the card's routes): the weights drawn since
+    ``t_start`` and the seconds spent inside ``cpu()``, as ``cpu_half``
+    reports them (``half``)."""
+
+    def __init__(self, t_start: float):
+        draw = time.perf_counter() - t_start
+        self.half = dict(draw_s=draw, cpu_s=0.0, where="here", wait_s=draw)
+
+    @contextlib.contextmanager
+    def cpu(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.half["cpu_s"] += dt
+            self.half["wait_s"] += dt
+
+
+def print_split(what: str, half, total_s: float) -> None:
+    """A check's seconds: its weights drawn and its CPU side (where they
+    ran), what this process spent waiting for or computing them, and the
+    rest, its card side."""
+    print(f"{what}: split -- weights drawn {half['draw_s']:.1f} s, cpu side "
+          f"{half['cpu_s']:.1f} s ({'in the worker' if half['where'] == 'worker' else 'here'}"
+          f"; this process spent {half['wait_s']:.1f} s on them), card "
+          f"side {total_s - half['wait_s']:.1f} s", flush=True)
+
+
+def cpu_worker(jobs, threads: int, out_dir: str, lead) -> None:
+    """The worker process of :class:`CpuHalves`: each job ``(name, args)``
+    in order, at most ``lead`` results ahead of the main process, its
+    result saved as ``<i>.pt`` (written to ``<i>.tmp`` and renamed) or its
+    traceback as ``<i>.err``.  Its torch thread count is the main
+    process's, so every CPU result has the bits it would have there; it
+    runs at a lower priority than the main process, whose host-bound
+    phases share the cores."""
+    sys.path.insert(0, str(REPO / "src"))
+    import torch
+    torch.set_num_threads(threads)
+    os.nice(10)
+    print(f"chip_smoke: cpu worker pid {os.getpid()}, torch threads "
+          f"{torch.get_num_threads()} (the main process's {threads}), "
+          f"{len(jobs)} jobs", flush=True)
+    for i, (name, args) in enumerate(jobs):
+        lead.acquire()
+        t0 = time.perf_counter()
+        base = Path(out_dir) / str(i)
+        try:
+            out = globals()[name](torch, *args)
+            t1 = time.perf_counter()
+            torch.save(out, base.with_suffix(".tmp"))
+            os.replace(base.with_suffix(".tmp"), base.with_suffix(".pt"))
+        except BaseException:
+            base.with_suffix(".err").write_text(traceback.format_exc())
+            raise
+        print(f"chip_smoke: cpu worker job {i} {name} "
+              f"{_job_label(args)}: drew in {out['draw_s']:.1f} s, cpu "
+              f"side {out['cpu_s']:.1f} s, saved in "
+              f"{time.perf_counter() - t1:.1f} s, done at "
+              f"{time.perf_counter() - t0:.1f} s after it started",
+              flush=True)
+        del out
+
+
+def _job_label(args) -> str:
+    return " ".join(f"{a.name} {a.n_layers}L" if hasattr(a, "n_layers")
+                    else str(a) for a in args)
+
+
+class CpuHalves:
+    """Computes the CPU halves of the card-vs-CPU checks (``jobs``:
+    ``(name, args)`` of :func:`cpu_half`, in the order the phases take
+    them) in a worker process started after the build, while the card runs
+    the phases before them; the checks take the saved results (``take``:
+    read by ``torch.load(mmap=True)``, the file removed once mapped).  The
+    sizes, seeds, limits and bits are the in-place ones: the worker draws
+    the same inputs from the same seeds with the main process's thread
+    count.  At most ``LEAD`` results wait on disk, under
+    ``build/chip_smoke_cpu``."""
+
+    LEAD = 2
+
+    def __init__(self, jobs, threads: int):
+        ctx = multiprocessing.get_context("spawn")
+        self.jobs = list(jobs)
+        self.dir = REPO / "build" / "chip_smoke_cpu"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        self.lead = ctx.Semaphore(self.LEAD)
+        self.proc = ctx.Process(target=cpu_worker,
+                                args=(self.jobs, threads, str(self.dir),
+                                      self.lead), daemon=True)
+        self.proc.start()
+        self.taken = set()
+
+    def take(self, name: str, args):
+        """The saved result of job ``(name, args)``, waiting for it; None
+        if it was not queued."""
+        import torch
+        try:
+            i = self.jobs.index((name, args))
+        except ValueError:
+            return None
+        path = self.dir / f"{i}.pt"
+        t0 = time.perf_counter()
+        while not path.exists():
+            if not self.proc.is_alive():
+                err = self.dir / f"{i}.err"
+                fail(f"the cpu worker stopped (exit code "
+                     f"{self.proc.exitcode}) before job {i} {name}: "
+                     + (err.read_text() if err.exists() else "no traceback"))
+            time.sleep(0.02)
+        out = torch.load(path, mmap=True, weights_only=False)
+        path.unlink()
+        self.lead.release()
+        self.taken.add(i)
+        out.update(where="worker", wait_s=time.perf_counter() - t0)
+        return out
+
+    def close(self):
+        """Wait for the worker to end (it ends after its last job; it is
+        stopped if a job was never taken) and remove its directory.
+        Returns the jobs never taken."""
+        missing = [j for i, j in enumerate(self.jobs) if i not in self.taken]
+        if missing:
+            self.proc.terminate()
+        self.proc.join(timeout=60)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return missing
+
+
 def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
                 strict=True):
     """Phase 5: teacher-forced logits of the card against the CPU, float32
@@ -1850,9 +2067,14 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
     cfg = cfg or dataclasses.replace(get_config("gpt2-small"),
                                      dtype="float32")
     model = build_model(cfg)
-    gen = torch.Generator().manual_seed(seed + 1)
-    params = true_fan_in(model.init_params(gen, device="cpu"), cfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 64 + 8), generator=gen)
+    t_start = time.perf_counter()
+    if cfg.n_experts:
+        # the CPU replays the card's routes: its side waits for the card
+        params, toks = card_vs_cpu_inputs(torch, cfg, seed)
+        half, moe = None, _inline_half(t_start)
+    else:
+        half = cpu_half("card_vs_cpu_half", cfg, seed)
+        params, toks = half["params"], half["toks"]
 
     def run(policy, device, carrier=None, record=None, replay=None):
         c = dataclasses.replace(cfg, dtype=carrier) if carrier else cfg
@@ -1867,7 +2089,11 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
                                  ("B", POLICY, b_limit)):
         card_routes = [] if cfg.n_experts else None
         card, card_kv = run(policy, dev, record=card_routes)
-        cpu, cpu_kv = run(policy, "cpu", replay=card_routes)
+        if half is not None:
+            cpu, cpu_kv = half["cpu"][label]
+        else:
+            with moe.cpu():
+                cpu, cpu_kv = run(policy, "cpu", replay=card_routes)
         with plain_versions(SERVE_KERNELS):
             card_plain, _ = run(policy, dev, replay=card_routes)
         err, n_agree, n_bad = _agreement(torch, card, cpu, limit)
@@ -1875,7 +2101,8 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
         readings[label] = dict(err=err, plain=spread, disagree=n_bad)
         if cfg.n_experts:
             cpu_routes = []
-            free, _ = run(policy, "cpu", record=cpu_routes)
+            with moe.cpu():
+                free, _ = run(policy, "cpu", record=cpu_routes)
             readings[label].update(
                 route_flips=route_flips(torch, card_routes, cpu_routes),
                 free_err=(card - free).abs().max().item())
@@ -1923,9 +2150,39 @@ def card_vs_cpu(torch, dev, seed, cfg=None, b_limit=B_LIMIT, control=False,
                   f"{(card_mm_plain - card).abs().max().item():.3e})")
             readings[label]["mm_plain_same"] = same
             ok &= same
+    print_split(f"card vs cpu {cfg.name} {cfg.n_layers}L",
+                half if half is not None else moe.half,
+                time.perf_counter() - t_start)
     if strict and not ok:
         fail(f"card and CPU logits disagree ({cfg.name})")
     return readings
+
+
+def card_vs_cpu_inputs(torch, cfg, seed):
+    """Phase 5's inputs at ``cfg``: the weights of ``init_params`` (seed +
+    1) at the true fan-in scale and 2 x 72 tokens, drawn on the CPU."""
+    from repro_torch.models import build_model
+    gen = torch.Generator().manual_seed(seed + 1)
+    params = true_fan_in(build_model(cfg).init_params(gen, device="cpu"),
+                         cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64 + 8), generator=gen)
+    return params, toks
+
+
+def card_vs_cpu_half(torch, cfg, seed):
+    """The CPU side of :func:`card_vs_cpu` at a config without experts: its
+    inputs and, for policies A and B, the CPU's teacher-forced logits and
+    caches (``cpu_half``)."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    params, toks = card_vs_cpu_inputs(torch, cfg, seed)
+    t1 = time.perf_counter()
+    model = build_model(cfg)
+    cpu = {label: _teacher_forced(torch, model, cfg, params, toks, policy,
+                                  "cpu")
+           for label, policy in (("A", "kv_cache=a8t,*=w8c"), ("B", POLICY))}
+    return dict(params=params, toks=toks, cpu=cpu, draw_s=t1 - t0,
+                cpu_s=time.perf_counter() - t1)
 
 
 def _grad_scale(torch, g, fold, dim):
@@ -2364,8 +2621,26 @@ def train_launches(cfg):
     attention's four linears on the 2-D ones); one ``fused_adamw_leaves``
     (#6); under ``flash_pallas`` the flash forward (#8) once an attention
     call (a layer's, or a shared-block invocation's), again under
-    ``remat``, and its backward (#9, #10) once."""
+    ``remat``, and its backward (#9, #10) once.  The encoder-decoder: its
+    blocks' linears and flash calls as above (an encoder block one
+    attention call, a decoder block two), ``frame_proj`` once each way."""
     attn_calls = cfg.n_layers
+    if cfg.family == "encdec":
+        # frame_proj, an encoder layer's six linears, a decoder layer's ten
+        # (self-attention, cross-attention, MLP); frame_proj runs outside
+        # every checkpoint, so it runs once; one flash call an encoder layer
+        # and two a decoder layer (self and cross)
+        again = 2 if cfg.remat else 1
+        blocks = 6 * cfg.enc_layers + 10 * cfg.n_layers
+        calls = cfg.enc_layers + 2 * cfg.n_layers
+        extra = {}
+        if cfg.attention_impl == "flash_pallas":
+            extra = dict(flash_attention_fwd_lse=again * calls,
+                         flash_attention_bwd_dkdv=calls,
+                         flash_attention_bwd_dq=calls)
+        return _expect(int8_matmul=again * blocks + 1,
+                       int8_matmul_nt=blocks + 1, int8_matmul_tn=blocks + 1,
+                       fused_adamw_leaves=1, **extra)
     if cfg.family in ("ssm", "hybrid"):
         per_layer = SSM_LINEARS
         attn_calls = (cfg.n_layers // cfg.hybrid_attn_every
@@ -2441,8 +2716,9 @@ def train(torch, dev, seed, impl="xla", cfg=None, batch=TRAIN_BATCH,
     step_fn = make_train_step(model, TRAIN_POLICY, opt)
     loader = Loader(SyntheticCorpus(cfg.vocab_size, seed=7), cfg,
                     batch_size=batch, seq_len=seq)
-    batches = [torch.from_numpy(next(loader)["tokens"]).to(dev)
-               for _ in range(steps + 1)]
+    # every leaf of the loader's batches (the encoder-decoder's frames too)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                next(loader).items()} for _ in range(steps + 1)]
     summary = train_path_summary(TRAIN_POLICY, cfg.n_layers, opt, device=dev,
                                  cfg=cfg, batch=batch, seq=seq)
     print(f"{tag}: {cfg.name} {cfg.n_layers}L d={cfg.d_model} carrier "
@@ -2459,7 +2735,7 @@ def train(torch, dev, seed, impl="xla", cfg=None, batch=TRAIN_BATCH,
     for i in range(steps):
         before = kernels.launch_counts()
         t0 = time.perf_counter()
-        state, met = step_fn(state, {"tokens": batches[i]})
+        state, met = step_fn(state, batches[i])
         ce, gn = float(met["ce"]), float(met["grad_norm"])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2488,19 +2764,26 @@ def train(torch, dev, seed, impl="xla", cfg=None, batch=TRAIN_BATCH,
 
 def profile_train_step(torch, step_fn, state, batch) -> None:
     """Where a train step's time goes: torch.profiler over one step after
-    the main run's counts are read; device time by kernel and the device's
-    idle share of the step's wall time.  The profiler records the card's
-    activity alone and its kernel records are read raw: at Zamba2-2.7B's
-    74,610 launches, recording the host's ops too and parsing the events
-    with ``key_averages()`` took 57.6 s, the card's alone 20.6 s, read
-    raw 2.7 s, with the same kernels, busy time and launches
+    the main run's counts are read (``profile_device``)."""
+    profile_device(torch, lambda: step_fn(
+        state, batch if isinstance(batch, dict) else {"tokens": batch}),
+        "1 train step")
+
+
+def profile_device(torch, fn, what: str) -> None:
+    """Device time by kernel over one call of ``fn`` and the device's idle
+    share of its wall time.  The profiler records the card's activity alone
+    and its kernel records are read raw: at Zamba2-2.7B's 74,610 launches,
+    recording the host's ops too and parsing the events with
+    ``key_averages()`` took 57.6 s, the card's alone 20.6 s, read raw 2.7
+    s, with the same kernels, busy time and launches
     (``tools/profile_cost.py``; H100 80GB HBM3, 700 W)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(state, {"tokens": batch})
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -2514,7 +2797,7 @@ def profile_train_step(torch, step_fn, state, batch) -> None:
         print("profile: no device time recorded (not measured)")
         return
     kern.sort(key=lambda k: -k[1])
-    print(f"profile: 1 train step, wall {wall_us / 1e3:.2f} ms, device busy "
+    print(f"profile: {what}, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{sum(k[2] for k in kern)} kernel launches")
     # the twelve largest, and every flash kernel, every kernel of the int8
@@ -2525,10 +2808,10 @@ def profile_train_step(torch, step_fn, state, batch) -> None:
                 or "adamw_stream_kernel" in name):
             print(f"profile:   {us / 1e3:8.3f} ms {n:5d} launches "
                   f"{name[:90]}")
-    for key, what in (("fwd", "the int8 forward (int8_matmul)"),
+    for key, part in (("fwd", "the int8 forward (int8_matmul)"),
                       ("bwd", "the int8 backward (nt and tn)")):
         ks = [k for k in kern if side[k[0]] == key]
-        print(f"profile: {what} {sum(k[1] for k in ks) / 1e3:.3f} ms in "
+        print(f"profile: {part} {sum(k[1] for k in ks) / 1e3:.3f} ms in "
               f"{sum(k[2] for k in ks)} launches")
 
 
@@ -2577,7 +2860,8 @@ def _update_split(torch, card, cpu):
 def one_train_step(torch, model, policy, params, toks, opt, device,
                    fused=None, swap=()):
     """One train step's forward, backward and AdamW update from ``params``
-    (CPU tensors, copied to ``device``) and fresh moments, with the named
+    (CPU tensors, copied to ``device``; ``toks`` the tokens, or a batch
+    dict whose leaves are copied too) and fresh moments, with the named
     kernels' plain versions in their place (``plain_versions``): loss,
     flat gradients, params before and after, new moments, grad norm."""
     from repro_torch.models.common import tree_flatten, tree_map
@@ -2585,9 +2869,11 @@ def one_train_step(torch, model, policy, params, toks, opt, device,
     from repro_torch.train.step import value_and_grad
     p = tree_map(lambda t: t.to(device), params)
     st = init_adam_state(p, policy, opt)
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
     with plain_versions(swap):
         loss, _, grads = value_and_grad(model, policy, p,
-                                        {"tokens": toks.to(device)})
+                                        {k: v.to(device)
+                                         for k, v in batch.items()})
         new_p, new_st, stats = adamw_update(p, grads, st, opt, policy,
                                             fused=fused)
     return dict(loss=float(loss), grads=tree_flatten(grads)[0],
@@ -2648,20 +2934,21 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.qadam import QState
     from repro_torch.core.qpolicy import as_policy
-    from repro_torch.data import SyntheticCorpus
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_flatten
-    from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import adamw_update
     cfg = cfg or dataclasses.replace(get_smoke_config("gpt2-small"),
                                      dtype="float32")
     model = build_model(cfg)
-    params = true_fan_in(model.init_params(
-        torch.Generator().manual_seed(seed + 2), device="cpu"), cfg)
-    toks = torch.from_numpy(SyntheticCorpus(cfg.vocab_size, seed=7).batch(
-        0, batch_size=batch, seq_len=seq))
-    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=100,
-                    state_storage="int")
+    t_start = time.perf_counter()
+    if cfg.n_experts:
+        # the CPU replays the card's routes: its side waits for the card
+        params, toks = train_check_inputs(torch, cfg, seed, batch, seq)
+        half, moe = None, _inline_half(t_start)
+    else:
+        half = cpu_half("train_check_half", cfg, seed, batch, seq)
+        params, toks = half["params"], half["batch"]
+    opt = _check_opt()
     policy = as_policy(TRAIN_POLICY)
     what = (f"{cfg.name} {cfg.n_layers}L d={cfg.d_model}, float32 carrier, "
             f"{batch} x {seq} tokens, remat {cfg.remat}")
@@ -2677,7 +2964,11 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
                                   device, fused=fused, swap=swap)
 
     card = run(dev, record=True)
-    cpu = run("cpu")
+    if half is not None:
+        cpu = half["cpu"]
+    else:
+        with moe.cpu():
+            cpu = run("cpu")
     dist = _step_distance(torch, card, cpu)
     d_ce, g_rel, u_rel, flips, u_sign, pays = (dist[k] for k in (
         "ce", "grads", "updates", "sign_flips", "updates_sign", "payloads"))
@@ -2790,11 +3081,55 @@ def train_card_vs_cpu(torch, dev, seed, cfg=None, batch=4, seq=128,
                        "they cannot tell it from a sound step")
     if not ok:
         bad.append("train step card vs CPU / card vs card out of limits")
+    print_split(f"{label} train card vs cpu",
+                half if half is not None else moe.half,
+                time.perf_counter() - t_start)
     if bad and strict:
         fail(f"{label}: {'; '.join(bad)}")
     for msg in bad:
         print(f"chip_smoke: {label}: {msg}")
     return dist
+
+
+def _check_opt():
+    from repro_torch.optim import OptConfig
+    return OptConfig(lr=1e-3, warmup_steps=0, total_steps=100,
+                     state_storage="int")
+
+
+def train_check_inputs(torch, cfg, seed, batch, seq):
+    """Phase 8's inputs at ``cfg``: the weights of ``init_params`` (seed +
+    2) at the true fan-in scale, drawn on the CPU, and step 0 of the
+    synthetic corpus (``batch`` x ``seq`` tokens; the encoder-decoder's
+    batch also its frames, as the loader draws them)."""
+    from repro_torch.data import Loader, SyntheticCorpus
+    from repro_torch.models import build_model
+    params = true_fan_in(build_model(cfg).init_params(
+        torch.Generator().manual_seed(seed + 2), device="cpu"), cfg)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=7)
+    toks = torch.from_numpy(corpus.batch(0, batch_size=batch, seq_len=seq))
+    if cfg.family != "encdec":
+        return params, toks
+    frames = Loader(corpus, cfg, batch_size=batch, seq_len=seq).peek(0)
+    return params, {"frames": torch.from_numpy(frames["frames"]),
+                    "tokens": toks}
+
+
+def train_check_half(torch, cfg, seed, batch, seq):
+    """The CPU side of :func:`train_card_vs_cpu` at a config without
+    experts: its inputs and the CPU's train step, the fields the checks
+    read (``cpu_half``)."""
+    from repro_torch.core.qpolicy import as_policy
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    params, toks = train_check_inputs(torch, cfg, seed, batch, seq)
+    t1 = time.perf_counter()
+    out = one_train_step(torch, build_model(cfg), as_policy(TRAIN_POLICY),
+                         params, toks, _check_opt(), "cpu")
+    cpu = {k: out[k] for k in ("loss", "gn", "grads", "p0", "p", "m1",
+                               "m2")}
+    return dict(params=params, batch=toks, cpu=cpu, draw_s=t1 - t0,
+                cpu_s=time.perf_counter() - t1)
 
 
 # ---------------------------------------------------------------------------
@@ -3523,6 +3858,23 @@ def check_flash(torch, dev, gen, results):
               f"dk/dv rows 0-70 "
               f"{'NaN, head 0 finite' if nan_ok else 'NOT as expected'}")
         ok &= nan_ok
+    # the cross row's case: non-causal, 256 query rows over 64 keys -- row
+    # 70 of head 1 attends to every key, so all of its dk / dv rows are NaN
+    q, do = (torch.randn((2, 256, 64), generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((2, 64, 64), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    q[1, 70, 5] = float("nan")
+    o, lse, dq, dk, dv, _ = _flash_all(fa, q, k, v, do, False, 0)
+    nan_ok = (bool(o[1, 70].isnan().all()) and bool(lse[1, 70].isnan())
+              and bool(dq[1, 70].isnan().all()) and bool(dk[1].isnan().all())
+              and bool(dv[1].isnan().all())
+              and int(o[1].isnan().any(-1).sum()) == 1
+              and all(bool(t[0].isfinite().all()) for t in (o, dq, dk, dv)))
+    print(f"flash NaN planted in q[1, 70], non-causal, Sq 256 > Skv 64 at hd "
+          f"64: o, lse and dq row 70, every dk/dv row of head 1 "
+          f"{'NaN, the other o rows and head 0 finite' if nan_ok else 'NOT as expected'}")
+    ok &= nan_ok
     if not ok:
         fail("phase 13: a flash kernel disagrees with its plain version")
 
@@ -3705,8 +4057,9 @@ def serve_flash(torch, dev, seed):
     (``FLASH_SERVE_POLICY``: W8A8 linears, no ``kv_cache`` role): the first
     ``FLASH_SERVE_REQUESTS`` of phase 4's prompts, ``FLASH_SERVE_NEW`` new
     tokens each.  Every request answered to length; each prefill launch
-    runs #8 once per layer, #9/#10 never; decode steps attend through
-    ``_attend``.  Returns the launch counts."""
+    runs #7 once per layer (no gradient is wanted, so the forward without
+    the LSE), #8-#10 never; decode steps attend through ``_attend``.
+    Returns the launch counts."""
     from repro_torch import kernels
     from repro_torch.infer import Engine, Request
     from repro_torch.models import build_model
@@ -3737,14 +4090,14 @@ def serve_flash(torch, dev, seed):
                  f"{r.finish_reason}")
     want = _expect(int8_matmul=6 * cfg.n_layers * (st["prefill_calls"]
                                                    + st["decode_steps"]),
-                   flash_attention_fwd_lse=cfg.n_layers * st["prefill_calls"])
+                   flash_attention_fwd=cfg.n_layers * st["prefill_calls"])
     print(f"serve_flash: {eng.path_summary()}, attention flash_pallas, "
           f"{len(out)} requests (prompts {min(map(len, prompts))}-"
           f"{max(map(len, prompts))} tokens), {FLASH_SERVE_NEW} new tokens "
           f"each, in {wall:.3f} s; prefill {st['prefill_calls']} launches "
           f"{st['prefill_s'] * 1e3:.1f} ms, decode {st['decode_steps']} steps "
           f"{st['decode_s'] * 1e3:.1f} ms; launch counts {counts}")
-    if counts != want or not counts["flash_attention_fwd_lse"]:
+    if counts != want or not counts["flash_attention_fwd"]:
         fail(f"phase 14b: launches {counts}, expected {want}")
     return counts
 
@@ -4853,7 +5206,8 @@ def _loss_and_grads(torch, cfg, params, toks, policy=TRAIN_POLICY):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     loss, _, grads = value_and_grad(build_model(cfg), policy, params,
-                                    {"tokens": toks})
+                                    toks if isinstance(toks, dict)
+                                    else {"tokens": toks})
     torch.cuda.synchronize()
     return (loss, tree_flatten(grads)[0], kernels.launch_counts(),
             torch.cuda.max_memory_allocated() - base)
@@ -5502,11 +5856,14 @@ def zamba_train_cfg(layers, **kw):
                         **{"attention_impl": "flash_pallas", **kw})
 
 
-def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
+def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads,
+                      skv=None, causal=True, cuda_core=True, phase="26a"):
     """Phase 26a's attention at one training shape ``shape`` = (B, S,
     heads, head dim), ``kv_heads`` KV heads repeated to the query heads as
-    ``_flash`` repeats them: #8, #9 and #10 (causal, bf16, unit-normal
-    inputs) against their plain versions on the same inputs
+    ``_flash`` repeats them (``skv`` keys, default S, under ``causal``;
+    phase 28a: the cross-attention, non-causal, Sq > Skv): #8, #9 and #10
+    (bf16, unit-normal inputs) against their plain versions on the same
+    inputs
     (``ZAMBA_PLAIN_HEADS`` heads a call; the backward's products summed in
     float64, the kernels' lse and delta given to both): o, dq, dk and dv
     within ``FLASH_BF16``, the LSE within ``FLASH_LSE_TOL``, a second
@@ -5514,21 +5871,22 @@ def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
     bound (phase 13's count: the bf16-exact products at 989 TFLOP/s, a
     product of fp32 p or ds as three), its plain version and SDPA's forward
     and backward at the same shape; #9 and #10 also beside
-    ``flash_attn.cu``'s CUDA-core bodies at bf16 on the same inputs (what
-    ran above head dim 128 before ``flash_bwd_sm90_wide.cu``; two calls
-    each, 58-96 ms a call at Zamba2's shape).  Results go under
-    ``results[name][tag]``."""
+    ``flash_attn.cu``'s CUDA-core bodies at bf16 on the same inputs with
+    ``cuda_core`` (what ran above head dim 128 before
+    ``flash_bwd_sm90_wide.cu``; two calls each, 58-96 ms a call at Zamba2's
+    shape).  Results go under ``results[name][tag]``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
     b, s, h, hd = shape
+    skv = skv or s
     bh, rep = b * h, h // kv_heads
     q, k, v, do = (torch.randn(shp, generator=gen, device=dev).bfloat16()
-                   for shp in ((bh, s, hd), (b * kv_heads, s, hd),
-                               (b * kv_heads, s, hd), (bh, s, hd)))
+                   for shp in ((bh, s, hd), (b * kv_heads, skv, hd),
+                               (b * kv_heads, skv, hd), (bh, s, hd)))
     if rep > 1:
         k, v = (t.repeat_interleave(rep, dim=0) for t in (k, v))
-    got = _flash_all(fa, q, k, v, do, True, 0)
-    again = _flash_all(fa, q, k, v, do, True, 0)
+    got = _flash_all(fa, q, k, v, do, causal, 0)
+    again = _flash_all(fa, q, k, v, do, causal, 0)
     repeat = all(torch.equal(x, y) for x, y in zip(got, again))
     del again
     c = ZAMBA_PLAIN_HEADS
@@ -5537,7 +5895,7 @@ def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
     start.record()
     parts = [_flash_plain(fa, q[i:i + c], k[i:i + c], v[i:i + c],
                           do[i:i + c], got[1][i:i + c], got[5][i:i + c],
-                          True, 0) for i in range(0, bh, c)]
+                          causal, 0) for i in range(0, bh, c)]
     want = [torch.cat(t) for t in zip(*parts)]
     end.record()
     torch.cuda.synchronize()
@@ -5554,8 +5912,10 @@ def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
           and all(d[0] <= lim["rel_l2"] and d[1] <= lim["over_ulp"]
                   for d in dist))
     bwd_src = fa.bwd_library(torch.bfloat16, hd) + ".cu"
-    print(f"phase 26a flash {tag} B={b} S={s} H={h} KV={kv_heads} hd={hd} "
-          f"causal bf16 against the plain versions (backward on {bwd_src}): "
+    mask = "causal" if causal else "full"
+    print(f"phase {phase} flash {tag} B={b} Sq={s} Skv={skv} H={h} "
+          f"KV={kv_heads} hd={hd} {mask} bf16 against the plain versions "
+          f"(backward on {bwd_src}): "
           + ", ".join(f"{n} rel L2 {d[0]:.2e}, over one bf16 step {d[1]:.2e}"
                       for n, d in zip(names, dist))
           + f" (limits {lim['rel_l2']:.0e}, {lim['over_ulp']:.0e}); lse max "
@@ -5563,42 +5923,48 @@ def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
           f"{'bit-identical' if repeat else 'DIFFERS'}")
     del want
     if not ok:
-        fail(f"phase 26a: a flash kernel disagrees with its plain version at "
-             f"{tag}'s hd {hd}")
+        fail(f"phase {phase}: a flash kernel disagrees with its plain "
+             f"version at {tag}'s hd {hd}")
     o, lse, delta = got[0], got[1], got[5]
     bwd = (q, k, v, do, lse, delta)
-    q4, k4, v4, do4 = (t.view(b, h, s, hd) for t in (q, k, v, do))
+    q4, do4 = (t.view(b, h, s, hd) for t in (q, do))
+    k4, v4 = (t.view(b, h, skv, hd) for t in (k, v))
     sdpa_fwd = queued_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), iters=5)
+        q4, k4, v4, is_causal=causal), iters=5)
     leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
-    o4 = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    o4 = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     sdpa_bwd = queued_ms(lambda: torch.autograd.grad(o4, leaves, do4,
                                                      retain_graph=True),
                          iters=5)
     del leaves, o4
-    core = {}
+    core = {"dkdv": None, "dq": None}
     for which, outs in (("dkdv", (torch.empty_like(k), torch.empty_like(v))),
                         ("dq", (torch.empty_like(q),))):
-        core[which] = queued_ms(
-            lambda which=which, outs=outs: fa._launch_bwd(
-                which, *bwd, outs, True, 0, library="flash_attn"),
-            iters=2, warmup=1)
-    pairs = _visible_pairs(s, s, True, 0) * bh
-    tens, rows = bh * s * hd * 2, bh * s * 4
+        if cuda_core:
+            core[which] = queued_ms(
+                lambda which=which, outs=outs: fa._launch_bwd(
+                    which, *bwd, outs, causal, 0, library="flash_attn"),
+                iters=2, warmup=1)
+    pairs = _visible_pairs(s, skv, causal, 0) * bh
+    # a q-side tensor (q, o, dO, dq) and a k-side one (k, v, dk, dv), bf16
+    tq, tk, rows = bh * s * hd * 2, bh * skv * hd * 2, bh * s * 4
     mm = 2 * hd * pairs
-    shape_s = f"B={b},S={s},H={h},KV={kv_heads},hd={hd},causal"
+    shape_s = (f"B={b},Sq={s},Skv={skv},H={h},KV={kv_heads},hd={hd},{mask}"
+               if skv != s else f"B={b},S={s},H={h},KV={kv_heads},hd={hd},"
+               f"{mask}")
     for name, kern, nbytes, ops, lib, lib_what, src, err, base in (
             ("flash_attention_fwd_lse",
-             lambda: fa.flash_attention_fwd_lse(q, k, v), 4 * tens + rows,
-             2 * mm, sdpa_fwd, "SDPA forward", "flash_fwd_sm90.cu",
-             max(diff[0], lse_err), None),
+             lambda: fa.flash_attention_fwd_lse(q, k, v, causal=causal),
+             2 * tq + 2 * tk + rows, 2 * mm, sdpa_fwd, "SDPA forward",
+             "flash_fwd_sm90.cu", max(diff[0], lse_err), None),
             ("flash_attention_bwd_dkdv",
-             lambda: fa.flash_attention_bwd_dkdv(*bwd),
-             6 * tens + 2 * rows, 8 * mm, sdpa_bwd,
+             lambda: fa.flash_attention_bwd_dkdv(*bwd, causal=causal),
+             2 * tq + 4 * tk + 2 * rows, 8 * mm, sdpa_bwd,
              "SDPA backward, dq+dk+dv together", bwd_src,
              max(diff[2], diff[3]), core["dkdv"]),
-            ("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq(*bwd),
-             5 * tens + 2 * rows, 5 * mm, sdpa_bwd,
+            ("flash_attention_bwd_dq",
+             lambda: fa.flash_attention_bwd_dq(*bwd, causal=causal),
+             3 * tq + 2 * tk + 2 * rows, 5 * mm, sdpa_bwd,
              "SDPA backward, dq+dk+dv together", bwd_src, diff[1],
              core["dq"])):
         ms = queued_ms(kern, iters=5)
@@ -5606,7 +5972,8 @@ def check_flash_train(torch, dev, gen, results, tag, shape, kv_heads):
         was = ("" if base is None else
                f"; flash_attn.cu's CUDA-core body at bf16 on the same inputs "
                f"{base:.4f} (queued), {base / ms:.1f}x this kernel's time")
-        print(f"phase 26a {name} {tag} {shape_s} bf16: ms {ms:.4f} (queued), "
+        print(f"phase {phase} {name} {tag} {shape_s} bf16: ms {ms:.4f} "
+              f"(queued), "
               f"plain_ms {plain_ms:.4f} (the three plain versions in one "
               f"call), bound_ms {bd:.5f} ({by}; {ops / 1e9:.1f} GFLOP "
               f"bf16-exact at 989 TFLOP/s, {nbytes / 1e6:.1f} MB), "
@@ -5738,6 +6105,492 @@ def zamba_train_card_vs_cpu(torch, dev, seed, strict=True, extra=None):
                              strict=strict, plain_check=True, extra=extra)
 
 
+# ---------------------------------------------------------------------------
+# phases 27 and 28: the encoder-decoder family (seamless-m4t-medium at full
+# width and depth), served and pre-trained, with #7-#10 non-causal
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-medium"
+#: phase 27b: 12 + 12 layers, 8 rows of 1,024 frames (``enc_len_for`` of a
+#: 4,096-token sequence), a 64-token prompt, 32 new tokens
+SEAMLESS_SERVE_BATCH, SEAMLESS_SERVE_SEQ = 8, 4096
+SEAMLESS_PROMPT, SEAMLESS_NEW = 64, 32
+#: phase 28a: 4 x 2,048 decoder tokens over 512 frames a step; 28b at 4 + 4
+#: layers
+SEAMLESS_TRAIN_BATCH, SEAMLESS_TRAIN_SEQ, SEAMLESS_TRAIN_STEPS = 4, 2048, 5
+SEAMLESS_REMAT_LAYERS = 4
+#: phases 27a and 28c: 2 + 2 layers at full width and vocab, float32; 27a
+#: greedy-generates 8 tokens from 2 prompts of 64 tokens over 64 frames,
+#: 28c trains one step on 2 x 128 tokens over 32 frames
+SEAMLESS_CHECK_LAYERS = 2
+SEAMLESS_CHECK_BATCH, SEAMLESS_CHECK_PROMPT = 2, 64
+SEAMLESS_CHECK_FRAMES, SEAMLESS_CHECK_NEW = 64, 8
+SEAMLESS_TRAIN_CHECK_BATCH, SEAMLESS_TRAIN_CHECK_SEQ = 2, 128
+#: phase 27a: the limit on max |d logit| of the card against the CPU over
+#: the greedy steps whose contexts agree, set from the readings at seeds
+#: 0-11 recorded in PERF.md (``tools/encdec_readings.py``; H100 80GB HBM3,
+#: 700 W; not sized at run time): the geometric mean, to two digits, of the
+#: largest sound reading (the card, and the plain versions on the card) and
+#: the bf16-carrier control's smallest
+SEAMLESS_B_LIMIT = 0.1
+#: phase 28c: limits of the card against the CPU for one train step, set
+#: from the readings at seeds 0-11 recorded in PERF.md by the same rule
+#: (``tools/encdec_readings.py``); a distance the control does not exceed
+#: at every seed is held to 2.5x its largest sound reading and left out of
+#: ``SEAMLESS_CONTROL``, as phase 26e holds ce
+SEAMLESS_TRAIN_LIMITS = {"ce": 0.0041, "grads": 0.023, "sign_flips": 0.0023,
+                         "updates_sign": 0.019, "updates": 0.1}
+SEAMLESS_CONTROL = ("grads", "sign_flips", "updates_sign", "updates")
+
+
+def seamless_cfg(layers, **kw):
+    """seamless-m4t-medium at ``layers`` encoder and ``layers`` decoder
+    layers, full width, ``flash_pallas``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SEAMLESS), n_layers=layers,
+                               enc_layers=layers,
+                               attention_impl="flash_pallas", **kw)
+
+
+@contextlib.contextmanager
+def flash_calls_recorded():
+    """Inside, every launch of #7-#10 is tallied by kernel, mask and (Sq,
+    Skv): ``{(kernel, "causal" | "full", Sq, Skv): n}``, read from the
+    arguments the wrappers hand their launchers."""
+    from repro_torch.kernels import flash_attn as fa
+    log = {}
+    fwd, bwd = fa._launch_fwd, fa._launch_bwd
+
+    def tally(name, causal, q, k):
+        key = (name, "causal" if causal else "full", q.shape[1], k.shape[1])
+        log[key] = log.get(key, 0) + 1
+
+    def rec_fwd(q, k, v, causal, q_offset, with_lse):
+        tally("#8" if with_lse else "#7", causal, q, k)
+        return fwd(q, k, v, causal, q_offset, with_lse)
+
+    def rec_bwd(which, q, k, v, do, lse, delta, outs, causal, q_offset,
+                library=None):
+        tally("#9" if which == "dkdv" else "#10", causal, q, k)
+        return bwd(which, q, k, v, do, lse, delta, outs, causal, q_offset,
+                   library=library)
+    fa._launch_fwd, fa._launch_bwd = rec_fwd, rec_bwd
+    try:
+        yield log
+    finally:
+        fa._launch_fwd, fa._launch_bwd = fwd, bwd
+
+
+def _show_calls(log) -> str:
+    return ", ".join(f"{n} {kind} Sq {sq} Skv {skv}: {c}"
+                     for (n, kind, sq, skv), c in sorted(log.items()))
+
+
+def seamless_serve_launches(cfg, frames: int, prompt: int, new: int):
+    """The launches of ``greedy_generate`` on the encoder-decoder (the
+    reference's loop: one prefill, ``new`` decode steps), by counter and by
+    flash call: #3 on ``frame_proj``, an encoder layer's six linears, each
+    decoder layer's cross K and V once and the prompt's eight linears a
+    layer (self-attention four, the cross-attention's q and output, the
+    MLP two), then eight a layer a decode step; #7 once an encoder layer
+    (non-causal, frames x frames) and once a decoder layer over the prompt
+    (causal against the ``prompt + new``-row self cache); no other
+    kernel: the cross-attention reads its precomputed K/V through the plain
+    grouped path, a decode step's self-attention through ``_attend``."""
+    enc, dec = cfg.enc_layers, cfg.n_layers
+    counts = _expect(int8_matmul=1 + 6 * enc + 2 * dec + 8 * dec
+                     + 8 * dec * new,
+                     flash_attention_fwd=enc + dec)
+    calls = {("#7", "full", frames, frames): enc,
+             ("#7", "causal", prompt, prompt + new): dec}
+    return counts, calls
+
+
+def seamless_train_calls(cfg, seq: int, frames: int):
+    """The flash launches of one encoder-decoder train step under
+    ``flash_pallas``: #8 once an attention call and again in its block's
+    recomputation, #9 and #10 once -- the encoder's self-attention
+    (non-causal, frames x frames), the decoder's (causal, seq x seq) and
+    its cross-attention (non-causal, seq x frames), one call a layer
+    each."""
+    again = 2 if cfg.remat else 1
+    out = {}
+    for kind, sq, skv, n in (("full", frames, frames, cfg.enc_layers),
+                             ("causal", seq, seq, cfg.n_layers),
+                             ("full", seq, frames, cfg.n_layers)):
+        out[("#8", kind, sq, skv)] = again * n
+        out[("#9", kind, sq, skv)] = n
+        out[("#10", kind, sq, skv)] = n
+    return out
+
+
+class _Logged:
+    """A model whose ``prefill`` and ``decode`` append their logits, on the
+    CPU, to ``log`` (what ``greedy_generate`` computed at each step)."""
+
+    def __init__(self, model, log):
+        self.model, self.cfg, self.log = model, model.cfg, log
+
+    def prefill(self, *a, **kw):
+        out = self.model.prefill(*a, **kw)
+        self.log.append(out[0].float().cpu())
+        return out
+
+    def decode(self, *a, **kw):
+        out = self.model.decode(*a, **kw)
+        self.log.append(out[0].float().cpu())
+        return out
+
+
+def _greedy_logged(torch, cfg, params, batch, device, carrier=None,
+                   swap=()):
+    """``greedy_generate`` of ``SEAMLESS_CHECK_NEW`` tokens on ``device``
+    (the carrier ``carrier`` if given; ``swap`` the kernels run in their
+    plain versions): {"tokens": (B, new), "logits": (new + 1, B, vocab)},
+    the logits of its prefill and of each decode step."""
+    from repro_torch.models import build_model
+    from repro_torch.train import greedy_generate
+    c = dataclasses.replace(cfg, dtype=carrier) if carrier else cfg
+    log = []
+    with plain_versions(swap):
+        toks = greedy_generate(_Logged(build_model(c), log), params, batch,
+                               SEAMLESS_CHECK_NEW, policy=FLASH_SERVE_POLICY,
+                               device=device)
+    return {"tokens": toks, "logits": torch.stack(log)[..., :cfg.vocab_size]}
+
+
+def seamless_serve_half(torch, cfg, seed):
+    """The CPU side of phase 27a: the weights of ``init_params`` (seed + 1)
+    at the true fan-in scale, 2 rows of 64 frames (0.1 x normals) and
+    64-token prompts, drawn on the CPU, and the CPU's greedy run on them
+    (``cpu_half``)."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 1)
+    params = true_fan_in(build_model(cfg).init_params(gen, device="cpu"),
+                         cfg)
+    b = SEAMLESS_CHECK_BATCH
+    batch = {"frames": torch.randn((b, SEAMLESS_CHECK_FRAMES, cfg.d_model),
+                                   generator=gen) * 0.1,
+             "tokens": torch.randint(0, cfg.vocab_size,
+                                     (b, SEAMLESS_CHECK_PROMPT),
+                                     generator=gen)}
+    t1 = time.perf_counter()
+    cpu = _greedy_logged(torch, cfg, params, batch, "cpu")
+    return dict(params=params, batch=batch, cpu=cpu, draw_s=t1 - t0,
+                cpu_s=time.perf_counter() - t1)
+
+
+def _greedy_distance(torch, got, ref, limit):
+    """How far ``got``'s greedy run lies from ``ref``'s: the max |d logit|
+    over the steps whose contexts agree (each row's logits up to and with
+    its first differing token), the rows that part, and those that part
+    where ``ref``'s top-2 margin exceeds ``limit``."""
+    tg, tr = got["tokens"], ref["tokens"]
+    err, parted, decided = 0.0, 0, 0
+    for b in range(tr.shape[0]):
+        diff = [i for i in range(tr.shape[1]) if tg[b, i] != tr[b, i]]
+        last = diff[0] if diff else tr.shape[1]
+        lg, lr = got["logits"][:last + 1, b], ref["logits"][:last + 1, b]
+        err = max(err, (lg - lr).abs().max().item())
+        if diff:
+            parted += 1
+            top2 = lr[last].topk(2).values
+            decided += int(float(top2[0] - top2[1]) > limit)
+    return err, parted, decided
+
+
+def seamless_serve_card_vs_cpu(torch, dev, seed, strict=True):
+    """Phase 27a: ``greedy_generate`` at seamless-m4t-medium's width and
+    vocab and 2 + 2 layers (``flash_pallas``: #7 non-causal on the
+    encoder, causal on the prompt; #3 on every linear), float32 carrier,
+    ``FLASH_SERVE_POLICY``, ``true_fan_in`` weights, on the card against
+    the CPU on the same weights and inputs (``seamless_serve_half``): over
+    the steps whose contexts agree max |d logit| <= ``SEAMLESS_B_LIMIT``,
+    and a row's tokens may part only where the CPU's top-2 margin is
+    within the limit; the card with the plain #3 in the kernel's place
+    bit-identical (tokens and logits); every kernel in its plain version
+    on the card reported against the CPU; the control, the card at the
+    bf16 carrier, beyond the limit.  Returns the readings; ``strict=False``
+    (``tools/encdec_readings.py``) fails nothing."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = seamless_cfg(SEAMLESS_CHECK_LAYERS, dtype="float32")
+    t_start = time.perf_counter()
+    half = cpu_half("seamless_serve_half", cfg, seed)
+    params, batch, cpu = half["params"], half["batch"], half["cpu"]
+    lim = SEAMLESS_B_LIMIT
+    card = _greedy_logged(torch, cfg, params, batch, dev)
+    err, parted, decided = _greedy_distance(torch, card, cpu, lim)
+    mm = _greedy_logged(torch, cfg, params, batch, dev,
+                        swap=["int8_matmul"])
+    same = (torch.equal(mm["logits"], card["logits"])
+            and (mm["tokens"] == card["tokens"]).all())
+    plain = _greedy_logged(torch, cfg, params, batch, dev,
+                           swap=["int8_matmul"] + list(FLASH_KERNELS))
+    plain_err = _greedy_distance(torch, plain, cpu, lim)[0]
+    ctl = _greedy_logged(torch, cfg, params, batch, dev, carrier="bfloat16")
+    ctl_err = _greedy_distance(torch, ctl, cpu, lim)[0]
+    n = SEAMLESS_CHECK_NEW
+    agree = int((card["tokens"] == cpu["tokens"]).sum())
+    print(f"phase 27a: {cfg.name} {cfg.enc_layers}+{cfg.n_layers}L d="
+          f"{cfg.d_model}, float32 carrier, flash_pallas, "
+          f"{FLASH_SERVE_POLICY}, greedy_generate of {n} tokens from "
+          f"{SEAMLESS_CHECK_BATCH} prompts of {SEAMLESS_CHECK_PROMPT} tokens "
+          f"over {SEAMLESS_CHECK_FRAMES} frames: card vs cpu max |dlogit| "
+          f"{err:.3e} over the steps whose contexts agree (limit "
+          f"{lim:.1e}); tokens equal {agree}/{card['tokens'].size}, "
+          f"{parted} rows part ({decided} where the CPU's top-2 margin > "
+          f"limit); every kernel plain on the card vs cpu {plain_err:.3e}; "
+          f"control, the card at bf16 vs cpu {ctl_err:.3e} (must exceed the "
+          f"limit); the plain #3 in the kernel's place "
+          f"{'bit-identical' if same else 'DIFFERS'} (tol 0)")
+    ok = (err <= lim and decided == 0 and ctl_err > lim and bool(same)
+          and bool(torch.isfinite(card["logits"]).all()))
+    print_split("phase 27a card vs cpu", half, time.perf_counter() - t_start)
+    if strict and not ok:
+        fail("phase 27a: the card's greedy run lies outside the limit of "
+             "the CPU's, or the control within it, or #3 differs from its "
+             "plain version")
+    return dict(err=err, plain=plain_err, control=ctl_err, parted=parted,
+                decided=decided, mm_plain_same=bool(same))
+
+
+def serve_seamless(torch, dev, seed):
+    """Phase 27b: seamless-m4t-medium served at full width and depth (12 +
+    12 layers; random float32 weights from ``seed``, bf16 carrier,
+    ``FLASH_SERVE_POLICY``, ``flash_pallas``) by ``greedy_generate``:
+    ``SEAMLESS_SERVE_BATCH`` rows of ``enc_len_for(SEAMLESS_SERVE_SEQ)``
+    frames, a ``SEAMLESS_PROMPT``-token prompt, ``SEAMLESS_NEW`` new
+    tokens; after a warm-up run, the launches exactly
+    ``seamless_serve_launches`` by counter and by flash call, prefill ms
+    and decode ms a step (each call synchronized), tokens/s, peak memory,
+    then one profiled decode step.  Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model, enc_len_for
+    from repro_torch.models.common import cast_params
+    from repro_torch.train import greedy_generate
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = seamless_cfg(12)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    b, f = SEAMLESS_SERVE_BATCH, enc_len_for(cfg, SEAMLESS_SERVE_SEQ)
+    batch = {"frames": torch.randn((b, f, cfg.d_model), generator=gen,
+                                   device=dev) * 0.1,
+             "tokens": torch.randint(0, cfg.vocab_size, (b, SEAMLESS_PROMPT),
+                                     generator=gen, device=dev)}
+    times = {"prefill": [], "decode": []}
+
+    class Timed:
+        # each entry point synchronized and timed
+        def __init__(self):
+            self.cfg = cfg
+
+        def prefill(self, *a, **kw):
+            return self._call("prefill", model.prefill, a, kw)
+
+        def decode(self, *a, **kw):
+            return self._call("decode", model.decode, a, kw)
+
+        def _call(self, name, fn, a, kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+    greedy_generate(model, params, batch, 2, policy=FLASH_SERVE_POLICY,
+                    device=dev)                       # loads the libraries
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with flash_calls_recorded() as calls:
+        t0 = time.perf_counter()
+        toks = greedy_generate(Timed(), params, batch, SEAMLESS_NEW,
+                               policy=FLASH_SERVE_POLICY, device=dev)
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want, want_calls = seamless_serve_launches(cfg, f, SEAMLESS_PROMPT,
+                                               SEAMLESS_NEW)
+    dec = times["decode"]
+    print(f"phase 27b serve_seamless: {cfg.name} {cfg.enc_layers}+"
+          f"{cfg.n_layers}L d={cfg.d_model}, bf16 carrier, flash_pallas, "
+          f"{FLASH_SERVE_POLICY}, greedy_generate: {b} rows of {f} frames, "
+          f"{SEAMLESS_PROMPT}-token prompts, {SEAMLESS_NEW} new tokens in "
+          f"{wall:.3f} s ({b * SEAMLESS_NEW / wall:.0f} tokens/s); prefill "
+          f"{times['prefill'][0]:.1f} ms, decode {sum(dec) / len(dec):.2f} "
+          f"ms/step (min {min(dec):.2f}, max {max(dec):.2f}) over "
+          f"{len(dec)} steps; peak memory {peak:.2f} GiB; launch counts "
+          f"{ {k: v for k, v in counts.items() if v} }; flash calls "
+          f"{_show_calls(calls)}")
+    if counts != want or calls != want_calls:
+        fail(f"phase 27b: launches {counts} / {calls}, expected {want} / "
+             f"{want_calls}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("phase 27b: a token outside the vocabulary")
+    # one decode step, profiled, from a fresh prefill
+    p = cast_params(params, torch.bfloat16)
+    with torch.no_grad():
+        lg, st = model.prefill(p, batch, policy=FLASH_SERVE_POLICY,
+                               max_seq=SEAMLESS_PROMPT + SEAMLESS_NEW)
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((b,), SEAMLESS_PROMPT, dtype=torch.int32,
+                         device=dev)
+        profile_device(torch, lambda: model.decode(
+            p, st, tok, pos, policy=FLASH_SERVE_POLICY), "1 decode step")
+    return counts
+
+
+#: phase 28a's kernel check: the cross-attention of a 28a step, (B, Sq,
+#: heads, head dim) and Skv -- 4 x 16 heads, 2,048 decoder rows over 512
+#: frames, non-causal
+SEAMLESS_CROSS_SHAPE, SEAMLESS_CROSS_SKV = (4, 2048, 16, 64), 512
+
+
+def check_seamless_flash(torch, dev, gen, results):
+    """Phase 28a's kernels: #8, #9 and #10 at the cross-attention of a 28a
+    step (``SEAMLESS_CROSS_SHAPE``, non-causal, Sq > Skv) against their
+    plain versions, a repeat bit-identical, each timed beside its bound,
+    its plain version and SDPA (``check_flash_train``)."""
+    check_flash_train(torch, dev, gen, results, "seamless_cross",
+                      SEAMLESS_CROSS_SHAPE, SEAMLESS_CROSS_SHAPE[2],
+                      skv=SEAMLESS_CROSS_SKV, causal=False, cuda_core=False,
+                      phase="28a")
+
+
+def train_seamless(torch, dev, seed):
+    """Phase 28a: seamless-m4t-medium pre-training on the card at full
+    width and depth (12 + 12 layers), ``SEAMLESS_TRAIN_BATCH`` x
+    ``SEAMLESS_TRAIN_SEQ`` decoder tokens over ``enc_len_for`` of it in
+    frames a step, ``flash_pallas``, recomputation on (each block one
+    checkpoint), ``TRAIN_POLICY`` with int moments, random weights from
+    ``seed``: phase 7's checks and numbers (``train``), the launches a step
+    exactly ``train_launches`` (385 #3, 193 #4 and #5, one #6, 72 #8, 36
+    #9 and #10) and the flash calls exactly ``seamless_train_calls`` --
+    #8-#10 non-causal on the encoder's self-attention and on the
+    cross-attention at Sq > Skv.  Returns the launch counts."""
+    from repro_torch.models import enc_len_for
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = seamless_cfg(12)
+    with flash_calls_recorded() as calls:
+        counts = train(torch, dev, seed, cfg=cfg, batch=SEAMLESS_TRAIN_BATCH,
+                       seq=SEAMLESS_TRAIN_SEQ, steps=SEAMLESS_TRAIN_STEPS,
+                       tag="phase 28a train_seamless")
+    # the main run's steps and the profiled one
+    per = seamless_train_calls(cfg, SEAMLESS_TRAIN_SEQ,
+                               enc_len_for(cfg, SEAMLESS_TRAIN_SEQ))
+    want = {k: v * (SEAMLESS_TRAIN_STEPS + 1) for k, v in per.items()}
+    print(f"phase 28a: flash calls over {SEAMLESS_TRAIN_STEPS + 1} steps "
+          f"{_show_calls(calls)}")
+    if calls != want:
+        fail(f"phase 28a: flash calls {calls}, expected {want}")
+    return counts
+
+
+def _seamless_batch(torch, dev, cfg, batch, seq):
+    """Step 0 of the loader at ``cfg``: frames and tokens, on ``dev``."""
+    from repro_torch.data import Loader, SyntheticCorpus
+    got = Loader(SyntheticCorpus(cfg.vocab_size, seed=7), cfg,
+                 batch_size=batch, seq_len=seq).peek(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in got.items()}
+
+
+def seamless_remat(torch, dev, seed):
+    """Phase 28b: at ``SEAMLESS_REMAT_LAYERS`` + ``SEAMLESS_REMAT_LAYERS``
+    layers and 28a's tokens, one forward and backward with recomputation
+    on, one with it off and the first again, from the same weights: ce and
+    every gradient bit-identical all three ways, the peak (above the
+    weights) lower with recomputation; the launches of each exactly
+    ``train_launches``."""
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = seamless_cfg(SEAMLESS_REMAT_LAYERS)
+    params = build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    batch = _seamless_batch(torch, dev, cfg, SEAMLESS_TRAIN_BATCH,
+                            SEAMLESS_TRAIN_SEQ)
+    on = _loss_and_grads(torch, cfg, params, batch)
+    off_cfg = dataclasses.replace(cfg, remat=False)
+    off = _loss_and_grads(torch, off_cfg, params, batch)
+    again = _loss_and_grads(torch, cfg, params, batch)
+    d_ce, g_rel, same = _grads_distance(torch, on, off)
+    repeat = _grads_distance(torch, on, again)[2]
+    show = lambda c: {k: v for k, v in c.items() if v}
+    print(f"phase 28b: {cfg.name} {cfg.enc_layers}+{cfg.n_layers}L, "
+          f"{SEAMLESS_TRAIN_BATCH} x {SEAMLESS_TRAIN_SEQ} tokens, "
+          f"flash_pallas: ce {float(on[0]):.6f} (remat on) vs "
+          f"{float(off[0]):.6f} (off); ce and all {len(on[1])} gradients "
+          f"{'bit-identical' if same else 'DIFFER'} (tol 0; |d ce| "
+          f"{d_ce:.3e}, grads rel L2 {g_rel:.3e}); a second run with remat "
+          f"on {'bit-identical' if repeat else 'DIFFERS'}; peak above the "
+          f"weights {on[3] / 2 ** 30:.2f} GiB with recomputation, "
+          f"{off[3] / 2 ** 30:.2f} GiB without; launches on {show(on[2])}, "
+          f"off {show(off[2])}")
+    for got, c in ((on[2], cfg), (off[2], off_cfg), (again[2], cfg)):
+        want = dict(train_launches(c), fused_adamw_leaves=0)
+        if got != want:
+            fail(f"phase 28b: launches {show(got)}, expected {show(want)}")
+    if not (same and repeat):
+        fail("phase 28b: recomputation or a repeat changed ce or a gradient")
+    if not on[3] < off[3]:
+        fail("phase 28b: the peak is not lower with recomputation")
+
+
+def seamless_train_card_vs_cpu(torch, dev, seed, strict=True, extra=None):
+    """Phase 28c: phase 8's checks for one train step at
+    seamless-m4t-medium's width and vocab and 2 + 2 layers (float32
+    carrier, recomputation on, ``flash_pallas``,
+    ``SEAMLESS_TRAIN_CHECK_BATCH`` x ``SEAMLESS_TRAIN_CHECK_SEQ`` tokens
+    over their frames, ``true_fan_in`` weights) within
+    ``SEAMLESS_TRAIN_LIMITS``: C's moments compared where the zero points
+    agree and dequantized (``zero_points=False``), D, the bf16-carrier
+    control, above the limits of ``SEAMLESS_CONTROL``, and E, every
+    kernel's plain version on the card, within them
+    (``train_card_vs_cpu``)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = seamless_cfg(SEAMLESS_CHECK_LAYERS, dtype="float32")
+    return train_card_vs_cpu(torch, dev, seed, cfg=cfg,
+                             batch=SEAMLESS_TRAIN_CHECK_BATCH,
+                             seq=SEAMLESS_TRAIN_CHECK_SEQ,
+                             limits=SEAMLESS_TRAIN_LIMITS, label="phase 28c",
+                             control=SEAMLESS_CONTROL, zero_points=False,
+                             strict=strict, plain_check=True, extra=extra)
+
+
+def cpu_jobs(seed: int):
+    """The CPU halves the worker computes, in the order the phases take
+    them (``cpu_half``'s ``(name, args)``): 16d, 18d, 19d, 20b, 23c, 24d,
+    25c, 26e, 27a and 28c.  The checks of GPT-2 (5, 8, 12, 15, 17b) are
+    small and compute theirs in place; those of Granite (21d, 22d) replay
+    the card's routes, so their CPU side waits for the card."""
+    def cell(c):
+        return ("card_vs_cpu_half",
+                (c.config(n_layers=c.cmp_layers, dtype="float32"), seed))
+
+    def step(cfg, batch, seq):
+        return ("train_check_half", (cfg, seed, batch, seq))
+    return [cell(YI),
+            step(yi_train_cfg(YI_CHECK_LAYERS, dtype="float32"),
+                 YI_CHECK_BATCH, YI_CHECK_SEQ),
+            cell(GEMMA), cell(QWEN3), cell(MAMBA),
+            step(mamba_train_cfg(MAMBA_CHECK_LAYERS, dtype="float32"),
+                 MAMBA_CHECK_BATCH, MAMBA_CHECK_SEQ),
+            cell(ZAMBA),
+            step(zamba_train_cfg(ZAMBA_CHECK_LAYERS, dtype="float32"),
+                 ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ),
+            ("seamless_serve_half",
+             (seamless_cfg(SEAMLESS_CHECK_LAYERS, dtype="float32"), seed)),
+            step(seamless_cfg(SEAMLESS_CHECK_LAYERS, dtype="float32"),
+                 SEAMLESS_TRAIN_CHECK_BATCH, SEAMLESS_TRAIN_CHECK_SEQ)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5772,6 +6625,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
+    global _HALVES
+    # the CPU halves of the card-vs-CPU checks, off the critical path
+    _HALVES = CpuHalves(cpu_jobs(args.seed), torch.get_num_threads())
+    print(f"chip_smoke: torch threads {torch.get_num_threads()}; the "
+          f"card-vs-CPU checks' CPU sides in a worker process "
+          f"({len(_HALVES.jobs)} jobs), at most {CpuHalves.LEAD} ahead",
+          flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     results = {}
 
@@ -5885,6 +6745,19 @@ def main() -> int:
     sub("26d zamba_remat", zamba_remat, *ts)
     sub("26e zamba_train_card_vs_cpu", zamba_train_card_vs_cpu, *ts)
     lap("26")
+    sub("27a seamless_serve_card_vs_cpu", seamless_serve_card_vs_cpu, *ts)
+    seamless_counts = sub("27b serve_seamless", serve_seamless, *ts)
+    lap("27")
+    sub("28a check_seamless_flash", check_seamless_flash, *tg)
+    seamless_train_counts = sub("28a train_seamless", train_seamless, *ts)
+    sub("28b seamless_remat", seamless_remat, *ts)
+    sub("28c seamless_train_card_vs_cpu", seamless_train_card_vs_cpu, *ts)
+    lap("28")
+    missing = _HALVES.close()
+    if missing:
+        fail(f"CPU halves queued for the worker and never taken (their "
+             f"checks computed their own): "
+             f"{[(n, _job_label(a)) for n, a in missing]}")
 
     # launches: each kernel's count on the main paths, dense serving (phase
     # 4), paged serving (phase 4b), training on the int8 kernels (phase 7),
@@ -5897,8 +6770,9 @@ def main() -> int:
     # (phase 20a), Granite-3.0-MoE served dense and paged (phases 21b
     # and 21c) and trained (phase 22b), Mamba2-130M served (phase 23b) and
     # trained (phase 24b), Zamba2-2.7B served (phase 25b) and trained under
-    # flash_pallas (phase 26b) and _attend (phase 26c), each path's counts
-    # read right after its run
+    # flash_pallas (phase 26b) and _attend (phase 26c), seamless-m4t-medium
+    # served (phase 27b) and trained (phase 28a), each path's counts read
+    # right after its run
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape")
     kern = []
@@ -5926,7 +6800,9 @@ def main() -> int:
                    "train_mamba2": mamba_train_counts[name],
                    "serve_zamba2": zamba_counts[name],
                    "train_zamba2": zamba_train_counts[name],
-                   "train_zamba2_xla": zamba_xla_counts[name]}
+                   "train_zamba2_xla": zamba_xla_counts[name],
+                   "serve_seamless": seamless_counts[name],
+                   "train_seamless": seamless_train_counts[name]}
         # the kernel gates of the later phases at their models' shapes
         # (Yi's, Gemma's, Granite's, Zamba2's head dim of 160, ...)
         cells = {tag: {k: v[k] for k in keys + ("cuda_core_ms",) if k in v}

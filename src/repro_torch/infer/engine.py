@@ -139,6 +139,9 @@ from repro_torch.train.faults import FaultInjected
 PREFILL_BUCKET = 16
 
 #: the families paged mode serves: their decode state is KV rows alone
+#: the families the engine serves (the reference's): the encoder-decoder
+#: serves through ``train.serve.greedy_generate``
+ENGINE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 PAGED_FAMILIES = ("dense", "moe")
 
 #: a queued request skipped this many admission passes (each time because
@@ -204,6 +207,10 @@ class Engine:
                  max_queue: Optional[int] = None, detokenizer=None,
                  monitor: Optional[MonitorConfig] = None):
         cfg = model.cfg
+        if cfg.family not in ENGINE_FAMILIES:
+            raise ValueError(
+                f"Engine serves decoder-only families {ENGINE_FAMILIES}; "
+                f"{cfg.family!r} uses train.serve.greedy_generate")
         if max_seq > cfg.max_seq:
             what = ("the learned-position table" if cfg.pos == "learned"
                     else "the config's context")
@@ -264,7 +271,7 @@ class Engine:
             self.page_size = self.n_pages = self.pool = None
             self._pack_ok = False
             self._state = model.init_decode_state(
-                self.max_slots, self.max_seq, self._dtype,
+                self.max_slots, self.max_seq, dtype=self._dtype,
                 policy=self.policy, device=self.device)
             if self._state["caches"] is None:
                 # no KV cache (the SSM family): no rung to step down to

@@ -25,6 +25,10 @@ stability sentinel's recovery ladder and deterministic fault plans.
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --steps 10 --batch 2 --seq 4096 --state-storage int \\
         --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda'
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-medium --steps 10 --batch 4 --seq 2048 \\
+        --state-storage int \\
+        --policy '*=w8c+a8t+g8t+m1:8c-b128+m2:8c-asym-b128-sqrt@int8_cuda'
 
 Prints the reference's ``arch=... policy=[...]``, ``train-path:`` and
 ``fault-plan:`` lines, then ``step N ce=... ms/step`` rows (``valid=`` on
@@ -37,7 +41,8 @@ checkpoints are written every ``max(steps // 3, 50)`` steps and
 validation runs every ``max(steps // 5, 20)``.  Without ``--smoke`` the
 batch defaults to 8 sequences of the config's context length.
 ``--layers N`` trains the config's width at N layers (a depth cut: Yi-6B's
-32 layers need more than one 80 GB card, ROADMAP section 1, item 8); the
+32 layers need more than one 80 GB card, ROADMAP section 1, item 8; the
+encoder-decoder at N encoder and N decoder layers); the
 loss recomputes as the config's ``remat`` says (``models/lm.py``), and
 the ``train-path:`` line names it (``remat=`` and ``attend=``).  Model
 parallelism is not ported: its flag raises.
@@ -114,7 +119,9 @@ def main(argv=None) -> None:
         cfg = get_config(args.arch)
         batch, seq = args.batch or 8, args.seq or cfg.max_seq
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = dataclasses.replace(
+            cfg, n_layers=args.layers,
+            enc_layers=args.layers if cfg.enc_layers else 0)
     check_trainable(cfg)
     model = build_model(cfg)
     recipe = (parse_policy(args.policy) if args.policy

@@ -1,14 +1,16 @@
 """Self-attention, for training and with a KV cache for serving (port of
 ``repro/models/attention.py``).
 
-Training (``cache=None``): causal self-attention over the sequence.  Under
-``attention_impl="xla"`` plain torch matmuls with an fp32 softmax
+Training (``cache=None``): causal self-attention over the sequence, or,
+with ``causal=False``, bidirectional (the encoder's), or cross-attention
+on a ``kv_source`` (the decoder's reads of the encoder output, Sq != Skv).
+Under ``attention_impl="xla"`` plain torch matmuls with an fp32 softmax
 (``_attend``, in checkpointed q-chunks of ``_pick_chunk``'s length, which
 keeps each fp32 score slab under ``SCORE_BUDGET_BYTES``, as the
 reference's ``_gqa_attend``); under ``"flash_pallas"`` the flash kernels
 (``_flash``: #8 forward, #9/#10 backward, through
-``kernels.flash_attn.flash_attention``), which never materialize the (S,
-S) scores.  The flash branch is taken
+``kernels.flash_attn.flash_attention``; #7 where no gradient is wanted),
+which never materialize the (S, S) scores.  The flash branch is taken
 where the reference's ``_flash_path_ok`` takes it: more than one query
 row and a causal (or no) mask -- training, and the unpacked prefill of an
 fp cache -- and nowhere else (decode steps, int8 caches, packed prefills).
@@ -75,6 +77,7 @@ from repro_torch.models.common import apply_rope, checkpointed, rmsnorm
 from repro_torch.kernels.decode_attn import (paged_logical_view, decode_attention,
                                              decode_attention_paged)
 from repro_torch.kernels.flash_attn import (flash_attention,
+                                            flash_attention_fwd,
                                             flash_attention_fwd_q8)
 from repro_torch.kernels.int8_matmul import scale_guard
 
@@ -228,12 +231,17 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           q_offset: int = 0) -> torch.Tensor:
-    """Causal attention through the flash kernels, differentiable.  q: (B,
-    Sq, H, hd); k, v: (B, Skv, K, hd) -> (B, Sq, H * hd).  As the
-    reference's flash branch of ``_gqa_attend``: kv heads repeated to H
-    (GQA), each tensor transposed to the kernels' (B * H, S, hd) layout and
-    back (copies; the kernels take contiguous rows)."""
+           q_offset: int = 0, causal: bool = True) -> torch.Tensor:
+    """Attention through the flash kernels, differentiable.  q: (B, Sq, H,
+    hd); k, v: (B, Skv, K, hd) -> (B, Sq, H * hd).  As the reference's
+    flash branch of ``_gqa_attend``: kv heads repeated to H (GQA), each
+    tensor transposed to the kernels' (B * H, S, hd) layout and back
+    (copies; the kernels take contiguous rows); ``causal`` from the mask's
+    kind (False: the encoder's bidirectional self-attention and the
+    decoder's cross-attention, where Sq and Skv differ).  Where no
+    gradient is wanted (serving) the forward without the LSE (#7) runs,
+    else the differentiable #8 with #9/#10 behind it; the two forwards
+    give the same bits."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     if h != kh:
@@ -242,8 +250,12 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     def heads_first(t):
         return t.transpose(1, 2).reshape(b * h, t.shape[1], hd).contiguous()
-    o = flash_attention(heads_first(q), heads_first(k), heads_first(v),
-                        True, q_offset)
+    qt, kt, vt = heads_first(q), heads_first(k), heads_first(v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o = flash_attention(qt, kt, vt, causal, q_offset)
+    else:
+        o = flash_attention_fwd(qt, kt, vt, causal=causal, q_offset=q_offset)
     return o.reshape(b, h, sq, hd).transpose(1, 2).reshape(b, sq, h * hd)
 
 
@@ -260,8 +272,9 @@ def attn_context(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
                  page_table: Optional[torch.Tensor] = None,
                  mask: Optional[torch.Tensor] = None,
                  rope=None, kv_path: Optional[str] = None,
-                 layer: Optional[int] = None, n_layers: int = 0
-                 ) -> torch.Tensor:
+                 layer: Optional[int] = None, n_layers: int = 0,
+                 kv_source: Optional[torch.Tensor] = None,
+                 causal: bool = True) -> torch.Tensor:
     """The attention context (B, s, H * hd), the input of ``attn_out``,
     which the reference names ``attn_ctx`` for its recomputation policy
     (``models/lm.py`` keeps it).  ``cache=None``: causal attention over the
@@ -274,7 +287,11 @@ def attn_context(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     and k (RoPE configs; None under learned positions); ``kv_path`` how an
     int8 cache is read, one of :data:`KV_PATHS` (None:
     :func:`default_kv_path`; "fused" only where the kernels take the
-    spec)."""
+    spec).  Without a cache, ``causal=False`` attends over every row (the
+    encoder's bidirectional self-attention), and ``kv_source`` (B, Skv, d)
+    makes it cross-attention: k and v are projected from it, and RoPE
+    rotates q alone (the reference's ``attn_apply`` with ``kv_source``);
+    pass ``causal=False`` with it."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ctx_qkv = LinearCtx("attn_qkv", layer, n_layers)
@@ -282,10 +299,14 @@ def attn_context(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
     flash = cfg.attention_impl == "flash_pallas" and s > 1
     q = policy.linear(ctx_qkv, x, params["wq"], params.get("bq")
                       ).reshape(b, s, h, hd)
-    k = policy.linear(ctx_qkv, x, params["wk"], params.get("bk")
-                      ).reshape(b, s, kh, hd)
-    v = policy.linear(ctx_qkv, x, params["wv"], params.get("bv")
-                      ).reshape(b, s, kh, hd)
+    src = x if kv_source is None else kv_source
+    if kv_source is not None and cache is not None:
+        raise ValueError("cross-attention takes no cache: serving reads the "
+                         "cross K/V its prefill computed once")
+    k = policy.linear(ctx_qkv, src, params["wk"], params.get("bk")
+                      ).reshape(b, src.shape[1], kh, hd)
+    v = policy.linear(ctx_qkv, src, params["wv"], params.get("bv")
+                      ).reshape(b, src.shape[1], kh, hd)
     if cfg.qk_norm:
         # qwen3: RMSNorm of every head's q and k, before RoPE and before k
         # is written to any cache
@@ -293,9 +314,12 @@ def attn_context(params, x: torch.Tensor, cfg, *, policy: QuantPolicy,
         k = rmsnorm(k, params["k_norm"])
     if rope is not None:
         q = apply_rope(q, rope)
-        k = apply_rope(k, rope)
+        if kv_source is None:
+            k = apply_rope(k, rope)
     if cache is None:
-        return _flash(q, k, v) if flash else _attend(q, k, v, "causal")
+        if flash:
+            return _flash(q, k, v, causal=causal)
+        return _attend(q, k, v, "causal" if causal else None)
     decode = isinstance(cache_offset, torch.Tensor)
     if page_table is not None and not decode:
         raise ValueError("page_table is a decode-step argument: a prefill "

@@ -11,7 +11,10 @@ family (mamba2: ``models/ssm.py``, no attention and no positions, its
 decode state the per-layer SSM and conv states in place of KV caches) --
 and for the hybrid family (zamba2: groups of Mamba2 layers, each followed
 by one attention + MLP block whose weights are shared across the depth,
-its decode state both the SSM states and a KV cache per invocation);
+its decode state both the SSM states and a KV cache per invocation) --
+and for the encoder-decoder family (seamless-m4t: ``models/encdec.py``,
+its batches holding ``frames`` beside the tokens, its decode state the
+fp self caches and the cross K/V its prefill computed once);
 :func:`params_from_jax` carries a JAX parameter tree across, and
 :func:`train_state_from_jax` / :func:`train_state_to_numpy` a whole train
 state (params, step, Adam moments) both ways.
@@ -29,7 +32,11 @@ gate_norm, out_proj} (the hybrid's too) --
 ``final_norm`` as ``ln1``, ``lm_head`` (d, V_padded) when the head is
 untied, and the hybrid's depth-less ``shared`` block over d2 = 2 * d:
 ``ln1`` and ``ln2`` over d2, ``attn`` and the gated ``mlp`` with inputs
-d2 wide, and ``proj`` (d2, d).
+d2 wide, and ``proj`` (d2, d).  The encoder-decoder's tree is the
+reference's ``encdec_spec``: ``frame_proj`` (d, d), ``enc_blocks``
+{ln1, attn, ln2, mlp} stacked (enc_layers, ...), ``enc_norm``, ``embed``,
+``dec_blocks`` {ln1, self_attn, ln2, cross_attn, ln3, mlp} stacked (L,
+...), ``final_norm`` and ``lm_head``.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qpolicy import as_policy
+from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.common import Params
 from repro_torch.models.moe import moe_spec
@@ -50,10 +58,11 @@ from repro_torch.models.ssm import ssm_spec
 DeviceLike = Union[str, torch.device, None]
 
 
-#: what the port's decoder takes: each field's ported values (GPT-2's,
-#: llama's, gemma's and qwen3's; granite's and phi-3.5-moe's experts;
-#: mamba2's SSM layers, which take no positions; zamba2's hybrid)
-SUPPORTED = {"family": ("dense", "moe", "ssm", "hybrid"),
+#: what the port takes: each field's ported values (GPT-2's, llama's,
+#: gemma's and qwen3's; granite's and phi-3.5-moe's experts; mamba2's SSM
+#: layers, which take no positions; zamba2's hybrid; seamless-m4t's
+#: encoder-decoder)
+SUPPORTED = {"family": ("dense", "moe", "ssm", "hybrid", "encdec"),
              "pos": ("learned", "rope", "none"),
              "norm": ("layernorm", "rmsnorm", "rmsnorm_p1"),
              "mlp_kind": ("classic", "gated"), "qk_norm": (False, True),
@@ -61,10 +70,12 @@ SUPPORTED = {"family": ("dense", "moe", "ssm", "hybrid"),
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The dense, MoE, SSM and hybrid families only (experts exactly when
-    the family is ``moe``, gated; the hybrid with a shared block every
-    ``hybrid_attn_every`` > 0 layers, a whole number of groups, no
-    experts): encdec and VLM raise."""
+    """The dense, MoE, SSM, hybrid and encoder-decoder families only
+    (experts exactly when the family is ``moe``, gated; the hybrid with a
+    shared block every ``hybrid_attn_every`` > 0 layers, a whole number of
+    groups, no experts; the encoder-decoder with ``enc_layers`` > 0, the
+    ``audio_stub`` frontend, no learned positions, no experts and no SSM
+    or hybrid fields): the VLM raises."""
     bad = {k: getattr(cfg, k) for k, v in SUPPORTED.items()
            if getattr(cfg, k) not in v}
     moe = cfg.family == "moe"
@@ -73,13 +84,21 @@ def _check_supported(cfg: ArchConfig) -> None:
     per = cfg.hybrid_attn_every
     if cfg.family == "hybrid" and (per <= 0 or cfg.n_layers % per):
         bad.update(hybrid_attn_every=per, n_layers=cfg.n_layers)
+    if cfg.family == "encdec" and (
+            cfg.enc_layers <= 0 or cfg.frontend != "audio_stub"
+            or cfg.pos == "learned" or cfg.ssm_state or per):
+        bad.update(enc_layers=cfg.enc_layers, frontend=cfg.frontend,
+                   pos=cfg.pos, ssm_state=cfg.ssm_state,
+                   hybrid_attn_every=per)
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {bad} -- the port takes the dense, MoE, SSM and "
-            f"hybrid families ({SUPPORTED}; experts gated, and only under "
-            f"family='moe'; the hybrid's shared block every "
-            f"hybrid_attn_every > 0 layers, which divides n_layers) so far; "
-            f"encdec and VLM wait for ROADMAP section 1, item 6")
+            f"{cfg.name}: {bad} -- the port takes the dense, MoE, SSM, "
+            f"hybrid and encoder-decoder families ({SUPPORTED}; experts "
+            f"gated, and only under family='moe'; the hybrid's shared block "
+            f"every hybrid_attn_every > 0 layers, which divides n_layers; "
+            f"the encoder-decoder with enc_layers > 0 and the audio_stub "
+            f"frontend, under RoPE or no positions) so far; the VLM waits "
+            f"for ROADMAP section 1, item 6")
 
 
 def _spec(cfg: ArchConfig) -> Dict[str, Any]:
@@ -123,6 +142,8 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
             m.update(bias)
         return m
 
+    if cfg.family == "encdec":
+        return _encdec_spec(cfg, norm(d), attn(d), mlp(d))
     blocks = {"ln1": norm(d), "attn": attn(d), "ln2": norm(d)}
     if cfg.family in ("ssm", "hybrid"):
         blocks = {"norm": norm(d), "ssm": ssm_spec(cfg)}
@@ -130,10 +151,7 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
         blocks["moe"] = moe_spec(cfg)
     else:
         blocks["mlp"] = mlp(d)
-    # block leaves carry the stacked layer dim, as in the reference
-    blocks = {mod: {n: ((L,) + leaf[0],) + leaf[1:]
-                    for n, leaf in leaves.items()}
-              for mod, leaves in blocks.items()}
+    blocks = _stacked(blocks, L)
     # init_params draws the leaves in this order
     spec = {"embed": ((cfg.vocab_padded, d), "normal", 0.02)}
     if cfg.pos == "learned":
@@ -147,6 +165,35 @@ def _spec(cfg: ArchConfig) -> Dict[str, Any]:
         d2 = 2 * d
         spec["shared"] = {"ln1": norm(d2), "attn": attn(d2), "ln2": norm(d2),
                           "mlp": mlp(d2), "proj": ((d2, d), "fan_in")}
+    return spec
+
+
+def _stacked(blocks, n: int):
+    """Block leaves with the stacked layer dim in front, as in the
+    reference."""
+    return {mod: {name: ((n,) + leaf[0],) + leaf[1:]
+                  for name, leaf in leaves.items()}
+            for mod, leaves in blocks.items()}
+
+
+def _encdec_spec(cfg: ArchConfig, norm, attn, mlp) -> Dict[str, Any]:
+    """The reference's ``encdec_spec``: ``frame_proj``, the encoder blocks
+    (``ln1``, ``attn``, ``ln2``, ``mlp``) stacked over ``enc_layers``,
+    ``enc_norm``, ``embed``, the decoder blocks (``ln1``, ``self_attn``,
+    ``ln2``, ``cross_attn``, ``ln3``, ``mlp``) stacked over ``n_layers``,
+    ``final_norm`` and the untied ``lm_head``."""
+    d = cfg.d_model
+    spec = {"frame_proj": ((d, d), "fan_in"),
+            "enc_blocks": _stacked({"ln1": norm, "attn": attn, "ln2": norm,
+                                    "mlp": mlp}, cfg.enc_layers),
+            "enc_norm": norm,
+            "embed": ((cfg.vocab_padded, d), "normal", 0.02),
+            "dec_blocks": _stacked({"ln1": norm, "self_attn": attn,
+                                    "ln2": norm, "cross_attn": attn,
+                                    "ln3": norm, "mlp": mlp}, cfg.n_layers),
+            "final_norm": norm}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((d, cfg.vocab_padded), "fan_in")
     return spec
 
 
@@ -166,7 +213,9 @@ def _init_leaf(shape, init, std=0.02, *, generator, device):
 
 
 class Model:
-    """The decoder's entry points (see module docstring)."""
+    """The model's entry points (see module docstring); each dispatches on
+    the family: ``lm`` for the decoder-only families, ``encdec`` for the
+    encoder-decoder."""
 
     def __init__(self, cfg: ArchConfig):
         _check_supported(cfg)
@@ -187,18 +236,35 @@ class Model:
         return walk(_spec(self.cfg))
 
     def train_loss(self, params: Params, batch, *, policy=None):
-        """-> (loss, metrics) of ``lm.lm_loss``; differentiable in params."""
+        """-> (loss, metrics) of ``lm.lm_loss`` (``encdec.encdec_loss``,
+        whose batch holds ``frames`` too); differentiable in params."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_loss(params, batch, self.cfg, policy=policy)
         return lm.lm_loss(params, batch, self.cfg, policy=policy)
 
-    def prefill(self, params: Params, tokens: torch.Tensor, *, policy=None,
+    def prefill(self, params: Params, batch, *, policy=None,
                 max_seq: Optional[int] = None,
                 last_pos: Optional[torch.Tensor] = None,
                 segments: Optional[torch.Tensor] = None,
                 kv_path: Optional[str] = None):
-        """-> (logits, state ``{"caches": ..., "ssm": ...}``, the SSM
-        family's caches None, the others' SSM states None); ``last_pos``,
-        ``segments`` and ``kv_path`` as in ``lm.lm_prefill``."""
-        logits, caches, ssm = lm.lm_prefill(params, tokens, self.cfg,
+        """-> (logits, state).  The decoder-only families take ``batch`` as
+        the prompt tokens (B, S) and return ``{"caches": ..., "ssm": ...}``
+        (the SSM family's caches None, the others' SSM states None);
+        ``last_pos``, ``segments`` and ``kv_path`` as in ``lm.lm_prefill``.
+        The encoder-decoder takes the reference's batch ``{"frames",
+        "tokens"}`` and returns ``{"self": ..., "cross": ...}``
+        (``encdec.encdec_prefill``); the three options are decoder-only
+        there and raise, as in the reference."""
+        if self.cfg.family == "encdec":
+            if last_pos is not None or segments is not None:
+                raise NotImplementedError(
+                    "last_pos / segments (bucketed-prompt prefill) is "
+                    "decoder-only")
+            if kv_path is not None:
+                raise NotImplementedError("int8 KV cache is decoder-only")
+            return ed.encdec_prefill(params, batch, self.cfg, policy=policy,
+                                     max_seq=max_seq)
+        logits, caches, ssm = lm.lm_prefill(params, batch, self.cfg,
                                             policy=policy, max_seq=max_seq,
                                             last_pos=last_pos,
                                             segments=segments,
@@ -212,27 +278,50 @@ class Model:
         """-> (logits (B, V_padded), state); the state's caches (dense
         strips, or page pools with ``page_table``) are updated in place,
         its SSM states are new tensors (those of ``state`` are left as they
-        were); ``kv_path`` as in ``lm.lm_decode``."""
+        were); ``kv_path`` as in ``lm.lm_decode``.  The encoder-decoder
+        (``encdec.encdec_decode``) writes its self caches in place and
+        refuses ``page_table`` and ``kv_path``."""
+        if self.cfg.family == "encdec":
+            if page_table is not None:
+                raise NotImplementedError("paged KV cache is decoder-only")
+            if kv_path is not None:
+                raise NotImplementedError("int8 KV cache is decoder-only")
+            return ed.encdec_decode(params, state, token, pos, self.cfg,
+                                    policy=policy)
         logits, caches, ssm = lm.lm_decode(
             params, state.get("caches"), token, pos, self.cfg, policy=policy,
             page_table=page_table, kv_path=kv_path,
             ssm_states=state.get("ssm"))
         return logits, {"caches": caches, "ssm": ssm}
 
-    def init_decode_state(self, batch: int, max_seq: int,
+    def init_decode_state(self, batch: int, max_seq: int, enc_len: int = 0,
                           dtype: Optional[torch.dtype] = None, policy=None,
                           device: DeviceLike = "cuda"):
-        """``{"caches": ..., "ssm": ...}`` of ``lm.init_decode_caches``."""
+        """``{"caches": ..., "ssm": ...}`` of ``lm.init_decode_caches``;
+        the encoder-decoder's ``{"self": ..., "cross": ...}`` with
+        ``enc_len`` cross rows (an int8 KV spec raises there, as in the
+        reference)."""
         kv_spec = as_policy(policy).kv_spec()
         dtype = dtype or lm.carrier_dtype(self.cfg)
+        device = resolve_device(device)
+        if self.cfg.family == "encdec":
+            if kv_spec is not None:
+                raise NotImplementedError("int8 KV cache is decoder-only")
+            return ed.init_state(self.cfg, batch, max_seq, enc_len, dtype,
+                                 device=device)
         caches, ssm = lm.init_decode_caches(self.cfg, batch, max_seq, dtype,
-                                            kv_spec=kv_spec,
-                                            device=resolve_device(device))
+                                            kv_spec=kv_spec, device=device)
         return {"caches": caches, "ssm": ssm}
 
 
 def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+def enc_len_for(cfg: ArchConfig, seq: int) -> int:
+    """Encoder frames of a ``seq``-token example: ``seq // frame_ratio``,
+    at least 1 (the reference's)."""
+    return max(seq // max(cfg.frame_ratio, 1), 1)
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
@@ -326,5 +415,6 @@ def train_state_to_numpy(state):
                       m2=_map_moments(opt.m2, conv)))
 
 
-__all__ = ["Model", "build_model", "opt_state_from_jax", "params_from_jax",
+__all__ = ["Model", "build_model", "enc_len_for", "opt_state_from_jax",
+           "params_from_jax",
            "train_state_from_jax", "train_state_to_numpy"]

@@ -122,9 +122,11 @@ def check_trainable(cfg) -> None:
     the scan's gradients by autograd of plain torch, as the reference's are
     XLA autodiff of plain ops) and the hybrid (zamba2: the SSM family's
     layers and the shared attention + MLP block, whose weights take the
-    summed gradients of every invocation).  The families ``build_model``
-    refuses -- encdec and VLM -- raise here too, before any state is
-    made."""
+    summed gradients of every invocation) and the encoder-decoder
+    (seamless-m4t: the encoder's, the decoder's and the cross-attention's
+    Fig-1 linears, its batches carrying the stub frontend's frames).  The
+    family ``build_model`` refuses -- the VLM -- raises here too, before
+    any state is made."""
     _check_supported(cfg)
 
 

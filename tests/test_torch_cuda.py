@@ -1035,7 +1035,9 @@ def _flash_inputs(cuda, bh, sq, skv, d, dtype, seed):
     (2, 180, 180, 112, False, 0), (2, 160, 600, 128, True, 440),
     (2, 300, 1024, 128, True, 0), (3, 1, 70, 64, True, 69),
     (3, 17, 17, 32, False, 0), (2, 150, 350, 192, True, 200),
-    (2, 200, 260, 208, True, 60), (2, 130, 500, 256, True, 370)])
+    (2, 200, 260, 208, True, 60), (2, 130, 500, 256, True, 370),
+    # the encoder-decoder's cross-attention: more query rows than keys
+    (1, 64, 16, 64, False, 0), (1, 64, 16, 128, False, 0)])
 def test_flash_kernels(cuda, dtype, bh, sq, skv, d, causal, off):
     q, k, v, do = _flash_inputs(cuda, bh, sq, skv, d, dtype, seed=sq + d)
     counts = [f.launches for f in (fa.flash_attention_fwd_lse,

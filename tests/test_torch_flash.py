@@ -45,7 +45,9 @@ import chip_smoke  # noqa: E402  (limits and helpers; imports no torch)
 #: the sweep of tests/test_flash_attn.py: (bh, sq, skv, d, causal)
 SWEEP = [(4, 128, 128, 64, True), (2, 256, 256, 32, True),
          (2, 128, 256, 64, True), (3, 64, 64, 128, False),
-         (1, 100, 100, 64, True), (2, 192, 192, 64, True)]
+         (1, 100, 100, 64, True), (2, 192, 192, 64, True),
+         # the encoder-decoder's cross-attention: more query rows than keys
+         (1, 64, 16, 64, False)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -187,7 +189,8 @@ def test_gradients_bf16_match_jax(causal):
 
 
 @pytest.mark.parametrize("bh,sq,skv,d,causal", [
-    (2, 64, 64, 32, True), (2, 64, 64, 32, False), (2, 96, 128, 64, True)])
+    (2, 64, 64, 32, True), (2, 64, 64, 32, False), (2, 96, 128, 64, True),
+    (1, 64, 16, 64, False)])
 def test_gradients_match_jax(bh, sq, skv, d, causal):
     """``flash_attention``'s backward (#9/#10, plain on the CPU) against
     ``jax.grad`` of the JAX custom VJP, for sum(o * w)."""

@@ -167,13 +167,15 @@ def _plain_grads(arrays, w, dtype, causal, sum_dtype, fwd):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", [(2, 128, 64), (1, 64, 160), (1, 64, 256)])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 64), (1, 64, 64, 160),
+                                   (1, 64, 64, 256), (1, 64, 16, 64)])
 def test_plain_backward_meets_jax(dtype, causal, shape):
     """The plain backward with float64 sums (its default) against
     ``jax.grad`` of the JAX flash attention, both on the JAX forward's o and
     lse: within 1e-4 at float32, within ``FLASH_BF16`` at bfloat16; at hd
     64 and at the wide tensor-core backward's head dims 160 and 256 (one
-    head of 64 rows).  (On each package's own forward the two o differ in
+    head of 64 rows), and at hd 64 with 64 query rows over 16 keys (the
+    encoder-decoder's cross-attention: Sq > Skv).  (On each package's own forward the two o differ in
     a few bf16 elements -- the scores summed in float64 and in fp32 round
     p to bf16 apart now and then -- and delta = sum(g * o) carries that
     into dk: 2.1e-4 at hd 256 over 64 rows.)  Under the
@@ -183,10 +185,12 @@ def test_plain_backward_meets_jax(dtype, causal, shape):
     the port's exactly 0, JAX's fp32 ones leave up to a few ulp), so at
     bfloat16 it is held to that noise level instead, and the other rows to
     ``FLASH_BF16``."""
+    bh, sq, skv, d = shape
     rng = np.random.RandomState(11)
-    arrays = [rng.standard_normal(shape).astype(np.float32)
-              for _ in range(3)]
-    w = np.random.RandomState(12).standard_normal(shape).astype(np.float32)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((bh, sq, d), (bh, skv, d), (bh, skv, d))]
+    w = np.random.RandomState(12).standard_normal((bh, sq, d)).astype(
+        np.float32)
     want, fwd = _jax_grads(arrays, w, dtype, causal)
     got = _plain_grads(arrays, w, dtype, causal, torch.float64, fwd)
     if dtype == "float32":

@@ -307,13 +307,17 @@ def test_packed_prefill_raises():
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_training_refuses_encdec_and_vlm_before_any_state(family,
                                                           monkeypatch):
-    """The hybrid trains (``check_trainable`` takes it); encdec and the VLM
+    """The hybrid trains (``check_trainable`` takes it), and so does the
+    encoder-decoder (seamless-m4t); encdec without an encoder and the VLM
     -- here zamba2's smoke config relabelled -- are still refused by
     ``check_trainable`` and by the launcher with ROADMAP item 6's message,
     the launcher before it draws any parameter."""
     from repro_torch.launch import train as launcher
     check_trainable(get_config(NAME))
     check_trainable(get_smoke_config(NAME))
+    if family == "encdec":
+        check_trainable(get_config("seamless-m4t-medium"))
+        check_trainable(get_smoke_config("seamless-m4t-medium"))
     bad = dataclasses.replace(get_smoke_config(NAME), family=family)
     with pytest.raises(NotImplementedError, match="section 1, item 6"):
         check_trainable(bad)

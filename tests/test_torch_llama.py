@@ -307,12 +307,14 @@ def test_lm_loss_and_grads_match_jax():
                                   "granite-moe-3b-a800m",
                                   "seamless-m4t-medium", "paligemma-3b"])
 def test_check_supported_still_raises(name):
-    """encdec (seamless) and the VLM (paligemma) stay out, naming ROADMAP
-    section 1, item 6.  The MoE family (granite, phi-3.5-moe) builds since
-    its serving path was ported, the hybrid (zamba2, whose port config is
-    the JAX one field for field) since its serving path was ported, and so
-    do the rest of the dense family (qwen3's qk-norm, gemma's embedding
-    scale and plus-one RMSNorm) and the SSM family (mamba2)."""
+    """The VLM (paligemma) stays out, naming ROADMAP section 1, item 6.
+    The MoE family (granite, phi-3.5-moe) builds since its serving path was
+    ported, the hybrid (zamba2, whose port config is the JAX one field for
+    field) since its serving path was ported, the encoder-decoder
+    (seamless, field for field too) since its serving and training paths
+    were ported, and so do the rest of the dense family (qwen3's qk-norm,
+    gemma's embedding scale and plus-one RMSNorm) and the SSM family
+    (mamba2)."""
     def port_cfg(jcfg):
         return ArchConfig(**{f.name: getattr(jcfg, f.name)
                              for f in dataclasses.fields(ArchConfig)})
@@ -322,6 +324,9 @@ def test_check_supported_still_raises(name):
     elif cfg.family == "hybrid":
         assert cfg == tsmoke(name)
         assert build_model(cfg).cfg.hybrid_attn_every > 0
+    elif cfg.family == "encdec":
+        assert cfg == tsmoke(name)
+        assert build_model(cfg).cfg.enc_layers > 0
     else:
         with pytest.raises(NotImplementedError, match="section 1, item 6"):
             build_model(cfg)

@@ -402,17 +402,19 @@ def test_lm_loss_moe_terms_match_jax(name):
 
 
 def test_check_supported_takes_moe_and_refuses_the_rest():
-    """MoE builds (both models), and so do the SSM family (mamba2) and the
-    hybrid (zamba2); encdec and VLM still raise with ROADMAP item 6's
-    message, and so do experts outside the moe family (a granite base
-    relabelled hybrid, which has experts and no shared-block cadence) or a
-    moe config without experts."""
+    """MoE builds (both models), and so do the SSM family (mamba2), the
+    hybrid (zamba2) and the encoder-decoder (seamless-m4t); the VLM still
+    raises with ROADMAP item 6's message, and so do experts outside the moe
+    family (a granite base relabelled hybrid, which has experts and no
+    shared-block cadence, or relabelled encdec, which has experts and no
+    encoder) or a moe config without experts."""
     for name in ARCHS:
         _check_supported(get_config(name))
     base = get_smoke_config("granite-moe-3b-a800m")
     for family in ("ssm", "hybrid", "encdec", "vlm"):
-        if family in ("ssm", "hybrid"):
-            arch = {"ssm": "mamba2-130m", "hybrid": "zamba2-2.7b"}[family]
+        if family in ("ssm", "hybrid", "encdec"):
+            arch = {"ssm": "mamba2-130m", "hybrid": "zamba2-2.7b",
+                    "encdec": "seamless-m4t-medium"}[family]
             _check_supported(get_config(arch))
             _check_supported(get_smoke_config(arch))
         with pytest.raises(NotImplementedError, match="section 1, item 6"):
